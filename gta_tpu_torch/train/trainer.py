@@ -1,0 +1,193 @@
+"""Runtime for the port (reference trainer.py analogue), serving half.
+
+`Trainer` owns the model on an explicit device and runs evaluation and
+rendering: `eval_step`, `evaluate`, `render_image`, `render_rays`. The
+train step comes with the backward kernel (ROADMAP queue 2, _bwd_kernel).
+
+Precision policy for fp32 configs: true fp32. TF32 is switched off for
+both matmuls and cuDNN convolutions, and the fused attention kernel uses
+fp32 FMA on the CUDA cores.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from gta_tpu_torch.config import Config
+from gta_tpu_torch.geometry.coords import make_2dcoord
+from gta_tpu_torch.models.context import SceneBatch
+from gta_tpu_torch.models.layers import init_weights
+from gta_tpu_torch.models.srt import build_model
+from gta_tpu_torch.utils.metrics import mse2psnr
+
+
+def resolve_device(device: Optional[str]) -> torch.device:
+    """`device`, or CUDA when none is given. Never falls back to the CPU on
+    its own: without CUDA the caller must ask for the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' (--device cpu) to run on the CPU"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+class Trainer:
+    """Owns the model and the evaluation / rendering entry points."""
+
+    def __init__(self, cfg: Config, device: Optional[str] = None, seed: Optional[int] = None):
+        if cfg.training.mixed_prec:
+            raise NotImplementedError("mixed precision is not ported yet (ROADMAP queue 1)")
+        self.device = resolve_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = cfg
+        self.model = build_model(cfg.model)
+        gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+        init_weights(self.model, gen)
+        self.model.to(self.device).eval()
+
+    def train_step(self, *args, **kwargs):
+        raise NotImplementedError("the train step is not ported yet (ROADMAP queue 1, next slice)")
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def eval_step(self, batch: SceneBatch) -> Dict[str, torch.Tensor]:
+        """Per-item MSE and PSNR over all target views and points."""
+        batch = batch.to(self.device)
+        pred, _ = self.model(batch)
+        target = batch.target_pixels.reshape(batch.target_pixels.shape[0], -1, 3)
+        mse = torch.mean((pred.float() - target) ** 2, dim=(1, 2))
+        return {"mse": mse, "psnr": mse2psnr(mse)}
+
+    def evaluate(self, batches: Iterable[SceneBatch]) -> Dict[str, float]:
+        """Mean of eval_step metrics over an iterable of batches (single
+        device); prints the number of unique scenes seen."""
+        acc: Dict[str, list] = {}
+        sceneids = []
+        for batch in batches:
+            if batch.sceneid is not None:
+                sceneids.append(batch.sceneid.reshape(-1).cpu().numpy())
+            for k, v in self.eval_step(batch).items():
+                acc.setdefault(k, []).append(v.cpu().numpy())
+        if sceneids:
+            print(f"Evaluated {len(np.unique(np.concatenate(sceneids)))} unique scenes.")
+        return {k: float(np.mean(np.concatenate(v))) for k, v in acc.items()}
+
+    # ------------------------------------------------------------------
+    def _to(self, x) -> torch.Tensor:
+        return torch.tensor(np.asarray(x), dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
+    def render_image(
+        self,
+        batch: SceneBatch,
+        height: int,
+        width: int,
+        target_transform: Optional[np.ndarray] = None,
+        chunk: int = 4096,
+        rays: Optional[np.ndarray] = None,
+        cam: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """Full-frame render: encode once, decode rays in fixed-size chunks
+        (reference trainer.py:137-181). Returns [B, height, width, 3].
+
+        target_transform: [B, 4, 4] relative camera of the novel view
+        (canonical->view map); defaults to the canonical (identity) frame.
+        The decoder receives the canonical view-0 ray grid plus the
+        transform; `rays`/`cam` supply that grid explicitly when the inputs
+        are downsampled (full-scale eval). Non-transform models (no
+        batch.target_transforms) are not ported.
+        """
+        if batch.target_transforms is None:
+            raise NotImplementedError("non-transform configs are not ported yet (ROADMAP queue 1)")
+        batch = batch.to(self.device)
+        z, enc_ctx = self.model.encode(batch)
+        B = batch.input_images.shape[0]
+        coord = np.broadcast_to(make_2dcoord(height, width).reshape(1, -1, 2), (B, height * width, 2))
+        if target_transform is None:
+            target_transform = np.broadcast_to(np.eye(4, dtype=np.float32), (B, 4, 4))
+        if rays is not None:
+            rays = np.asarray(rays).reshape(B, -1, 3)
+            cam = np.asarray(cam).reshape(B, -1, 3)
+            if cam.shape[1] == 1:
+                cam = np.broadcast_to(cam, (B, height * width, 3))
+        else:
+            rays = batch.input_rays[:, 0].reshape(B, -1, 3).cpu().numpy()
+            cam = np.broadcast_to(
+                batch.input_camera_pos[:, 0].cpu().numpy()[:, None], (B, height * width, 3)
+            )
+            if rays.shape[1] != height * width:
+                raise ValueError(
+                    f"render_image at {height}x{width} but the canonical input grid has "
+                    f"{rays.shape[1]} rays (input downsampling?) — pass the full-scale "
+                    "item's target_rays/cam explicitly"
+                )
+
+        n = height * width
+        n_pad = ((n + chunk - 1) // chunk) * chunk
+        pad = n_pad - n
+
+        def pad_to(x):
+            return np.concatenate([x, np.repeat(x[:, -1:], pad, 1)], 1) if pad else x
+
+        coord, rays, cam = pad_to(coord), pad_to(rays), pad_to(cam)
+        out = np.zeros((B, n_pad, 3), np.float32)
+        tt = self._to(target_transform)[:, None]
+        for i in range(0, n_pad, chunk):
+            sub = SceneBatch(
+                input_images=batch.input_images,
+                input_camera_pos=batch.input_camera_pos,
+                input_rays=batch.input_rays,
+                target_pixels=torch.zeros((B, 1, chunk, 3), device=self.device),
+                target_camera_pos=self._to(cam[:, None, i : i + chunk]),
+                target_rays=self._to(rays[:, None, i : i + chunk]),
+                input_transforms=batch.input_transforms,
+                target_transforms=tt,
+                input_coord=batch.input_coord,
+                target_coord=(
+                    self._to(coord[:, None, i : i + chunk])
+                    if batch.target_coord is not None
+                    else None
+                ),
+            )
+            pixels, _ = self.model.decode(z, sub, enc_ctx)
+            out[:, i : i + chunk] = pixels.cpu().numpy()
+        return out[:, :n].reshape(B, height, width, 3)
+
+    @torch.no_grad()
+    def render_rays(
+        self, batch: SceneBatch, rays: np.ndarray, camera_pos: np.ndarray, chunk: int = 4096
+    ) -> np.ndarray:
+        """Decode arbitrary canonical-frame rays [B, P, 3] against the
+        batch's input views — the non-transform eval path (reference
+        evaluate.py:122-131). Returns [B, P, 3]."""
+        batch = batch.to(self.device)
+        z, enc_ctx = self.model.encode(batch)
+        B, n = rays.shape[:2]
+        n_pad = ((n + chunk - 1) // chunk) * chunk
+        pad = n_pad - n
+
+        def pad_to(x):
+            return np.concatenate([x, np.repeat(x[:, -1:], pad, 1)], 1) if pad else x
+
+        rays, cam = pad_to(np.asarray(rays)), pad_to(np.asarray(camera_pos))
+        out = np.zeros((B, n_pad, 3), np.float32)
+        for i in range(0, n_pad, chunk):
+            sub = SceneBatch(
+                input_images=batch.input_images,
+                input_camera_pos=batch.input_camera_pos,
+                input_rays=batch.input_rays,
+                target_pixels=torch.zeros((B, chunk, 3), device=self.device),
+                target_camera_pos=self._to(cam[:, i : i + chunk]),
+                target_rays=self._to(rays[:, i : i + chunk]),
+                input_transforms=batch.input_transforms,
+                input_coord=batch.input_coord,
+            )
+            pixels, _ = self.model.decode(z, sub, enc_ctx)
+            out[:, i : i + chunk] = pixels.cpu().numpy()
+        return out[:, :n]

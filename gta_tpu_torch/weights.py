@@ -1,0 +1,91 @@
+"""Weights across frameworks: the JAX package's flax params -> the port's
+state_dict.
+
+The port names its parameters after the reference PyTorch implementation's
+state_dict keys, so the map is the reference key map: `flax_path_to_torch_key`
+is the port's own copy of the JAX package's utils/ref_import.py:223 mapping
+(the cases the flagship model reaches). Orientation: Dense kernels
+[in, out] -> Linear weights [out, in]; Conv kernels HWIO -> OIHW; the fused
+to_qkv column order q|k|v carries over unchanged. No so3 basis change is
+applied: the port's reps use the JAX package's basis as it is.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+
+def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
+    """Map a flax param path (relative to the {'params': ...} root) to the
+    reference's torch parameter key."""
+    out = []
+    n = len(path)
+    for i, t in enumerate(path):
+        if t.startswith("conv") and t[4:].isdigit() and i + 2 < n:
+            j = int(path[i + 1].split("_")[1])  # Conv_{j}
+            return ".".join(out + [f"conv_blocks.{t[4:]}.layers.{2 * j}.weight"])
+        if t.startswith("norm_attn_") or t.startswith("norm_ff_"):
+            which = 0 if t.startswith("norm_attn_") else 1
+            idx = t.rsplit("_", 1)[1]
+            leaf = "weight" if path[i + 1] == "scale" else "bias"
+            return ".".join(out + [f"layers.{idx}.{which}.norm.{leaf}"])
+        if t.startswith("attn_"):
+            idx = t[len("attn_"):]
+            sub = list(path[i + 1 :])
+            if sub[0] == "to_out":  # Sequential(linear, dropout)
+                leaf = "weight" if sub[1] == "kernel" else "bias"
+                return ".".join(out + [f"layers.{idx}.0.fn.to_out.0.{leaf}"])
+            if sub[-1] in ("kernel", "bias"):
+                leaf = "weight" if sub[-1] == "kernel" else "bias"
+                return ".".join(out + [f"layers.{idx}.0.fn"] + sub[:-1] + [leaf])
+            return ".".join(out + [f"layers.{idx}.0.fn"] + sub)  # trans_coeff
+        if t.startswith("ff_"):
+            idx = t[len("ff_"):]
+            dense = {"Dense_0": "0", "Dense_1": "3"}[path[i + 1]]
+            leaf = "weight" if path[i + 2] == "kernel" else "bias"
+            return ".".join(out + [f"layers.{idx}.1.fn.net.{dense}.{leaf}"])
+        if t == "render_mlp_out":
+            leaf = "weight" if path[i + 1] == "kernel" else "bias"
+            return ".".join(out + [f"render_mlp.8.{leaf}"])
+        if t.startswith("render_mlp"):
+            j = int(t[len("render_mlp"):])
+            leaf = "weight" if path[i + 1] == "kernel" else "bias"
+            return ".".join(out + [f"render_mlp.{2 * j}.{leaf}"])
+        if i == n - 1 and t in ("kernel", "bias"):
+            return ".".join(out + ["weight" if t == "kernel" else "bias"])
+        out.append(t)
+    return ".".join(out)
+
+
+def _flatten(tree: Mapping, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = np.asarray(v)
+    return flat
+
+
+def _orient(path: Tuple[str, ...], value: np.ndarray) -> np.ndarray:
+    if path[-1] != "kernel":
+        return value
+    if value.ndim == 2:  # Dense [in, out] -> Linear [out, in]
+        return value.T
+    if value.ndim == 4:  # Conv HWIO -> OIHW
+        return np.transpose(value, (3, 2, 0, 1))
+    raise ValueError(f"unexpected kernel rank {value.ndim} at {'/'.join(path)}")
+
+
+def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax params (a nested mapping of arrays, with or without the
+    'params' root) -> a state_dict for the port's model."""
+    if "params" in params:
+        params = params["params"]
+    return {
+        flax_path_to_torch_key(path): torch.tensor(_orient(path, value), dtype=torch.float32)
+        for path, value in _flatten(params).items()
+    }
