@@ -149,6 +149,12 @@ class Attention(nn.Module):
                 q, k, v, self.heads, ctx.geom, self.attn.gta, self.trans_coeff, self.scale
             )
         else:
+            if q.device.type != "cpu":
+                # the flagship's plain-attention counterpart on the TPU is the
+                # flash_core Pallas kernel, which has no port yet
+                raise NotImplementedError(
+                    "attention method '' has no kernel on the card yet (ROADMAP queue 2, flash_core kernels)"
+                )
             B, Tq, D = q.shape
             C = D // self.heads
 

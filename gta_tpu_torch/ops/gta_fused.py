@@ -173,7 +173,10 @@ def gta_fused_fwd(
     """Fused GTA attention forward over token-major operands.
 
     CPU tensors take `gta_fused_fwd_plain`; CUDA tensors launch the kernel
-    (counted in `gta_fused_fwd.launches`) or raise.
+    or raise. `gta_fused_fwd.launches` counts launches of the C entry
+    point: each one runs the K/V prologue kernel (when K/V have a
+    transform) and then the main kernel, so the card sees up to two
+    kernel launches per count.
     """
     if qB.device.type == "cpu":
         return gta_fused_fwd_plain(qB, kB, vB, t, heads, scale)
@@ -248,25 +251,3 @@ def fused_gta_attention_tokens(
     t = fused_tables(reps, args, trans_coeff)
     return gta_fused_fwd(qB.contiguous(), kB.contiguous(), vB.contiguous(), t, heads, scale)
 
-
-def fused_gta_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    reps: GeomReps,
-    args: GTAArgs,
-    trans_coeff: Optional[torch.Tensor],
-    scale: float,
-) -> torch.Tensor:
-    """GTA attention over [B, H, T, C] operands with the rep transforms fused
-    (the layout of ops/gta.gta_attention and of the JAX entry point)."""
-    B, H, Tq, C = q.shape
-    Tk = k.shape[2]
-
-    def tokens(x, T):
-        return x.transpose(1, 2).reshape(B, T, H * C)
-
-    out = fused_gta_attention_tokens(
-        tokens(q, Tq), tokens(k, Tk), tokens(v, Tk), H, reps, args, trans_coeff, scale
-    )
-    return out.reshape(B, Tq, H, C).transpose(1, 2)

@@ -3,25 +3,28 @@ over the flagship's eval_step and render_image, summed by kernel and by
 kind, with the device's busy and idle share of the window.
 
 Usage (one CUDA card):
-    python -m gta_tpu_torch.scripts.profile_serving [--config runs/clevrtr/GTA/gta/config.yaml]
-        [--batch 32] [--steps 3] [--top 15]
+    python -m gta_tpu_torch.scripts.profile_serving
 
-Prints the card's name and power limit, then for each of eval_step (batch
---batch, synthetic val scenes) and render_image (one full-scale target view,
-chunk 16384): the host wall time per call, the device time summed over all
-kernels, the idle share (1 - device / wall), device time by kind (the fused
-GTA kernel, GEMMs, convolutions, other), and the top kernels. The model is
-randomly initialised from the config's seed; times do not depend on the
-weights.
+Prints the card's name and power limit, then for each of eval_step (the
+flagship config, batch 32, synthetic val scenes) and render_image (one
+full-scale target view, chunk 16384), over 3 calls after one warm-up: the
+host wall time per call, the device time summed over all kernels, the idle
+share (1 - device / wall), device time by kind (the fused GTA kernel, GEMMs,
+convolutions, other), and the top 15 kernels. The model is randomly
+initialised from the config's seed; times do not depend on the weights.
 """
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import subprocess
 import time
 from collections import defaultdict
+
+CONFIG = "runs/clevrtr/GTA/gta/config.yaml"
+BATCH = 32  # the flagship config's batch size
+STEPS = 3  # profiled calls per phase
+TOP = 15  # kernels listed per phase
 
 
 def _kind(name: str) -> str:
@@ -40,7 +43,7 @@ def _kind(name: str) -> str:
     return "other (elementwise, norm, reduce)"
 
 
-def profile(fn, steps: int, top: int, label: str):
+def profile(fn, label: str):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -48,7 +51,7 @@ def profile(fn, steps: int, top: int, label: str):
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(STEPS):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -57,25 +60,18 @@ def profile(fn, steps: int, top: int, label: str):
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.name] += ev.device_time_total
     device_us = sum(kernels.values())
-    print(f"{label}: wall_ms_per_call={wall_us / steps / 1e3:.3f} "
-          f"device_ms_per_call={device_us / steps / 1e3:.3f} idle_share={1 - device_us / wall_us:.4f}")
+    print(f"{label}: wall_ms_per_call={wall_us / STEPS / 1e3:.3f} "
+          f"device_ms_per_call={device_us / STEPS / 1e3:.3f} idle_share={1 - device_us / wall_us:.4f}")
     by_kind = defaultdict(float)
     for name, us in kernels.items():
         by_kind[_kind(name)] += us
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        print(f"  {label} kind {kind}: ms_per_call={us / steps / 1e3:.3f} share={us / device_us:.4f}")
-    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
-        print(f"  {label} kernel {us / steps / 1e3:9.3f} ms  {name[:110]}")
+        print(f"  {label} kind {kind}: ms_per_call={us / STEPS / 1e3:.3f} share={us / device_us:.4f}")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:TOP]:
+        print(f"  {label} kernel {us / STEPS / 1e3:9.3f} ms  {name[:110]}")
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--config", default="runs/clevrtr/GTA/gta/config.yaml")
-    parser.add_argument("--batch", type=int, default=32)
-    parser.add_argument("--steps", type=int, default=3)
-    parser.add_argument("--top", type=int, default=15)
-    args = parser.parse_args(argv)
-
+def main():
     import torch
 
     from gta_tpu_torch.config import load_config
@@ -86,21 +82,21 @@ def main(argv=None):
         raise SystemExit("profile_serving needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip())
-    cfg = load_config(args.config)
+    cfg = load_config(CONFIG)
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
     trainer = Trainer(cfg)
     val = SyntheticScenes(cfg.data, "val")
-    batch = collate([val[i] for i in range(args.batch)])
+    batch = collate([val[i] for i in range(BATCH)])
     test = SyntheticScenes(cfg.data, "test", full_scale=True)
     item = collate([test[0]])
 
-    profile(lambda: trainer.eval_step(batch), args.steps, args.top, f"eval_step_b{args.batch}")
+    profile(lambda: trainer.eval_step(batch), f"eval_step_b{BATCH}")
     profile(
         lambda: trainer.render_image(
             item, test.target_h, test.target_w, target_transform=item.target_transforms[:, 0].numpy(),
             chunk=16384, rays=item.target_rays[:, 0].numpy(), cam=item.target_camera_pos[:, 0].numpy(),
         ),
-        args.steps, args.top, f"render_image_{test.target_h}x{test.target_w}",
+        f"render_image_{test.target_h}x{test.target_w}",
     )
 
 

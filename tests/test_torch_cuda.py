@@ -37,6 +37,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _fused(q, k, v, reps, args, tc):
+    """The layer's token-major entry, called with [B, H, T, C] operands."""
+    def tokens(x):
+        return x.transpose(1, 2).reshape(B, x.shape[2], -1)
+
+    out = tgf.fused_gta_attention_tokens(tokens(q), tokens(k), tokens(v), H, reps, args, tc, SCALE)
+    return out.reshape(B, q.shape[2], H, -1).transpose(1, 2)
+
+
 def _inputs(rng, args, device, tq=600, tk=600, nv=2):
     coord = torch.from_numpy(rng.rand(B, nv, tk // nv, 2).astype(np.float32))
     tf = torch.from_numpy(np.stack([random_se3(rng, nv) for _ in range(B)]))
@@ -62,13 +71,10 @@ def test_gta_fused_fwd_matches_plain(rng, cuda_device, fd, so2, vt):
     tc = torch.tensor([0.01])
     with torch.no_grad():
         before = tgf.gta_fused_fwd.launches
-        got = tgf.fused_gta_attention(
-            q.to(cuda_device), k.to(cuda_device), v.to(cuda_device), reps, args,
-            tc.to(cuda_device), SCALE,
-        )
+        got = _fused(q.to(cuda_device), k.to(cuda_device), v.to(cuda_device), reps, args, tc.to(cuda_device))
         torch.cuda.synchronize()
         assert tgf.gta_fused_fwd.launches == before + 1
-        want = tgf.fused_gta_attention(q, k, v, cpu_reps, args, tc, SCALE)
+        want = _fused(q, k, v, cpu_reps, args, tc)
     assert (got.cpu() - want).abs().max().item() <= 1e-4
 
 
@@ -79,11 +85,9 @@ def test_gta_fused_fwd_raises_instead_of_falling_back(rng, cuda_device):
     q, k, v = (x.to(cuda_device) for x in (q, k, v))
     tc = torch.tensor([0.01], device=cuda_device, requires_grad=True)
     with pytest.raises(NotImplementedError, match="_bwd_kernel"):
-        tgf.fused_gta_attention(q, k, v, reps, args, tc, SCALE)
+        _fused(q, k, v, reps, args, tc)
     narrow = GTAArgs(f_dims=FDims(se3=16, so2=16), so2=4)
     reps32, _, (q32, k32, v32) = _inputs(rng, narrow, cuda_device)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="head dim"):
-        tgf.fused_gta_attention(
-            q32[..., :32].contiguous().to(cuda_device), k32[..., :32].contiguous().to(cuda_device),
-            v32[..., :32].contiguous().to(cuda_device), reps32, narrow, None, SCALE,
-        )
+        _fused(q32[..., :32].to(cuda_device), k32[..., :32].to(cuda_device), v32[..., :32].to(cuda_device),
+               reps32, narrow, None)

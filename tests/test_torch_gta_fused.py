@@ -82,6 +82,17 @@ def _qkv(rng, C, tq, tk):
     return [rng.randn(B, H, t, C).astype(np.float32) * 0.4 for t in (tq, tk, tk)]
 
 
+def _fused(q, k, v, reps, args, tc):
+    """The layer's token-major entry, called with [B, H, T, C] operands."""
+    Bq, Hq, Tq, C = q.shape
+
+    def tokens(x):
+        return x.transpose(1, 2).reshape(Bq, x.shape[2], Hq * C)
+
+    out = tgf.fused_gta_attention_tokens(tokens(q), tokens(k), tokens(v), Hq, reps, args, tc, SCALE)
+    return out.reshape(Bq, Tq, Hq, C).transpose(1, 2)
+
+
 def _check_all(jargs, targs, jreps, treps, q, k, v, tc):
     """Port plain fused forward and port oracle vs JAX interpret kernel and
     JAX oracle, all on the same inputs."""
@@ -94,7 +105,7 @@ def _check_all(jargs, targs, jreps, treps, q, k, v, tc):
     tq, tk, tv = _t(q), _t(k), _t(v)
     ttc = torch.tensor([tc])
     launches = tgf.gta_fused_fwd.launches
-    t_fused = tgf.fused_gta_attention(tq, tk, tv, treps, targs, ttc, SCALE)
+    t_fused = _fused(tq, tk, tv, treps, targs, ttc)
     assert tgf.gta_fused_fwd.launches == launches, "a CPU tensor must take the plain version"
     t_oracle, _ = gta_attention(
         tq, tk, tv, functools.partial(dot_product_attention, scale=SCALE), treps, targs, ttc
@@ -143,28 +154,12 @@ def test_subblocked_large_view(rng, monkeypatch):
     _check_all(jargs, targs, jreps, treps, q, k, v, 0.2)
 
 
-def test_token_major_entry_matches_head_major(rng):
-    """The layer's token-major entry is the [B, H, T, C] entry up to layout."""
-    _, targs = _args("clevr")
-    _, treps = _reps(rng, *_args("clevr"), nv=2, tpv=8)
-    q, k, v = (_t(x) for x in _qkv(rng, 64, 16, 16))
-    tc = torch.tensor([0.2])
-    want = tgf.fused_gta_attention(q, k, v, treps, targs, tc, SCALE)
-
-    def tokens(x):
-        return x.transpose(1, 2).reshape(B, x.shape[2], -1)
-
-    got = tgf.fused_gta_attention_tokens(tokens(q), tokens(k), tokens(v), H, treps, targs, tc, SCALE)
-    np.testing.assert_array_equal(got.numpy(), tokens(want).numpy())
-
-
 def test_uncovered_calls_raise(rng):
     _, targs = _args("clevr")
     _, treps = _reps(rng, *_args("clevr"), nv=2, tpv=8)
     q, k, v = (_t(x) for x in _qkv(rng, 64, 16, 16))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgf.fused_gta_attention(q, k, v, treps, GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8,
-                                                        euclid_sim=True), None, SCALE)
+        _fused(q, k, v, treps, GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8, euclid_sim=True), None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         encoder_reps(GTAArgs(f_dims=FDims(triv=2, se3=16, t2=6)), torch.zeros(B, 2, 8, 2),
                      torch.eye(4).expand(B, 2, 4, 4))

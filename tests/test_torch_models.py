@@ -17,12 +17,14 @@ import pytest
 import torch
 
 from gta_tpu.config import load_config as j_load_config
+from gta_tpu.ops.attention import dot_product_attention as j_dpa
 from gta_tpu.data.synthetic import SyntheticScenes as JSyntheticScenes, collate as j_collate
 from gta_tpu.train.trainer import Trainer as JTrainer
 from gta_tpu.utils.ref_import import flax_path_to_torch_key as j_flax_path_to_torch_key
 from gta_tpu_torch import evaluate as t_evaluate
-from gta_tpu_torch.config import load_config
+from gta_tpu_torch.config import AttnConfig, load_config
 from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
+from gta_tpu_torch.models.layers import Attention, init_weights
 from gta_tpu_torch.train.trainer import Trainer
 from gta_tpu_torch.weights import flax_path_to_torch_key, params_from_jax
 
@@ -117,3 +119,21 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
         t_evaluate.main([FLAGSHIP, "--synthetic", "--max-scenes", "1"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu").train_step()
+
+
+def test_plain_attention_layer_matches_jax_on_cpu_and_raises_off_cpu():
+    """Method '' runs plain attention on CPU tensors only: on the TPU it is
+    the flash_core kernel, which has no port yet."""
+    rng = np.random.RandomState(0)
+    layer = init_weights(Attention(16, heads=2, dim_head=8, attn=AttnConfig(method="")), torch.Generator().manual_seed(0))
+    x = rng.randn(2, 5, 16).astype(np.float32)
+    with torch.no_grad():
+        got = layer(torch.from_numpy(x)).numpy()
+    w_qkv = layer.to_qkv.weight.detach().numpy()
+    q, k, v = (jnp.asarray((x @ w).reshape(2, 5, 2, 8).transpose(0, 2, 1, 3)) for w in np.split(w_qkv.T, 3, axis=1))
+    o, _ = j_dpa(q, k, v, 8**-0.5)
+    lin = layer.to_out[0]
+    want = np.asarray(o).transpose(0, 2, 1, 3).reshape(2, 5, 16) @ lin.weight.detach().numpy().T + lin.bias.detach().numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="flash_core"):
+        layer.to("meta")(torch.empty(2, 5, 16, device="meta"))
