@@ -7,23 +7,41 @@ Usage, from the repository root on a machine with a CUDA card:
 
 Phases (any failure exits non-zero and prints no result line):
   1. The card's name and power limit; build every CUDA kernel of the port
-     from gta_tpu_torch/csrc with nvcc (compiler resource report printed).
+     from gta_tpu_torch/csrc with nvcc, all at once (compiler resource
+     report printed).
   2. Each kernel against its plain PyTorch version on the card, at the
-     flagship CLEVR-TR GTA shapes (runs/clevrtr/GTA/gta): encoder
-     self-attention B=32 x 600 tokens (2 views of 300), decoder eval
-     B=32 x 3x856 queries, render chunk B=1 x 16384 queries, against 600
-     keys, with rep tables from the port's encoder_reps/decoder_reps on a
-     synthetic batch and trans_coeff 0.01; plus every flag branch of the
-     kernel at B=2. Pass: max|kernel - plain| <= 1e-4 in fp32 (the order of
-     summation over 600 keys differs). Times: CUDA events, median of 7
-     after 2 warm-up runs. The yardstick F.scaled_dot_product_attention on
-     pre-transformed q/k/v is timed here only; the port never calls it.
-  3. The main path at full width: Trainer(cfg) on cuda, eval_step on a
+     flagship CLEVR-TR GTA shapes (runs/clevrtr/GTA/gta), with rep tables
+     from the port's encoder_reps/decoder_reps on a synthetic batch and
+     trans_coeff 0.01:
+     - gta_fused_fwd at encoder self-attention B=32 x 600 tokens (2 views
+       of 300), decoder eval B=32 x 3x856 queries and render chunk
+       B=1 x 16384 queries, against 600 keys; then with its training
+       residuals (z, log-sum-exp) at the two train shapes;
+     - gta_fused_bwd at encoder_train_b32 (Tq = Tk = 600) and
+       decoder_train_b32 (Tq = 3x856, Tk = 600);
+     - both on every flag branch at B=2.
+     Pass: forward max|kernel - plain| <= 1e-4; backward, for each output,
+     max|kernel - plain| <= 1e-4 * max(1, max|plain|) (fp32; the order of
+     summation over 600 keys, 2568 queries or rows x heads differs). Times:
+     CUDA events, median of 7 after 2 warm-up runs. Yardsticks, timed here
+     only and never called by the port: F.scaled_dot_product_attention on
+     pre-transformed q/k/v (forward), and its backward alone.
+  3. The serving path at full width: Trainer(cfg) on cuda, eval_step on a
      batch-32 synthetic val batch, render_image of one full-scale 240x320
-     target view at chunk 16384 (one warm-up, then the median of 3), with the
-     kernel's launch count asserted (5 per encode, 2 per decode chunk); then a B=2 forward on the card
-     against the same weights on the CPU (plain version), atol 1e-4.
-  4. One JSON line of kernel numbers, then the device JSON as the last line.
+     target view at chunk 16384 (one warm-up, then the median of 3), with
+     the launch counts asserted (forward: 5 per encode, 2 per decode chunk;
+     backward: none); then a B=2 forward on the card against the same
+     weights on the CPU (plain version), atol 1e-4.
+  4. The train path at full width: train_step on batch-32 synthetic train
+     batches (one cold step, then the median of 3 warm steps), with 7
+     forward and 7 backward launches per step asserted and a finite loss
+     and finite gradients; then, with dropout 0, a B=2 step's gradients on
+     the card against the same weights on the CPU, per parameter tensor
+     |g_cuda - g_cpu| / |g_cpu| <= 1e-4 (L2 norms), 2e-3 for the per-layer
+     trans_coeff scalars (see TC_TOL); then
+     `python -m gta_tpu_torch.train <flagship> --synthetic` for 3 steps into
+     a temporary directory, and again to step 4, which must resume.
+  5. One JSON line of kernel numbers, then the device JSON as the last line.
 """
 
 from __future__ import annotations
@@ -33,6 +51,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +67,7 @@ TIMED_RUNS, WARMUP = 7, 2
 EVAL_BATCH = 32  # the flagship config's batch size
 RENDER_CHUNK = 16384  # the evaluation protocol's chunk
 RENDER_RUNS = 3  # timed full-frame renders, after one warm-up
+TRAIN_RUNS = 3  # timed warm train steps, after one cold step
 
 
 def time_ms(fn, runs=TIMED_RUNS, warmup=WARMUP) -> float:
@@ -81,21 +101,39 @@ def fused_cost(t, B, H, Tq, Tk, C):
     return flops, n_bytes
 
 
-def kernel_phase(cfg, device):
-    """Kernel vs plain at the flagship shapes; returns per-shape numbers."""
+def bwd_cost(t, B, H, Tq, Tk, C):
+    """(flops, bytes) the fused backward must do and move: the JAX package's
+    operation count (gta_tpu/ops/gta_fused.py:87 _kernel_flops: 5 core
+    products, s, dp, dqt, dkt, dvt, plus two C x C products per transform
+    chain); q, k, v, g, z and the tables read once, dq, dk, dv and the
+    matrix cotangents written once."""
+    flops = 5 * 2.0 * Tq * Tk * C
+    flops += 2 * 2.0 * Tq * C * C * ((t.mq is not None) + (t.mo is not None and t.v_transform))
+    flops += 2 * 2.0 * Tk * C * C * (t.mk is not None) * (1 + t.v_transform)
+    flops *= B * H
+    tables = [t.mq, t.mk, t.mo, t.cq, t.sq, t.ck, t.sk]
+    mats = [t.mq, t.mk, t.mo]
+    n_bytes = 4.0 * (4 * B * Tq * H * C + 4 * B * Tk * H * C
+                     + sum(x.numel() for x in tables + mats if x is not None))
+    return flops, n_bytes
+
+
+def bound(flops, n_bytes):
+    """(bound ms, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flagship_calls(cfg, device):
+    """Rep tables of the flagship's attention calls on a batch-32 synthetic
+    batch (and one full-scale render chunk): name -> (args, reps, B, Tq, Tk)."""
     import torch
-    import torch.nn.functional as F
 
     from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
     from gta_tpu_torch.geometry.coords import make_2dcoord
-    from gta_tpu_torch.ops import gta_fused as tgf
-    from gta_tpu_torch.ops.gta import gta_transform_qkv
     from gta_tpu_torch.ops.reps import decoder_reps, encoder_reps
 
     enc_cfg, dec_cfg = cfg.model.encoder, cfg.model.decoder
-    H, C = enc_cfg.heads, enc_cfg.attdim // enc_cfg.heads
-    scale = C**-0.5
-    tc = torch.tensor([0.01], device=device)
     val = SyntheticScenes(cfg.data, "val")
     b32 = collate([val[i] for i in range(EVAL_BATCH)]).to(device)
     enc32 = encoder_reps(enc_cfg.attn.gta, b32.input_coord, b32.input_transforms)
@@ -112,14 +150,33 @@ def kernel_phase(cfg, device):
         input_coord=full.input_coord, input_transforms=full.input_transforms, enc=enc1,
     )
     Tk = b32.input_coord.shape[1] * b32.input_coord.shape[2]
-    shapes = {
-        "encoder_self_b32": (enc_cfg.attn.gta, enc32, EVAL_BATCH, Tk),
-        "decoder_eval_b32": (dec_cfg.attn.gta, dec32, EVAL_BATCH, b32.target_coord[0].numel() // 2),
-        "render_chunk_b1": (dec_cfg.attn.gta, dec1, 1, coord.shape[2]),
+    Tq_dec = b32.target_coord[0].numel() // 2
+    return {
+        "encoder_self_b32": (enc_cfg.attn.gta, enc32, EVAL_BATCH, Tk, Tk),
+        "decoder_eval_b32": (dec_cfg.attn.gta, dec32, EVAL_BATCH, Tq_dec, Tk),
+        "render_chunk_b1": (dec_cfg.attn.gta, dec1, 1, coord.shape[2], Tk),
+        "encoder_train_b32": (enc_cfg.attn.gta, enc32, EVAL_BATCH, Tk, Tk),
+        "decoder_train_b32": (dec_cfg.attn.gta, dec32, EVAL_BATCH, Tq_dec, Tk),
     }
+
+
+def kernel_phase(cfg, calls, device):
+    """Forward kernel vs plain at the flagship serving shapes; returns
+    per-shape numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from gta_tpu_torch.ops import gta_fused as tgf
+    from gta_tpu_torch.ops.gta import gta_transform_qkv
+
+    enc_cfg = cfg.model.encoder
+    H, C = enc_cfg.heads, enc_cfg.attdim // enc_cfg.heads
+    scale = C**-0.5
+    tc = torch.tensor([0.01], device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     results = {}
-    for name, (args, reps, B, Tq) in shapes.items():
+    for name in ("encoder_self_b32", "decoder_eval_b32", "render_chunk_b1"):
+        args, reps, B, Tq, Tk = calls[name]
         qB = torch.randn((B, Tq, H * C), generator=gen, device=device)
         kB = torch.randn((B, Tk, H * C), generator=gen, device=device)
         vB = torch.randn((B, Tk, H * C), generator=gen, device=device)
@@ -139,16 +196,15 @@ def kernel_phase(cfg, device):
             qt, kt, vt = (x.contiguous() for x in gta_transform_qkv(heads(qB), heads(kB), heads(vB), reps, args, tc))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
         flops, n_bytes = fused_cost(t, B, H, Tq, Tk, C)
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+        bound_ms, bound_by = bound(flops, n_bytes)
         results[name] = {
             "B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "gflop": flops / 1e9, "mbytes": n_bytes / 1e6,
         }
         print(f"kernel gta_fused_fwd {name}: B={B} Tq={Tq} Tk={Tk} max|d|={err:.3e} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-              f"bound_ms={max(t_ops, t_bytes):.4f} ({results[name]['bound_by']})", flush=True)
+              f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
         if not err <= TOL:
             raise AssertionError(f"gta_fused_fwd {name}: max|kernel - plain| = {err} > {TOL}")
         del qB, kB, vB, got, want, qt, kt, vt
@@ -156,8 +212,26 @@ def kernel_phase(cfg, device):
     return results
 
 
+def check_bwd(label, got, want) -> float:
+    """Each backward output within 1e-4 * max(1, max|plain|); returns the
+    largest max|kernel - plain| over the outputs."""
+    worst = 0.0
+    for name, a, b in zip(("dq", "dk", "dv", "dmq", "dmk", "dmo"), got, want):
+        if (a is None) != (b is None):
+            raise AssertionError(f"gta_fused_bwd {label}: {name} present in only one version")
+        if b is None:
+            continue
+        err, scale = (a - b).abs().max().item(), max(1.0, b.abs().max().item())
+        if not err <= TOL * scale:
+            raise AssertionError(f"gta_fused_bwd {label} {name}: max|kernel - plain| = {err} > {TOL} * {scale}")
+        worst = max(worst, err)
+    return worst
+
+
 def branch_phase(device):
-    """Every flag branch of the kernel (C = 64) against the plain version."""
+    """Every flag branch of both kernels (C = 64, B = 2, 2 views of 300
+    tokens) against the plain versions; returns the worst (fwd, bwd)
+    max|kernel - plain|."""
     import torch
 
     from gta_tpu_torch.config import FDims, GTAArgs
@@ -171,7 +245,7 @@ def branch_phase(device):
     tf[..., 0, 0], tf[..., 0, 1], tf[..., 1, 0], tf[..., 1, 1] = np.cos(ang), -np.sin(ang), np.sin(ang), np.cos(ang)
     tf[..., :3, 3] = rng.randn(2, 2, 3)
     tf = torch.from_numpy(tf).to(device)
-    worst = 0.0
+    worst_fwd = worst_bwd = 0.0
     for fd, so2, vt in [
         (dict(se3=64), 0, True),
         (dict(so2=64), 16, True),
@@ -180,21 +254,101 @@ def branch_phase(device):
     ]:
         args = GTAArgs(f_dims=FDims(**fd), so2=so2, v_transform=vt)
         reps = encoder_reps(args, coord, tf)
-        q, k, v = (torch.from_numpy(rng.randn(2, 600, 384).astype(np.float32)).to(device) for _ in range(3))
+        q, k, v, g = (torch.from_numpy(rng.randn(2, 600, 384).astype(np.float32)).to(device) for _ in range(4))
         with torch.no_grad():
             t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=device))
             got = tgf.gta_fused_fwd(q, k, v, t, 6, 0.125)
             torch.cuda.synchronize()
             err = (got - tgf.gta_fused_fwd_plain(q, k, v, t, 6, 0.125)).abs().max().item()
-        print(f"kernel gta_fused_fwd branch {fd} so2={so2} v_transform={vt}: max|d|={err:.3e}", flush=True)
+            _, res = tgf.gta_fused_fwd(q, k, v, t, 6, 0.125, residuals=True)
+            bwd = tgf.gta_fused_bwd(q, k, v, t, 6, 0.125, g, res)
+            torch.cuda.synchronize()
+            bwd_err = check_bwd(f"branch {fd}", bwd, tgf.gta_fused_bwd_plain(q, k, v, t, 6, 0.125, g, res.z))
+        print(f"kernel gta_fused_fwd / gta_fused_bwd branch {fd} so2={so2} v_transform={vt}: "
+              f"max|d| fwd={err:.3e} bwd={bwd_err:.3e}", flush=True)
         if not err <= TOL:
             raise AssertionError(f"gta_fused_fwd branch {fd}: max|kernel - plain| = {err} > {TOL}")
-        worst = max(worst, err)
-    return worst
+        worst_fwd, worst_bwd = max(worst_fwd, err), max(worst_bwd, bwd_err)
+    return worst_fwd, worst_bwd
 
 
-def main_path_phase(cfg):
-    """Full-width serving path through the kernels; returns launch count."""
+def train_kernel_phase(cfg, calls, device):
+    """Both kernels at the flagship's train shapes: the forward with its
+    training residuals, and the backward, each against its plain version;
+    returns ({shape: fwd numbers}, {shape: bwd numbers})."""
+    import torch
+    import torch.nn.functional as F
+
+    from gta_tpu_torch.ops import gta_fused as tgf
+    from gta_tpu_torch.ops.gta import gta_transform_qkv
+
+    enc_cfg = cfg.model.encoder
+    H, C = enc_cfg.heads, enc_cfg.attdim // enc_cfg.heads
+    scale = C**-0.5
+    tc = torch.tensor([0.01], device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    fwd, bwd = {}, {}
+    for name in ("encoder_train_b32", "decoder_train_b32"):
+        args, reps, B, Tq, Tk = calls[name]
+        qB, kB, vB = (torch.randn((B, T, H * C), generator=gen, device=device) for T in (Tq, Tk, Tk))
+        g = torch.randn((B, Tq, H * C), generator=gen, device=device)
+        with torch.no_grad():
+            t = tgf.fused_tables(reps, args, tc)
+            out, res = tgf.gta_fused_fwd(qB, kB, vB, t, H, scale, residuals=True)
+            torch.cuda.synchronize()
+            want_out, want_z = tgf.gta_fused_fwd_plain(qB, kB, vB, t, H, scale, store_z=True)
+            fwd_err = max((out - want_out).abs().max().item(), (res.z - want_z).abs().max().item())
+            del want_out, want_z
+            fwd_ms = time_ms(lambda: tgf.gta_fused_fwd(qB, kB, vB, t, H, scale, residuals=True))
+            fwd_plain_ms = time_ms(lambda: tgf.gta_fused_fwd_plain(qB, kB, vB, t, H, scale, store_z=True), runs=5)
+            got = tgf.gta_fused_bwd(qB, kB, vB, t, H, scale, g, res)
+            torch.cuda.synchronize()
+            bwd_err = check_bwd(name, got, tgf.gta_fused_bwd_plain(qB, kB, vB, t, H, scale, g, res.z))
+            del got
+            ms = time_ms(lambda: tgf.gta_fused_bwd(qB, kB, vB, t, H, scale, g, res))
+            plain_ms = time_ms(lambda: tgf.gta_fused_bwd_plain(qB, kB, vB, t, H, scale, g, res.z), runs=5)
+
+            def heads(x):
+                return x.reshape(B, x.shape[1], H, C).transpose(1, 2)
+
+            qkv = [x.contiguous() for x in gta_transform_qkv(heads(qB), heads(kB), heads(vB), reps, args, tc)]
+            gh = heads(g).contiguous()
+            sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(*qkv, scale=scale))
+        # yardstick: the backward alone of SDPA on the pre-transformed q/k/v
+        leaves = [x.requires_grad_() for x in qkv]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        library_ms = time_ms(lambda: sdpa_out.backward(gh, retain_graph=True))
+        del leaves, sdpa_out, qkv
+        f_flops, f_bytes = fused_cost(t, B, H, Tq, Tk, C)
+        f_bytes += 4.0 * (B * Tq * H * C + B * H * Tq)  # z and lse written
+        f_bound, f_by = bound(f_flops, f_bytes)
+        fwd[name] = {
+            "B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+            "library_ms": sdpa_fwd_ms, "bound_ms": f_bound, "bound_by": f_by, "residuals": True,
+        }
+        b_flops, b_bytes = bwd_cost(t, B, H, Tq, Tk, C)
+        b_bound, b_by = bound(b_flops, b_bytes)
+        bwd[name] = {
+            "B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": bwd_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_bound, "bound_by": b_by,
+            "gflop": b_flops / 1e9, "mbytes": b_bytes / 1e6,
+        }
+        print(f"kernel gta_fused_fwd (training residuals) {name}: B={B} Tq={Tq} Tk={Tk} max|d|={fwd_err:.3e} "
+              f"ms={fwd_ms:.4f} plain_ms={fwd_plain_ms:.4f} sdpa_ms={sdpa_fwd_ms:.4f} bound_ms={f_bound:.4f} ({f_by})",
+              flush=True)
+        print(f"kernel gta_fused_bwd {name}: B={B} Tq={Tq} Tk={Tk} max|d|={bwd_err:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} bound_ms={b_bound:.4f} ({b_by}, "
+              f"{b_flops / 1e9:.1f} GFLOP)", flush=True)
+        if not fwd_err <= TOL:
+            raise AssertionError(f"gta_fused_fwd residuals {name}: max|kernel - plain| = {fwd_err} > {TOL}")
+        del qB, kB, vB, g, out, res
+        torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def serving_path_phase(cfg):
+    """Full-width serving path through the kernels; returns the launch
+    counts {kernel: n} of the run."""
     import torch
 
     from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
@@ -210,7 +364,7 @@ def main_path_phase(cfg):
     Hf, Wf, chunk = test.target_h, test.target_w, RENDER_CHUNK
     n_chunks = -(-Hf * Wf // chunk)
 
-    tgf.gta_fused_fwd.launches = 0
+    tgf.gta_fused_fwd.launches = tgf.gta_fused_bwd.launches = 0
     step_ms = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -232,7 +386,7 @@ def main_path_phase(cfg):
         img = render()
         torch.cuda.synchronize()
         render_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = tgf.gta_fused_fwd.launches
+    launches = {"gta_fused_fwd": tgf.gta_fused_fwd.launches, "gta_fused_bwd": tgf.gta_fused_bwd.launches}
 
     want = 3 * (enc_layers + dec_layers) + (1 + RENDER_RUNS) * (enc_layers + dec_layers * n_chunks)
     print(f"main path: eval_step B={EVAL_BATCH} psnr={psnr:.4f} ms(cold,warm,warm)="
@@ -243,10 +397,11 @@ def main_path_phase(cfg):
     print(f"main path: render_image {Hf}x{Wf} chunk={chunk} psnr={render_psnr:.4f} "
           f"ms(median of {RENDER_RUNS} after 1 warm-up)={median_ms:.2f} "
           f"[{', '.join(f'{x:.2f}' for x in render_ms)}] rays/s={Hf * Wf / (median_ms / 1e3):.0f}", flush=True)
-    print(f"main path: gta_fused_fwd launches={launches} expected={want} "
-          "(each launch of the C entry point runs the K/V prologue kernel, then the main kernel)", flush=True)
-    if launches != want:
-        raise AssertionError(f"gta_fused_fwd launched {launches} times on the main path, expected {want}")
+    print(f"main path: gta_fused_fwd launches={launches['gta_fused_fwd']} expected={want}, gta_fused_bwd "
+          f"launches={launches['gta_fused_bwd']} expected=0 (each launch of the forward's C entry point "
+          "runs the K/V prologue kernel, then the main kernel)", flush=True)
+    if launches != {"gta_fused_fwd": want, "gta_fused_bwd": 0}:
+        raise AssertionError(f"serving path launches {launches}, expected {want} forward and no backward")
     if img.shape != (1, Hf, Wf, 3) or not np.isfinite(img).all() or not np.isfinite(psnr):
         raise AssertionError("main path output is not finite / of the expected shape")
 
@@ -262,6 +417,140 @@ def main_path_phase(cfg):
     if not err <= TOL:
         raise AssertionError(f"card vs CPU pixels differ by {err} > {TOL}")
     return launches
+
+
+def train_path_phase(cfg):
+    """Full-width batch-32 train steps through both kernels; returns the
+    launch counts {kernel: n} of the run and the step numbers."""
+    import torch
+
+    from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
+    from gta_tpu_torch.ops import gta_fused as tgf
+    from gta_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg)  # default device: cuda
+    train = SyntheticScenes(cfg.data, "train", seed=cfg.seed)
+    batches = [collate([train[i] for i in range(n * EVAL_BATCH, (n + 1) * EVAL_BATCH)])
+               for n in range(1 + TRAIN_RUNS)]
+    rays = batches[0].target_pixels[0].numel() // 3 * EVAL_BATCH
+    layers = cfg.model.encoder.num_att_blocks + cfg.model.decoder.num_att_blocks
+
+    tgf.gta_fused_fwd.launches = tgf.gta_fused_bwd.launches = 0
+    step_ms, losses = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+    launches = {"gta_fused_fwd": tgf.gta_fused_fwd.launches, "gta_fused_bwd": tgf.gta_fused_bwd.launches}
+
+    warm = float(np.median(step_ms[1:]))
+    finite_grads = all(bool(torch.isfinite(p.grad).all()) for p in trainer.model.parameters())
+    print(f"train path: train_step B={EVAL_BATCH} losses={', '.join(f'{x:.6f}' for x in losses)} "
+          f"grad_norm={m['grad_norm'].item():.6f} lr={m['lr']:.3e} ms(cold)={step_ms[0]:.2f} "
+          f"ms(warm)=[{', '.join(f'{x:.2f}' for x in step_ms[1:])}] median_warm_ms={warm:.2f} "
+          f"rays/s={rays / (warm / 1e3):.0f} peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+    want = layers * len(batches)
+    print(f"train path: launches {launches}, expected {want} of each ({layers} per step)", flush=True)
+    if launches != {"gta_fused_fwd": want, "gta_fused_bwd": want}:
+        raise AssertionError(f"train path launches {launches}, expected {want} forward and {want} backward")
+    if not (np.isfinite(losses).all() and finite_grads):
+        raise AssertionError("train path: loss or gradients not finite")
+    return launches, {"median_warm_ms": warm, "cold_ms": step_ms[0], "warm_ms": step_ms[1:],
+                      "rays_per_s": rays / (warm / 1e3), "rays_per_step": rays}
+
+
+# The per-layer trans_coeff gradients are scalars summed over every head,
+# row and C x C matrix entry of a layer's attention, terms that largely
+# cancel. fp32 rounding upstream (cuDNN's FFT convolutions, cuBLAS) moves
+# them by several 1e-4 relative between the card and the CPU even with the
+# plain PyTorch attention on the card; grads_phase prints that comparison
+# beside the kernel's. They are held to TC_TOL, every other parameter
+# tensor to TOL.
+TC_TOL = 2e-3
+
+
+def plain_attention(qB, kB, vB, heads, reps, args, trans_coeff, scale):
+    """fused_gta_attention_tokens through the plain forward and torch
+    autograd, on any device (the comparison in grads_phase only)."""
+    from gta_tpu_torch.ops import gta_fused as tgf
+
+    tgf.check_supported(reps, args, qB.shape[1], kB.shape[1])
+    t = tgf.fused_tables(reps, args, trans_coeff)
+    return tgf.gta_fused_fwd_plain(qB.contiguous(), kB.contiguous(), vB.contiguous(), t, heads, scale)
+
+
+def grads_phase(cfg):
+    """A B=2 full-width step's gradients (dropout 0) on the card against the
+    same weights on the CPU; returns the largest relative L2 difference of
+    the tensors held to TOL and of the trans_coeff scalars."""
+    from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
+    from gta_tpu_torch.models import layers
+    from gta_tpu_torch.train.trainer import Trainer
+
+    m = cfg.model
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        m, encoder=dataclasses.replace(m.encoder, dropout=0.0), decoder=dataclasses.replace(m.decoder, dropout=0.0)))
+    card, cpu = Trainer(cfg), Trainer(cfg, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    train = SyntheticScenes(cfg.data, "train", seed=cfg.seed)
+    batch = collate([train[i] for i in range(2)])
+    def grads(trainer):
+        loss, _, g = trainer.loss_and_grads(batch)
+        return loss.item(), [x.detach().cpu().clone() for x in g]
+
+    def worst_rel(g, ref):
+        worst = {"params": (0.0, None), "trans_coeff": (0.0, None)}
+        for (name, _), a, b in zip(cpu.model.named_parameters(), g, ref):
+            rel = (a - b).norm().item() / max(b.norm().item(), 1e-30)
+            kind = "trans_coeff" if name.endswith("trans_coeff") else "params"
+            if worst[kind][1] is None or rel > worst[kind][0]:
+                worst[kind] = (rel, name)
+        return worst
+
+    loss_card, g_card = grads(card)
+    loss_cpu, g_cpu = grads(cpu)
+    kernel_attention = layers.fused_gta_attention_tokens
+    layers.fused_gta_attention_tokens = plain_attention
+    try:
+        _, g_card_plain = grads(card)
+    finally:
+        layers.fused_gta_attention_tokens = kernel_attention
+    worst, plain = worst_rel(g_card, g_cpu), worst_rel(g_card_plain, g_cpu)
+    print(f"train path: B=2 grads cuda vs cpu, loss {loss_card:.7f} vs {loss_cpu:.7f}, "
+          f"max |g_cuda - g_cpu| / |g_cpu|: {worst['params'][0]:.3e} ({worst['params'][1]}; tolerance {TOL}), "
+          f"trans_coeff {worst['trans_coeff'][0]:.3e} ({worst['trans_coeff'][1]}; tolerance {TC_TOL}); "
+          f"the card with plain attention vs cpu: {plain['params'][0]:.3e} ({plain['params'][1]}), "
+          f"trans_coeff {plain['trans_coeff'][0]:.3e} ({plain['trans_coeff'][1]})", flush=True)
+    for kind, tol in (("params", TOL), ("trans_coeff", TC_TOL)):
+        rel, name = worst[kind]
+        if not rel <= tol:
+            raise AssertionError(f"card vs CPU gradients of {name} differ by {rel} (relative) > {tol}")
+    return worst["params"][0], worst["trans_coeff"][0]
+
+
+def cli_phase():
+    """`python -m gta_tpu_torch.train` on the flagship: 3 steps (exit after
+    step 2), then resume to step 4."""
+    with tempfile.TemporaryDirectory() as out:
+        base = [sys.executable, "-m", "gta_tpu_torch.train", CONFIG, "--synthetic", "--outdir", out]
+        logs = []
+        for exit_after in (2, 4):
+            t0 = time.perf_counter()
+            proc = subprocess.run(base + ["--exit-after", str(exit_after)], cwd=ROOT, capture_output=True,
+                                  text=True, timeout=600)
+            logs.append(proc.stdout)
+            print(f"train CLI --exit-after {exit_after}: exit {proc.returncode} in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            for line in proc.stdout.splitlines():
+                if "it=" in line or "Resumed" in line or "parameters" in line or "limit" in line:
+                    print(f"  {line}", flush=True)
+            if proc.returncode != 0 or "Iteration limit reached" not in proc.stdout:
+                raise AssertionError(f"train CLI failed:\n{proc.stdout}\n{proc.stderr}")
+        if "Resumed" in logs[0] or "Resumed from checkpoint at it=3" not in logs[1]:
+            raise AssertionError("train CLI did not start fresh, then resume at it=3")
 
 
 def main() -> int:
@@ -294,27 +583,54 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    shapes = kernel_phase(cfg, device)
-    branch_err = branch_phase(device)
-    launches = main_path_phase(cfg)
+    calls = flagship_calls(cfg, device)
+    shapes = kernel_phase(cfg, calls, device)
+    train_fwd, train_bwd = train_kernel_phase(cfg, calls, device)
+    del calls
+    branch_fwd, branch_bwd = branch_phase(device)
+    serving = serving_path_phase(cfg)
+    train, step = train_path_phase(cfg)
+    grad_rel = grads_phase(cfg)
+    cli_phase()
 
     main_shape = shapes["decoder_eval_b32"]
-    kernel = {
+    fwd = {
         "name": "gta_fused_fwd",
         "route": "cuda",
         "source": "gta_tpu_torch/csrc/gta_fused_fwd.cu",
         "replaces": "gta_tpu/ops/gta_fused.py:209",
-        "launches": launches,
-        "max_abs_err": max([branch_err] + [s["max_abs_err"] for s in shapes.values()]),
+        "launches": serving["gta_fused_fwd"] + train["gta_fused_fwd"],
+        "launches_by_path": {"serving": serving["gta_fused_fwd"], "train": train["gta_fused_fwd"]},
+        "max_abs_err": max([branch_fwd] + [s["max_abs_err"] for s in list(shapes.values()) + list(train_fwd.values())]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
         "shape": "decoder_eval_b32",
-        "shapes": shapes,
+        "shapes": {**shapes, **train_fwd},
     }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    main_bwd = train_bwd["decoder_train_b32"]
+    bwd = {
+        "name": "gta_fused_bwd",
+        "route": "cuda",
+        "source": "gta_tpu_torch/csrc/gta_fused_bwd.cu",
+        "replaces": "gta_tpu/ops/gta_fused.py:235",
+        "launches": serving["gta_fused_bwd"] + train["gta_fused_bwd"],
+        "launches_by_path": {"serving": serving["gta_fused_bwd"], "train": train["gta_fused_bwd"]},
+        "max_abs_err": max([branch_bwd] + [s["max_abs_err"] for s in train_bwd.values()]),
+        "ms": main_bwd["ms"],
+        "plain_ms": main_bwd["plain_ms"],
+        "bound_ms": main_bwd["bound_ms"],
+        "bound_by": main_bwd["bound_by"],
+        "library_ms": main_bwd["library_ms"],
+        "shape": "decoder_train_b32",
+        "shapes": train_bwd,
+    }
+    kernel = [fwd, bwd]
+    print(f"train step B={EVAL_BATCH}: {json.dumps(step)}; B=2 grads cuda vs cpu max relative "
+          f"{grad_rel[0]:.3e} (trans_coeff {grad_rel[1]:.3e})", flush=True)
+    print(json.dumps({"kernels": kernel}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

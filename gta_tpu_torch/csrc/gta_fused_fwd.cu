@@ -35,6 +35,12 @@
 //    applied before the store, so q and out cross device memory once.
 // Not yet: tensor-core (wgmma) products, TMA loads, bf16/TF32 operands.
 //
+// Training residuals: given non-null `z` and `lse`, the main kernel also
+// writes z (the attention output before the output transform, the Pallas
+// kernel's `store_z`) and each row's log-sum-exp of the scaled scores, for
+// csrc/gta_fused_bwd.cu. Serving passes null for both and the kernels do
+// exactly the work they did without them.
+//
 // Interface: plain C, bound from Python with ctypes. Every pointer is a
 // contiguous fp32 device array; absent tables are null and flagged off.
 // Returns the cudaError_t of the launches (0 = success).
@@ -161,7 +167,8 @@ __global__ void __launch_bounds__(BQ)
 gta_fwd_main_kernel(const float* __restrict__ q, const float* __restrict__ kt,
                     const float* __restrict__ vt, const float* __restrict__ mq,
                     const float* __restrict__ mo, const float* __restrict__ cq,
-                    const float* __restrict__ sq, float* __restrict__ out, int H, int Tq,
+                    const float* __restrict__ sq, float* __restrict__ out,
+                    float* __restrict__ z, float* __restrict__ lse, int H, int Tq,
                     int Tk, int nq, int64_t k_bs, int64_t k_hs, int64_t k_rs, int64_t v_bs,
                     int64_t v_hs, int64_t v_rs, int flags, float scale) {
   __shared__ __align__(16) float Ks[BK * C];
@@ -255,6 +262,8 @@ gta_fwd_main_kernel(const float* __restrict__ q, const float* __restrict__ kt,
   const float inv = 1.f / l;
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] *= inv;
+  if (lse) lse[((int64_t)b * H + h) * Tq + row] = m + logf(l);
+  if (z) store_row<C>(z + qoff, acc);
   if (flags & V_TRANSFORM) {
     if (flags & HAS_MO) matvec<C>(acc, mo + ((int64_t)b * nq + view) * C * C);
     if (flags & HAS_ROTQ) rotate<C, true>(acc, cq + roff, sq + roff);
@@ -267,8 +276,8 @@ gta_fwd_main_kernel(const float* __restrict__ q, const float* __restrict__ kt,
 extern "C" int gta_fused_fwd(const float* q, const float* k, const float* v, const float* mq,
                              const float* mk, const float* mo, const float* cq, const float* sq,
                              const float* ck, const float* sk, float* kt, float* vt, float* out,
-                             int B, int H, int Tq, int Tk, int C, int nq, int nk, int flags,
-                             float scale, void* stream_ptr) {
+                             float* z, float* lse, int B, int H, int Tq, int Tk, int C, int nq,
+                             int nk, int flags, float scale, void* stream_ptr) {
   if (C != HEAD_DIM || B < 1 || H < 1 || Tq < 1 || Tk < 1 || nq < 1 || nk < 1 ||
       Tq % nq || Tk % nk) {
     return (int)cudaErrorInvalidValue;
@@ -299,9 +308,9 @@ extern "C" int gta_fused_fwd(const float* q, const float* k, const float* v, con
   const int64_t v_rs = v_side ? (int64_t)C : D;
 
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  gta_fwd_main_kernel<HEAD_DIM><<<grid, BQ, 0, stream>>>(q, kp, vp, mq, mo, cq, sq, out, H, Tq,
-                                                         Tk, nq, k_bs, k_hs, k_rs, v_bs, v_hs,
-                                                         v_rs, flags, scale);
+  gta_fwd_main_kernel<HEAD_DIM><<<grid, BQ, 0, stream>>>(q, kp, vp, mq, mo, cq, sq, out, z, lse,
+                                                         H, Tq, Tk, nq, k_bs, k_hs, k_rs, v_bs,
+                                                         v_hs, v_rs, flags, scale);
   return (int)cudaGetLastError();
 }
 

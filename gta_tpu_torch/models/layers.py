@@ -75,6 +75,34 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+class Dropout(nn.Module):
+    """Inverted dropout (flax nn.Dropout semantics: keep with probability
+    1 - p, scale kept values by 1 / (1 - p)) whose masks are drawn from an
+    explicit torch.Generator, never from torch's global RNG. The Trainer
+    owns that generator and hands it to every Dropout of its model
+    (`set_dropout_generator`). Identity in eval mode and at p = 0."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in training mode needs a generator (set_dropout_generator)")
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device, dtype=x.dtype) >= self.p
+        return x * keep / (1.0 - self.p)
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every Dropout mask of `model` from `generator`."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class FeedForward(nn.Module):
     """Linear-GELU-Linear with ViT init (reference layers.py:157-169);
     GELU is the exact erf form."""
@@ -84,9 +112,9 @@ class FeedForward(nn.Module):
         self.net = nn.Sequential(
             tagged(nn.Linear(dim, hidden_dim), "vit"),
             nn.GELU(),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             tagged(nn.Linear(hidden_dim, dim), "vit"),
-            nn.Dropout(dropout),
+            Dropout(dropout),
         )
 
     def forward(self, x):
@@ -136,7 +164,7 @@ class Attention(nn.Module):
         if heads == 1 and dim_head == dim:
             self.to_out = nn.Identity()
         else:
-            self.to_out = nn.Sequential(tagged(nn.Linear(inner, dim), "jax"), nn.Dropout(dropout))
+            self.to_out = nn.Sequential(tagged(nn.Linear(inner, dim), "jax"), Dropout(dropout))
 
     def forward(self, x, z=None, ctx: Optional[AttnContext] = None):
         if z is None:

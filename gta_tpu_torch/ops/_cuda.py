@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("gta_fused_fwd",)
+KERNELS = ("gta_fused_fwd", "gta_fused_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

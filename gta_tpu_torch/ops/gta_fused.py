@@ -1,6 +1,8 @@
-"""Fully fused GTA attention forward: rep transforms inside the kernel.
+"""Fully fused GTA attention, forward and backward: rep transforms inside
+the kernels.
 
-Port of gta_tpu/ops/gta_fused.py (`_fwd_kernel` and its dispatch through
+Port of gta_tpu/ops/gta_fused.py (`_fwd_kernel`, `_bwd_kernel`, the VJP glue
+`_core_fwd`/`_core_bwd` and the dispatch through
 ops/gta_pallas.fused_gta_attention). Operands arrive token-major
 [B, T, H*C], as the q/k/v projections produce them. The per-view group
 action (SE(3) vec4 blocks composed into one [C, C] block-diagonal matrix per
@@ -9,10 +11,14 @@ view by ops/gta._blockdiag_mat) is applied as a row-vector product
 full-width, identity-padded per-lane (cos, sin) tables; the output inverse
 rep applies before the store.
 
-Dispatch, with no fallbacks: a CPU tensor takes the plain PyTorch version
-(`gta_fused_fwd_plain`); a CUDA tensor launches the hand-written kernel
-(csrc/gta_fused_fwd.cu) or raises. Calls the kernel does not cover raise
-NotImplementedError naming their ROADMAP item, on every device.
+Dispatch, with no fallbacks: a CPU tensor takes the plain PyTorch versions
+(`gta_fused_fwd_plain`, `gta_fused_bwd_plain`); a CUDA tensor launches the
+hand-written kernels (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu) or
+raises. With grad enabled and an operand that requires it, the call goes
+through `GTAFusedAttention`, whose backward is the backward kernel; rotor
+tables get no cotangent, and autograd carries the matrix cotangents back
+through the table construction to `trans_coeff`. Calls the kernels do not
+cover raise NotImplementedError naming their ROADMAP item, on every device.
 
 Precision: fp32 throughout, fp32 FMA on the CUDA cores (the Pallas kernel
 rounds matmul operands to bf16 on the TPU; its fp32 interpret mode is what
@@ -23,7 +29,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,9 +39,10 @@ from gta_tpu_torch.ops import _cuda
 from gta_tpu_torch.ops.gta import _blockdiag_mat, _blockdiag_ok, _fw_rotors, _view_counts
 from gta_tpu_torch.ops.reps import GeomReps
 
-KERNEL_HEAD_DIM = 64  # the head width the CUDA kernel is compiled for
+KERNEL_HEAD_DIM = 64  # the head width the CUDA kernels are compiled for
+_DM_ROWS = 32  # rows per staging step of the backward's dM reduction (csrc/gta_fused_bwd.cu)
 
-# flag bits of the C interface (csrc/gta_fused_fwd.cu)
+# flag bits of the C interfaces (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu)
 _HAS_MQ, _HAS_MK, _HAS_MO, _HAS_ROTQ, _HAS_ROTK, _V_TRANSFORM = 1, 2, 4, 8, 16, 32
 
 
@@ -110,101 +118,161 @@ def _pair_swap_neg(z: torch.Tensor) -> torch.Tensor:
     return torch.stack((-zp[..., 1], zp[..., 0]), -1).reshape(z.shape)
 
 
-def gta_fused_fwd_plain(
-    qB: torch.Tensor, kB: torch.Tensor, vB: torch.Tensor, t: FusedTables, heads: int, scale: float
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same function of the same
-    inputs, as per-view einsums over the block-diagonal matrices and
-    full-width rotors. q [B, Tq, H*C], k/v [B, Tk, H*C] -> [B, Tq, H*C]."""
-    B, Tq, D = qB.shape
-    Tk = kB.shape[1]
-    C = D // heads
+class _Plain:
+    """Layout helpers of the plain versions for one call: heads-first
+    [B, H, T, C] views of token-major [B, T, H*C] operands, per-view
+    products and the full-width rotors."""
 
-    def heads_first(x, T):
-        return x.reshape(B, T, heads, C).transpose(1, 2)  # [B, H, T, C]
+    def __init__(self, B: int, heads: int, C: int):
+        self.B, self.H, self.C = B, heads, C
 
-    def per_view(x, M, n):  # x_row @ M[view]
-        return torch.einsum("bhntc,bncd->bhntd", x.reshape(B, heads, n, -1, C), M).reshape(x.shape)
+    def heads_first(self, x, T):
+        return x.reshape(self.B, T, self.H, self.C).transpose(1, 2)
 
+    def tokens(self, x):
+        return x.transpose(1, 2).reshape(self.B, x.shape[2], self.H * self.C)
+
+    def per_view(self, x, M, n, transpose=False):  # x_row @ M[view] (or M[view]^T)
+        eq = "bhntc,bndc->bhntd" if transpose else "bhntc,bncd->bhntd"
+        return torch.einsum(eq, x.reshape(self.B, self.H, n, -1, self.C), M).reshape(x.shape)
+
+    def dmat(self, x, y, n):  # sum over heads and a view's rows of x^T y -> [B, n, C, C]
+        shape = (self.B, self.H, n, -1, self.C)
+        return torch.einsum("bhntc,bhntd->bncd", x.reshape(shape), y.reshape(shape))
+
+    @staticmethod
     def rot(x, c, s, sign):
         return c[:, None] * x + sign * s[:, None] * _pair_swap_neg(x)
 
-    q, k, v = heads_first(qB, Tq), heads_first(kB, Tk), heads_first(vB, Tk)
-    qt = per_view(q, t.mq, t.nq) if t.mq is not None else q
-    if t.cq is not None:
-        qt = rot(qt, t.cq, t.sq, 1.0)
-    kt, vt = k, v
-    if t.mk is not None:
-        kt = per_view(k, t.mk, t.nk)
-        if t.v_transform:
-            vt = per_view(v, t.mk, t.nk)
-    if t.ck is not None:
-        kt = rot(kt, t.ck, t.sk, 1.0)
-        if t.v_transform:
-            vt = rot(vt, t.ck, t.sk, 1.0)
+    def transform(self, q, k, v, t: FusedTables):
+        """(qt, kt, vt) of heads-first q, k, v: _transform_sides."""
+        qt = self.per_view(q, t.mq, t.nq) if t.mq is not None else q
+        if t.cq is not None:
+            qt = self.rot(qt, t.cq, t.sq, 1.0)
+        kt, vt = k, v
+        if t.mk is not None:
+            kt = self.per_view(k, t.mk, t.nk)
+            if t.v_transform:
+                vt = self.per_view(v, t.mk, t.nk)
+        if t.ck is not None:
+            kt = self.rot(kt, t.ck, t.sk, 1.0)
+            if t.v_transform:
+                vt = self.rot(vt, t.ck, t.sk, 1.0)
+        return qt, kt, vt
+
+
+def gta_fused_fwd_plain(
+    qB: torch.Tensor,
+    kB: torch.Tensor,
+    vB: torch.Tensor,
+    t: FusedTables,
+    heads: int,
+    scale: float,
+    store_z: bool = False,
+):
+    """Plain PyTorch version of the forward kernel: the same function of the
+    same inputs, as per-view einsums over the block-diagonal matrices and
+    full-width rotors. q [B, Tq, H*C], k/v [B, Tk, H*C] -> [B, Tq, H*C];
+    with `store_z`, (out, z) where z is the output before the output
+    transform (the Pallas kernel's `store_z`)."""
+    B, Tq, D = qB.shape
+    Tk = kB.shape[1]
+    P = _Plain(B, heads, D // heads)
+    qt, kt, vt = P.transform(P.heads_first(qB, Tq), P.heads_first(kB, Tk), P.heads_first(vB, Tk), t)
     sim = torch.einsum("bhqc,bhkc->bhqk", qt, kt) * scale
-    p = torch.softmax(sim.float(), dim=-1)
-    o = torch.einsum("bhqk,bhkc->bhqc", p, vt)
+    p = torch.softmax(sim, dim=-1)
+    z = torch.einsum("bhqk,bhkc->bhqc", p, vt)
+    o = z
     if t.v_transform:
         if t.mo is not None:
-            o = per_view(o, t.mo, t.nq)
+            o = P.per_view(o, t.mo, t.nq)
         if t.cq is not None:
-            o = rot(o, t.cq, t.sq, -1.0)
-    return o.transpose(1, 2).reshape(B, Tq, D)
+            o = P.rot(o, t.cq, t.sq, -1.0)
+    out = P.tokens(o)
+    return (out, P.tokens(z)) if store_z else out
+
+
+def gta_fused_bwd_plain(
+    qB: torch.Tensor,
+    kB: torch.Tensor,
+    vB: torch.Tensor,
+    t: FusedTables,
+    heads: int,
+    scale: float,
+    g: torch.Tensor,
+    z: torch.Tensor,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the backward kernel: `_bwd_kernel`'s
+    formulas written out (recompute the transformed triple and the softmax,
+    then the output, core, query and key/value chains).
+
+    g: the cotangent of the forward's output, z: its `store_z` output, both
+    [B, Tq, H*C]. Returns (dq, dk, dv, dmq, dmk, dmo) in the kernel's
+    layouts: token-major dq/dk/dv, per-view [B, N, C, C] matrix cotangents
+    summed over heads (None where the table is absent)."""
+    B, Tq, D = qB.shape
+    Tk = kB.shape[1]
+    P = _Plain(B, heads, D // heads)
+    q0, k0, v0 = P.heads_first(qB, Tq), P.heads_first(kB, Tk), P.heads_first(vB, Tk)
+    qt, kt, vt = P.transform(q0, k0, v0, t)
+    s = torch.einsum("bhqc,bhkc->bhqk", qt, kt) * scale
+    p = torch.softmax(s, dim=-1)
+    gh = P.heads_first(g, Tq)
+
+    # output chain: out = rot_q^-1(z @ Mo)
+    dmq = dmk = dmo = None
+    if t.v_transform:
+        dz = P.rot(gh, t.cq, t.sq, 1.0) if t.cq is not None else gh
+        if t.mo is not None:
+            do = P.per_view(dz, t.mo, t.nq, transpose=True)
+            dmo = P.dmat(P.heads_first(z, Tq), dz, t.nq)
+        else:
+            do = dz
+    else:
+        do = gh
+
+    # attention core
+    dp = torch.einsum("bhqc,bhkc->bhqk", do, vt)
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dqt = torch.einsum("bhqk,bhkc->bhqc", ds, kt)
+    dkt = torch.einsum("bhqk,bhqc->bhkc", ds, qt)
+    dvt = torch.einsum("bhqk,bhqc->bhkc", p, do)
+
+    # query chain: qt = rot_q(q @ Mq)
+    dzq = P.rot(dqt, t.cq, t.sq, -1.0) if t.cq is not None else dqt
+    if t.mq is not None:
+        dq = P.per_view(dzq, t.mq, t.nq, transpose=True)
+        dmq = P.dmat(q0, dzq, t.nq)
+    else:
+        dq = dzq
+
+    # key / value chain: kt = rot_k(k @ Mk), vt = rot_k(v @ Mk)
+    dzk, dzv = dkt, dvt
+    if t.ck is not None:
+        dzk = P.rot(dkt, t.ck, t.sk, -1.0)
+        if t.v_transform:
+            dzv = P.rot(dvt, t.ck, t.sk, -1.0)
+    dk, dv = dzk, dzv
+    if t.mk is not None:
+        dk = P.per_view(dzk, t.mk, t.nk, transpose=True)
+        dmk = P.dmat(k0, dzk, t.nk)
+        if t.v_transform:
+            dv = P.per_view(dzv, t.mk, t.nk, transpose=True)
+            dmk = dmk + P.dmat(v0, dzv, t.nk)
+    return P.tokens(dq), P.tokens(dk), P.tokens(dv), dmq, dmk, dmo
 
 
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else ctypes.c_void_p(x.data_ptr())
 
 
-def _bind():
-    lib = _cuda.load("gta_fused_fwd")
-    fn = lib.gta_fused_fwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.gta_fused_error_string.argtypes = [ctypes.c_int]
-    lib.gta_fused_error_string.restype = ctypes.c_char_p
-    return lib
+def _tables(t: FusedTables):
+    return [t.mq, t.mk, t.mo, t.cq, t.sq, t.ck, t.sk]
 
 
-def gta_fused_fwd(
-    qB: torch.Tensor, kB: torch.Tensor, vB: torch.Tensor, t: FusedTables, heads: int, scale: float
-) -> torch.Tensor:
-    """Fused GTA attention forward over token-major operands.
-
-    CPU tensors take `gta_fused_fwd_plain`; CUDA tensors launch the kernel
-    or raise. `gta_fused_fwd.launches` counts launches of the C entry
-    point: each one runs the K/V prologue kernel (when K/V have a
-    transform) and then the main kernel, so the card sees up to two
-    kernel launches per count.
-    """
-    if qB.device.type == "cpu":
-        return gta_fused_fwd_plain(qB, kB, vB, t, heads, scale)
-    if qB.device.type != "cuda":
-        raise NotImplementedError(f"no fused GTA kernel for device {qB.device}")
-    tables = [t.mq, t.mk, t.mo, t.cq, t.sq, t.ck, t.sk]
-    operands = [qB, kB, vB] + [x for x in tables if x is not None]
-    if torch.is_grad_enabled() and any(x.requires_grad for x in operands):
-        raise NotImplementedError(
-            "the fused GTA backward kernel is not ported yet (ROADMAP queue 2, _bwd_kernel)"
-        )
-    B, Tq, D = qB.shape
-    Tk = kB.shape[1]
-    C = D // heads
-    if C != KERNEL_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA kernel is built for head dim {KERNEL_HEAD_DIM}, got {C} "
-            "(ROADMAP queue 1, msn_so3 slice and other configs)"
-        )
-    for x in operands:
-        if x.device != qB.device or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError("fused GTA kernel operands must be contiguous fp32 on one CUDA device")
-    if kB.shape != (B, Tk, D) or vB.shape != (B, Tk, D) or D != heads * C:
-        raise ValueError(f"bad operand shapes q {tuple(qB.shape)} k {tuple(kB.shape)} v {tuple(vB.shape)}")
-    if Tq % t.nq or Tk % t.nk:
-        raise ValueError(f"token counts ({Tq}, {Tk}) do not divide into views ({t.nq}, {t.nk})")
-
-    flags = (
+def _flags(t: FusedTables) -> int:
+    return (
         (_HAS_MQ if t.mq is not None else 0)
         | (_HAS_MK if t.mk is not None else 0)
         | (_HAS_MO if t.mo is not None else 0)
@@ -212,28 +280,232 @@ def gta_fused_fwd(
         | (_HAS_ROTK if t.ck is not None else 0)
         | (_V_TRANSFORM if t.v_transform else 0)
     )
+
+
+def _check_kernel_call(name, qB, kB, vB, t: FusedTables, heads: int, extra=()):
+    """Validate a kernel launch's operands; returns (B, Tq, Tk, D, C)."""
+    if qB.device.type != "cuda":
+        raise NotImplementedError(f"no fused GTA kernel for device {qB.device}")
+    B, Tq, D = qB.shape
+    Tk = kB.shape[1]
+    C = D // heads
+    if C != KERNEL_HEAD_DIM:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is built for head dim {KERNEL_HEAD_DIM}, got {C} "
+            "(ROADMAP queue 1 item 3, msn_so3 slice and other configs)"
+        )
+    for x in [qB, kB, vB, *extra] + [x for x in _tables(t) if x is not None]:
+        if x.device != qB.device or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} operands must be contiguous fp32 on one CUDA device")
+    if kB.shape != (B, Tk, D) or vB.shape != (B, Tk, D) or D != heads * C:
+        raise ValueError(f"bad operand shapes q {tuple(qB.shape)} k {tuple(kB.shape)} v {tuple(vB.shape)}")
+    if Tq % t.nq or Tk % t.nk:
+        raise ValueError(f"token counts ({Tq}, {Tk}) do not divide into views ({t.nq}, {t.nk})")
+    return B, Tq, Tk, D, C
+
+
+def _bind_fwd():
+    lib = _cuda.load("gta_fused_fwd")
+    fn = lib.gta_fused_fwd
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.gta_fused_error_string.argtypes = [ctypes.c_int]
+    lib.gta_fused_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bind_bwd():
+    lib = _cuda.load("gta_fused_bwd")
+    fn = lib.gta_fused_bwd
+    fn.argtypes = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.gta_fused_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.gta_fused_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@dataclasses.dataclass
+class Residuals:
+    """What the backward needs from its forward besides the inputs.
+
+    z: [B, Tq, H*C], the output before the output transform (`store_z`;
+    the output itself without v_transform). The kernel's forward also keeps
+    lse [B, H, Tq], each row's log-sum-exp of the scaled scores, and its
+    transformed K/V scratch kt/vt [B, H, Tk, C] (None where K/V have no
+    transform); the plain version recomputes them and leaves them None.
+    """
+
+    z: torch.Tensor
+    lse: Optional[torch.Tensor] = None
+    kt: Optional[torch.Tensor] = None
+    vt: Optional[torch.Tensor] = None
+
+
+def gta_fused_fwd(
+    qB: torch.Tensor,
+    kB: torch.Tensor,
+    vB: torch.Tensor,
+    t: FusedTables,
+    heads: int,
+    scale: float,
+    residuals: bool = False,
+):
+    """Fused GTA attention forward over token-major operands.
+
+    CPU tensors take `gta_fused_fwd_plain`; CUDA tensors launch the kernel
+    or raise. With `residuals`, returns (out, Residuals) for the backward.
+    `gta_fused_fwd.launches` counts launches of the C entry point: each one
+    runs the K/V prologue kernel (when K/V have a transform) and then the
+    main kernel, so the card sees up to two kernel launches per count.
+    """
+    if qB.device.type == "cpu":
+        if residuals:
+            out, z = gta_fused_fwd_plain(qB, kB, vB, t, heads, scale, store_z=True)
+            return out, Residuals(z)
+        return gta_fused_fwd_plain(qB, kB, vB, t, heads, scale)
+    B, Tq, Tk, D, C = _check_kernel_call("gta_fused_fwd", qB, kB, vB, t, heads)
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in [qB, kB, vB] + _tables(t)):
+        raise RuntimeError(
+            "gta_fused_fwd's output carries no autograd graph: differentiate through "
+            "fused_gta_attention_tokens (GTAFusedAttention)"
+        )
+    dev = qB.device
     kv_transform = t.mk is not None or t.ck is not None
-    kt = torch.empty((B, heads, Tk, C), dtype=torch.float32, device=qB.device) if kv_transform else None
+    kt = torch.empty((B, heads, Tk, C), dtype=torch.float32, device=dev) if kv_transform else None
     vt = (
-        torch.empty((B, heads, Tk, C), dtype=torch.float32, device=qB.device)
+        torch.empty((B, heads, Tk, C), dtype=torch.float32, device=dev)
         if kv_transform and t.v_transform else None
     )
     out = torch.empty_like(qB)
-    lib = _bind()
-    stream = torch.cuda.current_stream(qB.device).cuda_stream
-    with torch.cuda.device(qB.device):
+    z = torch.empty_like(qB) if residuals and t.v_transform else None
+    lse = torch.empty((B, heads, Tq), dtype=torch.float32, device=dev) if residuals else None
+    lib = _bind_fwd()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         err = lib.gta_fused_fwd(
             _ptr(qB), _ptr(kB), _ptr(vB), _ptr(t.mq), _ptr(t.mk), _ptr(t.mo),
             _ptr(t.cq), _ptr(t.sq), _ptr(t.ck), _ptr(t.sk), _ptr(kt), _ptr(vt), _ptr(out),
-            B, heads, Tq, Tk, C, t.nq, t.nk, flags, float(scale), ctypes.c_void_p(stream),
+            _ptr(z), _ptr(lse), B, heads, Tq, Tk, C, t.nq, t.nk, _flags(t), float(scale),
+            ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"gta_fused_fwd launch failed: {lib.gta_fused_error_string(err).decode()}")
     gta_fused_fwd.launches += 1
+    if residuals:
+        return out, Residuals(out if z is None else z, lse, kt, vt)
     return out
 
 
 gta_fused_fwd.launches = 0
+
+
+def _dm_splits(dev: torch.device, B: int, n: int, rows_per_view: int) -> int:
+    """Row slices per (batch, view) in the dM reduction: enough blocks for
+    two per SM, each slice at least one staging step of rows."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(math.ceil(2 * sms / (B * n)), math.ceil(rows_per_view / _DM_ROWS)))
+
+
+def gta_fused_bwd(
+    qB: torch.Tensor,
+    kB: torch.Tensor,
+    vB: torch.Tensor,
+    t: FusedTables,
+    heads: int,
+    scale: float,
+    g: torch.Tensor,
+    res: Residuals,
+) -> Tuple[torch.Tensor, ...]:
+    """Fused GTA attention backward: (dq, dk, dv, dmq, dmk, dmo) as
+    `gta_fused_bwd_plain` returns them.
+
+    CPU tensors take `gta_fused_bwd_plain` (from g and res.z); CUDA tensors
+    launch the kernel (csrc/gta_fused_bwd.cu) with the forward kernel's
+    residuals, or raise. `gta_fused_bwd.launches` counts launches of the C
+    entry point (a query pass, a key pass, and a reduction pair per matrix
+    cotangent).
+    """
+    if qB.device.type == "cpu":
+        return gta_fused_bwd_plain(qB, kB, vB, t, heads, scale, g, res.z)
+    kv_transform = t.mk is not None or t.ck is not None
+    if res.lse is None or (kv_transform and res.kt is None) or (
+        kv_transform and t.v_transform and res.vt is None
+    ):
+        raise ValueError("gta_fused_bwd needs the forward kernel's residuals (lse, kt, vt)")
+    extra = [g, res.z, res.lse] + [x for x in (res.kt, res.vt) if x is not None]
+    B, Tq, Tk, D, C = _check_kernel_call("gta_fused_bwd", qB, kB, vB, t, heads, extra)
+    if g.shape != qB.shape or res.z.shape != qB.shape or res.lse.shape != (B, heads, Tq):
+        raise ValueError("gta_fused_bwd: g, z must be [B, Tq, H*C] and lse [B, H, Tq]")
+    dev = qB.device
+
+    def empty(shape, cond=True):
+        return torch.empty(shape, dtype=torch.float32, device=dev) if cond else None
+
+    has_mo = t.mo is not None and t.v_transform
+    qt_s, do_s = empty((B, heads, Tq, C)), empty((B, heads, Tq, C))
+    delta = empty((B, heads, Tq))
+    dzq = empty((B, Tq, D), t.mq is not None)
+    dz = empty((B, Tq, D), has_mo)
+    dzk = empty((B, Tk, D), t.mk is not None)
+    dzv = empty((B, Tk, D), t.mk is not None and t.v_transform)
+    splits_q = _dm_splits(dev, B, t.nq, Tq // t.nq * heads)
+    splits_k = _dm_splits(dev, B, t.nk, Tk // t.nk * heads)
+    part = empty((B * max(t.nq * splits_q, t.nk * splits_k), C, C))
+    dq, dk, dv = torch.empty_like(qB), torch.empty_like(kB), torch.empty_like(vB)
+    dmq, dmk = (None if M is None else torch.empty_like(M) for M in (t.mq, t.mk))
+    dmo = torch.empty_like(t.mo) if has_mo else None
+    lib = _bind_bwd()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.gta_fused_bwd(
+            _ptr(qB), _ptr(kB), _ptr(vB), _ptr(t.mq), _ptr(t.mk), _ptr(t.mo),
+            _ptr(t.cq), _ptr(t.sq), _ptr(t.ck), _ptr(t.sk), _ptr(g), _ptr(res.z),
+            _ptr(res.lse), _ptr(res.kt), _ptr(res.vt), _ptr(qt_s), _ptr(do_s), _ptr(delta),
+            _ptr(dzq), _ptr(dz), _ptr(dzk), _ptr(dzv), _ptr(part), _ptr(dq), _ptr(dk), _ptr(dv),
+            _ptr(dmq), _ptr(dmk), _ptr(dmo), B, heads, Tq, Tk, C, t.nq, t.nk, splits_q, splits_k,
+            _flags(t), float(scale), ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"gta_fused_bwd launch failed: {lib.gta_fused_bwd_error_string(err).decode()}")
+    gta_fused_bwd.launches += 1
+    return dq, dk, dv, dmq, dmk, dmo
+
+
+gta_fused_bwd.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class _Static:
+    heads: int
+    scale: float
+    nq: int
+    nk: int
+    v_transform: bool
+
+
+class GTAFusedAttention(torch.autograd.Function):
+    """The fused forward with the fused backward as its gradient
+    (`_core` with `_core_fwd`/`_core_bwd`): cotangents for q, k, v and the
+    matrix tables; None for the rotor tables, which are functions of data
+    coordinates only."""
+
+    @staticmethod
+    def forward(ctx, qB, kB, vB, mq, mk, mo, cq, sq, ck, sk, st: _Static):
+        t = FusedTables(mq, mk, mo, cq, sq, ck, sk, st.nq, st.nk, st.v_transform)
+        out, res = gta_fused_fwd(qB, kB, vB, t, st.heads, st.scale, residuals=True)
+        ctx.st = st
+        ctx.save_for_backward(qB, kB, vB, mq, mk, mo, cq, sq, ck, sk, res.z, res.lse, res.kt, res.vt)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qB, kB, vB, mq, mk, mo, cq, sq, ck, sk, z, lse, kt, vt = ctx.saved_tensors
+        st = ctx.st
+        t = FusedTables(mq, mk, mo, cq, sq, ck, sk, st.nq, st.nk, st.v_transform)
+        dq, dk, dv, dmq, dmk, dmo = gta_fused_bwd(
+            qB, kB, vB, t, st.heads, st.scale, g.contiguous(), Residuals(z, lse, kt, vt)
+        )
+        return dq, dk, dv, dmq, dmk, dmo, None, None, None, None, None
 
 
 def fused_gta_attention_tokens(
@@ -246,8 +518,15 @@ def fused_gta_attention_tokens(
     trans_coeff: Optional[torch.Tensor],
     scale: float,
 ) -> torch.Tensor:
-    """GTA attention over token-major [B, T, H*C] operands (the layer's entry)."""
+    """GTA attention over token-major [B, T, H*C] operands (the layer's
+    entry). Differentiable through `GTAFusedAttention` when grad is enabled
+    and an operand requires it."""
     check_supported(reps, args, qB.shape[1], kB.shape[1])
     t = fused_tables(reps, args, trans_coeff)
-    return gta_fused_fwd(qB.contiguous(), kB.contiguous(), vB.contiguous(), t, heads, scale)
-
+    qB, kB, vB = qB.contiguous(), kB.contiguous(), vB.contiguous()
+    if torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in [qB, kB, vB] + _tables(t)
+    ):
+        st = _Static(heads, float(scale), t.nq, t.nk, t.v_transform)
+        return GTAFusedAttention.apply(qB, kB, vB, *_tables(t), st)
+    return gta_fused_fwd(qB, kB, vB, t, heads, scale)

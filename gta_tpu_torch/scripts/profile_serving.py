@@ -31,6 +31,8 @@ def _kind(name: str) -> str:
     n = name.lower()
     if "gta_fwd" in n:
         return "gta_fused_fwd (this repo)"
+    if "gta_bwd" in n:
+        return "gta_fused_bwd (this repo)"
     # cuDNN's fp32 conv algorithms: implicit GEMM ("fprop"), FFT, layout
     # transforms; checked before "gemm", which implicit-GEMM names contain
     conv_marks = ("conv", "fprop", "fft", "pointwise_mult_and_sum_complex", "nhwctonchw", "cudnn")

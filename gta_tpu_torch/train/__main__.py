@@ -1,0 +1,151 @@
+"""Training entry point of the port (the JAX package's train.py, single device).
+
+Usage:
+    python -m gta_tpu_torch.train <config.yaml> [--synthetic] [--outdir DIR]
+        [--exit-after N] [--evalnow] [--max-eval N] [--seed S]
+        [--batch-size B] [--device cuda|cpu]
+
+Trains on synthetic CLEVR-TR-shaped scenes (the only data family ported so
+far; a config without a data path falls back to them, as train.py does).
+Every `print_every` steps it prints the loss and lr, every `validate_every`
+it evaluates on the val split (--max-eval scenes) and keeps `best` by
+`model_selection_metric`, every `checkpoint_every` it writes the rolling
+checkpoint and every `backup_every` a stamped backup, all under
+<outdir>/ckpts/. A rerun with the same outdir resumes from the newest
+checkpoint and prints "Resumed from checkpoint at it=N". --exit-after N
+stops after step N (N + 1 steps from scratch) and saves `latest`. The
+device defaults to CUDA and the run fails without it unless --device cpu
+is given. Not ported yet: --visnow and visualisation (ROADMAP queue 1
+item 4), loader workers (item 6), gradient accumulation and multi-device
+flags (item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import datetime
+import os
+import time
+
+import numpy as np
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train a NVS model (PyTorch/CUDA port)")
+    parser.add_argument("config", type=str, help="Path to config file")
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--outdir", type=str, default=None)
+    parser.add_argument("--exit-after", type=int, default=None)
+    parser.add_argument("--evalnow", action="store_true")
+    parser.add_argument("--max-eval", type=int, default=None)
+    parser.add_argument("--synthetic", action="store_true", help="use synthetic scenes")
+    parser.add_argument("--batch-size", type=int, default=None, help="override the batch size")
+    parser.add_argument("--device", type=str, default=None, help="default: cuda")
+    args = parser.parse_args(argv)
+    if not os.path.exists(args.config):
+        parser.error(f"config file not found: {args.config}")
+
+    from gta_tpu_torch.config import load_config
+    from gta_tpu_torch.data.loader import Loader
+    from gta_tpu_torch.data.registry import get_dataset
+    from gta_tpu_torch.train.checkpoint import Checkpointer
+    from gta_tpu_torch.train.trainer import Trainer
+
+    cfg = load_config(args.config)
+    if args.synthetic or (cfg.data.dataset != "synthetic" and not cfg.data.path):
+        print("No datapath given — falling back to synthetic scenes.")
+        h, w, ds = cfg.data.height, cfg.data.width, cfg.data.downsample
+        cfg = dataclasses.replace(
+            cfg,
+            data=dataclasses.replace(
+                cfg.data,
+                dataset="synthetic",
+                height=h // (2**ds) if ds else h,
+                width=w // (2**ds) if ds else w,
+                downsample=0,
+            ),
+        )
+    if args.seed is not None:
+        cfg = dataclasses.replace(cfg, seed=args.seed)
+    if args.batch_size is not None:
+        cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, batch_size=args.batch_size))
+    t_cfg = cfg.training
+    max_it = args.exit_after if args.exit_after is not None else t_cfg.max_it
+    out_dir = args.outdir or os.path.dirname(args.config)
+    if args.seed is not None:
+        out_dir = os.path.join(out_dir, f"seed{args.seed}")
+    os.makedirs(out_dir, exist_ok=True)
+    sel_sign = 1 if t_cfg.model_selection_mode == "maximize" else -1
+    sel_metric = t_cfg.model_selection_metric
+
+    print(f"Loading training set ({cfg.data.dataset})...")
+    train_ds = get_dataset("train", cfg.data, seed=cfg.seed)
+    eval_ds = get_dataset("val", cfg.data, max_len=args.max_eval)
+    train_loader = Loader(train_ds, t_cfg.batch_size, shuffle=True, seed=cfg.seed)
+    val_loader = Loader(eval_ds, max(1, t_cfg.batch_size // 8), shuffle=False)
+
+    trainer = Trainer(cfg, device=args.device)
+    ckpt = Checkpointer(out_dir)
+    counts = trainer.param_counts()
+    print(
+        f"Number of parameters: encoder {counts['encoder']:,}, "
+        f"decoder {counts['decoder']:,}, total {counts['total']:,}"
+    )
+    restored, scalars = ckpt.try_restore_latest(trainer, max_it)
+    if restored:
+        print(f"Resumed from checkpoint at it={trainer.step}")
+    epoch_it = scalars.get("epoch_it", -1)
+    time_elapsed = scalars.get("t", 0.0)
+    metric_val_best = scalars.get("loss_val_best", -sel_sign * np.inf)
+
+    it = trainer.step - 1
+    evalnow = args.evalnow
+    t_resumed = time_elapsed
+    session_start = time.perf_counter()
+    while True:
+        epoch_it += 1
+        train_loader.set_epoch(epoch_it)
+        for batch in train_loader:
+            it += 1
+            time_elapsed = t_resumed + time.perf_counter() - session_start
+            scalars_out = {
+                "epoch_it": epoch_it,
+                "it": it,
+                "t": time_elapsed,
+                "loss_val_best": float(metric_val_best),
+            }
+            if t_cfg.checkpoint_every > 0 and it % t_cfg.checkpoint_every == 0 and it > 0:
+                ckpt.save("latest", trainer, scalars_out)
+                print("Checkpoint saved.")
+            if t_cfg.backup_every > 0 and it % t_cfg.backup_every == 0 and it > 0:
+                ckpt.save(f"step_{it}", trainer, scalars_out)
+                print("Backup checkpoint saved.")
+
+            if evalnow or (it > 0 and t_cfg.validate_every > 0 and it % t_cfg.validate_every == 0):
+                print("Evaluating...")
+                eval_dict = trainer.evaluate(iter(val_loader))
+                print("Evaluation results:", eval_dict)
+                metric_val = eval_dict[sel_metric]
+                if sel_sign * (metric_val - metric_val_best) > 0:
+                    metric_val_best = metric_val
+                    print(f"New best model ({sel_metric} {metric_val_best:.6f})")
+                    scalars_out["loss_val_best"] = float(metric_val_best)
+                    ckpt.save("best", trainer, scalars_out)
+                evalnow = False
+
+            metrics = trainer.train_step(batch)
+
+            if t_cfg.print_every > 0 and it % t_cfg.print_every == 0:
+                loss, lr = float(metrics["loss"]), float(metrics["lr"])
+                elapsed = str(datetime.timedelta(seconds=int(time_elapsed)))
+                print(f"{out_dir} t={elapsed} [Epoch {epoch_it:02d}] it={it}, loss={loss:.4f} lr={lr:.3e}")
+
+            if it >= max_it:
+                print("Iteration limit reached. Exiting.")
+                ckpt.save("latest", trainer, scalars_out)
+                return
+
+
+if __name__ == "__main__":
+    main()

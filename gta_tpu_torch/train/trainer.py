@@ -1,17 +1,19 @@
-"""Runtime for the port (reference trainer.py analogue), serving half.
+"""Runtime for the port (reference trainer.py analogue).
 
-`Trainer` owns the model on an explicit device and runs evaluation and
-rendering: `eval_step`, `evaluate`, `render_image`, `render_rays`. The
-train step comes with the backward kernel (ROADMAP queue 2, _bwd_kernel).
+`Trainer` owns the model on an explicit device, its optimizer, LR schedule
+and dropout generator, and runs the train step (`train_step`: fp32 pixel
+MSE -> backward through the fused GTA kernels -> AdamW) and evaluation and
+rendering (`eval_step`, `evaluate`, `render_image`, `render_rays`, always
+with dropout off).
 
 Precision policy for fp32 configs: true fp32. TF32 is switched off for
-both matmuls and cuDNN convolutions, and the fused attention kernel uses
+both matmuls and cuDNN convolutions, and the fused attention kernels use
 fp32 FMA on the CUDA cores.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,8 +21,9 @@ import torch
 from gta_tpu_torch.config import Config
 from gta_tpu_torch.geometry.coords import make_2dcoord
 from gta_tpu_torch.models.context import SceneBatch
-from gta_tpu_torch.models.layers import init_weights
+from gta_tpu_torch.models.layers import init_weights, set_dropout_generator
 from gta_tpu_torch.models.srt import build_model
+from gta_tpu_torch.train.schedule import warmup_exp_decay
 from gta_tpu_torch.utils.metrics import mse2psnr
 
 
@@ -37,22 +40,111 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 
 class Trainer:
-    """Owns the model and the evaluation / rendering entry points."""
+    """Owns the model, its optimizer and schedule, and the train, evaluation
+    and rendering entry points. `seed` (default cfg.seed) draws the initial
+    weights and seeds the dropout generator."""
 
     def __init__(self, cfg: Config, device: Optional[str] = None, seed: Optional[int] = None):
-        if cfg.training.mixed_prec:
+        t = cfg.training
+        if t.mixed_prec:
             raise NotImplementedError("mixed precision is not ported yet (ROADMAP queue 1)")
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
+        seed = cfg.seed if seed is None else seed
         self.model = build_model(cfg.model)
-        gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-        init_weights(self.model, gen)
+        init_weights(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(seed)
+        set_dropout_generator(self.model, self.dropout_generator)
+        # optax adam / adamw (b1 0.9, b2 0.999, eps 1e-8); adamw decays every
+        # parameter, LayerNorms and biases included, as optax does
+        if t.noadamW:
+            self.optimizer = torch.optim.Adam(self.model.parameters(), lr=t.lr)
+        else:
+            self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=t.lr, weight_decay=t.weight_decay)
+        self.schedule = warmup_exp_decay(t.lr, t.lr_warmup, t.decay_it, t.decay_rate)
+        # stepped after each optimizer step: step k uses schedule(k), so the
+        # first step under warmup has lr 0 (optax reads the count before
+        # incrementing it)
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            self.optimizer, lambda it: self.schedule(it) / t.lr
+        )
+        self.step = 0
 
-    def train_step(self, *args, **kwargs):
-        raise NotImplementedError("the train step is not ported yet (ROADMAP queue 1, next slice)")
+    def param_counts(self) -> Dict[str, int]:
+        def count(module):
+            return sum(p.numel() for p in module.parameters())
+
+        return {
+            "encoder": count(self.model.encoder),
+            "decoder": count(self.model.decoder),
+            "total": count(self.model),
+        }
+
+    # ------------------------------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "dropout_generator": self.dropout_generator.get_state(),
+            "step": self.step,
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.dropout_generator.set_state(state["dropout_generator"])
+        self.step = int(state["step"])
+
+    # ------------------------------------------------------------------
+    def _loss_fn(self, batch: SceneBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(batch-mean loss, per-item MSE): fp32 MSE over every target view
+        and point of an item, then the mean over the batch
+        (reference trainer.py:119-121)."""
+        pred, _ = self.model(batch)
+        target = batch.target_pixels.reshape(batch.target_pixels.shape[0], -1, 3)
+        mse = torch.mean((pred.float() - target) ** 2, dim=(1, 2))
+        return torch.mean(mse), mse
+
+    def loss_and_grads(self, batch: SceneBatch):
+        """(loss, per-item MSE, grads): the loss of `batch` in training mode
+        and its gradient for every parameter (zeros where a parameter does
+        not reach the loss), left in each parameter's `.grad`."""
+        batch = batch.to(self.device)
+        self.model.train()
+        try:
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, mse = self._loss_fn(batch)
+            loss.backward()
+        finally:
+            self.model.eval()
+        grads = []
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        return loss.detach(), mse.detach(), grads
+
+    def train_step(self, batch: SceneBatch) -> Dict[str, Any]:
+        """One optimizer step on `batch`. Returns loss, mse (batch mean),
+        lr (the rate this step used) and grad_norm (global L2 norm of the
+        gradients before the update); loss, mse and grad_norm stay on the
+        device."""
+        if self.cfg.training.grad_accum > 1:
+            raise NotImplementedError(
+                "gradient accumulation is not ported yet (ROADMAP queue 1 item 9)"
+            )
+        loss, mse, grads = self.loss_and_grads(batch)
+        grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        lr = self.scheduler.get_last_lr()[0]
+        self.optimizer.step()
+        self.scheduler.step()
+        self.step += 1
+        return {"loss": loss, "mse": torch.mean(mse), "lr": lr, "grad_norm": grad_norm}
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -13,7 +13,7 @@ import torch
 
 from gta_tpu_torch.config import FDims, GTAArgs
 from gta_tpu_torch.ops import gta_fused as tgf
-from gta_tpu_torch.ops.reps import encoder_reps
+from gta_tpu_torch.ops.reps import decoder_reps, encoder_reps
 
 B, H, C = 2, 6, 64
 SCALE = C**-0.5
@@ -51,17 +51,35 @@ def _inputs(rng, args, device, tq=600, tk=600, nv=2):
     tf = torch.from_numpy(np.stack([random_se3(rng, nv) for _ in range(B)]))
     reps = encoder_reps(args, coord.to(device), tf.to(device))
     cpu_reps = encoder_reps(args, coord, tf)
+    if tq != tk:  # decoder cross-attention: 3 target views against the encoder's keys
+        t_coord = torch.from_numpy(rng.rand(B, 3, tq // 3, 2).astype(np.float32))
+        t_tf = torch.from_numpy(np.stack([random_se3(rng, 3) for _ in range(B)]))
+
+        def dec(enc, dev):
+            return decoder_reps(
+                args, target_coord=t_coord.to(dev), target_transforms=t_tf.to(dev),
+                input_coord=coord.to(dev), input_transforms=tf.to(dev), enc=enc,
+            )
+
+        reps, cpu_reps = dec(reps, device), dec(cpu_reps, "cpu")
     qkv = [torch.from_numpy(rng.randn(B, H, t, C).astype(np.float32)) for t in (tq, tk, tk)]
     return reps, cpu_reps, qkv
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("fd,so2,vt", [
+def _tokens(x):
+    return x.transpose(1, 2).reshape(B, x.shape[2], -1).contiguous()
+
+
+BRANCHES = [
     (dict(se3=32, so2=32), 8, True),
     (dict(so2=64), 16, True),
     (dict(se3=64), 0, True),
     (dict(triv=16, se3=16, so2=32), 8, False),
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fd,so2,vt", BRANCHES)
 def test_gta_fused_fwd_matches_plain(rng, cuda_device, fd, so2, vt):
     """Every flag branch at C = 64, 300-token views (off any tile grid) and
     a ragged last K tile; atol 1e-4: the order of summation over 600 keys
@@ -79,15 +97,112 @@ def test_gta_fused_fwd_matches_plain(rng, cuda_device, fd, so2, vt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tq", [600, 192])
+@pytest.mark.parametrize("fd,so2,vt", BRANCHES)
+def test_gta_fused_bwd_matches_plain(rng, cuda_device, fd, so2, vt, tq):
+    """The backward kernel against its plain version on the same card
+    inputs, every flag branch at C = 64 with 300-token key views (and
+    3 x 64-ray query views for tq = 192). Each output within
+    1e-4 * max(1, max|plain|): fp32, the order of summation over keys,
+    queries and (row, head) pairs differs."""
+    args = GTAArgs(f_dims=FDims(**fd), so2=so2, v_transform=vt)
+    reps, _, (q, k, v) = _inputs(rng, args, cuda_device, tq=tq)
+    qB, kB, vB = (_tokens(x).to(cuda_device) for x in (q, k, v))
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        _, res = tgf.gta_fused_fwd(qB, kB, vB, t, H, SCALE, residuals=True)
+        g = torch.randn(qB.shape, generator=torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+        before = tgf.gta_fused_bwd.launches
+        got = tgf.gta_fused_bwd(qB, kB, vB, t, H, SCALE, g, res)
+        torch.cuda.synchronize()
+        assert tgf.gta_fused_bwd.launches == before + 1
+        want = tgf.gta_fused_bwd_plain(qB, kB, vB, t, H, SCALE, g, res.z)
+    for name, a, b in zip(("dq", "dk", "dv", "dmq", "dmk", "dmo"), got, want):
+        assert (a is None) == (b is None), name
+        if b is not None:
+            tol = 1e-4 * max(1.0, b.abs().max().item())
+            assert (a - b).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [600, 192])
+def test_gta_fused_bwd_error_against_fp64(rng, cuda_device, tq):
+    """The kernel and the fp32 plain version against the plain version in
+    fp64, as relative L2 errors per output: a row dropped from or counted
+    twice in a sum over 600 keys, 2568 queries or 1800 (row, head) pairs
+    would show as ~1e-3; fp32 rounding stays near 1e-6."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8)
+    reps, _, (q, k, v) = _inputs(rng, args, cuda_device, tq=tq)
+    qB, kB, vB = (_tokens(x).to(cuda_device) for x in (q, k, v))
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        _, res = tgf.gta_fused_fwd(qB, kB, vB, t, H, SCALE, residuals=True)
+        g = torch.randn(qB.shape, generator=torch.Generator(device=cuda_device).manual_seed(1), device=cuda_device)
+        got = tgf.gta_fused_bwd(qB, kB, vB, t, H, SCALE, g, res)
+        plain = tgf.gta_fused_bwd_plain(qB, kB, vB, t, H, SCALE, g, res.z)
+        t64 = tgf.FusedTables(*[None if x is None else x.double() for x in tgf._tables(t)], t.nq, t.nk, t.v_transform)
+        _, z64 = tgf.gta_fused_fwd_plain(qB.double(), kB.double(), vB.double(), t64, H, SCALE, store_z=True)
+        ref = tgf.gta_fused_bwd_plain(qB.double(), kB.double(), vB.double(), t64, H, SCALE, g.double(), z64)
+    for name, a, b, r in zip(("dq", "dk", "dv", "dmq", "dmk", "dmo"), got, plain, ref):
+        err_kernel = ((a.double() - r).norm() / r.norm()).item()
+        err_plain = ((b.double() - r).norm() / r.norm()).item()
+        assert err_kernel <= 1e-5, (name, err_kernel, err_plain)
+
+
+@pytest.mark.cuda
+def test_function_grads_on_card_match_cpu(rng, cuda_device):
+    """GTAFusedAttention's gradients (q, k, v, trans_coeff) through both
+    kernels on the card against the plain versions on the CPU."""
+    args = GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8)
+    reps, cpu_reps, (q, k, v) = _inputs(rng, args, cuda_device, tq=192)
+    g = torch.from_numpy(rng.randn(B, 192, H * C).astype(np.float32))
+    grads = {}
+    for dev, r in (("cpu", cpu_reps), (cuda_device, reps)):
+        leaves = [_tokens(x).to(dev).requires_grad_() for x in (q, k, v)]
+        tc = torch.tensor([0.01], device=dev, requires_grad=True)
+        fwd, bwd = tgf.gta_fused_fwd.launches, tgf.gta_fused_bwd.launches
+        out = tgf.fused_gta_attention_tokens(*leaves, H, r, args, tc, SCALE)
+        out.backward(g.to(dev))
+        launched = (tgf.gta_fused_fwd.launches - fwd, tgf.gta_fused_bwd.launches - bwd)
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[str(dev)] = [x.grad.cpu() for x in leaves + [tc]]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.cuda
 def test_gta_fused_fwd_raises_instead_of_falling_back(rng, cuda_device):
     args = GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8)
     reps, _, (q, k, v) = _inputs(rng, args, cuda_device)
     q, k, v = (x.to(cuda_device) for x in (q, k, v))
     tc = torch.tensor([0.01], device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="_bwd_kernel"):
-        _fused(q, k, v, reps, args, tc)
+    fwd, bwd = tgf.gta_fused_fwd.launches, tgf.gta_fused_bwd.launches
+    _fused(q, k, v, reps, args, tc).sum().backward()
+    assert (tgf.gta_fused_fwd.launches - fwd, tgf.gta_fused_bwd.launches - bwd) == (1, 1)
     narrow = GTAArgs(f_dims=FDims(se3=16, so2=16), so2=4)
     reps32, _, (q32, k32, v32) = _inputs(rng, narrow, cuda_device)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="head dim"):
         _fused(q32[..., :32].to(cuda_device), k32[..., :32].to(cuda_device), v32[..., :32].to(cuda_device),
                reps32, narrow, None)
+
+
+@pytest.mark.cuda
+def test_gta_fused_bwd_raises_on_uncovered_operands(rng, cuda_device):
+    """Head width 32, non-contiguous and fp64 operands raise; nothing falls
+    back to the plain version."""
+    args = GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8)
+    reps, _, (q, k, v) = _inputs(rng, args, cuda_device)
+    qB, kB, vB = (_tokens(x).to(cuda_device) for x in (q, k, v))
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.01], device=cuda_device))
+        _, res = tgf.gta_fused_fwd(qB, kB, vB, t, H, SCALE, residuals=True)
+        g = torch.ones_like(qB)
+        before = tgf.gta_fused_bwd.launches
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+            tgf.gta_fused_bwd(qB, kB, vB, t, 2 * H, SCALE, g, res)
+        with pytest.raises(ValueError, match="contiguous fp32"):
+            tgf.gta_fused_bwd(qB, kB, vB, t, H, SCALE, g.transpose(1, 2).contiguous().transpose(1, 2), res)
+        with pytest.raises(ValueError, match="contiguous fp32"):
+            tgf.gta_fused_bwd(qB.double(), kB, vB, t, H, SCALE, g, res)
+        assert tgf.gta_fused_bwd.launches == before

@@ -117,8 +117,9 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
         Trainer(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_evaluate.main([FLAGSHIP, "--synthetic", "--max-scenes", "1"])
+    accum = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, grad_accum=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, device="cpu").train_step()
+        Trainer(accum, device="cpu").train_step(collate([SyntheticScenes(cfg.data, "train")[0]] * 2))
 
 
 def test_plain_attention_layer_matches_jax_on_cpu_and_raises_off_cpu():
