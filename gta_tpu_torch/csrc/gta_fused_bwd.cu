@@ -57,7 +57,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "lane_pair.cuh"
+
 namespace {
+
+using namespace lane_pair;
 
 constexpr int HAS_MQ = 1;
 constexpr int HAS_MK = 2;
@@ -76,9 +80,10 @@ constexpr int DM_THREADS = 256;
 constexpr int DM_ROWS = 32;    // (row, head) pairs staged per step in the dM reduction
 
 // ---------------------------------------------------------------------------
-// Row helpers. Lane `half` of a pair owns float4 groups 2m + half, i.e.
-// channels 8m + 4*half + e (m < NG, e < 4); a rotor pair (2k, 2k+1) never
-// straddles two lanes. Register arrays are indexed only by constants.
+// Row helpers beside lane_pair.cuh's. Lane `half` of a pair owns float4
+// groups 2m + half, i.e. channels 8m + 4*half + e (m < NG, e < 4); a rotor
+// pair (2k, 2k+1) never straddles two lanes. Register arrays are indexed
+// only by constants.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void load_row(const float* __restrict__ src, float (&x)[C]) {
@@ -90,28 +95,6 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src, float (&
     x[4 * i + 1] = t.y;
     x[4 * i + 2] = t.z;
     x[4 * i + 3] = t.w;
-  }
-}
-
-__device__ __forceinline__ void load_half(const float* __restrict__ src, int half,
-                                          float (&x)[HALF]) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int m = 0; m < NG; ++m) {
-    const float4 t = __ldg(s4 + 2 * m + half);
-    x[4 * m] = t.x;
-    x[4 * m + 1] = t.y;
-    x[4 * m + 2] = t.z;
-    x[4 * m + 3] = t.w;
-  }
-}
-
-__device__ __forceinline__ void store_half(float* __restrict__ dst, int half,
-                                           const float (&x)[HALF]) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int m = 0; m < NG; ++m) {
-    d4[2 * m + half] = make_float4(x[4 * m], x[4 * m + 1], x[4 * m + 2], x[4 * m + 3]);
   }
 }
 
@@ -220,48 +203,6 @@ __device__ __forceinline__ void rotate_half(float (&x)[HALF], const float* __res
   }
 }
 
-// partial dot product of this lane's half with the matching half of a row
-// in shared memory
-__device__ __forceinline__ float dot_half(const float (&x)[HALF], const float4* __restrict__ r4,
-                                          int half) {
-  float d = 0.f;
-#pragma unroll
-  for (int m = 0; m < NG; ++m) {
-    const float4 t = r4[2 * m + half];
-    d = fmaf(x[4 * m], t.x, d);
-    d = fmaf(x[4 * m + 1], t.y, d);
-    d = fmaf(x[4 * m + 2], t.z, d);
-    d = fmaf(x[4 * m + 3], t.w, d);
-  }
-  return d;
-}
-
-// y += a * (this lane's half of a shared-memory row)
-__device__ __forceinline__ void axpy_half(float a, const float4* __restrict__ r4, int half,
-                                          float (&y)[HALF]) {
-#pragma unroll
-  for (int m = 0; m < NG; ++m) {
-    const float4 t = r4[2 * m + half];
-    y[4 * m] = fmaf(a, t.x, y[4 * m]);
-    y[4 * m + 1] = fmaf(a, t.y, y[4 * m + 1]);
-    y[4 * m + 2] = fmaf(a, t.z, y[4 * m + 2]);
-    y[4 * m + 3] = fmaf(a, t.w, y[4 * m + 3]);
-  }
-}
-
-// copy `n` rows of C floats (row r at base + r * rs) into a [TILE, C] tile,
-// zero past n
-__device__ __forceinline__ void stage_tile(float* __restrict__ tile, const float* __restrict__ base,
-                                           int64_t rs, int n) {
-  for (int idx = threadIdx.x; idx < TILE * C / 4; idx += THREADS) {
-    const int r = idx / (C / 4);
-    const int c4 = idx % (C / 4);
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n) t = __ldg(reinterpret_cast<const float4*>(base + r * rs) + c4);
-    reinterpret_cast<float4*>(tile)[idx] = t;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Query pass: a lane pair per query row. grid (ceil(Tq/ROWS), H, B).
 // Writes dq, the key pass's inputs qt_s/do_s [B, H, Tq, C] and delta
@@ -301,7 +242,7 @@ gta_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ kt,
     load_row(q + tok, x);
     matvec_half(x, mq + ((int64_t)b * nq + view) * C * C, half, qt);
   } else {
-    load_half(q + tok, half, qt);
+    load_half<C>(q + tok, half, qt);
   }
   if (flags & HAS_ROTQ) rotate_half<false>(qt, cq + roff, sq + roff, half);
 
@@ -314,24 +255,24 @@ gta_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ kt,
     if (active) {
       float own[HALF];
       own_half(dzr, half, own);
-      store_half(dz_out + tok, half, own);
+      store_half<C>(dz_out + tok, half, own);
     }
     matvec_t_half(dzr, mo + ((int64_t)b * nq + view) * C * C, half, dov);
   } else {
-    load_half(g + tok, half, dov);
+    load_half<C>(g + tok, half, dov);
     if (out_tf && (flags & HAS_ROTQ)) rotate_half<false>(dov, cq + roff, sq + roff, half);
   }
 
   float zr[HALF];
-  load_half(z + tok, half, zr);
+  load_half<C>(z + tok, half, zr);
   float dl = 0.f;
 #pragma unroll
   for (int c = 0; c < HALF; ++c) dl = fmaf(dov[c], zr[c], dl);
   const float delta = dl + __shfl_xor_sync(0xffffffffu, dl, 1);
   const float lse_r = lse[hrow];
   if (active) {
-    store_half(qt_s + hrow * C, half, qt);
-    store_half(do_s + hrow * C, half, dov);
+    store_half<C>(qt_s + hrow * C, half, qt);
+    store_half<C>(do_s + hrow * C, half, dov);
     if (!half) delta_s[hrow] = delta;
   }
 
@@ -343,33 +284,32 @@ gta_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ kt,
   for (int k0 = 0; k0 < Tk; k0 += TILE) {
     const int n = min(TILE, Tk - k0);
     __syncthreads();  // every thread is done with the previous tile
-    stage_tile(Ks, kbase + k0 * k_rs, k_rs, n);
-    stage_tile(Vs, vbase + k0 * v_rs, v_rs, n);
+    stage_tile<C, TILE, THREADS>(Ks, kbase + k0 * k_rs, k_rs, n);
+    stage_tile<C, TILE, THREADS>(Vs, vbase + k0 * v_rs, v_rs, n);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < TILE; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(Ks + j * C);
-      const float4* vr = reinterpret_cast<const float4*>(Vs + j * C);
-      float s = dot_half(qt, kr, half);
-      float dp = dot_half(dov, vr, half);
+      const float* kr = Ks + j * C;
+      float s = dot_half<C>(qt, kr, half);
+      float dp = dot_half<C>(dov, Vs + j * C, half);
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
       const float p = j < n ? expf(s * scale - lse_r) : 0.f;
-      axpy_half(p * (dp - delta) * scale, kr, half, dqt);
+      axpy_half<C>(p * (dp - delta) * scale, kr, half, dqt);
     }
   }
 
   // query chain: dzq = rot_q^-1(dqt), dq = dzq @ Mq^T
   if (flags & HAS_ROTQ) rotate_half<true>(dqt, cq + roff, sq + roff, half);
   if (flags & HAS_MQ) {
-    if (active) store_half(dzq + tok, half, dqt);
+    if (active) store_half<C>(dzq + tok, half, dqt);
     float full[C];
     gather_row(dqt, half, full);
     float dqv[HALF];
     matvec_t_half(full, mq + ((int64_t)b * nq + view) * C * C, half, dqv);
-    if (active) store_half(dq + tok, half, dqv);
+    if (active) store_half<C>(dq + tok, half, dqv);
   } else if (active) {
-    store_half(dq + tok, half, dqt);
+    store_half<C>(dq + tok, half, dqt);
   }
 }
 
@@ -403,8 +343,8 @@ gta_bwd_kv_kernel(const float* __restrict__ kt, const float* __restrict__ vt,
   const int64_t roff = ((int64_t)b * Tk + r) * C;
 
   float ktr[HALF], vtr[HALF];
-  load_half(kt + b * k_bs + h * k_hs + r * k_rs, half, ktr);
-  load_half(vt + b * v_bs + h * v_hs + r * v_rs, half, vtr);
+  load_half<C>(kt + b * k_bs + h * k_hs + r * k_rs, half, ktr);
+  load_half<C>(vt + b * v_bs + h * v_hs + r * v_rs, half, vtr);
   float dkt[HALF], dvt[HALF];
 #pragma unroll
   for (int c = 0; c < HALF; ++c) dkt[c] = dvt[c] = 0.f;
@@ -413,8 +353,8 @@ gta_bwd_kv_kernel(const float* __restrict__ kt, const float* __restrict__ vt,
   for (int q0 = 0; q0 < Tq; q0 += TILE) {
     const int n = min(TILE, Tq - q0);
     __syncthreads();
-    stage_tile(Qs, qt_s + (hbase + q0) * C, C, n);
-    stage_tile(Ds, do_s + (hbase + q0) * C, C, n);
+    stage_tile<C, TILE, THREADS>(Qs, qt_s + (hbase + q0) * C, C, n);
+    stage_tile<C, TILE, THREADS>(Ds, do_s + (hbase + q0) * C, C, n);
     if (threadIdx.x < TILE) {
       const bool in = (int)threadIdx.x < n;
       Ls[threadIdx.x] = in ? lse[hbase + q0 + threadIdx.x] : 0.f;
@@ -423,15 +363,15 @@ gta_bwd_kv_kernel(const float* __restrict__ kt, const float* __restrict__ vt,
     __syncthreads();
 #pragma unroll 4
     for (int i = 0; i < TILE; ++i) {
-      const float4* qr = reinterpret_cast<const float4*>(Qs + i * C);
-      const float4* dr = reinterpret_cast<const float4*>(Ds + i * C);
-      float s = dot_half(ktr, qr, half);
-      float dp = dot_half(vtr, dr, half);
+      const float* qr = Qs + i * C;
+      const float* dr = Ds + i * C;
+      float s = dot_half<C>(ktr, qr, half);
+      float dp = dot_half<C>(vtr, dr, half);
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
       const float p = i < n ? expf(s * scale - Ls[i]) : 0.f;
-      axpy_half(p * (dp - Dl[i]) * scale, qr, half, dkt);
-      axpy_half(p, dr, half, dvt);
+      axpy_half<C>(p * (dp - Dl[i]) * scale, qr, half, dkt);
+      axpy_half<C>(p, dr, half, dvt);
     }
   }
 
@@ -444,21 +384,21 @@ gta_bwd_kv_kernel(const float* __restrict__ kt, const float* __restrict__ vt,
   if (flags & HAS_MK) {
     const float* M = mk + ((int64_t)b * nk + view) * C * C;
     float full[C], y[HALF];
-    if (active) store_half(dzk + tok, half, dkt);
+    if (active) store_half<C>(dzk + tok, half, dkt);
     gather_row(dkt, half, full);
     matvec_t_half(full, M, half, y);
-    if (active) store_half(dk + tok, half, y);
+    if (active) store_half<C>(dk + tok, half, y);
     if (v_tf) {
-      if (active) store_half(dzv + tok, half, dvt);
+      if (active) store_half<C>(dzv + tok, half, dvt);
       gather_row(dvt, half, full);
       matvec_t_half(full, M, half, y);
-      if (active) store_half(dv + tok, half, y);
+      if (active) store_half<C>(dv + tok, half, y);
     } else if (active) {
-      store_half(dv + tok, half, dvt);
+      store_half<C>(dv + tok, half, dvt);
     }
   } else if (active) {
-    store_half(dk + tok, half, dkt);
-    store_half(dv + tok, half, dvt);
+    store_half<C>(dk + tok, half, dkt);
+    store_half<C>(dv + tok, half, dvt);
   }
 }
 

@@ -1,9 +1,11 @@
 """Standalone evaluation of the port: PSNR / MSE on full-scale frames.
 
 Protocol as the JAX package's evaluate.py (reference evaluate.py:81-145):
-batch-1 full-scale test split, encode each scene once, render every target
-view's full frame with `render_image(chunk=16384)` from the native-resolution
-canonical ray grid, score per view. CLEVR-TR configs score 240x320 frames
+batch-1 full-scale test split, render every target view's full frame and
+score it per view: transform-mode models through `render_image(chunk=16384)`
+from the native-resolution canonical ray grid and the view's transform,
+non-transform models (the SRT baseline) through `render_rays(chunk=16384)`
+on the view's own rays. CLEVR-TR configs score 240x320 frames
 from 120x160 inputs. SSIM and LPIPS come with the evaluation slice.
 
 Usage:
@@ -60,17 +62,30 @@ def main(argv=None):
     psnrs, mses = [], []
     for i in range(n):
         batch = collate([dataset[i]])
-        for v in range(batch.target_transforms.shape[1]):
-            pred = trainer.render_image(
-                batch,
-                H,
-                W,
-                target_transform=batch.target_transforms[:, v].numpy(),
-                chunk=16384,
-                rays=batch.target_rays[:, v].numpy(),
-                cam=batch.target_camera_pos[:, v].numpy(),
-            )
-            gt = batch.target_pixels[:, v].numpy().reshape(1, H, W, 3)
+        transform_mode = batch.target_transforms is not None
+        # non-transform items are flat [1, Nt*H*W, 3] in view order
+        n_views = batch.target_transforms.shape[1] if transform_mode else batch.target_rays.shape[1] // (H * W)
+        for v in range(n_views):
+            if transform_mode:
+                pred = trainer.render_image(
+                    batch,
+                    H,
+                    W,
+                    target_transform=batch.target_transforms[:, v].numpy(),
+                    chunk=16384,
+                    rays=batch.target_rays[:, v].numpy(),
+                    cam=batch.target_camera_pos[:, v].numpy(),
+                )
+                gt = batch.target_pixels[:, v].numpy().reshape(1, H, W, 3)
+            else:
+                sl = slice(v * H * W, (v + 1) * H * W)
+                pred = trainer.render_rays(
+                    batch,
+                    batch.target_rays[:, sl].numpy(),
+                    batch.target_camera_pos[:, sl].numpy(),
+                    chunk=16384,
+                ).reshape(1, H, W, 3)
+                gt = batch.target_pixels[:, sl].numpy().reshape(1, H, W, 3)
             mse = float(np.mean((pred - gt) ** 2))
             mses.append(mse)
             psnrs.append(-10.0 * np.log10(mse))

@@ -1,9 +1,11 @@
 """Ray-conditioned cross-attention decoder (reference decoder.py).
 
-RayPredictor: learned-constant query embeddings cross-attend into the scene
-latent through a depth-`num_att_blocks` transformer; a 4-hidden-layer render
-MLP maps the result to sigmoid RGB. Geometry context comes from the pure
-function `build_decoder_context`, which reuses the encoder's key tables.
+RayPredictor: query embeddings (a learned constant, or each ray's
+camera-position and direction encoding through the input MLP) cross-attend
+into the scene latent through a depth-`num_att_blocks` transformer; a
+4-hidden-layer render MLP maps the result to sigmoid RGB. Geometry context
+comes from the pure function `build_decoder_context`, which reuses the
+encoder's key tables.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from torch import nn
 
 from gta_tpu_torch.config import DecoderConfig
+from gta_tpu_torch.geometry.coords import ray_posenc
 from gta_tpu_torch.models.context import AttnContext, SceneBatch
 from gta_tpu_torch.models.layers import Transformer, tagged
 from gta_tpu_torch.ops.reps import decoder_reps
@@ -41,15 +44,21 @@ class RayPredictor(nn.Module):
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        if cfg.emb != "const":
+        if cfg.emb not in ("const", "ray"):
             raise NotImplementedError(
-                f"decoder emb {cfg.emb!r} is not ported yet (ROADMAP queue 1, other attention methods)"
+                f"decoder emb {cfg.emb!r} is not ported yet (ROADMAP queue 1 item 7: planar, camera_planar)"
             )
         if cfg.return_last_attmap:
             raise NotImplementedError("return_last_attmap is not ported yet (ROADMAP queue 1)")
         self.cfg = cfg
-        self.initial_emb = nn.Parameter(torch.zeros(cfg.dim))
-        tagged(self, "const_emb")
+        if cfg.emb == "const":
+            self.initial_emb = nn.Parameter(torch.zeros(cfg.dim))
+            tagged(self, "const_emb")
+        else:
+            # OSRT input MLP (decoder.py:70-77) over ray_posenc's 180 channels
+            self.input_mlp = nn.Sequential(
+                tagged(nn.Linear(180, 360), "srt"), nn.ReLU(), tagged(nn.Linear(360, cfg.dim), "srt")
+            )
         self.transformer = Transformer(
             dim=cfg.dim,
             depth=cfg.num_att_blocks,
@@ -61,8 +70,13 @@ class RayPredictor(nn.Module):
             attn=cfg.attn,
         )
 
-    def forward(self, z: torch.Tensor, n_queries: int, ctx: AttnContext) -> torch.Tensor:
-        queries = self.initial_emb.expand(z.shape[0], n_queries, self.cfg.dim)
+    def forward(self, z: torch.Tensor, x: torch.Tensor, rays: torch.Tensor, ctx: AttnContext) -> torch.Tensor:
+        """z [B, K, z_dim], query camera positions x and ray directions rays
+        [B, T, 3] -> [B, T, dim]."""
+        if self.cfg.emb == "const":
+            queries = self.initial_emb.expand(z.shape[0], rays.shape[1], self.cfg.dim)
+        else:
+            queries = self.input_mlp(ray_posenc(x, rays, 15, self.cfg.pos_start_octave, 15))
         return self.transformer(queries, z, ctx)
 
 
@@ -84,8 +98,10 @@ class SRTDecoder(nn.Module):
         layers.append(tagged(nn.Linear(idim, 3), "srt"))
         self.render_mlp = nn.Sequential(*layers)
 
-    def forward(self, z: torch.Tensor, n_queries: int, ctx: AttnContext) -> Tuple[torch.Tensor, dict]:
-        """z [B, K, z_dim] -> pixels [B, n_queries, 3] (fp32)."""
-        h = self.render_mlp(self.allocation_transformer(z, n_queries, ctx))
+    def forward(
+        self, z: torch.Tensor, x: torch.Tensor, rays: torch.Tensor, ctx: AttnContext
+    ) -> Tuple[torch.Tensor, dict]:
+        """z [B, K, z_dim], x and rays [B, T, 3] -> pixels [B, T, 3] (fp32)."""
+        h = self.render_mlp(self.allocation_transformer(z, x, rays, ctx))
         pixels = torch.sigmoid(h) if self.cfg.sigmoid else h
         return pixels.float(), {}

@@ -1,9 +1,11 @@
 """SRT-style multi-view patch encoder (reference encoder.py:36-345).
 
 Images are NHWC at the API (the JAX package's layout); the conv stem runs
-NCHW inside. The stem downsamples by 2**num_conv_blocks; patch tokens from
-all views are concatenated and run through a depth-`num_att_blocks`
-self-attention transformer. Geometry context comes from the pure function
+NCHW inside. With emb 'ray', each pixel's camera-position and ray-direction
+encoding (180 channels) is concatenated to its RGB before the stem. The
+stem downsamples by 2**num_conv_blocks; patch tokens from all views are
+concatenated and run through a depth-`num_att_blocks` self-attention
+transformer. Geometry context comes from the pure function
 `build_encoder_context`.
 """
 
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from gta_tpu_torch.config import EncoderConfig
+from gta_tpu_torch.geometry.coords import ray_posenc
 from gta_tpu_torch.models.context import AttnContext, SceneBatch
 from gta_tpu_torch.models.layers import Transformer, tagged
 from gta_tpu_torch.ops.reps import encoder_reps
@@ -58,12 +61,13 @@ class SRTEncoder(nn.Module):
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        if cfg.emb is not None:
+        if cfg.emb not in (None, "ray"):
             raise NotImplementedError(
-                f"encoder emb {cfg.emb!r} is not ported yet (ROADMAP queue 1, other attention methods)"
+                f"encoder emb {cfg.emb!r} is not ported yet (ROADMAP queue 1 item 7: planar, camera_planar)"
             )
         self.cfg = cfg
-        blocks = [SRTConvBlock(3, cfg.dim // 8, cfg.dim // 4)]
+        idim = 3 + (180 if cfg.emb == "ray" else 0)  # RGB (+ ray_posenc's 15/15 octaves)
+        blocks = [SRTConvBlock(idim, cfg.dim // 8, cfg.dim // 4)]
         cur = cfg.dim // 4
         for _ in range(1, cfg.num_conv_blocks):
             blocks.append(SRTConvBlock(cur, cur, 2 * cur))
@@ -81,10 +85,18 @@ class SRTEncoder(nn.Module):
             attn=cfg.attn,
         )
 
-    def forward(self, images: torch.Tensor, ctx: AttnContext) -> torch.Tensor:
-        """images [B, N, H, W, 3] -> scene latent [B, N*Ha*Wa, attdim]."""
+    def forward(
+        self, images: torch.Tensor, camera_pos: torch.Tensor, rays: torch.Tensor, ctx: AttnContext
+    ) -> torch.Tensor:
+        """images, rays [B, N, H, W, 3], camera_pos [B, N, 3] -> scene latent
+        [B, N*Ha*Wa, attdim]."""
         B, N, H, W, _ = images.shape
-        x = images.reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
+        x = images.reshape(B * N, H, W, 3)
+        if self.cfg.emb == "ray":
+            pos = camera_pos.reshape(B * N, 1, 1, 3).expand(B * N, H, W, 3)
+            emb = ray_posenc(pos, rays.reshape(B * N, H, W, 3), 15, self.cfg.pos_start_octave, 15)
+            x = torch.cat([x, emb.to(x.dtype)], -1)
+        x = x.permute(0, 3, 1, 2)
         for block in self.conv_blocks:
             x = block(x)
         x = self.per_patch_linear(x)  # [B*N, attdim, Ha, Wa]

@@ -16,7 +16,7 @@ from torch import nn
 
 from gta_tpu_torch.config import AttnConfig
 from gta_tpu_torch.models.context import AttnContext
-from gta_tpu_torch.ops.attention import dot_product_attention
+from gta_tpu_torch.ops.flash import flash_attention
 from gta_tpu_torch.ops.gta_fused import fused_gta_attention_tokens
 
 # ---------------------------------------------------------------------------
@@ -126,8 +126,10 @@ class Attention(nn.Module):
 
     kv_dim None => self-attention (fused to_qkv projection); otherwise
     cross-attention over z (to_q / to_kv). GTA runs through the fused
-    forward (ops/gta_fused): the plain version on CPU tensors, the CUDA
-    kernel on CUDA tensors.
+    kernels (ops/gta_fused), method '' through flash attention
+    (ops/flash, the flash_core kernels), as the JAX package's layers do on
+    a TPU: the plain versions on CPU tensors, the CUDA kernels on CUDA
+    tensors.
     """
 
     def __init__(
@@ -177,20 +179,7 @@ class Attention(nn.Module):
                 q, k, v, self.heads, ctx.geom, self.attn.gta, self.trans_coeff, self.scale
             )
         else:
-            if q.device.type != "cpu":
-                # the flagship's plain-attention counterpart on the TPU is the
-                # flash_core Pallas kernel, which has no port yet
-                raise NotImplementedError(
-                    "attention method '' has no kernel on the card yet (ROADMAP queue 2, flash_core kernels)"
-                )
-            B, Tq, D = q.shape
-            C = D // self.heads
-
-            def split(t):
-                return t.reshape(B, t.shape[1], self.heads, C).transpose(1, 2)
-
-            o, _ = dot_product_attention(split(q), split(k), split(v), self.scale)
-            out = o.transpose(1, 2).reshape(B, Tq, D)
+            out = flash_attention(q, k, v, self.heads, self.scale)
         return self.to_out(out)
 
 

@@ -29,15 +29,17 @@ class SRT(nn.Module):
 
     def encode(self, batch: SceneBatch) -> Tuple[torch.Tensor, AttnContext]:
         ctx = build_encoder_context(self.cfg.encoder, batch)
-        return self.encoder(batch.input_images, ctx), ctx
+        return self.encoder(batch.input_images, batch.input_camera_pos, batch.input_rays, ctx), ctx
 
     def decode(
         self, z: torch.Tensor, batch: SceneBatch, enc_ctx: Optional[AttnContext] = None
     ) -> Tuple[torch.Tensor, dict]:
         ctx = build_decoder_context(self.cfg.decoder, batch, enc_ctx)
-        rays = batch.target_rays
-        n_queries = rays.shape[1] * rays.shape[2] if rays.ndim == 4 else rays.shape[1]
-        return self.decoder(z, n_queries, ctx)
+        x, rays = batch.target_camera_pos, batch.target_rays
+        if x.ndim == 4:  # [B, Nt, P, 3] -> [B, Nt*P, 3] (models_nvs.py:81-86)
+            x = x.reshape(x.shape[0], -1, 3)
+            rays = rays.reshape(rays.shape[0], -1, 3)
+        return self.decoder(z, x, rays, ctx)
 
     def forward(self, batch: SceneBatch) -> Tuple[torch.Tensor, dict]:
         z, enc_ctx = self.encode(batch)

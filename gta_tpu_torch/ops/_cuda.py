@@ -2,9 +2,10 @@
 
 Each `gta_tpu_torch/csrc/<name>.cu` compiles with nvcc into a shared library
 with a plain C interface, bound with ctypes (no PyTorch headers, so a build
-takes seconds). Builds happen on first use, from the sources in the
-checkout, into `gta_tpu_torch/_build/`; a library's file name carries a hash
-of its source and flags, so an edited source is never served a stale build.
+takes seconds); shared device helpers live in `csrc/*.cuh`. Builds happen on
+first use, from the sources in the checkout, into `gta_tpu_torch/_build/`; a
+library's file name carries a hash of its source, the headers and the flags,
+so an edited source is never served a stale build.
 A failed build raises with the compiler's output.
 """
 
@@ -22,7 +23,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("gta_fused_fwd", "gta_fused_bwd")
+KERNELS = ("gta_fused_fwd", "gta_fused_bwd", "flash_core_fwd", "flash_core_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,8 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(
+        b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,6 +1,9 @@
 """Dot-product attention over [B, H, T, C] operands (plain PyTorch).
 
-The softmax always runs in float32 regardless of compute dtype.
+The softmax always runs in float32 regardless of compute dtype. This is the
+JAX package's XLA path with its attention map; the attention layers take
+flash attention instead (ops/flash.py), as the JAX package does with flash
+on, and this function serves the block-diagonal GTA oracle (ops/gta.py).
 """
 
 from __future__ import annotations

@@ -1,0 +1,216 @@
+"""Plain softmax attention through hand-written kernels, forward and backward.
+
+Port of gta_tpu/ops/flash_core.py (`_fwd_kernel`, `_bwd_kernel` and the
+custom VJP `flash_core`): softmax(q k^T * scale) v without materialising
+the attention matrix. Operands arrive token-major [B, T, H*C], as the
+layer's projections produce them, so no call transposes to heads-first.
+
+Dispatch, with no fallbacks: a CPU tensor takes the plain PyTorch versions
+(`flash_core_fwd_plain`, `flash_core_bwd_plain`); a CUDA tensor launches the
+hand-written kernels (csrc/flash_core_fwd.cu, csrc/flash_core_bwd.cu) or
+raises. With grad enabled and an operand that requires it, the call goes
+through `FlashCore`, whose backward is the backward kernel. Unlike the
+Pallas kernel (whole K/V of a head in VMEM, Tk <= 2048), the forward tiles
+K with an online softmax, so every key length takes the same kernel.
+
+Precision: fp32 throughout, fp32 FMA on the CUDA cores (the Pallas kernel
+rounds matmul operands to bf16 on the TPU; its fp32 interpret mode is what
+the port is held to).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from gta_tpu_torch.ops import _cuda
+
+KERNEL_HEAD_DIM = 64  # the head width the CUDA kernels are compiled for
+
+
+def _heads_first(x: torch.Tensor, heads: int) -> torch.Tensor:
+    B, T, D = x.shape
+    return x.reshape(B, T, heads, D // heads).transpose(1, 2)
+
+
+def _tokens(x: torch.Tensor) -> torch.Tensor:
+    B, H, T, C = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * C)
+
+
+def _scores(q, k, heads, scale):
+    return torch.einsum("bhqc,bhkc->bhqk", _heads_first(q, heads), _heads_first(k, heads)) * scale
+
+
+def flash_core_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float, lse: bool = False
+):
+    """Plain PyTorch version of the forward kernel. q [B, Tq, H*C], k/v
+    [B, Tk, H*C] -> out [B, Tq, H*C]; with `lse`, (out, lse) where lse
+    [B, H, Tq] is each row's log-sum-exp of the scaled scores."""
+    s = _scores(q, k, heads, scale)
+    out = _tokens(torch.einsum("bhqk,bhkc->bhqc", torch.softmax(s, dim=-1), _heads_first(v, heads)))
+    return (out, torch.logsumexp(s, dim=-1)) if lse else out
+
+
+def flash_core_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel, `_bwd_kernel`'s
+    formulas: p recomputed from q and k, ds = p (dp - rowsum(p dp)) scale,
+    dq = ds k, dk = ds^T q, dv = p^T g. g is the cotangent of the forward's
+    output; returns token-major (dq, dk, dv)."""
+    p = torch.softmax(_scores(q, k, heads, scale), dim=-1)
+    qh, kh, vh, gh = (_heads_first(x, heads) for x in (q, k, v, g))
+    dp = torch.einsum("bhqc,bhkc->bhqk", gh, vh)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+    dq = torch.einsum("bhqk,bhkc->bhqc", ds, kh)
+    dk = torch.einsum("bhqk,bhqc->bhkc", ds, qh)
+    dv = torch.einsum("bhqk,bhqc->bhkc", p, gh)
+    return _tokens(dq), _tokens(dk), _tokens(dv)
+
+
+def _ptr(x: torch.Tensor):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _check_kernel_call(name, q, k, v, heads: int, extra=()):
+    """Validate a kernel launch's operands; returns (B, Tq, Tk, C)."""
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"no flash_core kernel for device {q.device}")
+    B, Tq, D = q.shape
+    Tk = k.shape[1]
+    C = D // heads
+    if C != KERNEL_HEAD_DIM:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is built for head dim {KERNEL_HEAD_DIM}, got {C} "
+            "(ROADMAP queue 1 item 3, msn_so3 slice and other configs)"
+        )
+    for x in (q, k, v, *extra):
+        if x.device != q.device or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} operands must be contiguous fp32 on one CUDA device")
+    if k.shape != (B, Tk, D) or v.shape != (B, Tk, D) or D != heads * C:
+        raise ValueError(f"bad operand shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    return B, Tq, Tk, C
+
+
+def _bind(name: str, n_ptrs: int, n_ints: int):
+    lib = _cuda.load(name)
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_core_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float, residuals: bool = False
+):
+    """softmax(q k^T * scale) v over token-major operands.
+
+    CPU tensors take `flash_core_fwd_plain`; CUDA tensors launch the kernel
+    or raise. With `residuals`, returns (out, lse), lse [B, H, Tq] being
+    each row's log-sum-exp for the backward. `flash_core_fwd.launches`
+    counts kernel launches.
+    """
+    if q.device.type == "cpu":
+        return flash_core_fwd_plain(q, k, v, heads, scale, lse=residuals)
+    B, Tq, Tk, C = _check_kernel_call("flash_core_fwd", q, k, v, heads)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_core_fwd's output carries no autograd graph: differentiate through "
+            "flash_core (FlashCore)"
+        )
+    out = torch.empty_like(q)
+    lse = torch.empty((B, heads, Tq), dtype=torch.float32, device=q.device) if residuals else None
+    lib = _bind("flash_core_fwd", 5, 5)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.flash_core_fwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), None if lse is None else _ptr(lse),
+            B, heads, Tq, Tk, C, float(scale), ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_core_fwd launch failed: {lib.flash_core_fwd_error_string(err).decode()}")
+    flash_core_fwd.launches += 1
+    return (out, lse) if residuals else out
+
+
+flash_core_fwd.launches = 0
+
+
+def flash_core_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    scale: float,
+    g: torch.Tensor,
+    out: torch.Tensor,
+    lse: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of `flash_core_fwd`: token-major (dq, dk, dv) from the
+    cotangent g of its output.
+
+    CPU tensors take `flash_core_bwd_plain` (from q, k, v and g); CUDA
+    tensors launch the kernel (csrc/flash_core_bwd.cu) with the forward's
+    output and log-sum-exp, or raise. `flash_core_bwd.launches` counts
+    launches of the C entry point (a query pass, then a key pass).
+    """
+    if q.device.type == "cpu":
+        return flash_core_bwd_plain(q, k, v, heads, scale, g)
+    if lse is None:
+        raise ValueError("flash_core_bwd needs the forward kernel's log-sum-exp")
+    B, Tq, Tk, C = _check_kernel_call("flash_core_bwd", q, k, v, heads, (g, out, lse))
+    if g.shape != q.shape or out.shape != q.shape or lse.shape != (B, heads, Tq):
+        raise ValueError("flash_core_bwd: g, out must be [B, Tq, H*C] and lse [B, H, Tq]")
+    delta = torch.empty((B, heads, Tq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _bind("flash_core_bwd", 10, 5)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.flash_core_bwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(out), _ptr(lse), _ptr(delta), _ptr(dq),
+            _ptr(dk), _ptr(dv), B, heads, Tq, Tk, C, float(scale), ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_core_bwd launch failed: {lib.flash_core_bwd_error_string(err).decode()}")
+    flash_core_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_core_bwd.launches = 0
+
+
+class FlashCore(torch.autograd.Function):
+    """The forward with its training residual (each row's log-sum-exp) and
+    the backward as its gradient (the JAX package's `flash_core` custom
+    VJP). Operands and cotangents are contiguous token-major [B, T, H*C]."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads: int, scale: float):
+        out, lse = flash_core_fwd(q, k, v, heads, scale, residuals=True)
+        ctx.heads, ctx.scale = heads, scale
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_core_bwd(q, k, v, ctx.heads, ctx.scale, g.contiguous(), out, lse)
+        return dq, dk, dv, None, None
+
+
+def flash_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v over token-major [B, T, H*C] operands (the
+    layer's entry; strided views, such as the chunks of a fused q/k/v
+    projection, are made contiguous). Differentiable through `FlashCore`
+    when grad is enabled and an operand requires it."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashCore.apply(q, k, v, heads, float(scale))
+    return flash_core_fwd(q, k, v, heads, scale)

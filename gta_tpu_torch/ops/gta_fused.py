@@ -86,7 +86,7 @@ def check_supported(reps: GeomReps, args: GTAArgs, Tq: int, Tk: int) -> None:
     if args.elementwise_mul or not _blockdiag_ok(reps, args):
         raise NotImplementedError(
             "GTA with t2 / euclid / elementwise_mul / per-token SE(3) reps has no fused "
-            "kernel yet (ROADMAP queue 2, flash_core port, and queue 1, other attention methods)"
+            "kernel (ROADMAP queue 1 item 7: the sliced GTA transforms, then flash_core)"
         )
     nq, nk = _view_counts(reps)
     if Tq % (nq or 1) or Tk % (nk or 1):

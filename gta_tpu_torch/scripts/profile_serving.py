@@ -1,17 +1,20 @@
 """Where the serving path's time goes on the GPU: a torch.profiler window
-over the flagship's eval_step and render_image, summed by kernel and by
-kind, with the device's busy and idle share of the window.
+over eval_step and a full-frame render, summed by kernel and by kind, with
+the device's busy and idle share of the window.
 
 Usage (one CUDA card):
     python -m gta_tpu_torch.scripts.profile_serving
 
-Prints the card's name and power limit, then for each of eval_step (the
-flagship config, batch 32, synthetic val scenes) and render_image (one
-full-scale target view, chunk 16384), over 3 calls after one warm-up: the
-host wall time per call, the device time summed over all kernels, the idle
-share (1 - device / wall), device time by kind (the fused GTA kernel, GEMMs,
-convolutions, other), and the top 15 kernels. The model is randomly
-initialised from the config's seed; times do not depend on the weights.
+Prints the card's name and power limit, then for each configuration (the
+GTA flagship and the SRT baseline) and each of eval_step (batch 32,
+synthetic val scenes) and one full-scale target view at chunk 16384
+(render_image for the flagship, render_rays on the view's rays for the
+non-transform SRT baseline), over 3 calls after one warm-up: the host wall
+time per call, the device time summed over all kernels, the idle share
+(1 - device / wall), device time by kind (this repo's attention kernels,
+GEMMs, convolutions, other), and the top 15 kernels. The models are
+randomly initialised from each config's seed; times do not depend on the
+weights.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ import subprocess
 import time
 from collections import defaultdict
 
-CONFIG = "runs/clevrtr/GTA/gta/config.yaml"
-BATCH = 32  # the flagship config's batch size
+CONFIGS = {"gta": "runs/clevrtr/GTA/gta/config.yaml", "srt": "runs/clevrtr/otherPEs/srt/config.yaml"}
+BATCH = 32  # both configs' batch size
 STEPS = 3  # profiled calls per phase
 TOP = 15  # kernels listed per phase
 
@@ -33,6 +36,10 @@ def _kind(name: str) -> str:
         return "gta_fused_fwd (this repo)"
     if "gta_bwd" in n:
         return "gta_fused_bwd (this repo)"
+    if "flash_fwd" in n:
+        return "flash_core_fwd (this repo)"
+    if "flash_bwd" in n:
+        return "flash_core_bwd (this repo)"
     # cuDNN's fp32 conv algorithms: implicit GEMM ("fprop"), FFT, layout
     # transforms; checked before "gemm", which implicit-GEMM names contain
     conv_marks = ("conv", "fprop", "fft", "pointwise_mult_and_sum_complex", "nhwctonchw", "cudnn")
@@ -84,23 +91,33 @@ def main():
         raise SystemExit("profile_serving needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip())
-    cfg = load_config(CONFIG)
-    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
-    trainer = Trainer(cfg)
-    val = SyntheticScenes(cfg.data, "val")
-    batch = collate([val[i] for i in range(BATCH)])
-    test = SyntheticScenes(cfg.data, "test", full_scale=True)
-    item = collate([test[0]])
+    for name, path in CONFIGS.items():
+        cfg = load_config(path)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
+        trainer = Trainer(cfg)
+        val = SyntheticScenes(cfg.data, "val")
+        batch = collate([val[i] for i in range(BATCH)])
+        test = SyntheticScenes(cfg.data, "test", full_scale=True)
+        item = collate([test[0]])
+        h, w = test.target_h, test.target_w
 
-    profile(lambda: trainer.eval_step(batch), f"eval_step_b{BATCH}")
-    profile(
-        lambda: trainer.render_image(
-            item, test.target_h, test.target_w, target_transform=item.target_transforms[:, 0].numpy(),
-            chunk=16384, rays=item.target_rays[:, 0].numpy(), cam=item.target_camera_pos[:, 0].numpy(),
-        ),
-        f"render_image_{test.target_h}x{test.target_w}",
-    )
-
+        profile(lambda: trainer.eval_step(batch), f"{name} eval_step_b{BATCH}")
+        if item.target_transforms is not None:
+            profile(
+                lambda: trainer.render_image(
+                    item, h, w, target_transform=item.target_transforms[:, 0].numpy(), chunk=16384,
+                    rays=item.target_rays[:, 0].numpy(), cam=item.target_camera_pos[:, 0].numpy(),
+                ),
+                f"{name} render_image_{h}x{w}",
+            )
+        else:  # flat [1, Nt*h*w, 3] targets: the first view's rays
+            profile(
+                lambda: trainer.render_rays(
+                    item, item.target_rays[:, : h * w].numpy(), item.target_camera_pos[:, : h * w].numpy(),
+                    chunk=16384,
+                ),
+                f"{name} render_rays_{h}x{w}",
+            )
 
 if __name__ == "__main__":
     main()

@@ -1,17 +1,17 @@
 """Where the train step's time goes on the GPU: a torch.profiler window
-over the flagship's train_step, summed by kernel and by kind, with the
-device's busy and idle share of the window.
+over train_step of the GTA flagship and of the SRT baseline, summed by
+kernel and by kind, with the device's busy and idle share of the window.
 
 Usage (one CUDA card):
     python -m gta_tpu_torch.scripts.profile_train
 
-Prints the card's name and power limit, then for train_step (the flagship
-config, batch 32, synthetic train scenes, dropout as configured), over 3
-steps after one warm-up step: the host wall time per step, the device time
-summed over all kernels, the idle share (1 - device / wall), device time by
-kind (the fused GTA forward and backward kernels, GEMMs, convolutions,
-other) and the top 15 kernels. The model is randomly initialised from the
-config's seed; times do not depend on the weights.
+Prints the card's name and power limit, then for train_step of each
+configuration (batch 32, synthetic train scenes, dropout as configured),
+over 3 steps after one warm-up step: the host wall time per step, the
+device time summed over all kernels, the idle share (1 - device / wall),
+device time by kind (this repo's attention forward and backward kernels,
+GEMMs, convolutions, other) and the top 15 kernels. The models are randomly
+initialised from each config's seed; times do not depend on the weights.
 """
 
 from __future__ import annotations
@@ -19,10 +19,7 @@ from __future__ import annotations
 import dataclasses
 import subprocess
 
-from gta_tpu_torch.scripts.profile_serving import profile
-
-CONFIG = "runs/clevrtr/GTA/gta/config.yaml"
-BATCH = 32  # the flagship config's batch size
+from gta_tpu_torch.scripts.profile_serving import BATCH, CONFIGS, profile
 
 
 def main():
@@ -36,12 +33,14 @@ def main():
         raise SystemExit("profile_train needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip())
-    cfg = load_config(CONFIG)
-    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
-    trainer = Trainer(cfg)
-    train = SyntheticScenes(cfg.data, "train", seed=cfg.seed)
-    batch = collate([train[i] for i in range(BATCH)]).to(trainer.device)
-    profile(lambda: trainer.train_step(batch), f"train_step_b{BATCH}")
+    for name, path in CONFIGS.items():
+        cfg = load_config(path)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
+        trainer = Trainer(cfg)
+        train = SyntheticScenes(cfg.data, "train", seed=cfg.seed)
+        batch = collate([train[i] for i in range(BATCH)]).to(trainer.device)
+        profile(lambda: trainer.train_step(batch), f"{name} train_step_b{BATCH}")
+        del trainer, batch
 
 
 if __name__ == "__main__":

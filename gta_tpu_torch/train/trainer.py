@@ -2,13 +2,13 @@
 
 `Trainer` owns the model on an explicit device, its optimizer, LR schedule
 and dropout generator, and runs the train step (`train_step`: fp32 pixel
-MSE -> backward through the fused GTA kernels -> AdamW) and evaluation and
+MSE -> backward through the attention kernels -> AdamW) and evaluation and
 rendering (`eval_step`, `evaluate`, `render_image`, `render_rays`, always
 with dropout off).
 
 Precision policy for fp32 configs: true fp32. TF32 is switched off for
-both matmuls and cuDNN convolutions, and the fused attention kernels use
-fp32 FMA on the CUDA cores.
+both matmuls and cuDNN convolutions, and the attention kernels use fp32 FMA
+on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 
 from gta_tpu_torch.config import Config
 from gta_tpu_torch.geometry.coords import make_2dcoord
+from gta_tpu_torch.geometry.rays import camera_rays_from_extrinsic
 from gta_tpu_torch.models.context import SceneBatch
 from gta_tpu_torch.models.layers import init_weights, set_dropout_generator
 from gta_tpu_torch.models.srt import build_model
@@ -190,13 +191,14 @@ class Trainer:
 
         target_transform: [B, 4, 4] relative camera of the novel view
         (canonical->view map); defaults to the canonical (identity) frame.
-        The decoder receives the canonical view-0 ray grid plus the
-        transform; `rays`/`cam` supply that grid explicitly when the inputs
-        are downsampled (full-scale eval). Non-transform models (no
-        batch.target_transforms) are not ported.
+        Transform-mode models (batch.target_transforms present) receive the
+        canonical view-0 ray grid plus the transform; `rays`/`cam` supply
+        that grid explicitly when the inputs are downsampled (full-scale
+        eval). Non-transform models receive the novel view's own ray grid in
+        the canonical frame, built from the transform (camera at
+        inv(ext)[:3, 3]), in flat [B, chunk, 3] sub-batches.
         """
-        if batch.target_transforms is None:
-            raise NotImplementedError("non-transform configs are not ported yet (ROADMAP queue 1)")
+        transform_mode = batch.target_transforms is not None
         batch = batch.to(self.device)
         z, enc_ctx = self.model.encode(batch)
         B = batch.input_images.shape[0]
@@ -208,6 +210,15 @@ class Trainer:
             cam = np.asarray(cam).reshape(B, -1, 3)
             if cam.shape[1] == 1:
                 cam = np.broadcast_to(cam, (B, height * width, 3))
+        elif not transform_mode:
+            # geometry enters through the rays: the novel view's ray grid in
+            # the canonical frame, from its extrinsic
+            ext = np.asarray(target_transform)
+            cam_pos = np.linalg.inv(ext)[:, :3, 3]  # camera origin in canonical coords
+            rays = np.stack(
+                [camera_rays_from_extrinsic(ext[b], cam_pos[b], width, height) for b in range(B)]
+            ).reshape(B, -1, 3)
+            cam = np.broadcast_to(cam_pos[:, None], (B, height * width, 3))
         else:
             rays = batch.input_rays[:, 0].reshape(B, -1, 3).cpu().numpy()
             cam = np.broadcast_to(
@@ -229,22 +240,26 @@ class Trainer:
 
         coord, rays, cam = pad_to(coord), pad_to(rays), pad_to(cam)
         out = np.zeros((B, n_pad, 3), np.float32)
-        tt = self._to(target_transform)[:, None]
+        tt = self._to(target_transform)[:, None] if transform_mode else None
+
+        def view_axis(x):
+            """A view axis for transform-mode batches; non-transform batches
+            are flat [B, P, ...]."""
+            return self._to(x[:, None] if transform_mode else x)
+
         for i in range(0, n_pad, chunk):
             sub = SceneBatch(
                 input_images=batch.input_images,
                 input_camera_pos=batch.input_camera_pos,
                 input_rays=batch.input_rays,
                 target_pixels=torch.zeros((B, 1, chunk, 3), device=self.device),
-                target_camera_pos=self._to(cam[:, None, i : i + chunk]),
-                target_rays=self._to(rays[:, None, i : i + chunk]),
+                target_camera_pos=view_axis(cam[:, i : i + chunk]),
+                target_rays=view_axis(rays[:, i : i + chunk]),
                 input_transforms=batch.input_transforms,
                 target_transforms=tt,
                 input_coord=batch.input_coord,
                 target_coord=(
-                    self._to(coord[:, None, i : i + chunk])
-                    if batch.target_coord is not None
-                    else None
+                    view_axis(coord[:, i : i + chunk]) if batch.target_coord is not None else None
                 ),
             )
             pixels, _ = self.model.decode(z, sub, enc_ctx)

@@ -4,7 +4,7 @@ state_dict.
 The port names its parameters after the reference PyTorch implementation's
 state_dict keys, so the map is the reference key map: `flax_path_to_torch_key`
 is the port's own copy of the JAX package's utils/ref_import.py:223 mapping
-(the cases the flagship model reaches). Orientation: Dense kernels
+(the cases the flagship and SRT models reach). Orientation: Dense kernels
 [in, out] -> Linear weights [out, in]; Conv kernels HWIO -> OIHW; the fused
 to_qkv column order q|k|v carries over unchanged. No so3 basis change is
 applied: the port's reps use the JAX package's basis as it is.
@@ -47,6 +47,10 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
             dense = {"Dense_0": "0", "Dense_1": "3"}[path[i + 1]]
             leaf = "weight" if path[i + 2] == "kernel" else "bias"
             return ".".join(out + [f"layers.{idx}.1.fn.net.{dense}.{leaf}"])
+        if t.startswith("input_mlp"):
+            j = int(t[len("input_mlp"):])
+            leaf = "weight" if path[i + 1] == "kernel" else "bias"
+            return ".".join(out + [f"input_mlp.{2 * j}.{leaf}"])
         if t == "render_mlp_out":
             leaf = "weight" if path[i + 1] == "kernel" else "bias"
             return ".".join(out + [f"render_mlp.8.{leaf}"])

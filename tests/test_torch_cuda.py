@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions:
+the fused GTA forward and backward, and flash_core forward and backward.
 
 A CUDA kernel has no CPU mode, so every test here is marked `cuda` and skips
 without a card. The file imports only torch, numpy and the port, so it runs
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from gta_tpu_torch.config import FDims, GTAArgs
-from gta_tpu_torch.ops import gta_fused as tgf
+from gta_tpu_torch.ops import _cuda, flash_core as fc, gta_fused as tgf
 from gta_tpu_torch.ops.reps import decoder_reps, encoder_reps
 
 B, H, C = 2, 6, 64
@@ -206,3 +207,105 @@ def test_gta_fused_bwd_raises_on_uncovered_operands(rng, cuda_device):
         with pytest.raises(ValueError, match="contiguous fp32"):
             tgf.gta_fused_bwd(qB.double(), kB, vB, t, H, SCALE, g, res)
         assert tgf.gta_fused_bwd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# flash_core (csrc/flash_core_fwd.cu, csrc/flash_core_bwd.cu): plain softmax
+# attention, token-major [B, T, H*C] operands
+# ---------------------------------------------------------------------------
+
+
+def _flash_inputs(device, tq, tk, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((B, t, H * C), generator=gen, device=device) for t in (tq, tk, tk, tq)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 601])
+@pytest.mark.parametrize("tk", [1, 33, 2100])
+def test_flash_core_kernels_match_plain_at_edge_shapes(cuda_device, tq, tk):
+    """One query or key, a ragged last tile on both sides (601 rows, 33
+    keys) and more keys than the Pallas kernel holds in VMEM (2100): the
+    forward within atol 1e-4, its log-sum-exp too, and each backward output
+    within 1e-4 * max(1, max|plain|) (fp32; summation orders differ)."""
+    q, k, v, g = _flash_inputs(cuda_device, tq, tk)
+    with torch.no_grad():
+        fwd, bwd = fc.flash_core_fwd.launches, fc.flash_core_bwd.launches
+        out, lse = fc.flash_core_fwd(q, k, v, H, SCALE, residuals=True)
+        grads = fc.flash_core_bwd(q, k, v, H, SCALE, g, out, lse)
+        torch.cuda.synchronize()
+        assert (fc.flash_core_fwd.launches - fwd, fc.flash_core_bwd.launches - bwd) == (1, 1)
+        want, want_lse = fc.flash_core_fwd_plain(q, k, v, H, SCALE, lse=True)
+        want_grads = fc.flash_core_bwd_plain(q, k, v, H, SCALE, g)
+    assert (out - want).abs().max().item() <= 1e-4
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want_grads):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk", [(600, 600), (2560, 600)])
+def test_flash_core_bwd_error_against_fp64(cuda_device, tq, tk):
+    """The backward kernel against the plain version in fp64, as relative L2
+    errors per output: a query or key dropped from or counted twice in a sum
+    would show as ~1e-3; fp32 rounding stays near 1e-6."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _flash_inputs(cuda_device, tq, tk, seed=1)
+    with torch.no_grad():
+        out, lse = fc.flash_core_fwd(q, k, v, H, SCALE, residuals=True)
+        got = fc.flash_core_bwd(q, k, v, H, SCALE, g, out, lse)
+        ref = fc.flash_core_bwd_plain(*(x.double() for x in (q, k, v)), H, SCALE, g.double())
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert ((a.double() - r).norm() / r.norm()).item() <= 1e-5, name
+
+
+@pytest.mark.cuda
+def test_flash_core_function_grads_on_card_match_cpu(cuda_device):
+    """FlashCore through both kernels on the card, from strided q/k/v views
+    (the chunks of a fused projection), against the plain versions on the
+    CPU; gradients come back in the views' token-major layout."""
+    x = torch.randn((B, 600, 3 * H * C), generator=torch.Generator().manual_seed(2))
+    g = torch.randn((B, 600, H * C), generator=torch.Generator().manual_seed(3))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaf = x.to(dev, copy=True).requires_grad_()
+        fwd, bwd = fc.flash_core_fwd.launches, fc.flash_core_bwd.launches
+        out = fc.flash_core(*leaf.chunk(3, dim=-1), H, SCALE)
+        out.backward(g.to(dev))
+        launched = (fc.flash_core_fwd.launches - fwd, fc.flash_core_bwd.launches - bwd)
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[str(dev)] = (out.detach().cpu(), leaf.grad.cpu())
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_core_raises_instead_of_falling_back(cuda_device):
+    """Head width 32, non-contiguous and fp64 operands raise, and so does a
+    launch the card refuses (a grid of more than 65535 batches): nothing
+    falls back to the plain version."""
+    q, k, v, g = _flash_inputs(cuda_device, 64, 64)
+    with torch.no_grad():
+        out, lse = fc.flash_core_fwd(q, k, v, H, SCALE, residuals=True)
+        fwd, bwd = fc.flash_core_fwd.launches, fc.flash_core_bwd.launches
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+            fc.flash_core_fwd(q, k, v, 2 * H, SCALE)
+        with pytest.raises(ValueError, match="contiguous fp32"):
+            fc.flash_core_bwd(q, k, v, H, SCALE, g.transpose(1, 2).contiguous().transpose(1, 2), out, lse)
+        with pytest.raises(ValueError, match="contiguous fp32"):
+            fc.flash_core_fwd(q.double(), k, v, H, SCALE)
+        assert (fc.flash_core_fwd.launches, fc.flash_core_bwd.launches) == (fwd, bwd)
+        big = torch.zeros((70000, 1, H * C), device=cuda_device)
+        with pytest.raises(RuntimeError, match="flash_core_fwd launch failed"):
+            fc.flash_core_fwd(big, big, big, H, SCALE)
+
+
+@pytest.mark.cuda
+def test_failed_build_raises_with_the_compiler_output(cuda_device, tmp_path, monkeypatch):
+    (tmp_path / "flash_core_fwd.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_cuda, "_libs", {})
+    q = torch.zeros((B, 4, H * C), device=cuda_device)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc failed for flash_core_fwd"):
+        fc.flash_core_fwd(q, q, q, H, SCALE)

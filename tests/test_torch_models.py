@@ -123,8 +123,8 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
 
 
 def test_plain_attention_layer_matches_jax_on_cpu_and_raises_off_cpu():
-    """Method '' runs plain attention on CPU tensors only: on the TPU it is
-    the flash_core kernel, which has no port yet."""
+    """Method '' runs the plain version of flash attention on CPU tensors
+    and the flash_core kernels on CUDA tensors; any other device raises."""
     rng = np.random.RandomState(0)
     layer = init_weights(Attention(16, heads=2, dim_head=8, attn=AttnConfig(method="")), torch.Generator().manual_seed(0))
     x = rng.randn(2, 5, 16).astype(np.float32)
@@ -136,5 +136,5 @@ def test_plain_attention_layer_matches_jax_on_cpu_and_raises_off_cpu():
     lin = layer.to_out[0]
     want = np.asarray(o).transpose(0, 2, 1, 3).reshape(2, 5, 16) @ lin.weight.detach().numpy().T + lin.bias.detach().numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="flash_core"):
+    with pytest.raises(NotImplementedError, match="no flash_core kernel for device meta"):
         layer.to("meta")(torch.empty(2, 5, 16, device="meta"))

@@ -56,11 +56,12 @@ def j_params():
     return jtr.init_state(jax.tree.map(jnp.asarray, j_collate(_items(cfg, (0, 1)))), seed=0).params
 
 
-def _pair(params, **training):
+def _pair(params, path=FLAGSHIP, **training):
     """(JAX trainer, its fresh state, port trainer on the CPU with the same
-    weights, port cfg), both under the given training settings."""
-    jtr = JTrainer(_train_cfg(j_load_config(FLAGSHIP), **training))
-    tcfg = _train_cfg(load_config(FLAGSHIP), **training)
+    weights, port cfg), both from the YAML at `path` under the given
+    training settings."""
+    jtr = JTrainer(_train_cfg(j_load_config(path), **training))
+    tcfg = _train_cfg(load_config(path), **training)
     params = jax.tree.map(jnp.array, params)  # a copy: the JAX train step donates its state
     state = TrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=jtr.tx.init(params))
     ttr = Trainer(tcfg, device="cpu")
@@ -211,8 +212,10 @@ def test_loader_epoch_shuffle_and_drop_last():
     assert [b.sceneid.tolist() for b in loader] != ids
 
 
-def _tiny_yaml(tmp_path):
-    with open(FLAGSHIP) as f:
+def _tiny_yaml(tmp_path, path=FLAGSHIP):
+    """The YAML at `path` at the tests' width: 64x96 frames, 2 heads, one
+    attention block each side, batch 2."""
+    with open(path) as f:
         raw = yaml.safe_load(f)
     raw["data"]["num_points"] = 48
     raw["data"]["kwargs"].update(height=64, width=96)
