@@ -26,7 +26,9 @@ Phases (any failure exits non-zero and prints no result line):
        residuals (z, log-sum-exp) at the two train shapes;
      - gta_fused_bwd at encoder_train_b32 (Tq = Tk = 600) and
        decoder_train_b32 (Tq = 3x856, Tk = 600); both on every flag branch
-       at B=2;
+       at B=2, and at the edge shapes B=2, one view per side, Tq in
+       {1, 17, 601}, Tk in {1, 33, 2100}, with every transform and with
+       none;
      - flash_core_fwd at the SRT shapes (encoder B=32 x 600 x 600, decoder
        eval B=32 x 2560 x 600, render chunk B=1 x 16384 x 600), then with
        its training residual (log-sum-exp) at the two train shapes;
@@ -38,6 +40,9 @@ Phases (any failure exits non-zero and prints no result line):
      events, median of 7 after 2 warm-up runs. Yardsticks, timed here only
      and never called by the port: F.scaled_dot_product_attention (on
      pre-transformed q/k/v for GTA) forward, and its backward alone.
+     Bounds: `bound_ms` at the fp32 CUDA-core peak (67 TFLOP/s),
+     `bound_tc_ms` at the fp32-accurate tensor-core rate (3xTF32,
+     495 / 3 TFLOP/s), both with bytes at 3.35 TB/s.
   3. Each configuration's serving path: Trainer(cfg) on cuda, eval_step on
      a batch-32 synthetic val batch, one full-scale 240x320 target view at
      chunk 16384 (render_image for GTA, render_rays on the view's rays for
@@ -81,8 +86,10 @@ GTA_CONFIG = os.path.join(ROOT, "runs", "clevrtr", "GTA", "gta", "config.yaml")
 SRT_CONFIG = os.path.join(ROOT, "runs", "clevrtr", "otherPEs", "srt", "config.yaml")
 TOL = 1e-4
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, fp32-accurate products on the tensor cores (3xTF32: three dense
+# TF32 products per fp32 product), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 TIMED_RUNS, WARMUP = 7, 2
 EVAL_BATCH = 32  # both configs' batch size
@@ -139,10 +146,18 @@ def bwd_cost(t, B, H, Tq, Tk, C):
     return flops, n_bytes
 
 
-def bound(flops, n_bytes):
-    """(bound ms, what bounds it)."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+def bound(flops, n_bytes, peak=PEAK_FP32_FLOPS):
+    """(bound ms, what bounds it) at the fp32 CUDA-core peak (`bound_ms`),
+    or at another peak (`bound_tc_ms`: PEAK_TF32X3_FLOPS)."""
+    t_ops, t_bytes = flops / peak * 1e3, n_bytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bounds(flops, n_bytes):
+    """The kernels-line bound keys of one shape."""
+    bound_ms, bound_by = bound(flops, n_bytes)
+    bound_tc_ms, bound_tc_by = bound(flops, n_bytes, PEAK_TF32X3_FLOPS)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bound_tc_ms": bound_tc_ms, "bound_tc_by": bound_tc_by}
 
 
 def flagship_calls(cfg, device):
@@ -217,15 +232,14 @@ def kernel_phase(cfg, calls, device):
             qt, kt, vt = (x.contiguous() for x in gta_transform_qkv(heads(qB), heads(kB), heads(vB), reps, args, tc))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
         flops, n_bytes = fused_cost(t, B, H, Tq, Tk, C)
-        bound_ms, bound_by = bound(flops, n_bytes)
+        bd = bounds(flops, n_bytes)
         results[name] = {
             "B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "gflop": flops / 1e9, "mbytes": n_bytes / 1e6,
+            "library_ms": library_ms, **bd, "gflop": flops / 1e9, "mbytes": n_bytes / 1e6,
         }
         print(f"kernel gta_fused_fwd {name}: B={B} Tq={Tq} Tk={Tk} max|d|={err:.3e} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+              f"bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']}) bound_tc_ms={bd['bound_tc_ms']:.4f}", flush=True)
         if not err <= TOL:
             raise AssertionError(f"gta_fused_fwd {name}: max|kernel - plain| = {err} > {TOL}")
         del qB, kB, vB, got, want, qt, kt, vt
@@ -293,6 +307,56 @@ def branch_phase(device):
     return worst_fwd, worst_bwd
 
 
+def gta_edge_phase(device):
+    """Both fused GTA kernels at B=2, H=6, C=64, one view per side, on the
+    ragged shapes Tq in {1, 17, 601}, Tk in {1, 33, 2100} (one row, a ragged
+    last 16-row warp tile or 64-key tile, more keys than the Pallas kernel
+    holds in VMEM), with every transform (se3 32 + so2 32, v_transform) and
+    with none (raw token-major q, k, v); returns the worst (fwd, bwd)
+    max|kernel - plain|."""
+    import torch
+
+    from gta_tpu_torch.config import FDims, GTAArgs
+    from gta_tpu_torch.ops import gta_fused as tgf
+    from gta_tpu_torch.ops.reps import decoder_reps, encoder_reps
+
+    rng = np.random.RandomState(4)
+
+    def transforms():
+        ang = rng.rand(2, 1) * 6.28
+        tf = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1, 1))
+        tf[..., 0, 0], tf[..., 0, 1], tf[..., 1, 0], tf[..., 1, 1] = np.cos(ang), -np.sin(ang), np.sin(ang), np.cos(ang)
+        tf[..., :3, 3] = rng.randn(2, 1, 3)
+        return torch.from_numpy(tf).to(device)
+
+    worst_fwd = worst_bwd = 0.0
+    for fd, so2 in ((dict(se3=32, so2=32), 8), (dict(triv=64), 0)):
+        args = GTAArgs(f_dims=FDims(**fd), so2=so2, v_transform=True)
+        for Tq in (1, 17, 601):
+            for Tk in (1, 33, 2100):
+                coord, t_coord = (torch.from_numpy(rng.rand(2, 1, T, 2).astype(np.float32)).to(device) for T in (Tk, Tq))
+                tf, t_tf = transforms(), transforms()
+                reps = decoder_reps(args, target_coord=t_coord, target_transforms=t_tf, input_coord=coord,
+                                    input_transforms=tf, enc=encoder_reps(args, coord, tf))
+                q, k, v, g = (torch.from_numpy(rng.randn(2, T, 384).astype(np.float32)).to(device)
+                              for T in (Tq, Tk, Tk, Tq))
+                with torch.no_grad():
+                    t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=device))
+                    out, res = tgf.gta_fused_fwd(q, k, v, t, 6, 0.125, residuals=True)
+                    got = tgf.gta_fused_bwd(q, k, v, t, 6, 0.125, g, res)
+                    torch.cuda.synchronize()
+                    want, want_z = tgf.gta_fused_fwd_plain(q, k, v, t, 6, 0.125, store_z=True)
+                    err = max((out - want).abs().max().item(), (res.z - want_z).abs().max().item())
+                    berr = check_bwd(f"edge {fd} Tq={Tq} Tk={Tk}", got,
+                                     tgf.gta_fused_bwd_plain(q, k, v, t, 6, 0.125, g, res.z))
+                print(f"kernel gta_fused_fwd / gta_fused_bwd edge {fd} B=2 Tq={Tq} Tk={Tk}: "
+                      f"max|d| fwd={err:.3e} bwd={berr:.3e}", flush=True)
+                if not err <= TOL:
+                    raise AssertionError(f"gta_fused_fwd edge {fd} Tq={Tq} Tk={Tk}: max|kernel - plain| = {err} > {TOL}")
+                worst_fwd, worst_bwd = max(worst_fwd, err), max(worst_bwd, berr)
+    return worst_fwd, worst_bwd
+
+
 def train_kernel_phase(cfg, calls, device):
     """Both kernels at the flagship's train shapes: the forward with its
     training residuals, and the backward, each against its plain version;
@@ -342,24 +406,23 @@ def train_kernel_phase(cfg, calls, device):
         del leaves, sdpa_out, qkv
         f_flops, f_bytes = fused_cost(t, B, H, Tq, Tk, C)
         f_bytes += 4.0 * (B * Tq * H * C + B * H * Tq)  # z and lse written
-        f_bound, f_by = bound(f_flops, f_bytes)
+        fb = bounds(f_flops, f_bytes)
         fwd[name] = {
             "B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-            "library_ms": sdpa_fwd_ms, "bound_ms": f_bound, "bound_by": f_by, "residuals": True,
+            "library_ms": sdpa_fwd_ms, **fb, "residuals": True,
         }
         b_flops, b_bytes = bwd_cost(t, B, H, Tq, Tk, C)
-        b_bound, b_by = bound(b_flops, b_bytes)
+        bb = bounds(b_flops, b_bytes)
         bwd[name] = {
             "B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": bwd_err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_bound, "bound_by": b_by,
-            "gflop": b_flops / 1e9, "mbytes": b_bytes / 1e6,
+            "library_ms": library_ms, **bb, "gflop": b_flops / 1e9, "mbytes": b_bytes / 1e6,
         }
         print(f"kernel gta_fused_fwd (training residuals) {name}: B={B} Tq={Tq} Tk={Tk} max|d|={fwd_err:.3e} "
-              f"ms={fwd_ms:.4f} plain_ms={fwd_plain_ms:.4f} sdpa_ms={sdpa_fwd_ms:.4f} bound_ms={f_bound:.4f} ({f_by})",
-              flush=True)
+              f"ms={fwd_ms:.4f} plain_ms={fwd_plain_ms:.4f} sdpa_ms={sdpa_fwd_ms:.4f} bound_ms={fb['bound_ms']:.4f} "
+              f"({fb['bound_by']}) bound_tc_ms={fb['bound_tc_ms']:.4f}", flush=True)
         print(f"kernel gta_fused_bwd {name}: B={B} Tq={Tq} Tk={Tk} max|d|={bwd_err:.3e} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} bound_ms={b_bound:.4f} ({b_by}, "
-              f"{b_flops / 1e9:.1f} GFLOP)", flush=True)
+              f"plain_ms={plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} bound_ms={bb['bound_ms']:.4f} ({bb['bound_by']}, "
+              f"{b_flops / 1e9:.1f} GFLOP) bound_tc_ms={bb['bound_tc_ms']:.4f}", flush=True)
         if not fwd_err <= TOL:
             raise AssertionError(f"gta_fused_fwd residuals {name}: max|kernel - plain| = {fwd_err} > {TOL}")
         del qB, kB, vB, g, out, res
@@ -423,14 +486,14 @@ def flash_kernel_phase(cfg, device):
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
         flops, n_bytes = flash_cost(B, H, Tq, Tk, C)
         n_bytes += 4.0 * B * H * Tq * train  # lse written
-        bound_ms, bound_by = bound(flops, n_bytes)
+        bd = bounds(flops, n_bytes)
         fwd[name] = {
             "B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by, "residuals": train,
+            "library_ms": library_ms, **bd, "residuals": train,
         }
         print(f"kernel flash_core_fwd{' (training residual)' if train else ''} {name}: B={B} Tq={Tq} Tk={Tk} "
               f"max|d|={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+              f"bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']}) bound_tc_ms={bd['bound_tc_ms']:.4f}", flush=True)
         if not err <= TOL:
             raise AssertionError(f"flash_core_fwd {name}: max|kernel - plain| = {err} > {TOL}")
         if train:
@@ -447,14 +510,14 @@ def flash_kernel_phase(cfg, device):
             library_ms = time_ms(lambda: sdpa_out.backward(gh, retain_graph=True))
             del leaves, sdpa_out
             flops, n_bytes = flash_cost(B, H, Tq, Tk, C, backward=True)
-            bound_ms, bound_by = bound(flops, n_bytes)
+            bd = bounds(flops, n_bytes)
             bwd[name] = {
                 "B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": berr, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, **bd,
             }
             print(f"kernel flash_core_bwd {name}: B={B} Tq={Tq} Tk={Tk} max|d|={berr:.3e} ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
-                  flush=True)
+                  f"plain_ms={plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} bound_ms={bd['bound_ms']:.4f} "
+                  f"({bd['bound_by']}) bound_tc_ms={bd['bound_tc_ms']:.4f}", flush=True)
         del q, k, v, g, qh, kh, vh, gh, out, lse
         torch.cuda.empty_cache()
     return fwd, bwd
@@ -576,7 +639,7 @@ def serving_path_phase(cfg, label):
           f"psnr={render_psnr:.4f} ms(median of {RENDER_RUNS} after 1 warm-up)={median_ms:.2f} "
           f"[{', '.join(f'{x:.2f}' for x in render_ms)}] rays/s={n_rays / (median_ms / 1e3):.0f}", flush=True)
     print(f"{label} serving: launches {launches}, expected {want} (5 per encode, 2 per decode chunk; "
-          "each gta_fused_fwd launch runs the K/V prologue kernel, then the main kernel)", flush=True)
+          "a launch counts one call of the C entry point, however many kernels it runs)", flush=True)
     if launches != want:
         raise AssertionError(f"{label} serving path launches {launches}, expected {want}")
     if img.shape != (1, Hf, Wf, 3) or not np.isfinite(img).all() or not np.isfinite(psnr):
@@ -818,6 +881,7 @@ def kernel_entry(name, replaces, launches, main, shapes, worst_edge):
         "plain_ms": shapes[main]["plain_ms"],
         "bound_ms": shapes[main]["bound_ms"],
         "bound_by": shapes[main]["bound_by"],
+        "bound_tc_ms": shapes[main]["bound_tc_ms"],
         "library_ms": shapes[main]["library_ms"],
         "shape": main,
         "shapes": shapes,
@@ -862,6 +926,7 @@ def main() -> int:
     train_fwd, train_bwd = train_kernel_phase(gta_cfg, calls, device)
     del calls
     branch_fwd, branch_bwd = branch_phase(device)
+    gta_edge_fwd, gta_edge_bwd = gta_edge_phase(device)
     flash_fwd, flash_bwd = flash_kernel_phase(srt_cfg, device)
     edge_fwd, edge_bwd = flash_edge_phase(device)
 
@@ -882,9 +947,9 @@ def main() -> int:
 
     kernels = [
         kernel_entry("gta_fused_fwd", "gta_tpu/ops/gta_fused.py:209", by_path("gta_fused_fwd"),
-                     "decoder_eval_b32", {**shapes, **train_fwd}, branch_fwd),
+                     "decoder_eval_b32", {**shapes, **train_fwd}, max(branch_fwd, gta_edge_fwd)),
         kernel_entry("gta_fused_bwd", "gta_tpu/ops/gta_fused.py:235", by_path("gta_fused_bwd"),
-                     "decoder_train_b32", train_bwd, branch_bwd),
+                     "decoder_train_b32", train_bwd, max(branch_bwd, gta_edge_bwd)),
         kernel_entry("flash_core_fwd", "gta_tpu/ops/flash_core.py:73", by_path("flash_core_fwd"),
                      "decoder_eval_b32", flash_fwd, edge_fwd),
         kernel_entry("flash_core_bwd", "gta_tpu/ops/flash_core.py:86", by_path("flash_core_bwd"),

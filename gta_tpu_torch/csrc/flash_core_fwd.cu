@@ -24,7 +24,7 @@
 //  * A query row belongs to a pair of lanes (lane_pair.cuh), each holding 32
 //    of its 64 channels of q and of the output accumulator:
 //    two vectors of 32 floats and the tile's 32 scores in registers, where
-//    one row per thread (the GTA forward) needs 255 registers. The two
+//    one row per thread would need 255 registers. The two
 //    partial dot products meet through one warp shuffle, after which both
 //    lanes hold the same score and compute the same softmax weights.
 //  * Both lanes read K/V rows from shared memory as float4 broadcasts: the

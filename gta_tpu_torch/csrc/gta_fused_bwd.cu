@@ -1,4 +1,5 @@
-// Fully fused GTA attention backward for Hopper (sm_90a), fp32 on CUDA cores.
+// Fully fused GTA attention backward for Hopper (sm_90a): fp32 accuracy, the
+// attention core on the tensor cores (3xTF32 mma.sync, csrc/tf32x3.cuh).
 //
 // Replaces gta_tpu/ops/gta_fused.py:235 `_bwd_kernel` (the Pallas TPU
 // recompute backward, launched by `_bwd_call` :398 and wrapped by the VJP
@@ -22,32 +23,42 @@
 //
 // What bounds it on the H100: the function needs 5 core products of
 // 2*Tq*Tk*C flops per (b, h) (the Pallas count: s, dp, dqt, dkt, dvt) plus
-// the C x C transform chains, against (3*Tq + 4*Tk)*C*4 bytes of inputs
-// and outputs: far above the fp32 ridge (67 TFLOP/s / 3.35 TB/s = 20
-// flops per byte), so it is bound by arithmetic on the CUDA cores.
+// the C x C chains, against (3*Tq + 4*Tk)*C*4 bytes of inputs and outputs:
+// bound by operations, at 165 TFLOP/s for fp32-accurate products on the
+// tensor cores (3xTF32) or 67 TFLOP/s on the CUDA cores.
 //
-// What the design does about it:
+// What the design does about it (each launch of the C entry point runs up
+// to eleven kernels on the stream):
+//  * Every product of the core is 3xTF32 m16n8k8 mma.sync: a warp owns 16
+//    rows, the other side streams through dynamic shared memory in
+//    double-buffered tiles (cp.async) of 32 keys in the query pass (68 KB a
+//    block, 3 blocks per SM) and 64 queries in the key pass (103 KB, 2 per
+//    SM), and score accumulators feed the next product as A fragments in
+//    place (tf32x3.cuh). Each tile's products start from zero and join the
+//    running dq, dk, dv by rounded fp32 adds.
 //  * The Pallas kernel sums dk, dv and dMk into one output block across a
 //    grid that runs in order. Hopper's blocks run in parallel, so the work
-//    is split by who owns each output row: a query pass (one query row per
-//    lane pair) writes dq, and a key pass (one key row per lane pair) loops
-//    over all queries and writes dk, dv. No row is written by two blocks,
-//    so there are no atomics and the sums are deterministic. Both passes
-//    recompute p from the forward's log-sum-exp: 7 core products where the
-//    function needs 5, the price of having no cross-block sums.
-//  * A row's 64 channels are split between two lanes of a warp (float4
-//    groups 2m + half), so each lane keeps 3 (query pass) or 4 (key pass)
-//    vectors of 32 floats in registers; the two partial dot products meet
-//    through one warp shuffle. The other side's rows are staged in shared
-//    memory in tiles of 32 and read as float4 broadcasts.
-//  * The forward's transformed K/V scratch [B, H, Tk, C] and z are kept as
-//    residuals, so no C x C transform is recomputed on the key side; the
-//    query pass stores qt and do ([B, H, Tq, C]) for the key pass.
-//  * The matrix cotangents are a separate reduction: each block sums
-//    X^T Y over a slice of one view's (row, head) pairs, with a 4 x 4 tile
-//    of the 64 x 64 output per thread, into a partial buffer; a second
-//    kernel adds the slices in a fixed order.
-// Not yet: tensor-core (wgmma) products, TMA loads, bf16/TF32 operands.
+//    is split by who owns each output row: a query pass (S, dP, dqt += dS kt)
+//    writes dqt, and a key pass (S^T, dP^T, dvt += P^T do, dkt += dS^T qt)
+//    writes dkt and dvt. No row is written by two blocks, so there are no
+//    atomics and every sum has a fixed order: two launches on the same
+//    inputs give bit-identical outputs. Both passes recompute p from the
+//    forward's log-sum-exp: 7 core products where the function needs 5, the
+//    price of having no cross-block sums.
+//  * The C x C chains run outside the passes' loops, on the tensor cores
+//    (csrc/gta_rows.cuh): do and delta before the passes (into
+//    [B, H, Tq, C] scratch), then dq, dk, dv in place. qt, kt, vt are the
+//    forward's residuals: no transform is recomputed.
+//  * The matrix cotangents are a separate reduction, X^T Y over each view's
+//    (row, head) pairs, itself a [C x rows] x [rows x C] product on the
+//    tensor cores: each block sums a slice of one view's pairs into a
+//    partial buffer, and a second kernel adds the slices in a fixed order.
+// ptxas (CUDA 12.8, sm_90a), no spills anywhere: query pass 168 registers
+// (3 blocks of 128 threads per SM), key pass 244 (2 blocks), dM reduction
+// 120, its sum 30, row launches 94-114. Like the forward, the passes reach
+// about half of mma.sync's rate (latency-bound at 8-12 warps per SM).
+// Not yet: wgmma and TMA, 5 products in place of 7 (a cross-block sum
+// of dk/dv).
 //
 // Interface: plain C, bound from Python with ctypes. Every pointer is a
 // contiguous fp32 device array; absent tables and unused scratch are null
@@ -57,11 +68,15 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "lane_pair.cuh"
+#include "gta_rows.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-using namespace lane_pair;
+using namespace tf32x3;
+using gta_rows::Layout;
+using gta_rows::offset;
+using gta_rows::RowJob;
 
 constexpr int HAS_MQ = 1;
 constexpr int HAS_MK = 2;
@@ -70,408 +85,418 @@ constexpr int HAS_ROTQ = 8;
 constexpr int HAS_ROTK = 16;
 constexpr int V_TRANSFORM = 32;
 
-constexpr int C = 64;          // the only head width compiled in
-constexpr int HALF = C / 2;    // channels one lane of a row's pair owns
-constexpr int NG = C / 8;      // float4 groups one lane owns
-constexpr int ROWS = 64;       // rows per block in the row passes
-constexpr int THREADS = 2 * ROWS;
-constexpr int TILE = 32;       // other-side rows per shared-memory tile
-constexpr int DM_THREADS = 256;
-constexpr int DM_ROWS = 32;    // (row, head) pairs staged per step in the dM reduction
+constexpr int HEAD_DIM = 64;  // the only head width instantiated
+constexpr int WARPS = 4;
+constexpr int BM = 16 * WARPS;  // own rows per block
+constexpr int BN_Q = 32;        // keys per shared-memory tile in the query pass
+constexpr int BN_K = 64;        // queries per shared-memory tile in the key pass
+constexpr int THREADS = 32 * WARPS;
+constexpr int DM_THREADS = 128;
+constexpr int DM_ROWS = 32;  // (row, head) pairs staged per step in the dM reduction
+constexpr float LOG2E = 1.4426950408889634f;
 
-// ---------------------------------------------------------------------------
-// Row helpers beside lane_pair.cuh's. Lane `half` of a pair owns float4
-// groups 2m + half, i.e. channels 8m + 4*half + e (m < NG, e < 4); a rotor
-// pair (2k, 2k+1) never straddles two lanes. Register arrays are indexed
-// only by constants.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void load_row(const float* __restrict__ src, float (&x)[C]) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int i = 0; i < C / 4; ++i) {
-    const float4 t = __ldg(s4 + i);
-    x[4 * i] = t.x;
-    x[4 * i + 1] = t.y;
-    x[4 * i + 2] = t.z;
-    x[4 * i + 3] = t.w;
-  }
+template <int C>
+constexpr int q_smem_bytes() {
+  // own qt and do rows, K and V tiles (two stages each): 3 blocks per SM
+  return (2 * BM * (C + 4) + 2 * 2 * BN_Q * (C + 4)) * (int)sizeof(float);
 }
 
-// this lane's half of a full row held in registers
-__device__ __forceinline__ void own_half(const float (&x)[C], int half, float (&y)[HALF]) {
-#pragma unroll
-  for (int m = 0; m < NG; ++m) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) y[4 * m + e] = half ? x[8 * m + 4 + e] : x[8 * m + e];
-  }
+template <int C>
+constexpr int kv_smem_bytes() {
+  // own K and V rows, Q and dO tiles (two stages each), lse and delta
+  // tiles: 2 blocks per SM
+  return (2 * BM * (C + 4) + 2 * 2 * BN_K * (C + 4) + 2 * 2 * BN_K) * (int)sizeof(float);
 }
 
-// the full row from the two halves of a lane pair (every lane of the warp
-// must call it)
-__device__ __forceinline__ void gather_row(const float (&x)[HALF], int half, float (&full)[C]) {
+// rows (g, g+8) of an accumulator tile [16 x C] into an operand, through
+// (batch, head, row) strides; rows at or past T are not stored
+template <int C>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const Layout& L, int b, int h,
+                                           const int (&row)[2], int T, const float (&acc)[C / 8][4],
+                                           Lane ln) {
 #pragma unroll
-  for (int m = 0; m < NG; ++m) {
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= T) continue;
+    float* d = dst + offset(L, b, h, row[r]);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float mine = x[4 * m + e];
-      const float other = __shfl_xor_sync(0xffffffffu, mine, 1);
-      full[8 * m + e] = half ? other : mine;
-      full[8 * m + 4 + e] = half ? mine : other;
+    for (int n = 0; n < C / 8; ++n) {
+      *reinterpret_cast<float2*>(d + 8 * n + 2 * ln.t) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
     }
   }
 }
 
-// own half of x @ M, M row-major [C, C]: y_j = sum_i x_i M[i][j]
-__device__ __forceinline__ void matvec_half(const float (&x)[C], const float* __restrict__ M,
-                                            int half, float (&y)[HALF]) {
+// acc += t with fp32 round-to-nearest adds. Products accumulate on the
+// tensor cores over one tile at a time: their fp32 accumulation truncates
+// toward zero (csrc/tf32x3.cuh), by more the longer the chain: one chain
+// over every row of the other side (2568 queries) would drift by ~40x one
+// tile's share.
+template <int C>
+__device__ __forceinline__ void add_tile(float (&acc)[C / 8][4], const float (&t)[C / 8][4]) {
 #pragma unroll
-  for (int j = 0; j < HALF; ++j) y[j] = 0.f;
-  const float4* M4 = reinterpret_cast<const float4*>(M);
+  for (int n = 0; n < C / 8; ++n) {
 #pragma unroll
-  for (int i = 0; i < C; ++i) {
-    const float xi = x[i];
-#pragma unroll
-    for (int m = 0; m < NG; ++m) {
-      const float4 t = __ldg(M4 + i * (C / 4) + 2 * m + half);
-      y[4 * m] = fmaf(xi, t.x, y[4 * m]);
-      y[4 * m + 1] = fmaf(xi, t.y, y[4 * m + 1]);
-      y[4 * m + 2] = fmaf(xi, t.z, y[4 * m + 2]);
-      y[4 * m + 3] = fmaf(xi, t.w, y[4 * m + 3]);
-    }
+    for (int e = 0; e < 4; ++e) acc[n][e] += t[n][e];
   }
 }
 
-// own half of x @ M^T: y_j = sum_i x_i M[j][i] (row j of M is contiguous)
-__device__ __forceinline__ void matvec_t_half(const float (&x)[C], const float* __restrict__ M,
-                                              int half, float (&y)[HALF]) {
-  const float4* M4 = reinterpret_cast<const float4*>(M);
+// acc += A T for a [16 x 8*NT] accumulator tile A (its 8-column tiles are
+// the k-steps) and an [8*NT x C] shared-memory tile T, through a zeroed
+// tile sum
+template <int C, int NT>
+__device__ __forceinline__ void tile_product(float (&acc)[C / 8][4], const float (&A)[NT][4],
+                                             const float* T, Lane ln) {
+  float t[C / 8][4];
 #pragma unroll
-  for (int m = 0; m < NG; ++m) {
+  for (int n = 0; n < C / 8; ++n) t[n][0] = t[n][1] = t[n][2] = t[n][3] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = 8 * m + 4 * half + e;
-      float acc = 0.f;
+  for (int j = 0; j < NT; ++j) {
+    float af[4];
+    a_from_acc(af, A[j]);
+    const FragA a = split(af);
 #pragma unroll
-      for (int i = 0; i < C / 4; ++i) {
-        const float4 t = __ldg(M4 + j * (C / 4) + i);
-        acc = fmaf(x[4 * i], t.x, acc);
-        acc = fmaf(x[4 * i + 1], t.y, acc);
-        acc = fmaf(x[4 * i + 2], t.z, acc);
-        acc = fmaf(x[4 * i + 3], t.w, acc);
+    for (int n = 0; n < C / 8; ++n) {
+      float bf[2];
+      load_b_kn(bf, T, C + 4, 8 * j, 8 * n, ln);
+      mma3(t[n], a, split(bf));
+    }
+  }
+  add_tile<C>(acc, t);
+}
+
+// ---------------------------------------------------------------------------
+// Query pass: a warp per 16 query rows, looping over every key of (b, h).
+// grid (ceil(Tq/BM), H, B). Writes dqt through `dql` (token-major, in the dq
+// output, for the query chain to finish in place).
+// ---------------------------------------------------------------------------
+template <int C>
+__global__ void __launch_bounds__(THREADS, 3)
+gta_bwd_q_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
+                 const float* __restrict__ vt, const float* __restrict__ do_s,
+                 const float* __restrict__ lse, float* __restrict__ delta,
+                 float* __restrict__ dqt, int H, int Tq, int Tk, Layout ql, Layout kl, Layout vl,
+                 Layout dol, Layout dql, float scale) {
+  constexpr int LD = C + 4;
+  constexpr int KS = C / 8;
+  constexpr int NT = BN_Q / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Qown = smem;               // [BM][LD]
+  float* Down = Qown + BM * LD;     // [BM][LD]
+  float* Ks = Down + BM * LD;       // [2][BN_Q][LD]
+  float* Vs = Ks + 2 * BN_Q * LD;   // [2][BN_Q][LD]
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const Lane ln = lane_coords();
+  const int warp = threadIdx.x / 32;
+  const int q0 = blockIdx.x * BM;
+  const int row[2] = {q0 + warp * 16 + ln.g, q0 + warp * 16 + ln.g + 8};
+  const int ra = min(row[0], Tq - 1), rb = min(row[1], Tq - 1);
+  stage_rows<C, BM, THREADS>(Qown, qt + offset(ql, b, h, q0), ql.rs, Tq - q0);
+  stage_rows<C, BM, THREADS>(Down, do_s + offset(dol, b, h, q0), dol.rs, Tq - q0);
+  const float* Qw = Qown + warp * 16 * LD;
+  const float* Dw = Down + warp * 16 * LD;
+  const int64_t hrow = ((int64_t)b * H + h) * Tq;
+  const float ls[2] = {lse[hrow + ra], lse[hrow + rb]};
+  float dl[2] = {delta[hrow + ra], delta[hrow + rb]};
+
+  float dq[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  const float* kbase = kt + b * kl.bs + h * kl.hs;
+  const float* vbase = vt + b * vl.bs + h * vl.hs;
+  const int ntiles = (Tk + BN_Q - 1) / BN_Q;
+  stage_rows<C, BN_Q, THREADS>(Ks, kbase, kl.rs, Tk);
+  stage_rows<C, BN_Q, THREADS>(Vs, vbase, vl.rs, Tk);
+  cp_async_commit();
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < ntiles) {
+      const int k1 = (i + 1) * BN_Q;
+      stage_rows<C, BN_Q, THREADS>(Ks + (buf ^ 1) * BN_Q * LD, kbase + k1 * kl.rs, kl.rs, Tk - k1);
+      stage_rows<C, BN_Q, THREADS>(Vs + (buf ^ 1) * BN_Q * LD, vbase + k1 * vl.rs, vl.rs, Tk - k1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* K = Ks + buf * BN_Q * LD;
+    const float* V = Vs + buf * BN_Q * LD;
+
+    // S = qt kt^T and dP = do vt^T: rows (g, g+8), keys 8n + 2t (+1)
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      float af[4];
+      load_a(af, Qw, LD, 8 * ks, ln);
+      const FragA aq = split(af);
+      load_a(af, Dw, LD, 8 * ks, ln);
+      const FragA ad = split(af);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float bf[2];
+        load_b_nk(bf, K, LD, 8 * n, 8 * ks, ln);
+        mma3(s[n], aq, split(bf));
+        load_b_nk(bf, V, LD, 8 * n, 8 * ks, ln);
+        mma3(dp[n], ad, split(bf));
       }
-      y[4 * m + e] = acc;
     }
-  }
-}
 
-// x <- c*x + s*swap(x) (INV: c*x - s*swap(x)), swap(x0, x1) = (-x1, x0)
-template <bool INV>
-__device__ __forceinline__ void rotate_row(float (&x)[C], const float* __restrict__ c,
-                                           const float* __restrict__ s) {
-  const float4* c4 = reinterpret_cast<const float4*>(c);
-  const float4* s4 = reinterpret_cast<const float4*>(s);
-  const float sg = INV ? -1.f : 1.f;
+    // P = exp(S * scale - lse); keys past Tk get 0
+    const int kvalid = Tk - i * BN_Q;
 #pragma unroll
-  for (int i = 0; i < C / 4; ++i) {
-    const float4 cc = __ldg(c4 + i);
-    const float4 ss = __ldg(s4 + i);
-    const float a0 = x[4 * i], a1 = x[4 * i + 1], a2 = x[4 * i + 2], a3 = x[4 * i + 3];
-    x[4 * i] = cc.x * a0 - sg * ss.x * a1;
-    x[4 * i + 1] = cc.y * a1 + sg * ss.y * a0;
-    x[4 * i + 2] = cc.z * a2 - sg * ss.z * a3;
-    x[4 * i + 3] = cc.w * a3 + sg * ss.w * a2;
-  }
-}
-
-// the same on this lane's half
-template <bool INV>
-__device__ __forceinline__ void rotate_half(float (&x)[HALF], const float* __restrict__ c,
-                                            const float* __restrict__ s, int half) {
-  const float4* c4 = reinterpret_cast<const float4*>(c);
-  const float4* s4 = reinterpret_cast<const float4*>(s);
-  const float sg = INV ? -1.f : 1.f;
+    for (int n = 0; n < NT; ++n) {
 #pragma unroll
-  for (int m = 0; m < NG; ++m) {
-    const float4 cc = __ldg(c4 + 2 * m + half);
-    const float4 ss = __ldg(s4 + 2 * m + half);
-    const float a0 = x[4 * m], a1 = x[4 * m + 1], a2 = x[4 * m + 2], a3 = x[4 * m + 3];
-    x[4 * m] = cc.x * a0 - sg * ss.x * a1;
-    x[4 * m + 1] = cc.y * a1 + sg * ss.y * a0;
-    x[4 * m + 2] = cc.z * a2 - sg * ss.z * a3;
-    x[4 * m + 3] = cc.w * a3 + sg * ss.w * a2;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Query pass: a lane pair per query row. grid (ceil(Tq/ROWS), H, B).
-// Writes dq, the key pass's inputs qt_s/do_s [B, H, Tq, C] and delta
-// [B, H, Tq], and the reduction's inputs dzq (with HAS_MQ) and dz (with
-// HAS_MO), token-major [B, Tq, H*C]. kt/vt are read through (batch, head,
-// row) strides, as in the forward: prologue scratch or raw k/v.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-gta_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ kt,
-                 const float* __restrict__ vt, const float* __restrict__ mq,
-                 const float* __restrict__ mo, const float* __restrict__ cq,
-                 const float* __restrict__ sq, const float* __restrict__ g,
-                 const float* __restrict__ z, const float* __restrict__ lse,
-                 float* __restrict__ qt_s, float* __restrict__ do_s, float* __restrict__ delta_s,
-                 float* __restrict__ dzq, float* __restrict__ dz_out, float* __restrict__ dq,
-                 int H, int Tq, int Tk, int nq, int64_t k_bs, int64_t k_hs, int64_t k_rs,
-                 int64_t v_bs, int64_t v_hs, int64_t v_rs, int flags, float scale) {
-  __shared__ __align__(16) float Ks[TILE * C];
-  __shared__ __align__(16) float Vs[TILE * C];
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int half = threadIdx.x & 1;
-  const int row = blockIdx.x * ROWS + (threadIdx.x >> 1);
-  const bool active = row < Tq;
-  const int r = active ? row : Tq - 1;  // rows past Tq compute on the last row, store nothing
-  const int64_t D = (int64_t)H * C;
-  const int view = r / (Tq / nq);
-  const int64_t tok = ((int64_t)b * Tq + r) * D + (int64_t)h * C;
-  const int64_t roff = ((int64_t)b * Tq + r) * C;
-  const int64_t hrow = ((int64_t)b * H + h) * Tq + r;
-  const bool out_tf = flags & V_TRANSFORM;
-
-  // qt = rot_q(q @ Mq)
-  float qt[HALF];
-  if (flags & HAS_MQ) {
-    float x[C];
-    load_row(q + tok, x);
-    matvec_half(x, mq + ((int64_t)b * nq + view) * C * C, half, qt);
-  } else {
-    load_half<C>(q + tok, half, qt);
-  }
-  if (flags & HAS_ROTQ) rotate_half<false>(qt, cq + roff, sq + roff, half);
-
-  // do: the cotangent of z
-  float dov[HALF];
-  if (out_tf && (flags & HAS_MO)) {
-    float dzr[C];
-    load_row(g + tok, dzr);
-    if (flags & HAS_ROTQ) rotate_row<false>(dzr, cq + roff, sq + roff);
-    if (active) {
-      float own[HALF];
-      own_half(dzr, half, own);
-      store_half<C>(dz_out + tok, half, own);
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * n + 2 * ln.t + (e & 1);
+        s[n][e] = key < kvalid ? exp2f((s[n][e] * scale - ls[e >> 1]) * LOG2E) : 0.f;
+      }
     }
-    matvec_t_half(dzr, mo + ((int64_t)b * nq + view) * C * C, half, dov);
-  } else {
-    load_half<C>(g + tok, half, dov);
-    if (out_tf && (flags & HAS_ROTQ)) rotate_half<false>(dov, cq + roff, sq + roff, half);
-  }
-
-  float zr[HALF];
-  load_half<C>(z + tok, half, zr);
-  float dl = 0.f;
+    if (ntiles == 1) {
+      // every key is in this tile: delta = rowsum(P * dP) from these very
+      // products (rowsum(do * z) in exact arithmetic), so each row's dS sums
+      // to zero as the plain version's does; the key pass reads it back
 #pragma unroll
-  for (int c = 0; c < HALF; ++c) dl = fmaf(dov[c], zr[c], dl);
-  const float delta = dl + __shfl_xor_sync(0xffffffffu, dl, 1);
-  const float lse_r = lse[hrow];
-  if (active) {
-    store_half<C>(qt_s + hrow * C, half, qt);
-    store_half<C>(do_s + hrow * C, half, dov);
-    if (!half) delta_s[hrow] = delta;
-  }
-
-  float dqt[HALF];
+      for (int r = 0; r < 2; ++r) {
+        float d = 0.f;
 #pragma unroll
-  for (int c = 0; c < HALF; ++c) dqt[c] = 0.f;
-  const float* kbase = kt + b * k_bs + h * k_hs;
-  const float* vbase = vt + b * v_bs + h * v_hs;
-  for (int k0 = 0; k0 < Tk; k0 += TILE) {
-    const int n = min(TILE, Tk - k0);
-    __syncthreads();  // every thread is done with the previous tile
-    stage_tile<C, TILE, THREADS>(Ks, kbase + k0 * k_rs, k_rs, n);
-    stage_tile<C, TILE, THREADS>(Vs, vbase + k0 * v_rs, v_rs, n);
+        for (int n = 0; n < NT; ++n) {
+          d = fmaf(s[n][2 * r], dp[n][2 * r], fmaf(s[n][2 * r + 1], dp[n][2 * r + 1], d));
+        }
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        dl[r] = d;
+        if (ln.t == 0 && row[r] < Tq) delta[hrow + row[r]] = d;
+      }
+    }
+    // dS = P (dP - delta) * scale
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - dl[e >> 1]) * scale;
+    }
+
+    // dqt += dS kt: the tile's product from zero, then a rounded add
+    tile_product<C, NT>(dq, s, K, ln);
     __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < TILE; ++j) {
-      const float* kr = Ks + j * C;
-      float s = dot_half<C>(qt, kr, half);
-      float dp = dot_half<C>(dov, Vs + j * C, half);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      const float p = j < n ? expf(s * scale - lse_r) : 0.f;
-      axpy_half<C>(p * (dp - delta) * scale, kr, half, dqt);
-    }
   }
-
-  // query chain: dzq = rot_q^-1(dqt), dq = dzq @ Mq^T
-  if (flags & HAS_ROTQ) rotate_half<true>(dqt, cq + roff, sq + roff, half);
-  if (flags & HAS_MQ) {
-    if (active) store_half<C>(dzq + tok, half, dqt);
-    float full[C];
-    gather_row(dqt, half, full);
-    float dqv[HALF];
-    matvec_t_half(full, mq + ((int64_t)b * nq + view) * C * C, half, dqv);
-    if (active) store_half<C>(dq + tok, half, dqv);
-  } else if (active) {
-    store_half<C>(dq + tok, half, dqt);
-  }
+  store_rows<C>(dqt, dql, b, h, row, Tq, dq, ln);
 }
 
 // ---------------------------------------------------------------------------
-// Key pass: a lane pair per key row, looping over every query of (b, h).
-// grid (ceil(Tk/ROWS), H, B). Writes dk, dv and, with HAS_MK, the
-// reduction's inputs dzk and dzv, token-major [B, Tk, H*C].
+// Key pass: a warp per 16 key rows, looping over every query of (b, h).
+// grid (ceil(Tk/BM), H, B). Writes dkt and dvt through `dkl` (token-major,
+// in the dk and dv outputs, for the key chain to finish in place).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
+template <int C>
+__global__ void __launch_bounds__(THREADS, 2)
 gta_bwd_kv_kernel(const float* __restrict__ kt, const float* __restrict__ vt,
-                  const float* __restrict__ mk, const float* __restrict__ ck,
-                  const float* __restrict__ sk, const float* __restrict__ qt_s,
-                  const float* __restrict__ do_s, const float* __restrict__ lse,
-                  const float* __restrict__ delta_s, float* __restrict__ dzk,
-                  float* __restrict__ dzv, float* __restrict__ dk, float* __restrict__ dv, int H,
-                  int Tq, int Tk, int nk, int64_t k_bs, int64_t k_hs, int64_t k_rs, int64_t v_bs,
-                  int64_t v_hs, int64_t v_rs, int flags, float scale) {
-  __shared__ __align__(16) float Qs[TILE * C];
-  __shared__ __align__(16) float Ds[TILE * C];
-  __shared__ float Ls[TILE];
-  __shared__ float Dl[TILE];
+                  const float* __restrict__ qt, const float* __restrict__ do_s,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  float* __restrict__ dkt, float* __restrict__ dvt, int H, int Tq, int Tk,
+                  Layout kl, Layout vl, Layout ql, Layout dol, Layout dkl, float scale) {
+  constexpr int LD = C + 4;
+  constexpr int KS = C / 8;
+  constexpr int NT = BN_K / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Kown = smem;               // [BM][LD]
+  float* Vown = Kown + BM * LD;     // [BM][LD]
+  float* Qs = Vown + BM * LD;       // [2][BN_K][LD]
+  float* Ds = Qs + 2 * BN_K * LD;   // [2][BN_K][LD]
+  float* Ls = Ds + 2 * BN_K * LD;   // [2][BN_K]
+  float* Dl = Ls + 2 * BN_K;        // [2][BN_K]
+
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int half = threadIdx.x & 1;
-  const int row = blockIdx.x * ROWS + (threadIdx.x >> 1);
-  const bool active = row < Tk;
-  const int r = active ? row : Tk - 1;
-  const int64_t D = (int64_t)H * C;
-  const int view = r / (Tk / nk);
-  const int64_t tok = ((int64_t)b * Tk + r) * D + (int64_t)h * C;
-  const int64_t roff = ((int64_t)b * Tk + r) * C;
+  const Lane ln = lane_coords();
+  const int warp = threadIdx.x / 32;
+  const int k0 = blockIdx.x * BM;
+  const int row[2] = {k0 + warp * 16 + ln.g, k0 + warp * 16 + ln.g + 8};
 
-  float ktr[HALF], vtr[HALF];
-  load_half<C>(kt + b * k_bs + h * k_hs + r * k_rs, half, ktr);
-  load_half<C>(vt + b * v_bs + h * v_hs + r * v_rs, half, vtr);
-  float dkt[HALF], dvt[HALF];
+  const float* qbase = qt + b * ql.bs + h * ql.hs;
+  const float* dbase = do_s + b * dol.bs + h * dol.hs;
+  const int64_t hrow = ((int64_t)b * H + h) * Tq;
+  const int ntiles = (Tq + BN_K - 1) / BN_K;
+  stage_rows<C, BM, THREADS>(Kown, kt + offset(kl, b, h, k0), kl.rs, Tk - k0);
+  stage_rows<C, BM, THREADS>(Vown, vt + offset(vl, b, h, k0), vl.rs, Tk - k0);
+  stage_rows<C, BN_K, THREADS>(Qs, qbase, ql.rs, Tq);
+  stage_rows<C, BN_K, THREADS>(Ds, dbase, dol.rs, Tq);
+  stage_vec<BN_K, THREADS>(Ls, lse + hrow, Tq);
+  stage_vec<BN_K, THREADS>(Dl, delta + hrow, Tq);
+  cp_async_commit();
+
+  float dk[KS][4], dv[KS][4];
 #pragma unroll
-  for (int c = 0; c < HALF; ++c) dkt[c] = dvt[c] = 0.f;
+  for (int n = 0; n < KS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  }
+  const float* Kw = Kown + warp * 16 * LD;
+  const float* Vw = Vown + warp * 16 * LD;
 
-  const int64_t hbase = ((int64_t)b * H + h) * Tq;
-  for (int q0 = 0; q0 < Tq; q0 += TILE) {
-    const int n = min(TILE, Tq - q0);
-    __syncthreads();
-    stage_tile<C, TILE, THREADS>(Qs, qt_s + (hbase + q0) * C, C, n);
-    stage_tile<C, TILE, THREADS>(Ds, do_s + (hbase + q0) * C, C, n);
-    if (threadIdx.x < TILE) {
-      const bool in = (int)threadIdx.x < n;
-      Ls[threadIdx.x] = in ? lse[hbase + q0 + threadIdx.x] : 0.f;
-      Dl[threadIdx.x] = in ? delta_s[hbase + q0 + threadIdx.x] : 0.f;
+  for (int i = 0; i < ntiles; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < ntiles) {
+      const int q1 = (i + 1) * BN_K;
+      stage_rows<C, BN_K, THREADS>(Qs + (buf ^ 1) * BN_K * LD, qbase + q1 * ql.rs, ql.rs, Tq - q1);
+      stage_rows<C, BN_K, THREADS>(Ds + (buf ^ 1) * BN_K * LD, dbase + q1 * dol.rs, dol.rs, Tq - q1);
+      stage_vec<BN_K, THREADS>(Ls + (buf ^ 1) * BN_K, lse + hrow + q1, Tq - q1);
+      stage_vec<BN_K, THREADS>(Dl + (buf ^ 1) * BN_K, delta + hrow + q1, Tq - q1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < TILE; ++i) {
-      const float* qr = Qs + i * C;
-      const float* dr = Ds + i * C;
-      float s = dot_half<C>(ktr, qr, half);
-      float dp = dot_half<C>(vtr, dr, half);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      const float p = i < n ? expf(s * scale - Ls[i]) : 0.f;
-      axpy_half<C>(p * (dp - Dl[i]) * scale, qr, half, dkt);
-      axpy_half<C>(p, dr, half, dvt);
-    }
-  }
+    const float* Q = Qs + buf * BN_K * LD;
+    const float* Dt = Ds + buf * BN_K * LD;
+    const float* L = Ls + buf * BN_K;
+    const float* Dlt = Dl + buf * BN_K;
 
-  // key / value chain
-  const bool v_tf = flags & V_TRANSFORM;
-  if (flags & HAS_ROTK) {
-    rotate_half<true>(dkt, ck + roff, sk + roff, half);
-    if (v_tf) rotate_half<true>(dvt, ck + roff, sk + roff, half);
-  }
-  if (flags & HAS_MK) {
-    const float* M = mk + ((int64_t)b * nk + view) * C * C;
-    float full[C], y[HALF];
-    if (active) store_half<C>(dzk + tok, half, dkt);
-    gather_row(dkt, half, full);
-    matvec_t_half(full, M, half, y);
-    if (active) store_half<C>(dk + tok, half, y);
-    if (v_tf) {
-      if (active) store_half<C>(dzv + tok, half, dvt);
-      gather_row(dvt, half, full);
-      matvec_t_half(full, M, half, y);
-      if (active) store_half<C>(dv + tok, half, y);
-    } else if (active) {
-      store_half<C>(dv + tok, half, dvt);
+    // S^T = kt qt^T and dP^T = vt do^T: key rows (g, g+8), queries 8n + 2t
+    // (+1); mma3_t sums the query pass's products in its order, so both
+    // passes see the same P and dS bit for bit
+    float st[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
     }
-  } else if (active) {
-    store_half<C>(dk + tok, half, dkt);
-    store_half<C>(dv + tok, half, dvt);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      float af[4];
+      load_a(af, Kw, LD, 8 * ks, ln);
+      const FragA ak = split(af);
+      load_a(af, Vw, LD, 8 * ks, ln);
+      const FragA av = split(af);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float bf[2];
+        load_b_nk(bf, Q, LD, 8 * n, 8 * ks, ln);
+        mma3_t(st[n], ak, split(bf));
+        load_b_nk(bf, Dt, LD, 8 * n, 8 * ks, ln);
+        mma3_t(dpt[n], av, split(bf));
+      }
+    }
+
+    // P^T = exp(S^T * scale - lse[q]), dS^T = P^T (dP^T - delta[q]) * scale;
+    // queries past Tq get 0
+    const int qvalid = Tq - i * BN_K;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = 8 * n + 2 * ln.t + (e & 1);
+        const float p = q < qvalid ? exp2f((st[n][e] * scale - L[q]) * LOG2E) : 0.f;
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - Dlt[q]) * scale;
+      }
+    }
+
+    // dvt += P^T do, then dkt += dS^T qt: each tile's product from zero,
+    // then a rounded add
+    tile_product<C, NT>(dv, st, Dt, ln);
+    tile_product<C, NT>(dk, dpt, Q, ln);
+    __syncthreads();
   }
+  store_rows<C>(dkt, dkl, b, h, row, Tk, dk, ln);
+  store_rows<C>(dvt, dkl, b, h, row, Tk, dv, ln);
 }
 
 // ---------------------------------------------------------------------------
 // Matrix cotangents: part[b, view, split] = sum over a slice of the view's
-// (row, head) pairs of X1^T Y1 (+ X2^T Y2). X*, Y* are token-major
-// [B, T, H*C], read as [B, T*H, C]: a view's pairs are contiguous, `rpv`
-// of them. grid (splits, n, B); each thread owns a 4 x 4 output tile.
+// (row, head) pairs of X1^T Y1 (+ X2^T Y2), on the tensor cores. X*, Y* are
+// token-major [B, T, H*C], read as [B, T*H, C]: a view's pairs are
+// contiguous, `rpv` of them. grid (splits, n, B); a warp owns 16 rows of the
+// C x C output. Pairs stream through shared memory DM_ROWS at a time
+// (double-buffered); each step's product starts from zero and joins the
+// running sum by rounded fp32 adds, as in the passes.
 // ---------------------------------------------------------------------------
+template <int C>
 __global__ void __launch_bounds__(DM_THREADS)
 gta_bwd_dm_kernel(const float* __restrict__ X1, const float* __restrict__ Y1,
                   const float* __restrict__ X2, const float* __restrict__ Y2,
                   float* __restrict__ part, int64_t rows, int rpv, int splits) {
-  __shared__ __align__(16) float Xs[DM_ROWS * C];
-  __shared__ __align__(16) float Ys[DM_ROWS * C];
-  const int split = blockIdx.x;
+  static_assert(C == 16 * (DM_THREADS / 32), "a warp per 16 rows of the C x C output");
+  constexpr int LD = C + 8;  // load_a_t and load_b_kn_std: conflict-free
+  constexpr int KS = C / 8;
+  __shared__ __align__(16) float Xs[2][DM_ROWS * LD];
+  __shared__ __align__(16) float Ys[2][DM_ROWS * LD];
+  const int slice = blockIdx.x;
   const int view = blockIdx.y;
   const int b = blockIdx.z;
   const int n = gridDim.y;
   const int per = (rpv + splits - 1) / splits;
-  const int64_t r0 = (int64_t)view * rpv + (int64_t)split * per;
-  const int64_t r_end = (int64_t)view * rpv + rpv;
-  const int64_t r1 = r0 + per < r_end ? r0 + per : r_end;
-  const int a0 = 4 * (threadIdx.x / 16);
-  const int c0 = 4 * (threadIdx.x % 16);
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int64_t v0 = (int64_t)view * rpv;
+  const int64_t r0 = v0 + (slice * per < rpv ? slice * per : rpv);
+  const int64_t r1 = r0 + per < v0 + rpv ? r0 + per : v0 + rpv;
+  const Lane ln = lane_coords();
+  const int m0 = 16 * (threadIdx.x / 32);
 
+  float acc[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   for (int pair = 0; pair < 2; ++pair) {
     const float* X = pair ? X2 : X1;
     const float* Y = pair ? Y2 : Y1;
     if (X == nullptr) continue;
     const float* xb = X + (int64_t)b * rows * C;
     const float* yb = Y + (int64_t)b * rows * C;
-    for (int64_t s0 = r0; s0 < r1; s0 += DM_ROWS) {
-      const int cnt = r1 - s0 < DM_ROWS ? (int)(r1 - s0) : DM_ROWS;
+    const int steps = (int)((r1 - r0 + DM_ROWS - 1) / DM_ROWS);
+    for (int st = 0; st < steps; ++st) {
+      const int buf = st & 1;
+      if (st == 0) {
+        stage_rows<C, DM_ROWS, DM_THREADS, LD>(Xs[0], xb + r0 * C, C, (int)(r1 - r0));
+        stage_rows<C, DM_ROWS, DM_THREADS, LD>(Ys[0], yb + r0 * C, C, (int)(r1 - r0));
+        cp_async_commit();
+      }
+      if (st + 1 < steps) {
+        const int64_t s1 = r0 + (int64_t)(st + 1) * DM_ROWS;
+        stage_rows<C, DM_ROWS, DM_THREADS, LD>(Xs[buf ^ 1], xb + s1 * C, C, (int)(r1 - s1));
+        stage_rows<C, DM_ROWS, DM_THREADS, LD>(Ys[buf ^ 1], yb + s1 * C, C, (int)(r1 - s1));
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
       __syncthreads();
-      for (int idx = threadIdx.x; idx < DM_ROWS * C / 4; idx += DM_THREADS) {
-        const int rr = idx / (C / 4);
-        const int c4 = idx % (C / 4);
-        float4 xv = make_float4(0.f, 0.f, 0.f, 0.f), yv = xv;
-        if (rr < cnt) {
-          xv = __ldg(reinterpret_cast<const float4*>(xb + (s0 + rr) * C) + c4);
-          yv = __ldg(reinterpret_cast<const float4*>(yb + (s0 + rr) * C) + c4);
+      float t[KS][4];
+#pragma unroll
+      for (int j = 0; j < KS; ++j) t[j][0] = t[j][1] = t[j][2] = t[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DM_ROWS / 8; ++ks) {
+        float af[4];
+        load_a_t(af, Xs[buf], LD, m0, 8 * ks, ln);
+        const FragA a = split(af);
+#pragma unroll
+        for (int j = 0; j < KS; ++j) {
+          float bf[2];
+          load_b_kn_std(bf, Ys[buf], LD, 8 * ks, 8 * j, ln);
+          mma3(t[j], a, split(bf));
         }
-        reinterpret_cast<float4*>(Xs)[idx] = xv;
-        reinterpret_cast<float4*>(Ys)[idx] = yv;
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int rr = 0; rr < DM_ROWS; ++rr) {
-        const float4 xv = *reinterpret_cast<const float4*>(Xs + rr * C + a0);
-        const float4 yv = *reinterpret_cast<const float4*>(Ys + rr * C + c0);
-        const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-        const float yc[4] = {yv.x, yv.y, yv.z, yv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], yc[j], acc[i][j]);
-      }
+      add_tile<C>(acc, t);
+      __syncthreads();  // every warp is done with this buffer before it is restaged
     }
   }
-  float* out = part + (((int64_t)b * n + view) * splits + split) * C * C;
+  float* out = part + (((int64_t)b * n + view) * splits + slice) * C * C;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(out + (a0 + i) * C + c0) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int j = 0; j < KS; ++j) {
+    const int col = 8 * j + 2 * ln.t;
+    *reinterpret_cast<float2*>(out + (m0 + ln.g) * C + col) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(out + (m0 + ln.g + 8) * C + col) = make_float2(acc[j][2], acc[j][3]);
+  }
 }
 
 // dm[bn] = sum over splits of part[bn, split], in split order
+template <int C>
 __global__ void gta_bwd_dm_sum_kernel(const float* __restrict__ part, float* __restrict__ dm,
                                       int64_t total, int splits) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -482,79 +507,112 @@ __global__ void gta_bwd_dm_sum_kernel(const float* __restrict__ part, float* __r
   dm[idx] = s;
 }
 
+template <int C>
 cudaError_t reduce_dm(const float* X1, const float* Y1, const float* X2, const float* Y2,
                       float* part, float* dm, int B, int n, int T, int H, int splits,
                       cudaStream_t stream) {
   const int rpv = (T / n) * H;
-  gta_bwd_dm_kernel<<<dim3(splits, n, B), DM_THREADS, 0, stream>>>(X1, Y1, X2, Y2, part,
-                                                                     (int64_t)T * H, rpv, splits);
+  gta_bwd_dm_kernel<C><<<dim3(splits, n, B), DM_THREADS, 0, stream>>>(X1, Y1, X2, Y2, part,
+                                                                      (int64_t)T * H, rpv, splits);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t total = (int64_t)B * n * C * C;
-  gta_bwd_dm_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(part, dm, total,
-                                                                             splits);
+  gta_bwd_dm_sum_kernel<C><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(part, dm, total,
+                                                                                splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, tables: the forward's inputs. g: the cotangent of its output.
-// z, lse, kt, vt: its residuals (kt/vt null without a K/V transform; vt
-// null without V_TRANSFORM). qt_s, do_s [B, H, Tq, C], delta [B, H, Tq],
-// dzq, dz [B, Tq, H*C], dzk, dzv [B, Tk, H*C] (each null where its flag is
-// off) and part [B * max(nq * splits_q, nk * splits_k), C, C]: scratch.
+// z, lse, qt, kt, vt: its residuals (qt null without a Q transform, kt
+// null without a K/V transform, vt null without V_TRANSFORM). do_s
+// [B, H, Tq, C], delta [B, H, Tq], dzq, dz [B, Tq, H*C], dzk, dzv
+// [B, Tk, H*C] (each null where its flag is off) and part
+// [B * max(nq * splits_q, nk * splits_k), C, C]: scratch.
 extern "C" int gta_fused_bwd(const float* q, const float* k, const float* v, const float* mq,
                              const float* mk, const float* mo, const float* cq, const float* sq,
                              const float* ck, const float* sk, const float* g, const float* z,
-                             const float* lse, const float* kt, const float* vt, float* qt_s,
+                             const float* lse, const float* qt, const float* kt, const float* vt,
                              float* do_s, float* delta, float* dzq, float* dz, float* dzk,
                              float* dzv, float* part, float* dq, float* dk, float* dv, float* dmq,
                              float* dmk, float* dmo, int B, int H, int Tq, int Tk, int c, int nq,
                              int nk, int splits_q, int splits_k, int flags, float scale,
                              void* stream_ptr) {
+  constexpr int C = HEAD_DIM;
+  const bool q_tf = flags & (HAS_MQ | HAS_ROTQ);
+  const bool kv_tf = flags & (HAS_MK | HAS_ROTK);
+  const bool vt_flag = flags & V_TRANSFORM;
+  const bool v_side = kv_tf && vt_flag;
+  const bool has_mo = vt_flag && (flags & HAS_MO);
+  const bool rq = flags & HAS_ROTQ, rk = flags & HAS_ROTK;
   if (c != C || B < 1 || H < 1 || Tq < 1 || Tk < 1 || nq < 1 || nk < 1 || Tq % nq || Tk % nk ||
-      splits_q < 1 || splits_k < 1) {
+      splits_q < 1 || splits_k < 1 || B > 65535 || H > 65535 || (q_tf && !qt) ||
+      (kv_tf && !kt) || (v_side && !vt)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int64_t D = (int64_t)H * C;
-  const bool kv_transform = flags & (HAS_MK | HAS_ROTK);
-  const bool v_side = kv_transform && (flags & V_TRANSFORM);
-  // strides (in floats) of the transformed K and V rows, as in the forward
-  const int64_t scratch_bs = (int64_t)H * Tk * C, scratch_hs = (int64_t)Tk * C;
-  const int64_t input_bs = (int64_t)Tk * D, input_hs = C;
-  const float* kp = kv_transform ? kt : k;
-  const float* vp = v_side ? vt : v;
-  const int64_t k_bs = kv_transform ? scratch_bs : input_bs;
-  const int64_t k_hs = kv_transform ? scratch_hs : input_hs;
-  const int64_t k_rs = kv_transform ? (int64_t)C : D;
-  const int64_t v_bs = v_side ? scratch_bs : input_bs;
-  const int64_t v_hs = v_side ? scratch_hs : input_hs;
-  const int64_t v_rs = v_side ? (int64_t)C : D;
+  const Layout tok_q = gta_rows::tokens(Tq, H, C), tok_k = gta_rows::tokens(Tk, H, C);
+  const Layout hf_q = gta_rows::heads_first(Tq, H, C), hf_k = gta_rows::heads_first(Tk, H, C);
+  cudaError_t err;
 
-  gta_bwd_q_kernel<<<dim3((Tq + ROWS - 1) / ROWS, H, B), THREADS, 0, stream>>>(
-      q, kp, vp, mq, mo, cq, sq, g, z, lse, qt_s, do_s, delta, dzq, dz, dq, H, Tq, Tk, nq, k_bs,
-      k_hs, k_rs, v_bs, v_hs, v_rs, flags, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gta_bwd_kv_kernel<<<dim3((Tk + ROWS - 1) / ROWS, H, B), THREADS, 0, stream>>>(
-      kp, vp, mk, ck, sk, qt_s, do_s, lse, delta, dzk, dzv, dk, dv, H, Tq, Tk, nk, k_bs, k_hs,
-      k_rs, v_bs, v_hs, v_rs, flags, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  // output chain: dz = R_q(g) (stored for dMo), do = dz @ Mo^T, delta = rowsum(do * z)
+  {
+    const RowJob j{g, do_s, tok_q, hf_q, has_mo ? mo : nullptr, vt_flag && rq ? cq : nullptr,
+                   vt_flag && rq ? sq : nullptr, has_mo ? dz : nullptr, z, delta, Tq, nq, 1, 0};
+    if ((err = gta_rows::run_rows<C>(j, B, H, stream))) return (int)err;
+  }
+
+  const float* qp = q_tf ? qt : q;
+  const float* kp = kv_tf ? kt : k;
+  const float* vp = v_side ? vt : v;
+  const Layout ql = q_tf ? hf_q : tok_q, kl = kv_tf ? hf_k : tok_k, vl = v_side ? hf_k : tok_k;
+
+  constexpr int q_smem = q_smem_bytes<C>(), kv_smem = kv_smem_bytes<C>();
+  if ((err = cudaFuncSetAttribute(gta_bwd_q_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  q_smem)))
+    return (int)err;
+  if ((err = cudaFuncSetAttribute(gta_bwd_kv_kernel<C>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem)))
+    return (int)err;
+  gta_bwd_q_kernel<C><<<dim3((Tq + BM - 1) / BM, H, B), THREADS, q_smem, stream>>>(
+      qp, kp, vp, do_s, lse, delta, dq, H, Tq, Tk, ql, kl, vl, hf_q, tok_q, scale);
+  if ((err = cudaGetLastError())) return (int)err;
+  gta_bwd_kv_kernel<C><<<dim3((Tk + BM - 1) / BM, H, B), THREADS, kv_smem, stream>>>(
+      kp, vp, qp, do_s, lse, delta, dk, dv, H, Tq, Tk, kl, vl, ql, hf_q, tok_k, scale);
+  if ((err = cudaGetLastError())) return (int)err;
+
+  // query chain, in place on dq: dzq = R_q^-1(dqt) (stored for dMq), dq = dzq @ Mq^T
+  if (q_tf) {
+    const RowJob j{dq, dq, tok_q, tok_q, flags & HAS_MQ ? mq : nullptr, rq ? cq : nullptr,
+                   rq ? sq : nullptr, flags & HAS_MQ ? dzq : nullptr, nullptr, nullptr, Tq, nq,
+                   1, 1};
+    if ((err = gta_rows::run_rows<C>(j, B, H, stream))) return (int)err;
+  }
+  // key / value chains, in place on dk and dv
+  if (kv_tf) {
+    const float* Mk = flags & HAS_MK ? mk : nullptr;
+    const RowJob jk{dk, dk, tok_k, tok_k, Mk, rk ? ck : nullptr, rk ? sk : nullptr,
+                    Mk ? dzk : nullptr, nullptr, nullptr, Tk, nk, 1, 1};
+    if ((err = gta_rows::run_rows<C>(jk, B, H, stream))) return (int)err;
+    if (vt_flag) {
+      const RowJob jv{dv, dv, tok_k, tok_k, Mk, rk ? ck : nullptr, rk ? sk : nullptr,
+                      Mk ? dzv : nullptr, nullptr, nullptr, Tk, nk, 1, 1};
+      if ((err = gta_rows::run_rows<C>(jv, B, H, stream))) return (int)err;
+    }
+  }
 
   if (flags & HAS_MQ) {
-    err = reduce_dm(q, dzq, nullptr, nullptr, part, dmq, B, nq, Tq, H, splits_q, stream);
+    err = reduce_dm<C>(q, dzq, nullptr, nullptr, part, dmq, B, nq, Tq, H, splits_q, stream);
     if (err != cudaSuccess) return (int)err;
   }
-  if ((flags & HAS_MO) && (flags & V_TRANSFORM)) {
-    err = reduce_dm(z, dz, nullptr, nullptr, part, dmo, B, nq, Tq, H, splits_q, stream);
+  if (has_mo) {
+    err = reduce_dm<C>(z, dz, nullptr, nullptr, part, dmo, B, nq, Tq, H, splits_q, stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (flags & HAS_MK) {
-    const bool vt_side = flags & V_TRANSFORM;
-    err = reduce_dm(k, dzk, vt_side ? v : nullptr, vt_side ? dzv : nullptr, part, dmk, B, nk, Tk,
-                    H, splits_k, stream);
+    err = reduce_dm<C>(k, dzk, vt_flag ? v : nullptr, vt_flag ? dzv : nullptr, part, dmk, B, nk,
+                       Tk, H, splits_k, stream);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

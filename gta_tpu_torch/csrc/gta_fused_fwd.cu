@@ -1,4 +1,5 @@
-// Fully fused GTA attention forward for Hopper (sm_90a), fp32 on CUDA cores.
+// Fully fused GTA attention forward for Hopper (sm_90a): fp32 accuracy, the
+// attention core on the tensor cores (3xTF32 mma.sync, csrc/tf32x3.cuh).
 //
 // Replaces gta_tpu/ops/gta_fused.py:209 `_fwd_kernel` (the Pallas TPU
 // kernel, with its helpers `_transform_sides`, `_per_view`, `_rot_fwd`,
@@ -7,49 +8,70 @@
 //
 //   qt = rot_q(q @ Mq[view])            kt = rot_k(k @ Mk[view])
 //   vt = rot_k(v @ Mk[view])            (only with V_TRANSFORM)
-//   z  = softmax(qt kt^T * scale) vt    (fp32, online over K tiles)
+//   z  = softmax(qt kt^T * scale) vt    (fp32 accuracy, online over K tiles)
 //   out = rot_q^-1(z @ Mo[view])        (only with V_TRANSFORM)
 //
 // where rot(x) = c*x + s*swap(x), swap(x0, x1) = (-x1, x0) on lane pairs,
 // and rot^-1(x) = c*x - s*swap(x). A row's view is row / tokens_per_view;
-// views need not align with any tile (CLEVR encoder views hold 300 tokens).
+// views need not align with any tile (CLEVR encoder views hold 300 tokens,
+// decoder views 856).
 //
-// What bounds it on the H100: at the flagship shapes (C = 64, Tk = 600,
-// Tq = 600 to 16384) the core does 4*Tq*Tk*C flops per (b, h) against
-// (4*Tq + 4*Tk)*C*4 bytes of q, k, v, out and rotor tables: 75 to 145
-// flops per byte, far above the fp32 ridge of 67 TFLOP/s / 3.35 TB/s = 20.
-// It is bound by arithmetic, and the fp32 precision policy keeps that
-// arithmetic on the CUDA cores, not the tensor cores.
+// What bounds it on the H100: the core does 4*Tq*Tk*C flops per (b, h)
+// against (4*Tq + 4*Tk)*C*4 bytes of q, k, v, out and rotor tables, 75 to
+// 145 flops per byte at the flagship shapes (C = 64, Tk = 600, Tq = 600 to
+// 16384): bound by operations, at 165 TFLOP/s for fp32-accurate products
+// on the tensor cores (3xTF32, 495 / 3) or 67 TFLOP/s on the CUDA cores.
 //
-// What the design does about it:
-//  * A prologue launch transforms K (and V) once per (b, h) into fp32
-//    scratch laid out [B, H, Tk, C]. Transforming on every tile load
-//    instead would repeat Tk*C^2 work for each query block, as much as the
-//    q.k^T product itself at C = 64.
-//  * The main launch gives each thread one query row: the transformed row
-//    and its output accumulator live in registers, so the softmax needs no
-//    cross-thread reduction. K/V tiles are staged in shared memory and read
-//    as float4 broadcasts (every lane reads the same address): one 16-byte
-//    shared load feeds four FMAs per lane.
-//  * Query rows are transformed on load and the output transform is
-//    applied before the store, so q and out cross device memory once.
-// Not yet: tensor-core (wgmma) products, TMA loads, bf16/TF32 operands.
+// What the design does about it (each launch of the C entry point runs up
+// to five kernels on the stream):
+//  * Row launches (csrc/gta_rows.cuh, on the tensor cores) transform Q, K
+//    and V once into scratch laid out [B, H, T, C]; the main kernel's loop
+//    holds no C x C product. The Q scratch doubles as a training residual:
+//    the backward reads it instead of recomputing qt.
+//  * The main kernel: a block of 64 query rows, a warp per 16 rows; its qt
+//    rows are split into TF32 parts once, in shared memory. K/V tiles of 32
+//    keys are double-buffered in dynamic shared memory by cp.async (70 KB
+//    a block, 3 blocks per SM). S = qt kt^T and O += P vt are 3xTF32
+//    m16n8k8 mma.sync; the online softmax lives in the S accumulators, its
+//    row max reduced across each quad of lanes by shuffles; P feeds P*V as
+//    an A fragment in place (tf32x3.cuh renames its columns, and the V
+//    fragment reads its keys in the same order). Each tile's P*V starts
+//    from zero and joins O by rounded fp32 adds. Ragged Tq and Tk need no
+//    padding: rows past Tq are zero and store nothing, keys past Tk are
+//    zero-filled and masked to -inf.
+//  * The output transform (z @ Mo, inverse rotors) is a row launch after
+//    the main kernel, in place on `out` when z is not kept.
+// ptxas (CUDA 12.8, sm_90a), no spills anywhere: main kernel 157
+// registers (3 blocks of 128 threads per SM); row launches 96 (matrix, on
+// the tensor cores) and 114 (rotors only). The main loop reaches about half
+// of mma.sync's rate (csrc/tf32x3.cuh): with 12 warps per SM it is bound by
+// the latency of each fragment's load, split and dependent mma chain.
+// Not yet: wgmma and TMA (wgmma's TF32 form takes only K-major operands,
+// so P*V needs a transposed V tile); K/V split once per block.
 //
-// Training residuals: given non-null `z` and `lse`, the main kernel also
-// writes z (the attention output before the output transform, the Pallas
-// kernel's `store_z`) and each row's log-sum-exp of the scaled scores, for
-// csrc/gta_fused_bwd.cu. Serving passes null for both and the kernels do
-// exactly the work they did without them.
+// Training residuals: given non-null `z` and `lse`, the kernels also keep z
+// (the attention output before the output transform, the Pallas kernel's
+// `store_z`) and each row's natural-log log-sum-exp of the scaled scores,
+// for csrc/gta_fused_bwd.cu. Serving passes null for both.
 //
 // Interface: plain C, bound from Python with ctypes. Every pointer is a
 // contiguous fp32 device array; absent tables are null and flagged off.
+// qt/kt/vt: scratch [B, H, T, C] for each side that has a transform.
 // Returns the cudaError_t of the launches (0 = success).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "gta_rows.cuh"
+#include "tf32x3.cuh"
+
 namespace {
+
+using namespace tf32x3;
+using gta_rows::Layout;
+using gta_rows::offset;
+using gta_rows::RowJob;
 
 constexpr int HAS_MQ = 1;
 constexpr int HAS_MK = 2;
@@ -58,260 +80,231 @@ constexpr int HAS_ROTQ = 8;
 constexpr int HAS_ROTK = 16;
 constexpr int V_TRANSFORM = 32;
 
-constexpr int HEAD_DIM = 64;  // the only head width compiled in
-constexpr int BQ = 128;       // query rows (threads) per main block
-constexpr int BK = 32;        // keys per shared-memory tile
-constexpr int BT = 128;       // rows (threads) per prologue block
+constexpr int HEAD_DIM = 64;  // the only head width instantiated
+constexpr int WARPS = 4;
+constexpr int BM = 16 * WARPS;  // query rows per block
+constexpr int BN = 32;          // keys per shared-memory tile
+constexpr int THREADS = 32 * WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int C>
-__device__ __forceinline__ void load_row(const float* __restrict__ src, float (&x)[C]) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int i = 0; i < C / 4; ++i) {
-    const float4 t = __ldg(s4 + i);
-    x[4 * i] = t.x;
-    x[4 * i + 1] = t.y;
-    x[4 * i + 2] = t.z;
-    x[4 * i + 3] = t.w;
-  }
+constexpr int main_smem_bytes() {
+  // qt hi and lo parts of the block's rows, K and V tiles (two stages each)
+  return (2 * BM * (C + 4) + 2 * 2 * BN * (C + 4)) * (int)sizeof(float);
 }
 
+// z[b, row, h] = softmax(qt kt^T * scale) vt for the block's 64 rows.
+// grid (ceil(Tq/BM), H, B). qt/kt/vt are addressed through (batch, head,
+// row) strides, so the kernel reads row-launch scratch [B, H, T, C] or raw
+// token-major input [B, T, H*C] alike.
 template <int C>
-__device__ __forceinline__ void store_row(float* __restrict__ dst, const float (&x)[C]) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int i = 0; i < C / 4; ++i) {
-    d4[i] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
-  }
-}
+__global__ void __launch_bounds__(THREADS, 3)
+gta_fwd_main_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
+                    const float* __restrict__ vt, float* __restrict__ z, float* __restrict__ lse,
+                    int H, int Tq, int Tk, Layout ql, Layout kl, Layout vl, Layout zl,
+                    float scale) {
+  static_assert(C % 8 == 0, "head width must be a multiple of 8");
+  constexpr int LD = C + 4;
+  constexpr int KS = C / 8;   // k-steps over channels
+  constexpr int NT = BN / 8;  // 8-key tiles per K tile
+  extern __shared__ __align__(16) float smem[];
+  float* Qh = smem;              // [BM][LD] qt, TF32 big parts
+  float* Ql = Qh + BM * LD;      // [BM][LD] qt, small parts
+  float* Ks = Ql + BM * LD;      // [2][BN][LD]
+  float* Vs = Ks + 2 * BN * LD;  // [2][BN][LD]
 
-// x <- x @ M for a row-major [C, C] matrix in device memory. The lanes of a
-// warp mostly share a view, so the loads broadcast through L1.
-template <int C>
-__device__ __forceinline__ void matvec(float (&x)[C], const float* __restrict__ M) {
-  float y[C];
-#pragma unroll
-  for (int j = 0; j < C; ++j) y[j] = 0.f;
-  const float4* M4 = reinterpret_cast<const float4*>(M);
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    const float xi = x[i];
-#pragma unroll
-    for (int j = 0; j < C / 4; ++j) {
-      const float4 m = __ldg(M4 + i * (C / 4) + j);
-      y[4 * j] = fmaf(xi, m.x, y[4 * j]);
-      y[4 * j + 1] = fmaf(xi, m.y, y[4 * j + 1]);
-      y[4 * j + 2] = fmaf(xi, m.z, y[4 * j + 2]);
-      y[4 * j + 3] = fmaf(xi, m.w, y[4 * j + 3]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < C; ++j) x[j] = y[j];
-}
-
-// x <- c*x + s*swap(x) (INV: c*x - s*swap(x)) with per-lane tables c, s.
-template <int C, bool INV>
-__device__ __forceinline__ void rotate(float (&x)[C], const float* __restrict__ c,
-                                       const float* __restrict__ s) {
-  const float4* c4 = reinterpret_cast<const float4*>(c);
-  const float4* s4 = reinterpret_cast<const float4*>(s);
-  const float sg = INV ? -1.f : 1.f;
-#pragma unroll
-  for (int i = 0; i < C / 4; ++i) {
-    const float4 cc = __ldg(c4 + i);
-    const float4 ss = __ldg(s4 + i);
-    const float a0 = x[4 * i], a1 = x[4 * i + 1], a2 = x[4 * i + 2], a3 = x[4 * i + 3];
-    x[4 * i] = cc.x * a0 - sg * ss.x * a1;
-    x[4 * i + 1] = cc.y * a1 + sg * ss.y * a0;
-    x[4 * i + 2] = cc.z * a2 - sg * ss.z * a3;
-    x[4 * i + 3] = cc.w * a3 + sg * ss.w * a2;
-  }
-}
-
-// Prologue: kt/vt[b, h, t, :] = rot_k(x[b, t, h*C:(h+1)*C] @ Mk[b, view(t)]).
-// grid (ceil(Tk/BT), H, B*nsides); side 0 transforms k, side 1 transforms v.
-template <int C>
-__global__ void __launch_bounds__(BT)
-gta_fwd_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                  const float* __restrict__ mk, const float* __restrict__ ck,
-                  const float* __restrict__ sk, float* __restrict__ kt,
-                  float* __restrict__ vt, int H, int Tk, int nk, int nsides, int flags) {
-  const int b = blockIdx.z / nsides;
-  const int side = blockIdx.z % nsides;
-  const int h = blockIdx.y;
-  const int row = blockIdx.x * BT + threadIdx.x;
-  if (row >= Tk) return;
-  const int64_t D = (int64_t)H * C;
-  const float* src = side ? v : k;
-  float* dst = side ? vt : kt;
-
-  float x[C];
-  load_row<C>(src + ((int64_t)b * Tk + row) * D + (int64_t)h * C, x);
-  if (flags & HAS_MK) {
-    const int view = row / (Tk / nk);
-    matvec<C>(x, mk + ((int64_t)b * nk + view) * C * C);
-  }
-  if (flags & HAS_ROTK) {
-    const int64_t r = ((int64_t)b * Tk + row) * C;
-    rotate<C, false>(x, ck + r, sk + r);
-  }
-  store_row<C>(dst + (((int64_t)b * H + h) * Tk + row) * C, x);
-}
-
-// Main: one thread per query row. grid (ceil(Tq/BQ), H, B).
-// kt/vt are addressed by (batch, head, row) strides in floats, so the same
-// kernel reads prologue scratch [B, H, Tk, C] or untransformed token-major
-// input [B, Tk, H*C].
-template <int C>
-__global__ void __launch_bounds__(BQ)
-gta_fwd_main_kernel(const float* __restrict__ q, const float* __restrict__ kt,
-                    const float* __restrict__ vt, const float* __restrict__ mq,
-                    const float* __restrict__ mo, const float* __restrict__ cq,
-                    const float* __restrict__ sq, float* __restrict__ out,
-                    float* __restrict__ z, float* __restrict__ lse, int H, int Tq,
-                    int Tk, int nq, int64_t k_bs, int64_t k_hs, int64_t k_rs, int64_t v_bs,
-                    int64_t v_hs, int64_t v_rs, int flags, float scale) {
-  __shared__ __align__(16) float Ks[BK * C];
-  __shared__ __align__(16) float Vs[BK * C];
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int row = blockIdx.x * BQ + threadIdx.x;
-  const bool active = row < Tq;
-  const int64_t D = (int64_t)H * C;
-  const int view = active ? row / (Tq / nq) : 0;
-  const int64_t qoff = ((int64_t)b * Tq + row) * D + (int64_t)h * C;
-  const int64_t roff = ((int64_t)b * Tq + row) * C;
+  const Lane ln = lane_coords();
+  const int warp = threadIdx.x / 32;
+  const int q0 = blockIdx.x * BM;
+  const int row[2] = {q0 + warp * 16 + ln.g, q0 + warp * 16 + ln.g + 8};
 
-  float x[C];
-  if (active) {
-    load_row<C>(q + qoff, x);
-    if (flags & HAS_MQ) matvec<C>(x, mq + ((int64_t)b * nq + view) * C * C);
-    if (flags & HAS_ROTQ) rotate<C, false>(x, cq + roff, sq + roff);
-  } else {
+  float acc[KS][4];  // O, 16 rows x C: rows (g, g+8), channels 8n + 2t (+1)
 #pragma unroll
-    for (int c = 0; c < C; ++c) x[c] = 0.f;
-  }
+  for (int n = 0; n < KS; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the scaled scores
+  float l[2] = {0.f, 0.f};              // this lane's part of the running sum
 
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
-  const float* kbase = kt + b * k_bs + h * k_hs;
-  const float* vbase = vt + b * v_bs + h * v_hs;
+  // qt rows (split once: every warp reads them at every K tile) and the
+  // first K/V tile; rows past Tq are zero and store nothing
+  const float* kbase = kt + b * kl.bs + h * kl.hs;
+  const float* vbase = vt + b * vl.bs + h * vl.hs;
+  const int ntiles = (Tk + BN - 1) / BN;
+  stage_rows<C, BM, THREADS>(Qh, qt + offset(ql, b, h, q0), ql.rs, Tq - q0);
+  stage_rows<C, BN, THREADS>(Ks, kbase, kl.rs, Tk);
+  stage_rows<C, BN, THREADS>(Vs, vbase, vl.rs, Tk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_rows<C, BM, THREADS>(Qh, Ql);
+  const float* Qhw = Qh + warp * 16 * LD;
+  const float* Qlw = Ql + warp * 16 * LD;
 
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = threadIdx.x; idx < BK * C / 4; idx += BQ) {
-      const int r = idx / (C / 4);
-      const int c4 = idx % (C / 4);
-      const int key = k0 + r;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kk;
-      if (key < Tk) {
-        kk = __ldg(reinterpret_cast<const float4*>(kbase + key * k_rs) + c4);
-        vv = __ldg(reinterpret_cast<const float4*>(vbase + key * v_rs) + c4);
-      }
-      reinterpret_cast<float4*>(Ks)[idx] = kk;
-      reinterpret_cast<float4*>(Vs)[idx] = vv;
+  for (int i = 0; i < ntiles; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < ntiles) {  // the next tile streams in while this one computes
+      const int k1 = (i + 1) * BN;
+      stage_rows<C, BN, THREADS>(Ks + (buf ^ 1) * BN * LD, kbase + k1 * kl.rs, kl.rs, Tk - k1);
+      stage_rows<C, BN, THREADS>(Vs + (buf ^ 1) * BN * LD, vbase + k1 * vl.rs, vl.rs, Tk - k1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* K = Ks + buf * BN * LD;
+    const float* V = Vs + buf * BN * LD;
 
-    const int nkeys = min(BK, Tk - k0);
-    float s[BK];
-    float tmax = -INFINITY;
+    // S = qt kt^T: rows (g, g+8), keys 8n + 2t (+1)
+    float s[NT][4];
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(Ks + j * C);
-      float d = 0.f;
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int c = 0; c < C / 4; ++c) {
-        const float4 kv = kr[c];
-        d = fmaf(x[4 * c], kv.x, d);
-        d = fmaf(x[4 * c + 1], kv.y, d);
-        d = fmaf(x[4 * c + 2], kv.z, d);
-        d = fmaf(x[4 * c + 3], kv.w, d);
-      }
-      s[j] = j < nkeys ? d * scale : -INFINITY;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    // online softmax: rescale the running sum and accumulator to the new max
-    const float mnew = fmaxf(m, tmax);
-    const float alpha = expf(m - mnew);
-    l *= alpha;
+    for (int ks = 0; ks < KS; ++ks) {
+      FragA a;
+      load_a_split(a, Qhw, Qlw, LD, 8 * ks, ln);
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - mnew);
-      l += p;
-      const float4* vr = reinterpret_cast<const float4*>(Vs + j * C);
-#pragma unroll
-      for (int c = 0; c < C / 4; ++c) {
-        const float4 vv = vr[c];
-        acc[4 * c] = fmaf(p, vv.x, acc[4 * c]);
-        acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
+      for (int n = 0; n < NT; ++n) {
+        float bf[2];
+        load_b_nk(bf, K, LD, 8 * n, 8 * ks, ln);
+        mma3(s[n], a, split(bf));
       }
     }
-    m = mnew;
+
+    // online softmax, exponentials in base 2; keys past Tk score -inf. The
+    // max stays in the scores' own units, so that where one key dominates,
+    // lse = max exactly and the backward's exp(s * scale - lse) is 1
+    const int kvalid = Tk - i * BN;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * n + 2 * ln.t + (e & 1);
+        const float x = key < kvalid ? s[n][e] * scale : -INFINITY;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mnew = fmaxf(m[r], mx[r]);  // finite: every tile has a valid key
+      alpha[r] = exp2f((m[r] - mnew) * LOG2E);
+      m[r] = mnew;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((s[n][e] - m[e >> 1]) * LOG2E);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+
+    // O = alpha * O + P vt. P's 8-key tile j is the A operand of k-step j.
+    // The tile's product starts from zero and joins O by a rounded fp32 add
+    // (the tensor cores' accumulation truncates; tf32x3.cuh).
+    float pv[KS][4];
+#pragma unroll
+    for (int n = 0; n < KS; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float pa[4];
+      a_from_acc(pa, s[j]);
+      const FragA a = split(pa);
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        float bf[2];
+        load_b_kn(bf, V, LD, 8 * j, 8 * n, ln);
+        mma3(pv[n], a, split(bf));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[n][e]);
+    }
+    __syncthreads();  // every warp is done with this buffer before it is restaged
   }
 
-  if (!active) return;
-  const float inv = 1.f / l;
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] *= inv;
-  if (lse) lse[((int64_t)b * H + h) * Tq + row] = m + logf(l);
-  if (z) store_row<C>(z + qoff, acc);
-  if (flags & V_TRANSFORM) {
-    if (flags & HAS_MO) matvec<C>(acc, mo + ((int64_t)b * nq + view) * C * C);
-    if (flags & HAS_ROTQ) rotate<C, true>(acc, cq + roff, sq + roff);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (row[r] >= Tq) continue;
+    const float inv = 1.f / l[r];
+    float* zr = z + offset(zl, b, h, row[r]);
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      *reinterpret_cast<float2*>(zr + 8 * n + 2 * ln.t) =
+          make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    }
+    if (lse && ln.t == 0) lse[((int64_t)b * H + h) * Tq + row[r]] = m[r] + logf(l[r]);
   }
-  store_row<C>(out + qoff, acc);
 }
 
 }  // namespace
 
 extern "C" int gta_fused_fwd(const float* q, const float* k, const float* v, const float* mq,
                              const float* mk, const float* mo, const float* cq, const float* sq,
-                             const float* ck, const float* sk, float* kt, float* vt, float* out,
-                             float* z, float* lse, int B, int H, int Tq, int Tk, int C, int nq,
-                             int nk, int flags, float scale, void* stream_ptr) {
-  if (C != HEAD_DIM || B < 1 || H < 1 || Tq < 1 || Tk < 1 || nq < 1 || nk < 1 ||
-      Tq % nq || Tk % nk) {
+                             const float* ck, const float* sk, float* qt, float* kt, float* vt,
+                             float* out, float* z, float* lse, int B, int H, int Tq, int Tk, int C,
+                             int nq, int nk, int flags, float scale, void* stream_ptr) {
+  constexpr int CC = HEAD_DIM;
+  const bool q_tf = flags & (HAS_MQ | HAS_ROTQ);
+  const bool kv_tf = flags & (HAS_MK | HAS_ROTK);
+  const bool v_side = kv_tf && (flags & V_TRANSFORM);
+  const bool out_tf = (flags & V_TRANSFORM) && (flags & (HAS_MO | HAS_ROTQ));
+  if (C != CC || B < 1 || H < 1 || Tq < 1 || Tk < 1 || nq < 1 || nk < 1 || Tq % nq || Tk % nk ||
+      B > 65535 || H > 65535 || (q_tf && !qt) || (kv_tf && !kt) || (v_side && !vt)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int64_t D = (int64_t)H * C;
-  const bool kv_transform = flags & (HAS_MK | HAS_ROTK);
-  const bool v_side = kv_transform && (flags & V_TRANSFORM);
+  const Layout tok_q = gta_rows::tokens(Tq, H, CC), tok_k = gta_rows::tokens(Tk, H, CC);
+  const Layout hf_q = gta_rows::heads_first(Tq, H, CC), hf_k = gta_rows::heads_first(Tk, H, CC);
+  cudaError_t err;
 
-  if (kv_transform) {
-    const int nsides = v_side ? 2 : 1;
-    const dim3 grid((Tk + BT - 1) / BT, H, B * nsides);
-    gta_fwd_kv_kernel<HEAD_DIM><<<grid, BT, 0, stream>>>(k, v, mk, ck, sk, kt, vt, H, Tk, nk,
-                                                         nsides, flags);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  // qt, kt, vt: R(x @ M) into [B, H, T, C] scratch
+  auto side = [&](const float* src, float* dst, const float* M, const float* c, const float* s,
+                  int T, int n, Layout from, Layout to) {
+    const RowJob j{src, dst, from, to, M, c, s, nullptr, nullptr, nullptr, T, n, 0, 0};
+    return gta_rows::run_rows<CC>(j, B, H, stream);
+  };
+  const float* Mq = flags & HAS_MQ ? mq : nullptr;
+  const float* Mk = flags & HAS_MK ? mk : nullptr;
+  const bool rq = flags & HAS_ROTQ, rk = flags & HAS_ROTK;
+  if (q_tf && (err = side(q, qt, Mq, rq ? cq : nullptr, rq ? sq : nullptr, Tq, nq, tok_q, hf_q)))
+    return (int)err;
+  if (kv_tf && (err = side(k, kt, Mk, rk ? ck : nullptr, rk ? sk : nullptr, Tk, nk, tok_k, hf_k)))
+    return (int)err;
+  if (v_side && (err = side(v, vt, Mk, rk ? ck : nullptr, rk ? sk : nullptr, Tk, nk, tok_k, hf_k)))
+    return (int)err;
+
+  constexpr int smem = main_smem_bytes<CC>();
+  err = cudaFuncSetAttribute(gta_fwd_main_kernel<CC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  float* zp = z ? z : out;
+  const dim3 grid((Tq + BM - 1) / BM, H, B);
+  gta_fwd_main_kernel<CC><<<grid, THREADS, smem, stream>>>(
+      q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v, zp, lse, H, Tq, Tk, q_tf ? hf_q : tok_q,
+      kv_tf ? hf_k : tok_k, v_side ? hf_k : tok_k, tok_q, scale);
+  if ((err = cudaGetLastError())) return (int)err;
+
+  if (out_tf) {  // out = R_q^-1(z @ Mo), in place when z is not kept
+    const RowJob j{zp, out, tok_q, tok_q, flags & HAS_MO ? mo : nullptr, rq ? cq : nullptr,
+                   rq ? sq : nullptr, nullptr, nullptr, nullptr, Tq, nq, 0, 1};
+    return (int)gta_rows::run_rows<CC>(j, B, H, stream);
   }
-  // strides (in floats) of the K and V rows the main kernel reads
-  const int64_t scratch_bs = (int64_t)H * Tk * C, scratch_hs = (int64_t)Tk * C;
-  const int64_t input_bs = (int64_t)Tk * D, input_hs = C;
-  const float* kp = kv_transform ? kt : k;
-  const float* vp = v_side ? vt : v;
-  const int64_t k_bs = kv_transform ? scratch_bs : input_bs;
-  const int64_t k_hs = kv_transform ? scratch_hs : input_hs;
-  const int64_t k_rs = kv_transform ? (int64_t)C : D;
-  const int64_t v_bs = v_side ? scratch_bs : input_bs;
-  const int64_t v_hs = v_side ? scratch_hs : input_hs;
-  const int64_t v_rs = v_side ? (int64_t)C : D;
-
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  gta_fwd_main_kernel<HEAD_DIM><<<grid, BQ, 0, stream>>>(q, kp, vp, mq, mo, cq, sq, out, z, lse,
-                                                         H, Tq, Tk, nq, k_bs, k_hs, k_rs, v_bs,
-                                                         v_hs, v_rs, flags, scale);
-  return (int)cudaGetLastError();
+  if (z) return (int)cudaMemcpyAsync(out, z, sizeof(float) * B * Tq * H * CC,
+                                     cudaMemcpyDeviceToDevice, stream);
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* gta_fused_error_string(int code) {

@@ -1,0 +1,289 @@
+// Per-row C x C transforms and SO(2) rotors of fused GTA attention, shared
+// by csrc/gta_fused_fwd.cu and csrc/gta_fused_bwd.cu.
+//
+// The attention cores of both kernels run over operands that are already
+// transformed. Every per-row chain runs here instead, outside the cores'
+// loops:
+//   forward form   y = R(x @ M[view])                 (qt, kt, vt; out = R^-1(z @ Mo))
+//   backward form  w = R(x), y = w @ M[view]^T        (do, dq, dk, dv)
+// with R(x) = c*x + s*swap(x), R^-1(x) = c*x - s*swap(x), swap(x0, x1) =
+// (-x1, x0) on lane pairs, per-view row-major [C, C] matrices and per-lane
+// rotor tables [B, T, C]; a row's view is row / (T / n_views). M and the
+// rotor tables may each be absent. The backward form can also store w (the
+// matrix cotangents' input) and a row's dot product with another row
+// (delta = rowsum(do * z)).
+//
+// What bounds it: 2*C*C flops per row and matrix against 8*C bytes moved
+// (16 flops per byte at C = 64): by bytes at the tensor cores' rate, by
+// operations on the CUDA cores. So a chain with a matrix runs on the tensor
+// cores, 3xTF32 like the attention cores (csrc/tf32x3.cuh): a block owns 64
+// rows of one view of one (b, h) (blocks never straddle a view), stages the
+// view's matrix and its rows in shared memory, and each warp multiplies 16
+// rows by M (or M^T) with m16n8k8 mma.sync. The small-part products gather
+// in an accumulator of their own, so the large part's truncating tensor-core
+// chain is 8 steps long. Rotors act on the output fragments, whose column
+// pairs (2t, 2t+1) are rotor pairs, or on the rows as they are staged.
+// Chains with no matrix (rotors alone) run one row per thread.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
+
+namespace gta_rows {
+
+constexpr int ROW_THREADS = 128;
+constexpr int MMA_ROWS = 64;  // rows per block of the tensor-core kernel (4 warps x 16)
+
+// strides (floats) of an operand over (batch, head, row)
+struct Layout {
+  int64_t bs, hs, rs;
+};
+
+// token-major [B, T, H*C]
+__host__ __device__ inline Layout tokens(int T, int H, int C) {
+  return {(int64_t)T * H * C, C, (int64_t)H * C};
+}
+
+// heads-first [B, H, T, C]
+__host__ __device__ inline Layout heads_first(int T, int H, int C) {
+  return {(int64_t)H * T * C, (int64_t)T * C, C};
+}
+
+__device__ __forceinline__ int64_t offset(const Layout& L, int b, int h, int row) {
+  return b * L.bs + h * L.hs + row * L.rs;
+}
+
+template <int C>
+__device__ __forceinline__ void load_row(const float* __restrict__ src, float (&x)[C]) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+#pragma unroll
+  for (int i = 0; i < C / 4; ++i) {
+    const float4 t = s4[i];
+    x[4 * i] = t.x;
+    x[4 * i + 1] = t.y;
+    x[4 * i + 2] = t.z;
+    x[4 * i + 3] = t.w;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_row(float* __restrict__ dst, const float (&x)[C]) {
+  float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll
+  for (int i = 0; i < C / 4; ++i) {
+    d4[i] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  }
+}
+
+// x <- c*x + sg*s*swap(x), sg = +1 (R) or -1 (R^-1)
+template <int C>
+__device__ __forceinline__ void rotate(float (&x)[C], const float* __restrict__ c,
+                                       const float* __restrict__ s, float sg) {
+  const float4* c4 = reinterpret_cast<const float4*>(c);
+  const float4* s4 = reinterpret_cast<const float4*>(s);
+#pragma unroll
+  for (int i = 0; i < C / 4; ++i) {
+    const float4 cc = __ldg(c4 + i);
+    const float4 ss = __ldg(s4 + i);
+    const float a0 = x[4 * i], a1 = x[4 * i + 1], a2 = x[4 * i + 2], a3 = x[4 * i + 3];
+    x[4 * i] = cc.x * a0 - sg * ss.x * a1;
+    x[4 * i + 1] = cc.y * a1 + sg * ss.y * a0;
+    x[4 * i + 2] = cc.z * a2 - sg * ss.z * a3;
+    x[4 * i + 3] = cc.w * a3 + sg * ss.w * a2;
+  }
+}
+
+// One transform of every (b, h, row < T) of an operand. m, c/s, mid, dot
+// may be null. src and dst may be the same array (every row is read before
+// it is written, by the block that writes it). mid and dot are token-major
+// [B, T, H*C]; dot_out is [B, H, T].
+struct RowJob {
+  const float* src;
+  float* dst;
+  Layout src_l, dst_l;
+  const float* m;  // [B, n_views, C, C]
+  const float* c;  // [B, T, C]
+  const float* s;
+  float* mid;
+  const float* dot;
+  float* dot_out;
+  int T, n_views;
+  int backward;  // 0: y = R(x @ M); 1: w = R(x), y = w @ M^T
+  int inverse;   // R^-1 in place of R
+};
+
+// A job without a matrix: y = R(x), one row per thread.
+// grid (ceil(T/ROW_THREADS), H, B).
+template <int C>
+__global__ void __launch_bounds__(ROW_THREADS) gta_rows_kernel(const RowJob j, int H) {
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int row = blockIdx.x * ROW_THREADS + threadIdx.x;
+  if (row >= j.T) return;
+  const int64_t roff = ((int64_t)b * j.T + row) * C;
+  const int64_t tok = ((int64_t)b * j.T + row) * H * C + (int64_t)h * C;
+
+  float x[C];
+  load_row<C>(j.src + offset(j.src_l, b, h, row), x);
+  if (j.c) rotate<C>(x, j.c + roff, j.s + roff, j.inverse ? -1.f : 1.f);
+  if (j.mid) store_row<C>(j.mid + tok, x);
+  if (j.dot) {
+    const float4* d4 = reinterpret_cast<const float4*>(j.dot + tok);
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < C / 4; ++i) {
+      const float4 d = d4[i];
+      acc = fmaf(x[4 * i], d.x, acc);
+      acc = fmaf(x[4 * i + 1], d.y, acc);
+      acc = fmaf(x[4 * i + 2], d.z, acc);
+      acc = fmaf(x[4 * i + 3], d.w, acc);
+    }
+    j.dot_out[((int64_t)b * H + h) * j.T + row] = acc;
+  }
+  store_row<C>(j.dst + offset(j.dst_l, b, h, row), x);
+}
+
+// The same transform for a job with a matrix, on the tensor cores.
+// grid (ceil(T / n_views / MMA_ROWS), H, B * n_views).
+template <int C, bool BWD>
+__global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJob j, int H) {
+  using namespace tf32x3;
+  static_assert(ROW_THREADS == 2 * MMA_ROWS, "a warp per 16 rows");
+  constexpr int LDX = C + 4;
+  // M is read as B[k][n] = M[k][n] (forward form) or M[n][k] (backward
+  // form); each wants its own row stride for conflict-free fragment loads
+  constexpr int LDM = BWD ? C + 4 : C + 8;
+  constexpr int KS = C / 8;
+  __shared__ __align__(16) float Ms[C * LDM];
+  __shared__ __align__(16) float Xs[MMA_ROWS * LDX];
+
+  const int b = blockIdx.z / j.n_views;
+  const int view = blockIdx.z % j.n_views;
+  const int h = blockIdx.y;
+  const int rpv = j.T / j.n_views;
+  const int l0 = blockIdx.x * MMA_ROWS;
+  const int n_rows = min(MMA_ROWS, rpv - l0);
+  const int r0 = view * rpv + l0;
+  const float sg = j.inverse ? -1.f : 1.f;
+
+  const float* M = j.m + ((int64_t)b * j.n_views + view) * C * C;
+  for (int idx = threadIdx.x; idx < C * C / 4; idx += ROW_THREADS) {
+    const int r = idx / (C / 4), c4 = idx % (C / 4);
+    cp_async16(Ms + r * LDM + 4 * c4, M + r * C + 4 * c4, true);
+  }
+  if (!BWD) {
+    stage_rows<C, MMA_ROWS, ROW_THREADS>(Xs, j.src + offset(j.src_l, b, h, r0), j.src_l.rs, n_rows);
+  } else {  // w = R(x) as the rows are staged (and stored to mid)
+    for (int idx = threadIdx.x; idx < MMA_ROWS * C / 4; idx += ROW_THREADS) {
+      const int r = idx / (C / 4), c4 = idx % (C / 4);
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < n_rows) {
+        const int row = r0 + r;
+        x = reinterpret_cast<const float4*>(j.src + offset(j.src_l, b, h, row))[c4];
+        if (j.c) {
+          const int64_t roff = ((int64_t)b * j.T + row) * C + 4 * c4;
+          const float4 cc = __ldg(reinterpret_cast<const float4*>(j.c + roff));
+          const float4 ss = __ldg(reinterpret_cast<const float4*>(j.s + roff));
+          x = make_float4(cc.x * x.x - sg * ss.x * x.y, cc.y * x.y + sg * ss.y * x.x,
+                          cc.z * x.z - sg * ss.z * x.w, cc.w * x.w + sg * ss.w * x.z);
+        }
+        if (j.mid) {
+          const int64_t tok = ((int64_t)b * j.T + row) * H * C + (int64_t)h * C;
+          reinterpret_cast<float4*>(j.mid + tok)[c4] = x;
+        }
+      }
+      *reinterpret_cast<float4*>(Xs + r * LDX + 4 * c4) = x;
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Y = X M (X M^T) for this warp's 16 rows: large parts in `big`, the two
+  // small-part products in `small`
+  const Lane ln = lane_coords();
+  const int w = threadIdx.x / 32;
+  const float* Xw = Xs + w * 16 * LDX;
+  float big[KS][4], small[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) big[n][e] = small[n][e] = 0.f;
+  }
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    float af[4];
+    load_a(af, Xw, LDX, 8 * ks, ln);
+    const FragA a = split(af);
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      float bf[2];
+      if (BWD) {
+        load_b_nk(bf, Ms, LDM, 8 * n, 8 * ks, ln);
+      } else {
+        load_b_kn_std(bf, Ms, LDM, 8 * ks, 8 * n, ln);
+      }
+      const FragB bb = split(bf);
+      mma_tf32(small[n], a.lo, bb.hi);
+      mma_tf32(small[n], a.hi, bb.lo);
+      mma_tf32(big[n], a.hi, bb.hi);
+    }
+  }
+
+  // rows (g, g+8) of the warp, channels 8n + 2t (+1): a rotor pair
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int lr = w * 16 + ln.g + 8 * r;
+    const bool ok = lr < n_rows;
+    const int row = r0 + min(lr, n_rows - 1);
+    const int64_t roff = ((int64_t)b * j.T + row) * C;
+    const int64_t tok = ((int64_t)b * j.T + row) * H * C + (int64_t)h * C;
+    float* dst = j.dst + offset(j.dst_l, b, h, row);
+    float dot = 0.f;
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      const int col = 8 * n + 2 * ln.t;
+      float y0 = big[n][2 * r] + small[n][2 * r];
+      float y1 = big[n][2 * r + 1] + small[n][2 * r + 1];
+      if (!BWD && j.c) {
+        const float2 cc = __ldg(reinterpret_cast<const float2*>(j.c + roff + col));
+        const float2 ss = __ldg(reinterpret_cast<const float2*>(j.s + roff + col));
+        const float a0 = y0, a1 = y1;
+        y0 = cc.x * a0 - sg * ss.x * a1;
+        y1 = cc.y * a1 + sg * ss.y * a0;
+      }
+      if (j.dot) {
+        const float2 d = *reinterpret_cast<const float2*>(j.dot + tok + col);
+        dot = fmaf(y0, d.x, fmaf(y1, d.y, dot));
+      }
+      if (ok) *reinterpret_cast<float2*>(dst + col) = make_float2(y0, y1);
+    }
+    if (j.dot) {
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      if (ok && ln.t == 0) j.dot_out[((int64_t)b * H + h) * j.T + row] = dot;
+    }
+  }
+}
+
+template <int C>
+cudaError_t run_rows(const RowJob& j, int B, int H, cudaStream_t stream) {
+  if (j.m) {
+    const int rpv = j.T / j.n_views;
+    const dim3 grid((rpv + MMA_ROWS - 1) / MMA_ROWS, H, B * j.n_views);
+    if (j.backward) {
+      gta_rows_mma_kernel<C, true><<<grid, ROW_THREADS, 0, stream>>>(j, H);
+    } else {
+      gta_rows_mma_kernel<C, false><<<grid, ROW_THREADS, 0, stream>>>(j, H);
+    }
+  } else {
+    const dim3 grid((j.T + ROW_THREADS - 1) / ROW_THREADS, H, B);
+    gta_rows_kernel<C><<<grid, ROW_THREADS, 0, stream>>>(j, H);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace gta_rows

@@ -1,5 +1,5 @@
 // Row helpers shared by the row-pass kernels (flash_core_fwd.cu,
-// flash_core_bwd.cu, gta_fused_bwd.cu): a row of C fp32 channels split
+// flash_core_bwd.cu): a row of C fp32 channels split
 // across a pair of lanes. Lane `half` of the pair owns float4 groups
 // 2m + half, i.e. channels 8m + 4*half + e (m < C/8, e < 4), so each lane
 // keeps C/2 floats of a row in registers and the two partial dot products

@@ -20,9 +20,12 @@ tables get no cotangent, and autograd carries the matrix cotangents back
 through the table construction to `trans_coeff`. Calls the kernels do not
 cover raise NotImplementedError naming their ROADMAP item, on every device.
 
-Precision: fp32 throughout, fp32 FMA on the CUDA cores (the Pallas kernel
-rounds matmul operands to bf16 on the TPU; its fp32 interpret mode is what
-the port is held to).
+Precision: fp32 accuracy throughout. The kernels run the attention core
+and the per-view C x C transforms on the tensor cores as 3xTF32 (each fp32
+operand split into two TF32 parts, three products summed in fp32;
+csrc/tf32x3.cuh), the rotors and the softmax in fp32 on the CUDA cores.
+(The Pallas kernel rounds matmul operands to bf16 on the TPU; its fp32
+interpret mode is what the port is held to.)
 """
 
 from __future__ import annotations
@@ -307,7 +310,7 @@ def _check_kernel_call(name, qB, kB, vB, t: FusedTables, heads: int, extra=()):
 def _bind_fwd():
     lib = _cuda.load("gta_fused_fwd")
     fn = lib.gta_fused_fwd
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.gta_fused_error_string.argtypes = [ctypes.c_int]
     lib.gta_fused_error_string.restype = ctypes.c_char_p
@@ -331,14 +334,16 @@ class Residuals:
     z: [B, Tq, H*C], the output before the output transform (`store_z`;
     the output itself without v_transform). The kernel's forward also keeps
     lse [B, H, Tq], each row's log-sum-exp of the scaled scores, and its
-    transformed K/V scratch kt/vt [B, H, Tk, C] (None where K/V have no
-    transform); the plain version recomputes them and leaves them None.
+    transformed Q/K/V scratch qt [B, H, Tq, C], kt/vt [B, H, Tk, C] (None
+    where that side has no transform); the plain version recomputes them
+    and leaves them None.
     """
 
     z: torch.Tensor
     lse: Optional[torch.Tensor] = None
     kt: Optional[torch.Tensor] = None
     vt: Optional[torch.Tensor] = None
+    qt: Optional[torch.Tensor] = None
 
 
 def gta_fused_fwd(
@@ -355,8 +360,9 @@ def gta_fused_fwd(
     CPU tensors take `gta_fused_fwd_plain`; CUDA tensors launch the kernel
     or raise. With `residuals`, returns (out, Residuals) for the backward.
     `gta_fused_fwd.launches` counts launches of the C entry point: each one
-    runs the K/V prologue kernel (when K/V have a transform) and then the
-    main kernel, so the card sees up to two kernel launches per count.
+    runs the row transforms of Q, K and V (each side that has one), the
+    tensor-core main kernel and the output transform (with v_transform), so
+    the card sees up to five kernel launches per count.
     """
     if qB.device.type == "cpu":
         if residuals:
@@ -370,7 +376,9 @@ def gta_fused_fwd(
             "fused_gta_attention_tokens (GTAFusedAttention)"
         )
     dev = qB.device
+    q_transform = t.mq is not None or t.cq is not None
     kv_transform = t.mk is not None or t.ck is not None
+    qt = torch.empty((B, heads, Tq, C), dtype=torch.float32, device=dev) if q_transform else None
     kt = torch.empty((B, heads, Tk, C), dtype=torch.float32, device=dev) if kv_transform else None
     vt = (
         torch.empty((B, heads, Tk, C), dtype=torch.float32, device=dev)
@@ -384,7 +392,7 @@ def gta_fused_fwd(
     with torch.cuda.device(dev):
         err = lib.gta_fused_fwd(
             _ptr(qB), _ptr(kB), _ptr(vB), _ptr(t.mq), _ptr(t.mk), _ptr(t.mo),
-            _ptr(t.cq), _ptr(t.sq), _ptr(t.ck), _ptr(t.sk), _ptr(kt), _ptr(vt), _ptr(out),
+            _ptr(t.cq), _ptr(t.sq), _ptr(t.ck), _ptr(t.sk), _ptr(qt), _ptr(kt), _ptr(vt), _ptr(out),
             _ptr(z), _ptr(lse), B, heads, Tq, Tk, C, t.nq, t.nk, _flags(t), float(scale),
             ctypes.c_void_p(stream),
         )
@@ -392,7 +400,7 @@ def gta_fused_fwd(
         raise RuntimeError(f"gta_fused_fwd launch failed: {lib.gta_fused_error_string(err).decode()}")
     gta_fused_fwd.launches += 1
     if residuals:
-        return out, Residuals(out if z is None else z, lse, kt, vt)
+        return out, Residuals(out if z is None else z, lse, kt, vt, qt)
     return out
 
 
@@ -401,9 +409,9 @@ gta_fused_fwd.launches = 0
 
 def _dm_splits(dev: torch.device, B: int, n: int, rows_per_view: int) -> int:
     """Row slices per (batch, view) in the dM reduction: enough blocks for
-    two per SM, each slice at least one staging step of rows."""
+    four per SM, each slice at least one staging step of rows."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(math.ceil(2 * sms / (B * n)), math.ceil(rows_per_view / _DM_ROWS)))
+    return max(1, min(math.ceil(4 * sms / (B * n)), math.ceil(rows_per_view / _DM_ROWS)))
 
 
 def gta_fused_bwd(
@@ -422,17 +430,19 @@ def gta_fused_bwd(
     CPU tensors take `gta_fused_bwd_plain` (from g and res.z); CUDA tensors
     launch the kernel (csrc/gta_fused_bwd.cu) with the forward kernel's
     residuals, or raise. `gta_fused_bwd.launches` counts launches of the C
-    entry point (a query pass, a key pass, and a reduction pair per matrix
-    cotangent).
+    entry point: each one runs the output chain, a query pass, a key pass,
+    the query and key/value chains and a reduction pair per matrix
+    cotangent, up to eleven kernels.
     """
     if qB.device.type == "cpu":
         return gta_fused_bwd_plain(qB, kB, vB, t, heads, scale, g, res.z)
+    q_transform = t.mq is not None or t.cq is not None
     kv_transform = t.mk is not None or t.ck is not None
-    if res.lse is None or (kv_transform and res.kt is None) or (
+    if res.lse is None or (q_transform and res.qt is None) or (kv_transform and res.kt is None) or (
         kv_transform and t.v_transform and res.vt is None
     ):
-        raise ValueError("gta_fused_bwd needs the forward kernel's residuals (lse, kt, vt)")
-    extra = [g, res.z, res.lse] + [x for x in (res.kt, res.vt) if x is not None]
+        raise ValueError("gta_fused_bwd needs the forward kernel's residuals (lse, qt, kt, vt)")
+    extra = [g, res.z, res.lse] + [x for x in (res.qt, res.kt, res.vt) if x is not None]
     B, Tq, Tk, D, C = _check_kernel_call("gta_fused_bwd", qB, kB, vB, t, heads, extra)
     if g.shape != qB.shape or res.z.shape != qB.shape or res.lse.shape != (B, heads, Tq):
         raise ValueError("gta_fused_bwd: g, z must be [B, Tq, H*C] and lse [B, H, Tq]")
@@ -442,7 +452,7 @@ def gta_fused_bwd(
         return torch.empty(shape, dtype=torch.float32, device=dev) if cond else None
 
     has_mo = t.mo is not None and t.v_transform
-    qt_s, do_s = empty((B, heads, Tq, C)), empty((B, heads, Tq, C))
+    do_s = empty((B, heads, Tq, C))
     delta = empty((B, heads, Tq))
     dzq = empty((B, Tq, D), t.mq is not None)
     dz = empty((B, Tq, D), has_mo)
@@ -460,7 +470,7 @@ def gta_fused_bwd(
         err = lib.gta_fused_bwd(
             _ptr(qB), _ptr(kB), _ptr(vB), _ptr(t.mq), _ptr(t.mk), _ptr(t.mo),
             _ptr(t.cq), _ptr(t.sq), _ptr(t.ck), _ptr(t.sk), _ptr(g), _ptr(res.z),
-            _ptr(res.lse), _ptr(res.kt), _ptr(res.vt), _ptr(qt_s), _ptr(do_s), _ptr(delta),
+            _ptr(res.lse), _ptr(res.qt), _ptr(res.kt), _ptr(res.vt), _ptr(do_s), _ptr(delta),
             _ptr(dzq), _ptr(dz), _ptr(dzk), _ptr(dzv), _ptr(part), _ptr(dq), _ptr(dk), _ptr(dv),
             _ptr(dmq), _ptr(dmk), _ptr(dmo), B, heads, Tq, Tk, C, t.nq, t.nk, splits_q, splits_k,
             _flags(t), float(scale), ctypes.c_void_p(stream),
@@ -494,16 +504,16 @@ class GTAFusedAttention(torch.autograd.Function):
         t = FusedTables(mq, mk, mo, cq, sq, ck, sk, st.nq, st.nk, st.v_transform)
         out, res = gta_fused_fwd(qB, kB, vB, t, st.heads, st.scale, residuals=True)
         ctx.st = st
-        ctx.save_for_backward(qB, kB, vB, mq, mk, mo, cq, sq, ck, sk, res.z, res.lse, res.kt, res.vt)
+        ctx.save_for_backward(qB, kB, vB, mq, mk, mo, cq, sq, ck, sk, res.z, res.lse, res.kt, res.vt, res.qt)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        qB, kB, vB, mq, mk, mo, cq, sq, ck, sk, z, lse, kt, vt = ctx.saved_tensors
+        qB, kB, vB, mq, mk, mo, cq, sq, ck, sk, z, lse, kt, vt, qt = ctx.saved_tensors
         st = ctx.st
         t = FusedTables(mq, mk, mo, cq, sq, ck, sk, st.nq, st.nk, st.v_transform)
         dq, dk, dv, dmq, dmk, dmo = gta_fused_bwd(
-            qB, kB, vB, t, st.heads, st.scale, g.contiguous(), Residuals(z, lse, kt, vt)
+            qB, kB, vB, t, st.heads, st.scale, g.contiguous(), Residuals(z, lse, kt, vt, qt)
         )
         return dq, dk, dv, dmq, dmk, dmo, None, None, None, None, None
 

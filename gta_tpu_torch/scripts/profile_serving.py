@@ -12,7 +12,8 @@ synthetic val scenes) and one full-scale target view at chunk 16384
 non-transform SRT baseline), over 3 calls after one warm-up: the host wall
 time per call, the device time summed over all kernels, the idle share
 (1 - device / wall), device time by kind (this repo's attention kernels,
-GEMMs, convolutions, other), and the top 15 kernels. The models are
+GEMMs, convolutions, other), the top 15 kernels and every other kernel of
+this repo. The models are
 randomly initialised from each config's seed; times do not depend on the
 weights.
 """
@@ -36,6 +37,8 @@ def _kind(name: str) -> str:
         return "gta_fused_fwd (this repo)"
     if "gta_bwd" in n:
         return "gta_fused_bwd (this repo)"
+    if "gta_rows" in n:  # the C x C chains of both fused GTA kernels
+        return "gta_fused row transforms (this repo)"
     if "flash_fwd" in n:
         return "flash_core_fwd (this repo)"
     if "flash_bwd" in n:
@@ -76,8 +79,12 @@ def profile(fn, label: str):
         by_kind[_kind(name)] += us
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {label} kind {kind}: ms_per_call={us / STEPS / 1e3:.3f} share={us / device_us:.4f}")
-    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:TOP]:
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
+    for name, us in ranked[:TOP]:
         print(f"  {label} kernel {us / STEPS / 1e3:9.3f} ms  {name[:110]}")
+    for name, us in ranked[TOP:]:  # this repo's kernels below the cut too
+        if "this repo" in _kind(name):
+            print(f"  {label} kernel {us / STEPS / 1e3:9.3f} ms  {name[:110]}")
 
 
 def main():

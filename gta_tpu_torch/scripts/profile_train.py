@@ -10,8 +10,9 @@ configuration (batch 32, synthetic train scenes, dropout as configured),
 over 3 steps after one warm-up step: the host wall time per step, the
 device time summed over all kernels, the idle share (1 - device / wall),
 device time by kind (this repo's attention forward and backward kernels,
-GEMMs, convolutions, other) and the top 15 kernels. The models are randomly
-initialised from each config's seed; times do not depend on the weights.
+GEMMs, convolutions, other), the top 15 kernels and every other kernel of
+this repo. The models are randomly initialised from each config's seed;
+times do not depend on the weights.
 """
 
 from __future__ import annotations

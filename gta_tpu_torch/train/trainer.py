@@ -6,9 +6,10 @@ MSE -> backward through the attention kernels -> AdamW) and evaluation and
 rendering (`eval_step`, `evaluate`, `render_image`, `render_rays`, always
 with dropout off).
 
-Precision policy for fp32 configs: true fp32. TF32 is switched off for
-both matmuls and cuDNN convolutions, and the attention kernels use fp32 FMA
-on the CUDA cores.
+Precision policy for fp32 configs: fp32 accuracy. TF32 is switched off for
+both matmuls and cuDNN convolutions; the attention kernels compute in fp32
+on the CUDA cores (flash_core) or as 3xTF32 on the tensor cores (fused GTA,
+three TF32 products per fp32 product).
 """
 
 from __future__ import annotations

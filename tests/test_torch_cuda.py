@@ -151,6 +151,93 @@ def test_gta_fused_bwd_error_against_fp64(rng, cuda_device, tq):
         assert err_kernel <= 1e-5, (name, err_kernel, err_plain)
 
 
+def _edge_inputs(rng, args, device, tq, tk):
+    """Decoder-style reps with one view on each side (Tq target rays against
+    Tk input tokens) and token-major q, k, v, g on the card."""
+    coord = torch.from_numpy(rng.rand(B, 1, tk, 2).astype(np.float32)).to(device)
+    tf = torch.from_numpy(np.stack([random_se3(rng, 1) for _ in range(B)])).to(device)
+    t_coord = torch.from_numpy(rng.rand(B, 1, tq, 2).astype(np.float32)).to(device)
+    t_tf = torch.from_numpy(np.stack([random_se3(rng, 1) for _ in range(B)])).to(device)
+    reps = decoder_reps(
+        args, target_coord=t_coord, target_transforms=t_tf, input_coord=coord, input_transforms=tf,
+        enc=encoder_reps(args, coord, tf),
+    )
+    q, k, v, g = (torch.from_numpy(rng.randn(B, t, H * C).astype(np.float32)).to(device) for t in (tq, tk, tk, tq))
+    return reps, q, k, v, g
+
+
+EDGE_BRANCHES = [
+    (dict(se3=32, so2=32), 8, True),  # every transform, v_transform
+    (dict(triv=64), 0, True),  # no table: raw token-major q, k, v
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fd,so2,vt", EDGE_BRANCHES)
+@pytest.mark.parametrize("tq", [1, 17, 601])
+@pytest.mark.parametrize("tk", [1, 33, 2100])
+def test_gta_fused_kernels_match_plain_at_edge_shapes(rng, cuda_device, fd, so2, vt, tq, tk):
+    """One query or key, a ragged last 16-row warp tile and 64-key tile on
+    either side (17, 601 rows; 33 keys) and more keys than the Pallas kernel
+    holds in VMEM (2100), one view per side: out and z within atol 1e-4,
+    each backward output within 1e-4 * max(1, max|plain|) (fp32; the order
+    of summation differs)."""
+    args = GTAArgs(f_dims=FDims(**fd), so2=so2, v_transform=vt)
+    reps, q, k, v, g = _edge_inputs(rng, args, cuda_device, tq, tk)
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        fwd, bwd = tgf.gta_fused_fwd.launches, tgf.gta_fused_bwd.launches
+        out, res = tgf.gta_fused_fwd(q, k, v, t, H, SCALE, residuals=True)
+        got = tgf.gta_fused_bwd(q, k, v, t, H, SCALE, g, res)
+        torch.cuda.synchronize()
+        assert (tgf.gta_fused_fwd.launches - fwd, tgf.gta_fused_bwd.launches - bwd) == (1, 1)
+        want_out, want_z = tgf.gta_fused_fwd_plain(q, k, v, t, H, SCALE, store_z=True)
+        want = tgf.gta_fused_bwd_plain(q, k, v, t, H, SCALE, g, res.z)
+    assert (out - want_out).abs().max().item() <= 1e-4
+    assert (res.z - want_z).abs().max().item() <= 1e-4
+    for name, a, b in zip(("dq", "dk", "dv", "dmq", "dmk", "dmo"), got, want):
+        assert (a is None) == (b is None), name
+        if b is not None:
+            assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [600, 192])
+def test_gta_fused_fwd_error_against_fp64(rng, cuda_device, tq):
+    """The forward kernel's out and z against the plain version in fp64, as
+    relative L2 errors: fp32 accuracy keeps them near 1e-6, a single TF32
+    pass (10-bit operands) would give ~1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8)
+    reps, _, (q, k, v) = _inputs(rng, args, cuda_device, tq=tq)
+    qB, kB, vB = (_tokens(x).to(cuda_device) for x in (q, k, v))
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        out, res = tgf.gta_fused_fwd(qB, kB, vB, t, H, SCALE, residuals=True)
+        t64 = tgf.FusedTables(*[None if x is None else x.double() for x in tgf._tables(t)], t.nq, t.nk, t.v_transform)
+        ref_out, ref_z = tgf.gta_fused_fwd_plain(qB.double(), kB.double(), vB.double(), t64, H, SCALE, store_z=True)
+    for name, a, r in (("out", out, ref_out), ("z", res.z, ref_z)):
+        assert ((a.double() - r).norm() / r.norm()).item() <= 1e-5, name
+
+
+@pytest.mark.cuda
+def test_gta_fused_bwd_is_deterministic(rng, cuda_device):
+    """Two backward launches on the same inputs give bit-identical outputs:
+    every row is owned by one warp and every sum has a fixed order."""
+    args = GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8)
+    reps, _, (q, k, v) = _inputs(rng, args, cuda_device, tq=192)
+    qB, kB, vB = (_tokens(x).to(cuda_device) for x in (q, k, v))
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        _, res = tgf.gta_fused_fwd(qB, kB, vB, t, H, SCALE, residuals=True)
+        g = torch.randn(qB.shape, generator=torch.Generator(device=cuda_device).manual_seed(2), device=cuda_device)
+        first = tgf.gta_fused_bwd(qB, kB, vB, t, H, SCALE, g, res)
+        second = tgf.gta_fused_bwd(qB, kB, vB, t, H, SCALE, g, res)
+    for name, a, b in zip(("dq", "dk", "dv", "dmq", "dmk", "dmo"), first, second):
+        assert a is not None, name
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.cuda
 def test_function_grads_on_card_match_cpu(rng, cuda_device):
     """GTAFusedAttention's gradients (q, k, v, trans_coeff) through both
