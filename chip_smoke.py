@@ -12,11 +12,18 @@ config's seed, synthetic CLEVR-TR-shaped scenes:
   - SRT, the baseline (runs/clevrtr/otherPEs/srt): plain softmax attention
     in every layer (kernels flash_core_fwd, flash_core_bwd), ray input
     embeddings, non-transform batches.
+All four kernels run one attention core (gta_tpu_torch/csrc/attn_core.cuh:
+a forward, a query pass and a key pass, 3xTF32 mma.sync on the tensor
+cores): the fused GTA kernels over the transformed rows of their row
+launches, flash_core over the raw token-major q, k, v in its own
+instantiation, which takes P*V, dP and dq about the first key's rows and
+computes delta = rowsum(g * (o - c_v)) in its query pass.
 
 Phases (any failure exits non-zero and prints no result line):
   1. The card's name and power limit; build every CUDA kernel of the port
-     from gta_tpu_torch/csrc with nvcc, all at once (compiler resource
-     report printed).
+     from gta_tpu_torch/csrc with nvcc, all at once (ptxas registers and
+     spills printed for every kernel of each library, so the shared core
+     shows once in each instantiation).
   2. Each kernel against its plain PyTorch version on the card.
      - gta_fused_fwd at the flagship shapes, with rep tables from the
        port's encoder_reps/decoder_reps on a synthetic batch and
@@ -74,6 +81,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -888,6 +896,38 @@ def kernel_entry(name, replaces, launches, main, shapes, worst_edge):
     }
 
 
+def kernel_label(mangled: str) -> str:
+    """A short name of an Itanium-mangled kernel symbol: its namespaces and
+    name with its integer template arguments (`attn::attn_bwd_q_kernel<64, 1>`);
+    the symbol as it is where it is not a nested name."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    s, parts = mangled[3:], []
+    while s[:1].isdigit():
+        n = re.match(r"\d+", s).group()
+        parts.append(s[len(n):len(n) + int(n)])
+        s = s[len(n) + int(n):]
+    name = "::".join(p for p in parts if not p.startswith("_GLOBAL__N"))
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", s)
+    return f"{name}<{', '.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>" if args else name
+
+
+def ptxas_report(log: str):
+    """One line per kernel of nvcc's -Xptxas -v output (its registers and
+    spills), and every line that reports an error."""
+    kernel, spills = "?", ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel, spills = kernel_label(entry.group(1)), ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            yield f"{kernel}: {line.split(':', 1)[-1].strip()}; {spills}"
+        elif "error" in line:
+            yield line.strip()
+
+
 def main() -> int:
     import torch
 
@@ -908,9 +948,8 @@ def main() -> int:
     _cuda.build()
     print(f"built kernels {list(_cuda.KERNELS)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _cuda.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"nvcc {name}: {line.strip()}", flush=True)
+        for line in ptxas_report(log):
+            print(f"nvcc {name}: {line}", flush=True)
 
     def synthetic(path):
         cfg = load_config(path)

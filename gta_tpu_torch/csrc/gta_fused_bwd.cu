@@ -29,22 +29,15 @@
 //
 // What the design does about it (each launch of the C entry point runs up
 // to eleven kernels on the stream):
-//  * Every product of the core is 3xTF32 m16n8k8 mma.sync: a warp owns 16
-//    rows, the other side streams through dynamic shared memory in
-//    double-buffered tiles (cp.async) of 32 keys in the query pass (68 KB a
-//    block, 3 blocks per SM) and 64 queries in the key pass (103 KB, 2 per
-//    SM), and score accumulators feed the next product as A fragments in
-//    place (tf32x3.cuh). Each tile's products start from zero and join the
-//    running dq, dk, dv by rounded fp32 adds.
-//  * The Pallas kernel sums dk, dv and dMk into one output block across a
-//    grid that runs in order. Hopper's blocks run in parallel, so the work
-//    is split by who owns each output row: a query pass (S, dP, dqt += dS kt)
-//    writes dqt, and a key pass (S^T, dP^T, dvt += P^T do, dkt += dS^T qt)
-//    writes dkt and dvt. No row is written by two blocks, so there are no
-//    atomics and every sum has a fixed order: two launches on the same
-//    inputs give bit-identical outputs. Both passes recompute p from the
-//    forward's log-sum-exp: 7 core products where the function needs 5, the
-//    price of having no cross-block sums.
+//  * The attention core's two passes (csrc/attn_core.cuh, shared with
+//    flash_core): every product 3xTF32 m16n8k8 mma.sync, split by who owns
+//    each output row. The Pallas kernel sums dk, dv and dMk into one output
+//    block across a grid that runs in order; Hopper's blocks run in
+//    parallel, so a query pass writes dqt and a key pass writes dkt and dvt.
+//    No row is written by two blocks, so there are no atomics and every sum
+//    has a fixed order: two launches on the same inputs give bit-identical
+//    outputs. Both passes recompute p from the forward's log-sum-exp: 7 core
+//    products where the function needs 5.
 //  * The C x C chains run outside the passes' loops, on the tensor cores
 //    (csrc/gta_rows.cuh): do and delta before the passes (into
 //    [B, H, Tq, C] scratch), then dq, dk, dv in place. qt, kt, vt are the
@@ -55,27 +48,24 @@
 //    partial buffer, and a second kernel adds the slices in a fixed order.
 // ptxas (CUDA 12.8, sm_90a), no spills anywhere: query pass 168 registers
 // (3 blocks of 128 threads per SM), key pass 244 (2 blocks), dM reduction
-// 120, its sum 30, row launches 94-114. Like the forward, the passes reach
-// about half of mma.sync's rate (latency-bound at 8-12 warps per SM).
-// Not yet: wgmma and TMA, 5 products in place of 7 (a cross-block sum
-// of dk/dv).
+// 120, its sum 30, row launches 94-114.
+// Not yet: wgmma and TMA, 5 products in place of 7 (attn_core.cuh).
 //
 // Interface: plain C, bound from Python with ctypes. Every pointer is a
 // contiguous fp32 device array; absent tables and unused scratch are null
 // and flagged off. Returns the cudaError_t of the launches (0 = success).
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
+#include "attn_core.cuh"
 #include "gta_rows.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
 using namespace tf32x3;
-using gta_rows::Layout;
-using gta_rows::offset;
+using attn::Layout;
 using gta_rows::RowJob;
 
 constexpr int HAS_MQ = 1;
@@ -86,329 +76,8 @@ constexpr int HAS_ROTK = 16;
 constexpr int V_TRANSFORM = 32;
 
 constexpr int HEAD_DIM = 64;  // the only head width instantiated
-constexpr int WARPS = 4;
-constexpr int BM = 16 * WARPS;  // own rows per block
-constexpr int BN_Q = 32;        // keys per shared-memory tile in the query pass
-constexpr int BN_K = 64;        // queries per shared-memory tile in the key pass
-constexpr int THREADS = 32 * WARPS;
 constexpr int DM_THREADS = 128;
 constexpr int DM_ROWS = 32;  // (row, head) pairs staged per step in the dM reduction
-constexpr float LOG2E = 1.4426950408889634f;
-
-template <int C>
-constexpr int q_smem_bytes() {
-  // own qt and do rows, K and V tiles (two stages each): 3 blocks per SM
-  return (2 * BM * (C + 4) + 2 * 2 * BN_Q * (C + 4)) * (int)sizeof(float);
-}
-
-template <int C>
-constexpr int kv_smem_bytes() {
-  // own K and V rows, Q and dO tiles (two stages each), lse and delta
-  // tiles: 2 blocks per SM
-  return (2 * BM * (C + 4) + 2 * 2 * BN_K * (C + 4) + 2 * 2 * BN_K) * (int)sizeof(float);
-}
-
-// rows (g, g+8) of an accumulator tile [16 x C] into an operand, through
-// (batch, head, row) strides; rows at or past T are not stored
-template <int C>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, const Layout& L, int b, int h,
-                                           const int (&row)[2], int T, const float (&acc)[C / 8][4],
-                                           Lane ln) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= T) continue;
-    float* d = dst + offset(L, b, h, row[r]);
-#pragma unroll
-    for (int n = 0; n < C / 8; ++n) {
-      *reinterpret_cast<float2*>(d + 8 * n + 2 * ln.t) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
-    }
-  }
-}
-
-// acc += t with fp32 round-to-nearest adds. Products accumulate on the
-// tensor cores over one tile at a time: their fp32 accumulation truncates
-// toward zero (csrc/tf32x3.cuh), by more the longer the chain: one chain
-// over every row of the other side (2568 queries) would drift by ~40x one
-// tile's share.
-template <int C>
-__device__ __forceinline__ void add_tile(float (&acc)[C / 8][4], const float (&t)[C / 8][4]) {
-#pragma unroll
-  for (int n = 0; n < C / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += t[n][e];
-  }
-}
-
-// acc += A T for a [16 x 8*NT] accumulator tile A (its 8-column tiles are
-// the k-steps) and an [8*NT x C] shared-memory tile T, through a zeroed
-// tile sum
-template <int C, int NT>
-__device__ __forceinline__ void tile_product(float (&acc)[C / 8][4], const float (&A)[NT][4],
-                                             const float* T, Lane ln) {
-  float t[C / 8][4];
-#pragma unroll
-  for (int n = 0; n < C / 8; ++n) t[n][0] = t[n][1] = t[n][2] = t[n][3] = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    float af[4];
-    a_from_acc(af, A[j]);
-    const FragA a = split(af);
-#pragma unroll
-    for (int n = 0; n < C / 8; ++n) {
-      float bf[2];
-      load_b_kn(bf, T, C + 4, 8 * j, 8 * n, ln);
-      mma3(t[n], a, split(bf));
-    }
-  }
-  add_tile<C>(acc, t);
-}
-
-// ---------------------------------------------------------------------------
-// Query pass: a warp per 16 query rows, looping over every key of (b, h).
-// grid (ceil(Tq/BM), H, B). Writes dqt through `dql` (token-major, in the dq
-// output, for the query chain to finish in place).
-// ---------------------------------------------------------------------------
-template <int C>
-__global__ void __launch_bounds__(THREADS, 3)
-gta_bwd_q_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
-                 const float* __restrict__ vt, const float* __restrict__ do_s,
-                 const float* __restrict__ lse, float* __restrict__ delta,
-                 float* __restrict__ dqt, int H, int Tq, int Tk, Layout ql, Layout kl, Layout vl,
-                 Layout dol, Layout dql, float scale) {
-  constexpr int LD = C + 4;
-  constexpr int KS = C / 8;
-  constexpr int NT = BN_Q / 8;
-  extern __shared__ __align__(16) float smem[];
-  float* Qown = smem;               // [BM][LD]
-  float* Down = Qown + BM * LD;     // [BM][LD]
-  float* Ks = Down + BM * LD;       // [2][BN_Q][LD]
-  float* Vs = Ks + 2 * BN_Q * LD;   // [2][BN_Q][LD]
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const Lane ln = lane_coords();
-  const int warp = threadIdx.x / 32;
-  const int q0 = blockIdx.x * BM;
-  const int row[2] = {q0 + warp * 16 + ln.g, q0 + warp * 16 + ln.g + 8};
-  const int ra = min(row[0], Tq - 1), rb = min(row[1], Tq - 1);
-  stage_rows<C, BM, THREADS>(Qown, qt + offset(ql, b, h, q0), ql.rs, Tq - q0);
-  stage_rows<C, BM, THREADS>(Down, do_s + offset(dol, b, h, q0), dol.rs, Tq - q0);
-  const float* Qw = Qown + warp * 16 * LD;
-  const float* Dw = Down + warp * 16 * LD;
-  const int64_t hrow = ((int64_t)b * H + h) * Tq;
-  const float ls[2] = {lse[hrow + ra], lse[hrow + rb]};
-  float dl[2] = {delta[hrow + ra], delta[hrow + rb]};
-
-  float dq[KS][4];
-#pragma unroll
-  for (int n = 0; n < KS; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  const float* kbase = kt + b * kl.bs + h * kl.hs;
-  const float* vbase = vt + b * vl.bs + h * vl.hs;
-  const int ntiles = (Tk + BN_Q - 1) / BN_Q;
-  stage_rows<C, BN_Q, THREADS>(Ks, kbase, kl.rs, Tk);
-  stage_rows<C, BN_Q, THREADS>(Vs, vbase, vl.rs, Tk);
-  cp_async_commit();
-
-  for (int i = 0; i < ntiles; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < ntiles) {
-      const int k1 = (i + 1) * BN_Q;
-      stage_rows<C, BN_Q, THREADS>(Ks + (buf ^ 1) * BN_Q * LD, kbase + k1 * kl.rs, kl.rs, Tk - k1);
-      stage_rows<C, BN_Q, THREADS>(Vs + (buf ^ 1) * BN_Q * LD, vbase + k1 * vl.rs, vl.rs, Tk - k1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* K = Ks + buf * BN_Q * LD;
-    const float* V = Vs + buf * BN_Q * LD;
-
-    // S = qt kt^T and dP = do vt^T: rows (g, g+8), keys 8n + 2t (+1)
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    }
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      float af[4];
-      load_a(af, Qw, LD, 8 * ks, ln);
-      const FragA aq = split(af);
-      load_a(af, Dw, LD, 8 * ks, ln);
-      const FragA ad = split(af);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        float bf[2];
-        load_b_nk(bf, K, LD, 8 * n, 8 * ks, ln);
-        mma3(s[n], aq, split(bf));
-        load_b_nk(bf, V, LD, 8 * n, 8 * ks, ln);
-        mma3(dp[n], ad, split(bf));
-      }
-    }
-
-    // P = exp(S * scale - lse); keys past Tk get 0
-    const int kvalid = Tk - i * BN_Q;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = 8 * n + 2 * ln.t + (e & 1);
-        s[n][e] = key < kvalid ? exp2f((s[n][e] * scale - ls[e >> 1]) * LOG2E) : 0.f;
-      }
-    }
-    if (ntiles == 1) {
-      // every key is in this tile: delta = rowsum(P * dP) from these very
-      // products (rowsum(do * z) in exact arithmetic), so each row's dS sums
-      // to zero as the plain version's does; the key pass reads it back
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float d = 0.f;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          d = fmaf(s[n][2 * r], dp[n][2 * r], fmaf(s[n][2 * r + 1], dp[n][2 * r + 1], d));
-        }
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
-        dl[r] = d;
-        if (ln.t == 0 && row[r] < Tq) delta[hrow + row[r]] = d;
-      }
-    }
-    // dS = P (dP - delta) * scale
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - dl[e >> 1]) * scale;
-    }
-
-    // dqt += dS kt: the tile's product from zero, then a rounded add
-    tile_product<C, NT>(dq, s, K, ln);
-    __syncthreads();
-  }
-  store_rows<C>(dqt, dql, b, h, row, Tq, dq, ln);
-}
-
-// ---------------------------------------------------------------------------
-// Key pass: a warp per 16 key rows, looping over every query of (b, h).
-// grid (ceil(Tk/BM), H, B). Writes dkt and dvt through `dkl` (token-major,
-// in the dk and dv outputs, for the key chain to finish in place).
-// ---------------------------------------------------------------------------
-template <int C>
-__global__ void __launch_bounds__(THREADS, 2)
-gta_bwd_kv_kernel(const float* __restrict__ kt, const float* __restrict__ vt,
-                  const float* __restrict__ qt, const float* __restrict__ do_s,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dkt, float* __restrict__ dvt, int H, int Tq, int Tk,
-                  Layout kl, Layout vl, Layout ql, Layout dol, Layout dkl, float scale) {
-  constexpr int LD = C + 4;
-  constexpr int KS = C / 8;
-  constexpr int NT = BN_K / 8;
-  extern __shared__ __align__(16) float smem[];
-  float* Kown = smem;               // [BM][LD]
-  float* Vown = Kown + BM * LD;     // [BM][LD]
-  float* Qs = Vown + BM * LD;       // [2][BN_K][LD]
-  float* Ds = Qs + 2 * BN_K * LD;   // [2][BN_K][LD]
-  float* Ls = Ds + 2 * BN_K * LD;   // [2][BN_K]
-  float* Dl = Ls + 2 * BN_K;        // [2][BN_K]
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const Lane ln = lane_coords();
-  const int warp = threadIdx.x / 32;
-  const int k0 = blockIdx.x * BM;
-  const int row[2] = {k0 + warp * 16 + ln.g, k0 + warp * 16 + ln.g + 8};
-
-  const float* qbase = qt + b * ql.bs + h * ql.hs;
-  const float* dbase = do_s + b * dol.bs + h * dol.hs;
-  const int64_t hrow = ((int64_t)b * H + h) * Tq;
-  const int ntiles = (Tq + BN_K - 1) / BN_K;
-  stage_rows<C, BM, THREADS>(Kown, kt + offset(kl, b, h, k0), kl.rs, Tk - k0);
-  stage_rows<C, BM, THREADS>(Vown, vt + offset(vl, b, h, k0), vl.rs, Tk - k0);
-  stage_rows<C, BN_K, THREADS>(Qs, qbase, ql.rs, Tq);
-  stage_rows<C, BN_K, THREADS>(Ds, dbase, dol.rs, Tq);
-  stage_vec<BN_K, THREADS>(Ls, lse + hrow, Tq);
-  stage_vec<BN_K, THREADS>(Dl, delta + hrow, Tq);
-  cp_async_commit();
-
-  float dk[KS][4], dv[KS][4];
-#pragma unroll
-  for (int n = 0; n < KS; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  }
-  const float* Kw = Kown + warp * 16 * LD;
-  const float* Vw = Vown + warp * 16 * LD;
-
-  for (int i = 0; i < ntiles; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < ntiles) {
-      const int q1 = (i + 1) * BN_K;
-      stage_rows<C, BN_K, THREADS>(Qs + (buf ^ 1) * BN_K * LD, qbase + q1 * ql.rs, ql.rs, Tq - q1);
-      stage_rows<C, BN_K, THREADS>(Ds + (buf ^ 1) * BN_K * LD, dbase + q1 * dol.rs, dol.rs, Tq - q1);
-      stage_vec<BN_K, THREADS>(Ls + (buf ^ 1) * BN_K, lse + hrow + q1, Tq - q1);
-      stage_vec<BN_K, THREADS>(Dl + (buf ^ 1) * BN_K, delta + hrow + q1, Tq - q1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* Q = Qs + buf * BN_K * LD;
-    const float* Dt = Ds + buf * BN_K * LD;
-    const float* L = Ls + buf * BN_K;
-    const float* Dlt = Dl + buf * BN_K;
-
-    // S^T = kt qt^T and dP^T = vt do^T: key rows (g, g+8), queries 8n + 2t
-    // (+1); mma3_t sums the query pass's products in its order, so both
-    // passes see the same P and dS bit for bit
-    float st[NT][4], dpt[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-    }
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      float af[4];
-      load_a(af, Kw, LD, 8 * ks, ln);
-      const FragA ak = split(af);
-      load_a(af, Vw, LD, 8 * ks, ln);
-      const FragA av = split(af);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        float bf[2];
-        load_b_nk(bf, Q, LD, 8 * n, 8 * ks, ln);
-        mma3_t(st[n], ak, split(bf));
-        load_b_nk(bf, Dt, LD, 8 * n, 8 * ks, ln);
-        mma3_t(dpt[n], av, split(bf));
-      }
-    }
-
-    // P^T = exp(S^T * scale - lse[q]), dS^T = P^T (dP^T - delta[q]) * scale;
-    // queries past Tq get 0
-    const int qvalid = Tq - i * BN_K;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = 8 * n + 2 * ln.t + (e & 1);
-        const float p = q < qvalid ? exp2f((st[n][e] * scale - L[q]) * LOG2E) : 0.f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - Dlt[q]) * scale;
-      }
-    }
-
-    // dvt += P^T do, then dkt += dS^T qt: each tile's product from zero,
-    // then a rounded add
-    tile_product<C, NT>(dv, st, Dt, ln);
-    tile_product<C, NT>(dk, dpt, Q, ln);
-    __syncthreads();
-  }
-  store_rows<C>(dkt, dkl, b, h, row, Tk, dk, ln);
-  store_rows<C>(dvt, dkl, b, h, row, Tk, dv, ln);
-}
 
 // ---------------------------------------------------------------------------
 // Matrix cotangents: part[b, view, split] = sum over a slice of the view's
@@ -482,7 +151,7 @@ gta_bwd_dm_kernel(const float* __restrict__ X1, const float* __restrict__ Y1,
           mma3(t[j], a, split(bf));
         }
       }
-      add_tile<C>(acc, t);
+      attn::add_tile<C>(acc, t);
       __syncthreads();  // every warp is done with this buffer before it is restaged
     }
   }
@@ -552,8 +221,8 @@ extern "C" int gta_fused_bwd(const float* q, const float* k, const float* v, con
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const Layout tok_q = gta_rows::tokens(Tq, H, C), tok_k = gta_rows::tokens(Tk, H, C);
-  const Layout hf_q = gta_rows::heads_first(Tq, H, C), hf_k = gta_rows::heads_first(Tk, H, C);
+  const Layout tok_q = attn::tokens(Tq, H, C), tok_k = attn::tokens(Tk, H, C);
+  const Layout hf_q = attn::heads_first(Tq, H, C), hf_k = attn::heads_first(Tk, H, C);
   cudaError_t err;
 
   // output chain: dz = R_q(g) (stored for dMo), do = dz @ Mo^T, delta = rowsum(do * z)
@@ -568,19 +237,10 @@ extern "C" int gta_fused_bwd(const float* q, const float* k, const float* v, con
   const float* vp = v_side ? vt : v;
   const Layout ql = q_tf ? hf_q : tok_q, kl = kv_tf ? hf_k : tok_k, vl = v_side ? hf_k : tok_k;
 
-  constexpr int q_smem = q_smem_bytes<C>(), kv_smem = kv_smem_bytes<C>();
-  if ((err = cudaFuncSetAttribute(gta_bwd_q_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  q_smem)))
-    return (int)err;
-  if ((err = cudaFuncSetAttribute(gta_bwd_kv_kernel<C>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem)))
-    return (int)err;
-  gta_bwd_q_kernel<C><<<dim3((Tq + BM - 1) / BM, H, B), THREADS, q_smem, stream>>>(
-      qp, kp, vp, do_s, lse, delta, dq, H, Tq, Tk, ql, kl, vl, hf_q, tok_q, scale);
-  if ((err = cudaGetLastError())) return (int)err;
-  gta_bwd_kv_kernel<C><<<dim3((Tk + BM - 1) / BM, H, B), THREADS, kv_smem, stream>>>(
-      kp, vp, qp, do_s, lse, delta, dk, dv, H, Tq, Tk, kl, vl, ql, hf_q, tok_k, scale);
-  if ((err = cudaGetLastError())) return (int)err;
+  // the core's two passes: dqt into dq, dkt and dvt into dk and dv
+  err = attn::run_bwd<C, false>(qp, kp, vp, do_s, nullptr, lse, delta, dq, dk, dv, B, H, Tq, Tk,
+                                ql, kl, vl, hf_q, tok_q, tok_k, scale, stream);
+  if (err != cudaSuccess) return (int)err;
 
   // query chain, in place on dq: dzq = R_q^-1(dqt) (stored for dMq), dq = dzq @ Mq^T
   if (q_tf) {

@@ -1,9 +1,9 @@
 // Per-row C x C transforms and SO(2) rotors of fused GTA attention, shared
 // by csrc/gta_fused_fwd.cu and csrc/gta_fused_bwd.cu.
 //
-// The attention cores of both kernels run over operands that are already
-// transformed. Every per-row chain runs here instead, outside the cores'
-// loops:
+// The attention core of both kernels (csrc/attn_core.cuh) runs over
+// operands that are already transformed. Every per-row chain runs here
+// instead, outside the core's loops:
 //   forward form   y = R(x @ M[view])                 (qt, kt, vt; out = R^-1(z @ Mo))
 //   backward form  w = R(x), y = w @ M[view]^T        (do, dq, dk, dv)
 // with R(x) = c*x + s*swap(x), R^-1(x) = c*x - s*swap(x), swap(x0, x1) =
@@ -30,31 +30,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_core.cuh"  // Layout: the operands' (batch, head, row) strides
 #include "tf32x3.cuh"
 
 namespace gta_rows {
 
+using attn::Layout;
+using attn::offset;
+
 constexpr int ROW_THREADS = 128;
 constexpr int MMA_ROWS = 64;  // rows per block of the tensor-core kernel (4 warps x 16)
-
-// strides (floats) of an operand over (batch, head, row)
-struct Layout {
-  int64_t bs, hs, rs;
-};
-
-// token-major [B, T, H*C]
-__host__ __device__ inline Layout tokens(int T, int H, int C) {
-  return {(int64_t)T * H * C, C, (int64_t)H * C};
-}
-
-// heads-first [B, H, T, C]
-__host__ __device__ inline Layout heads_first(int T, int H, int C) {
-  return {(int64_t)H * T * C, (int64_t)T * C, C};
-}
-
-__device__ __forceinline__ int64_t offset(const Layout& L, int b, int h, int row) {
-  return b * L.bs + h * L.hs + row * L.rs;
-}
 
 template <int C>
 __device__ __forceinline__ void load_row(const float* __restrict__ src, float (&x)[C]) {

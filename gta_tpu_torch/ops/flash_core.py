@@ -7,15 +7,19 @@ layer's projections produce them, so no call transposes to heads-first.
 
 Dispatch, with no fallbacks: a CPU tensor takes the plain PyTorch versions
 (`flash_core_fwd_plain`, `flash_core_bwd_plain`); a CUDA tensor launches the
-hand-written kernels (csrc/flash_core_fwd.cu, csrc/flash_core_bwd.cu) or
-raises. With grad enabled and an operand that requires it, the call goes
-through `FlashCore`, whose backward is the backward kernel. Unlike the
-Pallas kernel (whole K/V of a head in VMEM, Tk <= 2048), the forward tiles
-K with an online softmax, so every key length takes the same kernel.
+hand-written kernels (csrc/flash_core_fwd.cu, csrc/flash_core_bwd.cu, thin
+entries to the attention core the fused GTA kernels share,
+csrc/attn_core.cuh) or raises. With grad enabled and an operand that
+requires it, the call goes through `FlashCore`, whose backward is the
+backward kernel. Unlike the Pallas kernel (whole K/V of a head in VMEM,
+Tk <= 2048), the forward tiles K with an online softmax, so every key
+length takes the same kernel.
 
-Precision: fp32 throughout, fp32 FMA on the CUDA cores (the Pallas kernel
-rounds matmul operands to bf16 on the TPU; its fp32 interpret mode is what
-the port is held to).
+Precision: fp32 accuracy throughout: every product on the tensor cores as
+3xTF32 (each fp32 operand split into two TF32 parts, three products summed
+in fp32; csrc/tf32x3.cuh), the softmax in fp32 (the Pallas kernel rounds
+matmul operands to bf16 on the TPU; its fp32 interpret mode is what the
+port is held to).
 """
 
 from __future__ import annotations
@@ -159,7 +163,8 @@ def flash_core_bwd(
     CPU tensors take `flash_core_bwd_plain` (from q, k, v and g); CUDA
     tensors launch the kernel (csrc/flash_core_bwd.cu) with the forward's
     output and log-sum-exp, or raise. `flash_core_bwd.launches` counts
-    launches of the C entry point (a query pass, then a key pass).
+    launches of the C entry point (a query pass that also computes
+    delta = rowsum(g * out), then a key pass).
     """
     if q.device.type == "cpu":
         return flash_core_bwd_plain(q, k, v, heads, scale, g)

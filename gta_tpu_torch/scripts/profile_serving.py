@@ -12,8 +12,9 @@ synthetic val scenes) and one full-scale target view at chunk 16384
 non-transform SRT baseline), over 3 calls after one warm-up: the host wall
 time per call, the device time summed over all kernels, the idle share
 (1 - device / wall), device time by kind (this repo's attention kernels,
-GEMMs, convolutions, other), the top 15 kernels and every other kernel of
-this repo. The models are
+named by the entry the configuration launches, gta_fused or flash_core,
+since both run the same attention core; GEMMs, convolutions, other), the
+top 15 kernels and every other kernel of this repo. The models are
 randomly initialised from each config's seed; times do not depend on the
 weights.
 """
@@ -31,18 +32,24 @@ STEPS = 3  # profiled calls per phase
 TOP = 15  # kernels listed per phase
 
 
-def _kind(name: str) -> str:
+def attention_entry(cfg) -> str:
+    """The kernels a configuration's attention layers launch: `gta_fused`
+    (method 'gta') or `flash_core` (method '')."""
+    return "gta_fused" if cfg.model.encoder.attn.is_gta else "flash_core"
+
+
+def _kind(name: str, attention: str) -> str:
+    """The kind of a kernel by its name. The attention core
+    (csrc/attn_core.cuh) is one set of kernels under both entries, so its
+    forward and its two backward passes are counted under `attention`, the
+    entry that the profiled configuration launches."""
     n = name.lower()
-    if "gta_fwd" in n:
-        return "gta_fused_fwd (this repo)"
-    if "gta_bwd" in n:
-        return "gta_fused_bwd (this repo)"
+    if "attn_fwd" in n:
+        return f"{attention}_fwd (this repo)"
+    if "attn_bwd" in n or "gta_bwd" in n:  # the core's passes; GTA's dM reductions
+        return f"{attention}_bwd (this repo)"
     if "gta_rows" in n:  # the C x C chains of both fused GTA kernels
         return "gta_fused row transforms (this repo)"
-    if "flash_fwd" in n:
-        return "flash_core_fwd (this repo)"
-    if "flash_bwd" in n:
-        return "flash_core_bwd (this repo)"
     # cuDNN's fp32 conv algorithms: implicit GEMM ("fprop"), FFT, layout
     # transforms; checked before "gemm", which implicit-GEMM names contain
     conv_marks = ("conv", "fprop", "fft", "pointwise_mult_and_sum_complex", "nhwctonchw", "cudnn")
@@ -55,7 +62,7 @@ def _kind(name: str) -> str:
     return "other (elementwise, norm, reduce)"
 
 
-def profile(fn, label: str):
+def profile(fn, label: str, attention: str):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -76,14 +83,14 @@ def profile(fn, label: str):
           f"device_ms_per_call={device_us / STEPS / 1e3:.3f} idle_share={1 - device_us / wall_us:.4f}")
     by_kind = defaultdict(float)
     for name, us in kernels.items():
-        by_kind[_kind(name)] += us
+        by_kind[_kind(name, attention)] += us
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {label} kind {kind}: ms_per_call={us / STEPS / 1e3:.3f} share={us / device_us:.4f}")
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     for name, us in ranked[:TOP]:
         print(f"  {label} kernel {us / STEPS / 1e3:9.3f} ms  {name[:110]}")
     for name, us in ranked[TOP:]:  # this repo's kernels below the cut too
-        if "this repo" in _kind(name):
+        if "this repo" in _kind(name, attention):
             print(f"  {label} kernel {us / STEPS / 1e3:9.3f} ms  {name[:110]}")
 
 
@@ -108,14 +115,15 @@ def main():
         item = collate([test[0]])
         h, w = test.target_h, test.target_w
 
-        profile(lambda: trainer.eval_step(batch), f"{name} eval_step_b{BATCH}")
+        attention = attention_entry(cfg)
+        profile(lambda: trainer.eval_step(batch), f"{name} eval_step_b{BATCH}", attention)
         if item.target_transforms is not None:
             profile(
                 lambda: trainer.render_image(
                     item, h, w, target_transform=item.target_transforms[:, 0].numpy(), chunk=16384,
                     rays=item.target_rays[:, 0].numpy(), cam=item.target_camera_pos[:, 0].numpy(),
                 ),
-                f"{name} render_image_{h}x{w}",
+                f"{name} render_image_{h}x{w}", attention,
             )
         else:  # flat [1, Nt*h*w, 3] targets: the first view's rays
             profile(
@@ -123,7 +131,7 @@ def main():
                     item, item.target_rays[:, : h * w].numpy(), item.target_camera_pos[:, : h * w].numpy(),
                     chunk=16384,
                 ),
-                f"{name} render_rays_{h}x{w}",
+                f"{name} render_rays_{h}x{w}", attention,
             )
 
 if __name__ == "__main__":

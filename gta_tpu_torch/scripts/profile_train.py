@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import subprocess
 
-from gta_tpu_torch.scripts.profile_serving import BATCH, CONFIGS, profile
+from gta_tpu_torch.scripts.profile_serving import BATCH, CONFIGS, attention_entry, profile
 
 
 def main():
@@ -40,7 +40,7 @@ def main():
         trainer = Trainer(cfg)
         train = SyntheticScenes(cfg.data, "train", seed=cfg.seed)
         batch = collate([train[i] for i in range(BATCH)]).to(trainer.device)
-        profile(lambda: trainer.train_step(batch), f"{name} train_step_b{BATCH}")
+        profile(lambda: trainer.train_step(batch), f"{name} train_step_b{BATCH}", attention_entry(cfg))
         del trainer, batch
 
 

@@ -7,9 +7,9 @@ rendering (`eval_step`, `evaluate`, `render_image`, `render_rays`, always
 with dropout off).
 
 Precision policy for fp32 configs: fp32 accuracy. TF32 is switched off for
-both matmuls and cuDNN convolutions; the attention kernels compute in fp32
-on the CUDA cores (flash_core) or as 3xTF32 on the tensor cores (fused GTA,
-three TF32 products per fp32 product).
+both matmuls and cuDNN convolutions; the attention kernels (fused GTA and
+flash_core, one attention core) compute as 3xTF32 on the tensor cores
+(three TF32 products per fp32 product).
 """
 
 from __future__ import annotations

@@ -298,7 +298,8 @@ def test_gta_fused_bwd_raises_on_uncovered_operands(rng, cuda_device):
 
 # ---------------------------------------------------------------------------
 # flash_core (csrc/flash_core_fwd.cu, csrc/flash_core_bwd.cu): plain softmax
-# attention, token-major [B, T, H*C] operands
+# attention, token-major [B, T, H*C] operands, through the attention core
+# the fused GTA kernels share (csrc/attn_core.cuh)
 # ---------------------------------------------------------------------------
 
 
@@ -344,6 +345,56 @@ def test_flash_core_bwd_error_against_fp64(cuda_device, tq, tk):
         ref = fc.flash_core_bwd_plain(*(x.double() for x in (q, k, v)), H, SCALE, g.double())
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
         assert ((a.double() - r).norm() / r.norm()).item() <= 1e-5, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk", [(600, 600), (2560, 600)])
+def test_flash_core_fwd_error_against_fp64(cuda_device, tq, tk):
+    """The forward kernel's out and lse against the plain version in fp64,
+    as relative L2 errors: fp32 accuracy (3xTF32) keeps them near 1e-7, a
+    single TF32 pass (10-bit operands) would give ~1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _ = _flash_inputs(cuda_device, tq, tk, seed=4)
+    with torch.no_grad():
+        out, lse = fc.flash_core_fwd(q, k, v, H, SCALE, residuals=True)
+        ref_out, ref_lse = fc.flash_core_fwd_plain(*(x.double() for x in (q, k, v)), H, SCALE, lse=True)
+    for name, a, r in (("out", out, ref_out), ("lse", lse, ref_lse)):
+        assert ((a.double() - r).norm() / r.norm()).item() <= 1e-5, name
+
+
+@pytest.mark.cuda
+def test_flash_core_bwd_error_against_fp64_with_common_key_component(cuda_device):
+    """Keys and values that share a large component, as a layer's tokens do.
+    The tensor cores truncate each product's sum by ~1e-6 of its value, so
+    about uncentred rows each row of dS no longer sums to zero and dq = dS k
+    gains that sum times the common key (3.4e-4 relative L2 here without
+    the kernels' centres, 3.1e-5 with centres in the backward alone). The
+    forward's output and every gradient within 1e-5 of fp64."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _flash_inputs(cuda_device, 2560, 600, seed=6)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    k = k + 8 * torch.randn((B, 1, H * C), generator=gen, device=cuda_device)
+    v = v + 8 * torch.randn((B, 1, H * C), generator=gen, device=cuda_device)
+    with torch.no_grad():
+        out, lse = fc.flash_core_fwd(q, k, v, H, SCALE, residuals=True)
+        got = fc.flash_core_bwd(q, k, v, H, SCALE, g, out, lse)
+        ref_out = fc.flash_core_fwd_plain(*(x.double() for x in (q, k, v)), H, SCALE)
+        ref = fc.flash_core_bwd_plain(*(x.double() for x in (q, k, v)), H, SCALE, g.double())
+    for name, a, r in zip(("out", "dq", "dk", "dv"), (out, *got), (ref_out, *ref)):
+        assert ((a.double() - r).norm() / r.norm()).item() <= 1e-5, name
+
+
+@pytest.mark.cuda
+def test_flash_core_bwd_is_deterministic(cuda_device):
+    """Two backward launches on the same inputs give bit-identical outputs:
+    every row is owned by one warp and every sum has a fixed order."""
+    q, k, v, g = _flash_inputs(cuda_device, 601, 600, seed=5)
+    with torch.no_grad():
+        out, lse = fc.flash_core_fwd(q, k, v, H, SCALE, residuals=True)
+        first = fc.flash_core_bwd(q, k, v, H, SCALE, g, out, lse)
+        second = fc.flash_core_bwd(q, k, v, H, SCALE, g, out, lse)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
