@@ -22,9 +22,9 @@
 //
 // What the design does about it: the shared core's two passes on the raw
 // token-major operands, no copy of g and no row launch. The query pass
-// (`attn_bwd_q_kernel<64, true>`) computes delta = rowsum(g * (o - c_v))
+// (`attn_bwd_q_kernel<64>`) computes delta = rowsum(g * (o - c_v))
 // in its prologue, writes it for the key pass, and writes dq; the key pass
-// (`attn_bwd_kv_kernel<64, true>`) writes dk and dv. Both take dP and dq
+// (`attn_bwd_kv_kernel<64, KV_BOTH>`) writes dk and dv. Both take dP and dq
 // about centres c_k, c_v (the first key's rows of each (b, h)): a layer's
 // tokens share a large component, and without the centres the tensor
 // cores' truncation of it (~1e-6) broke the cancellation in dq (attn_core.cuh).
@@ -54,7 +54,7 @@ extern "C" int flash_core_bwd(const float* q, const float* k, const float* v, co
     return (int)cudaErrorInvalidValue;
   }
   const attn::Layout tok_q = attn::tokens(Tq, H, CC), tok_k = attn::tokens(Tk, H, CC);
-  return (int)attn::run_bwd<CC, true>(q, k, v, g, o, lse, delta, dq, dk, dv, B, H, Tq, Tk, tok_q,
+  return (int)attn::run_bwd<CC>(q, k, v, nullptr, g, o, lse, delta, dq, dk, dv, B, H, Tq, Tk, tok_q,
                                       tok_k, tok_k, tok_q, tok_q, tok_k, scale,
                                       static_cast<cudaStream_t>(stream_ptr));
 }

@@ -47,7 +47,7 @@ extern "C" int flash_core_fwd(const float* q, const float* k, const float* v, fl
     return (int)cudaErrorInvalidValue;
   }
   const attn::Layout tok_q = attn::tokens(Tq, H, CC), tok_k = attn::tokens(Tk, H, CC);
-  return (int)attn::run_fwd<CC, true>(q, k, v, out, lse, B, H, Tq, Tk, tok_q, tok_k, tok_k, tok_q,
+  return (int)attn::run_fwd<CC>(q, k, v, nullptr, out, lse, B, H, Tq, Tk, tok_q, tok_k, tok_k, tok_q,
                                       scale, static_cast<cudaStream_t>(stream_ptr));
 }
 

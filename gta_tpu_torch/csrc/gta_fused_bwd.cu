@@ -10,6 +10,8 @@
 //   output chain  dz = rot_q(g)          do = dz @ Mo^T    dMo += z^T dz
 //   core          p  = exp(qt kt^T * scale - lse)          dp = do vt^T
 //                 delta = rowsum(do * z)  (= rowsum(p * dp), as z = p vt)
+//                 (dp, delta and dqt = ds kt about the means of the kt
+//                 and vt rows: csrc/attn_core.cuh)
 //                 ds = p (dp - delta) * scale
 //                 dqt = ds kt     dkt = ds^T qt     dvt = p^T do
 //   query chain   dzq = rot_q^-1(dqt)    dq = dzq @ Mq^T   dMq += q^T dzq
@@ -28,7 +30,7 @@
 // tensor cores (3xTF32) or 67 TFLOP/s on the CUDA cores.
 //
 // What the design does about it (each launch of the C entry point runs up
-// to eleven kernels on the stream):
+// to thirteen kernels on the stream, fourteen at C = 96):
 //  * The attention core's two passes (csrc/attn_core.cuh, shared with
 //    flash_core): every product 3xTF32 m16n8k8 mma.sync, split by who owns
 //    each output row. The Pallas kernel sums dk, dv and dMk into one output
@@ -39,16 +41,18 @@
 //    outputs. Both passes recompute p from the forward's log-sum-exp: 7 core
 //    products where the function needs 5.
 //  * The C x C chains run outside the passes' loops, on the tensor cores
-//    (csrc/gta_rows.cuh): do and delta before the passes (into
-//    [B, H, Tq, C] scratch), then dq, dk, dv in place. qt, kt, vt are the
+//    (csrc/gta_rows.cuh): do before the passes (into token-major scratch,
+//    the layout of z; the query pass computes delta), then dq, dk, dv in
+//    place. qt, kt, vt are the
 //    forward's residuals: no transform is recomputed.
 //  * The matrix cotangents are a separate reduction, X^T Y over each view's
 //    (row, head) pairs, itself a [C x rows] x [rows x C] product on the
 //    tensor cores: each block sums a slice of one view's pairs into a
 //    partial buffer, and a second kernel adds the slices in a fixed order.
-// ptxas (CUDA 12.8, sm_90a), no spills anywhere: query pass 168 registers
-// (3 blocks of 128 threads per SM), key pass 244 (2 blocks), dM reduction
-// 120, its sum 30, row launches 94-114.
+// Instances: head width C = 64 (CLEVR-TR) and C = 96 (msn), dispatched on
+// the C argument; at C = 96 the core runs two key passes (attn_core.cuh)
+// and the dM reduction 6 warps a block. Registers and spills of every
+// kernel: PERF.md.
 // Not yet: wgmma and TMA, 5 products in place of 7 (attn_core.cuh).
 //
 // Interface: plain C, bound from Python with ctypes. Every pointer is a
@@ -75,29 +79,42 @@ constexpr int HAS_ROTQ = 8;
 constexpr int HAS_ROTK = 16;
 constexpr int V_TRANSFORM = 32;
 
-constexpr int HEAD_DIM = 64;  // the only head width instantiated
-constexpr int DM_THREADS = 128;
 constexpr int DM_ROWS = 32;  // (row, head) pairs staged per step in the dM reduction
+
+// a warp per 16 rows of the C x C output
+template <int C>
+__host__ __device__ constexpr int dm_threads() {
+  return 32 * (C / 16);
+}
+
+template <int C>
+__host__ __device__ constexpr int dm_smem_bytes() {
+  return 2 * 2 * DM_ROWS * (C + 8) * (int)sizeof(float);
+}
 
 // ---------------------------------------------------------------------------
 // Matrix cotangents: part[b, view, split] = sum over a slice of the view's
 // (row, head) pairs of X1^T Y1 (+ X2^T Y2), on the tensor cores. X*, Y* are
 // token-major [B, T, H*C], read as [B, T*H, C]: a view's pairs are
 // contiguous, `rpv` of them. grid (splits, n, B); a warp owns 16 rows of the
-// C x C output. Pairs stream through shared memory DM_ROWS at a time
-// (double-buffered); each step's product starts from zero and joins the
-// running sum by rounded fp32 adds, as in the passes.
+// C x C output. Pairs stream through dynamic shared memory DM_ROWS at a time
+// (double-buffered; 36 KB at C = 64, 52 KB at C = 96); each step's product
+// starts from zero and joins the running sum by rounded fp32 adds, as in
+// the passes.
 // ---------------------------------------------------------------------------
 template <int C>
-__global__ void __launch_bounds__(DM_THREADS)
+__global__ void __launch_bounds__(dm_threads<C>())
 gta_bwd_dm_kernel(const float* __restrict__ X1, const float* __restrict__ Y1,
                   const float* __restrict__ X2, const float* __restrict__ Y2,
                   float* __restrict__ part, int64_t rows, int rpv, int splits) {
-  static_assert(C == 16 * (DM_THREADS / 32), "a warp per 16 rows of the C x C output");
+  constexpr int THREADS = dm_threads<C>();
+  static_assert(C == 16 * (THREADS / 32), "a warp per 16 rows of the C x C output");
   constexpr int LD = C + 8;  // load_a_t and load_b_kn_std: conflict-free
   constexpr int KS = C / 8;
-  __shared__ __align__(16) float Xs[2][DM_ROWS * LD];
-  __shared__ __align__(16) float Ys[2][DM_ROWS * LD];
+  extern __shared__ __align__(16) float smem[];
+  constexpr int STAGE = DM_ROWS * LD;
+  float* Xs = smem;              // [2][DM_ROWS][LD]
+  float* Ys = smem + 2 * STAGE;  // [2][DM_ROWS][LD]
   const int slice = blockIdx.x;
   const int view = blockIdx.y;
   const int b = blockIdx.z;
@@ -122,14 +139,14 @@ gta_bwd_dm_kernel(const float* __restrict__ X1, const float* __restrict__ Y1,
     for (int st = 0; st < steps; ++st) {
       const int buf = st & 1;
       if (st == 0) {
-        stage_rows<C, DM_ROWS, DM_THREADS, LD>(Xs[0], xb + r0 * C, C, (int)(r1 - r0));
-        stage_rows<C, DM_ROWS, DM_THREADS, LD>(Ys[0], yb + r0 * C, C, (int)(r1 - r0));
+        stage_rows<C, DM_ROWS, THREADS, LD>(Xs, xb + r0 * C, C, (int)(r1 - r0));
+        stage_rows<C, DM_ROWS, THREADS, LD>(Ys, yb + r0 * C, C, (int)(r1 - r0));
         cp_async_commit();
       }
       if (st + 1 < steps) {
         const int64_t s1 = r0 + (int64_t)(st + 1) * DM_ROWS;
-        stage_rows<C, DM_ROWS, DM_THREADS, LD>(Xs[buf ^ 1], xb + s1 * C, C, (int)(r1 - s1));
-        stage_rows<C, DM_ROWS, DM_THREADS, LD>(Ys[buf ^ 1], yb + s1 * C, C, (int)(r1 - s1));
+        stage_rows<C, DM_ROWS, THREADS, LD>(Xs + (buf ^ 1) * STAGE, xb + s1 * C, C, (int)(r1 - s1));
+        stage_rows<C, DM_ROWS, THREADS, LD>(Ys + (buf ^ 1) * STAGE, yb + s1 * C, C, (int)(r1 - s1));
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -142,12 +159,12 @@ gta_bwd_dm_kernel(const float* __restrict__ X1, const float* __restrict__ Y1,
 #pragma unroll
       for (int ks = 0; ks < DM_ROWS / 8; ++ks) {
         float af[4];
-        load_a_t(af, Xs[buf], LD, m0, 8 * ks, ln);
+        load_a_t(af, Xs + buf * STAGE, LD, m0, 8 * ks, ln);
         const FragA a = split(af);
 #pragma unroll
         for (int j = 0; j < KS; ++j) {
           float bf[2];
-          load_b_kn_std(bf, Ys[buf], LD, 8 * ks, 8 * j, ln);
+          load_b_kn_std(bf, Ys + buf * STAGE, LD, 8 * ks, 8 * j, ln);
           mma3(t[j], a, split(bf));
         }
       }
@@ -181,43 +198,43 @@ cudaError_t reduce_dm(const float* X1, const float* Y1, const float* X2, const f
                       float* part, float* dm, int B, int n, int T, int H, int splits,
                       cudaStream_t stream) {
   const int rpv = (T / n) * H;
-  gta_bwd_dm_kernel<C><<<dim3(splits, n, B), DM_THREADS, 0, stream>>>(X1, Y1, X2, Y2, part,
-                                                                      (int64_t)T * H, rpv, splits);
-  cudaError_t err = cudaGetLastError();
+  constexpr int smem = dm_smem_bytes<C>();
+  cudaError_t err = cudaFuncSetAttribute(gta_bwd_dm_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  gta_bwd_dm_kernel<C><<<dim3(splits, n, B), dm_threads<C>(), smem, stream>>>(
+      X1, Y1, X2, Y2, part, (int64_t)T * H, rpv, splits);
+  if ((err = cudaGetLastError())) return err;
   const int64_t total = (int64_t)B * n * C * C;
   gta_bwd_dm_sum_kernel<C><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(part, dm, total,
                                                                                 splits);
   return cudaGetLastError();
 }
 
-}  // namespace
-
 // q, k, v, tables: the forward's inputs. g: the cotangent of its output.
 // z, lse, qt, kt, vt: its residuals (qt null without a Q transform, kt
 // null without a K/V transform, vt null without V_TRANSFORM). do_s
-// [B, H, Tq, C], delta [B, H, Tq], dzq, dz [B, Tq, H*C], dzk, dzv
-// [B, Tk, H*C] (each null where its flag is off) and part
-// [B * max(nq * splits_q, nk * splits_k), C, C]: scratch.
-extern "C" int gta_fused_bwd(const float* q, const float* k, const float* v, const float* mq,
-                             const float* mk, const float* mo, const float* cq, const float* sq,
-                             const float* ck, const float* sk, const float* g, const float* z,
-                             const float* lse, const float* qt, const float* kt, const float* vt,
-                             float* do_s, float* delta, float* dzq, float* dz, float* dzk,
-                             float* dzv, float* part, float* dq, float* dk, float* dv, float* dmq,
-                             float* dmk, float* dmo, int B, int H, int Tq, int Tk, int c, int nq,
-                             int nk, int splits_q, int splits_k, int flags, float scale,
-                             void* stream_ptr) {
-  constexpr int C = HEAD_DIM;
+// [B, Tq, H*C], delta [B, H, Tq], dzq, dz [B, Tq, H*C], dzk, dzv
+// [B, Tk, H*C] (each null where its flag is off), part
+// [B * max(nq * splits_q, nk * splits_k), C, C] and centres [2, B, H, C]:
+// scratch.
+template <int C>
+int fused_bwd(const float* q, const float* k, const float* v, const float* mq, const float* mk,
+              const float* mo, const float* cq, const float* sq, const float* ck, const float* sk,
+              const float* g, const float* z, const float* lse, const float* qt, const float* kt,
+              const float* vt, float* do_s, float* delta, float* dzq, float* dz, float* dzk,
+              float* dzv, float* part, float* centres, float* dq, float* dk, float* dv, float* dmq,
+              float* dmk, float* dmo, int B, int H, int Tq, int Tk, int nq, int nk, int splits_q,
+              int splits_k, int flags, float scale, void* stream_ptr) {
   const bool q_tf = flags & (HAS_MQ | HAS_ROTQ);
   const bool kv_tf = flags & (HAS_MK | HAS_ROTK);
   const bool vt_flag = flags & V_TRANSFORM;
   const bool v_side = kv_tf && vt_flag;
   const bool has_mo = vt_flag && (flags & HAS_MO);
   const bool rq = flags & HAS_ROTQ, rk = flags & HAS_ROTK;
-  if (c != C || B < 1 || H < 1 || Tq < 1 || Tk < 1 || nq < 1 || nk < 1 || Tq % nq || Tk % nk ||
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || nq < 1 || nk < 1 || Tq % nq || Tk % nk ||
       splits_q < 1 || splits_k < 1 || B > 65535 || H > 65535 || (q_tf && !qt) ||
-      (kv_tf && !kt) || (v_side && !vt)) {
+      (kv_tf && !kt) || (v_side && !vt) || !centres) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -225,10 +242,10 @@ extern "C" int gta_fused_bwd(const float* q, const float* k, const float* v, con
   const Layout hf_q = attn::heads_first(Tq, H, C), hf_k = attn::heads_first(Tk, H, C);
   cudaError_t err;
 
-  // output chain: dz = R_q(g) (stored for dMo), do = dz @ Mo^T, delta = rowsum(do * z)
+  // output chain: dz = R_q(g) (stored for dMo), do = dz @ Mo^T
   {
-    const RowJob j{g, do_s, tok_q, hf_q, has_mo ? mo : nullptr, vt_flag && rq ? cq : nullptr,
-                   vt_flag && rq ? sq : nullptr, has_mo ? dz : nullptr, z, delta, Tq, nq, 1, 0};
+    const RowJob j{g, do_s, tok_q, tok_q, has_mo ? mo : nullptr, vt_flag && rq ? cq : nullptr,
+                   vt_flag && rq ? sq : nullptr, has_mo ? dz : nullptr, Tq, nq, 1, 0};
     if ((err = gta_rows::run_rows<C>(j, B, H, stream))) return (int)err;
   }
 
@@ -237,27 +254,33 @@ extern "C" int gta_fused_bwd(const float* q, const float* k, const float* v, con
   const float* vp = v_side ? vt : v;
   const Layout ql = q_tf ? hf_q : tok_q, kl = kv_tf ? hf_k : tok_k, vl = v_side ? hf_k : tok_k;
 
-  // the core's two passes: dqt into dq, dkt and dvt into dk and dv
-  err = attn::run_bwd<C, false>(qp, kp, vp, do_s, nullptr, lse, delta, dq, dk, dv, B, H, Tq, Tk,
-                                ql, kl, vl, hf_q, tok_q, tok_k, scale, stream);
+  // the core's centres, as the forward took them: the means of the key and
+  // value rows
+  if ((err = gta_rows::run_mean<C>(kp, kl, Tk, B, H, centres, stream))) return (int)err;
+  if ((err = gta_rows::run_mean<C>(vp, vl, Tk, B, H, centres + (int64_t)B * H * C, stream)))
+    return (int)err;
+
+  // the core's passes: dqt into dq (delta = rowsum(do * (z - c_v)) on the
+  // way), dkt and dvt into dk and dv
+  err = attn::run_bwd<C>(qp, kp, vp, centres, do_s, z, lse, delta, dq, dk, dv, B, H, Tq, Tk,
+                               ql, kl, vl, tok_q, tok_q, tok_k, scale, stream);
   if (err != cudaSuccess) return (int)err;
 
   // query chain, in place on dq: dzq = R_q^-1(dqt) (stored for dMq), dq = dzq @ Mq^T
   if (q_tf) {
     const RowJob j{dq, dq, tok_q, tok_q, flags & HAS_MQ ? mq : nullptr, rq ? cq : nullptr,
-                   rq ? sq : nullptr, flags & HAS_MQ ? dzq : nullptr, nullptr, nullptr, Tq, nq,
-                   1, 1};
+                   rq ? sq : nullptr, flags & HAS_MQ ? dzq : nullptr, Tq, nq, 1, 1};
     if ((err = gta_rows::run_rows<C>(j, B, H, stream))) return (int)err;
   }
   // key / value chains, in place on dk and dv
   if (kv_tf) {
     const float* Mk = flags & HAS_MK ? mk : nullptr;
     const RowJob jk{dk, dk, tok_k, tok_k, Mk, rk ? ck : nullptr, rk ? sk : nullptr,
-                    Mk ? dzk : nullptr, nullptr, nullptr, Tk, nk, 1, 1};
+                    Mk ? dzk : nullptr, Tk, nk, 1, 1};
     if ((err = gta_rows::run_rows<C>(jk, B, H, stream))) return (int)err;
     if (vt_flag) {
       const RowJob jv{dv, dv, tok_k, tok_k, Mk, rk ? ck : nullptr, rk ? sk : nullptr,
-                      Mk ? dzv : nullptr, nullptr, nullptr, Tk, nk, 1, 1};
+                      Mk ? dzv : nullptr, Tk, nk, 1, 1};
       if ((err = gta_rows::run_rows<C>(jv, B, H, stream))) return (int)err;
     }
   }
@@ -276,6 +299,30 @@ extern "C" int gta_fused_bwd(const float* q, const float* k, const float* v, con
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int gta_fused_bwd(const float* q, const float* k, const float* v, const float* mq,
+                             const float* mk, const float* mo, const float* cq, const float* sq,
+                             const float* ck, const float* sk, const float* g, const float* z,
+                             const float* lse, const float* qt, const float* kt, const float* vt,
+                             float* do_s, float* delta, float* dzq, float* dz, float* dzk,
+                             float* dzv, float* part, float* centres, float* dq, float* dk,
+                             float* dv, float* dmq, float* dmk, float* dmo, int B, int H, int Tq,
+                             int Tk, int C, int nq, int nk, int splits_q, int splits_k, int flags,
+                             float scale, void* stream_ptr) {
+  if (C == 64) {
+    return fused_bwd<64>(q, k, v, mq, mk, mo, cq, sq, ck, sk, g, z, lse, qt, kt, vt, do_s, delta,
+                         dzq, dz, dzk, dzv, part, centres, dq, dk, dv, dmq, dmk, dmo, B, H, Tq, Tk,
+                         nq, nk, splits_q, splits_k, flags, scale, stream_ptr);
+  }
+  if (C == 96) {
+    return fused_bwd<96>(q, k, v, mq, mk, mo, cq, sq, ck, sk, g, z, lse, qt, kt, vt, do_s, delta,
+                         dzq, dz, dzk, dzv, part, centres, dq, dk, dv, dmq, dmk, dmo, B, H, Tq, Tk,
+                         nq, nk, splits_q, splits_k, flags, scale, stream_ptr);
+  }
+  return (int)cudaErrorInvalidValue;  // no instance of this head width
 }
 
 extern "C" const char* gta_fused_bwd_error_string(int code) {

@@ -19,23 +19,26 @@
 // What bounds it on the H100: the core does 4*Tq*Tk*C flops per (b, h)
 // against (4*Tq + 4*Tk)*C*4 bytes of q, k, v, out and rotor tables, 75 to
 // 145 flops per byte at the flagship shapes (C = 64, Tk = 600, Tq = 600 to
-// 16384): bound by operations, at 165 TFLOP/s for fp32-accurate products
+// 16384), 160 to 300 at msn_so3's (C = 96, Tk = 1280, Tq = 1280 to 16384):
+// bound by operations, at 165 TFLOP/s for fp32-accurate products
 // on the tensor cores (3xTF32, 495 / 3) or 67 TFLOP/s on the CUDA cores.
 //
 // What the design does about it (each launch of the C entry point runs up
-// to five kernels on the stream):
+// to six kernels on the stream):
 //  * Row launches (csrc/gta_rows.cuh, on the tensor cores) transform Q, K
 //    and V once into scratch laid out [B, H, T, C]; the core's loop holds no
 //    C x C product. The Q scratch doubles as a training residual: the
 //    backward reads it instead of recomputing qt.
 //  * The attention core (csrc/attn_core.cuh `attn_fwd_kernel`, shared with
 //    flash_core): a warp per 16 query rows, 32-key K/V tiles by cp.async,
-//    3xTF32 mma.sync, the online softmax in the accumulator fragments.
+//    3xTF32 mma.sync, the online softmax in the accumulator fragments, P·V
+//    about the mean of the vt rows of (b, h) (a small reduction kernel
+//    before the core, gta_rows.cuh `mean_rows_kernel`).
 //  * The output transform (z @ Mo, inverse rotors) is a row launch after
 //    the core, in place on `out` when z is not kept.
-// ptxas (CUDA 12.8, sm_90a), no spills anywhere: core 157 registers (3
-// blocks of 128 threads per SM); row launches 96 (matrix, on the tensor
-// cores) and 114 (rotors only).
+// Instances: head width C = 64 (CLEVR-TR) and C = 96 (msn), dispatched on
+// the C argument; the core runs 3 blocks of 128 threads per SM at C = 64,
+// 2 at C = 96. Registers and spills of every kernel: PERF.md.
 // Not yet: wgmma and TMA for the core (attn_core.cuh); K/V split once per
 // block.
 //
@@ -46,7 +49,8 @@
 //
 // Interface: plain C, bound from Python with ctypes. Every pointer is a
 // contiguous fp32 device array; absent tables are null and flagged off.
-// qt/kt/vt: scratch [B, H, T, C] for each side that has a transform.
+// qt/kt/vt: scratch [B, H, T, C] for each side that has a transform;
+// centres: scratch [2, B, H, C] (the core's centre rows, csrc/attn_core.cuh).
 // Returns the cudaError_t of the launches (0 = success).
 
 #include <cuda_runtime.h>
@@ -66,22 +70,18 @@ constexpr int HAS_ROTQ = 8;
 constexpr int HAS_ROTK = 16;
 constexpr int V_TRANSFORM = 32;
 
-constexpr int HEAD_DIM = 64;  // the only head width instantiated
-
-}  // namespace
-
-extern "C" int gta_fused_fwd(const float* q, const float* k, const float* v, const float* mq,
-                             const float* mk, const float* mo, const float* cq, const float* sq,
-                             const float* ck, const float* sk, float* qt, float* kt, float* vt,
-                             float* out, float* z, float* lse, int B, int H, int Tq, int Tk, int C,
-                             int nq, int nk, int flags, float scale, void* stream_ptr) {
-  constexpr int CC = HEAD_DIM;
+template <int CC>
+int fused_fwd(const float* q, const float* k, const float* v, const float* mq, const float* mk,
+              const float* mo, const float* cq, const float* sq, const float* ck, const float* sk,
+              float* qt, float* kt, float* vt, float* centres, float* out, float* z, float* lse,
+              int B, int H, int Tq, int Tk, int nq, int nk, int flags, float scale,
+              void* stream_ptr) {
   const bool q_tf = flags & (HAS_MQ | HAS_ROTQ);
   const bool kv_tf = flags & (HAS_MK | HAS_ROTK);
   const bool v_side = kv_tf && (flags & V_TRANSFORM);
   const bool out_tf = (flags & V_TRANSFORM) && (flags & (HAS_MO | HAS_ROTQ));
-  if (C != CC || B < 1 || H < 1 || Tq < 1 || Tk < 1 || nq < 1 || nk < 1 || Tq % nq || Tk % nk ||
-      B > 65535 || H > 65535 || (q_tf && !qt) || (kv_tf && !kt) || (v_side && !vt)) {
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || nq < 1 || nk < 1 || Tq % nq || Tk % nk ||
+      B > 65535 || H > 65535 || (q_tf && !qt) || (kv_tf && !kt) || (v_side && !vt) || !centres) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -92,7 +92,7 @@ extern "C" int gta_fused_fwd(const float* q, const float* k, const float* v, con
   // qt, kt, vt: R(x @ M) into [B, H, T, C] scratch
   auto side = [&](const float* src, float* dst, const float* M, const float* c, const float* s,
                   int T, int n, Layout from, Layout to) {
-    const RowJob j{src, dst, from, to, M, c, s, nullptr, nullptr, nullptr, T, n, 0, 0};
+    const RowJob j{src, dst, from, to, M, c, s, nullptr, T, n, 0, 0};
     return gta_rows::run_rows<CC>(j, B, H, stream);
   };
   const float* Mq = flags & HAS_MQ ? mq : nullptr;
@@ -105,20 +105,44 @@ extern "C" int gta_fused_fwd(const float* q, const float* k, const float* v, con
   if (v_side && (err = side(v, vt, Mk, rk ? ck : nullptr, rk ? sk : nullptr, Tk, nk, tok_k, hf_k)))
     return (int)err;
 
+  // c_v, the centre of P·V: the mean of the value rows (centres[1])
+  const float* vp = v_side ? vt : v;
+  const Layout vl = v_side ? hf_k : tok_k;
+  if ((err = gta_rows::run_mean<CC>(vp, vl, Tk, B, H, centres + (int64_t)B * H * CC, stream)))
+    return (int)err;
+
   float* zp = z ? z : out;
-  err = attn::run_fwd<CC, false>(q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v, zp, lse, B, H, Tq, Tk,
-                          q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k, v_side ? hf_k : tok_k, tok_q,
-                          scale, stream);
+  err = attn::run_fwd<CC>(q_tf ? qt : q, kv_tf ? kt : k, vp, centres, zp, lse, B, H, Tq, Tk,
+                                q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k, vl, tok_q, scale, stream);
   if (err != cudaSuccess) return (int)err;
 
   if (out_tf) {  // out = R_q^-1(z @ Mo), in place when z is not kept
     const RowJob j{zp, out, tok_q, tok_q, flags & HAS_MO ? mo : nullptr, rq ? cq : nullptr,
-                   rq ? sq : nullptr, nullptr, nullptr, nullptr, Tq, nq, 0, 1};
+                   rq ? sq : nullptr, nullptr, Tq, nq, 0, 1};
     return (int)gta_rows::run_rows<CC>(j, B, H, stream);
   }
   if (z) return (int)cudaMemcpyAsync(out, z, sizeof(float) * B * Tq * H * CC,
                                      cudaMemcpyDeviceToDevice, stream);
   return (int)cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int gta_fused_fwd(const float* q, const float* k, const float* v, const float* mq,
+                             const float* mk, const float* mo, const float* cq, const float* sq,
+                             const float* ck, const float* sk, float* qt, float* kt, float* vt,
+                             float* centres, float* out, float* z, float* lse, int B, int H, int Tq,
+                             int Tk, int C, int nq, int nk, int flags, float scale,
+                             void* stream_ptr) {
+  if (C == 64) {
+    return fused_fwd<64>(q, k, v, mq, mk, mo, cq, sq, ck, sk, qt, kt, vt, centres, out, z, lse, B, H,
+                         Tq, Tk, nq, nk, flags, scale, stream_ptr);
+  }
+  if (C == 96) {
+    return fused_fwd<96>(q, k, v, mq, mk, mo, cq, sq, ck, sk, qt, kt, vt, centres, out, z, lse, B, H,
+                         Tq, Tk, nq, nk, flags, scale, stream_ptr);
+  }
+  return (int)cudaErrorInvalidValue;  // no instance of this head width
 }
 
 extern "C" const char* gta_fused_error_string(int code) {

@@ -10,15 +10,15 @@
 // (-x1, x0) on lane pairs, per-view row-major [C, C] matrices and per-lane
 // rotor tables [B, T, C]; a row's view is row / (T / n_views). M and the
 // rotor tables may each be absent. The backward form can also store w (the
-// matrix cotangents' input) and a row's dot product with another row
-// (delta = rowsum(do * z)).
+// matrix cotangents' input).
 //
 // What bounds it: 2*C*C flops per row and matrix against 8*C bytes moved
-// (16 flops per byte at C = 64): by bytes at the tensor cores' rate, by
+// (16 flops per byte at C = 64, 24 at C = 96): by bytes at the tensor cores' rate, by
 // operations on the CUDA cores. So a chain with a matrix runs on the tensor
 // cores, 3xTF32 like the attention cores (csrc/tf32x3.cuh): a block owns 64
 // rows of one view of one (b, h) (blocks never straddle a view), stages the
-// view's matrix and its rows in shared memory, and each warp multiplies 16
+// view's matrix and its rows in dynamic shared memory (36 KB at C = 64,
+// 64 KB at C = 96), and each warp multiplies 16
 // rows by M (or M^T) with m16n8k8 mma.sync. The small-part products gather
 // in an accumulator of their own, so the large part's truncating tensor-core
 // chain is 8 steps long. Rotors act on the output fragments, whose column
@@ -40,6 +40,18 @@ using attn::offset;
 
 constexpr int ROW_THREADS = 128;
 constexpr int MMA_ROWS = 64;  // rows per block of the tensor-core kernel (4 warps x 16)
+
+// M is read as B[k][n] = M[k][n] (forward form) or M[n][k] (backward form);
+// each wants its own row stride for conflict-free fragment loads
+template <int C, bool BWD>
+__host__ __device__ constexpr int ldm() {
+  return BWD ? C + 4 : C + 8;
+}
+
+template <int C, bool BWD>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return (C * ldm<C, BWD>() + MMA_ROWS * (C + 4)) * (int)sizeof(float);
+}
 
 template <int C>
 __device__ __forceinline__ void load_row(const float* __restrict__ src, float (&x)[C]) {
@@ -81,10 +93,9 @@ __device__ __forceinline__ void rotate(float (&x)[C], const float* __restrict__ 
   }
 }
 
-// One transform of every (b, h, row < T) of an operand. m, c/s, mid, dot
-// may be null. src and dst may be the same array (every row is read before
-// it is written, by the block that writes it). mid and dot are token-major
-// [B, T, H*C]; dot_out is [B, H, T].
+// One transform of every (b, h, row < T) of an operand. m, c/s and mid may
+// be null. src and dst may be the same array (every row is read before it
+// is written, by the block that writes it). mid is token-major [B, T, H*C].
 struct RowJob {
   const float* src;
   float* dst;
@@ -93,8 +104,6 @@ struct RowJob {
   const float* c;  // [B, T, C]
   const float* s;
   float* mid;
-  const float* dot;
-  float* dot_out;
   int T, n_views;
   int backward;  // 0: y = R(x @ M); 1: w = R(x), y = w @ M^T
   int inverse;   // R^-1 in place of R
@@ -115,19 +124,6 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_kernel(const RowJob j, i
   load_row<C>(j.src + offset(j.src_l, b, h, row), x);
   if (j.c) rotate<C>(x, j.c + roff, j.s + roff, j.inverse ? -1.f : 1.f);
   if (j.mid) store_row<C>(j.mid + tok, x);
-  if (j.dot) {
-    const float4* d4 = reinterpret_cast<const float4*>(j.dot + tok);
-    float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < C / 4; ++i) {
-      const float4 d = d4[i];
-      acc = fmaf(x[4 * i], d.x, acc);
-      acc = fmaf(x[4 * i + 1], d.y, acc);
-      acc = fmaf(x[4 * i + 2], d.z, acc);
-      acc = fmaf(x[4 * i + 3], d.w, acc);
-    }
-    j.dot_out[((int64_t)b * H + h) * j.T + row] = acc;
-  }
   store_row<C>(j.dst + offset(j.dst_l, b, h, row), x);
 }
 
@@ -138,12 +134,11 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJob 
   using namespace tf32x3;
   static_assert(ROW_THREADS == 2 * MMA_ROWS, "a warp per 16 rows");
   constexpr int LDX = C + 4;
-  // M is read as B[k][n] = M[k][n] (forward form) or M[n][k] (backward
-  // form); each wants its own row stride for conflict-free fragment loads
-  constexpr int LDM = BWD ? C + 4 : C + 8;
+  constexpr int LDM = ldm<C, BWD>();
   constexpr int KS = C / 8;
-  __shared__ __align__(16) float Ms[C * LDM];
-  __shared__ __align__(16) float Xs[MMA_ROWS * LDX];
+  extern __shared__ __align__(16) float smem[];
+  float* Ms = smem;          // [C][LDM]
+  float* Xs = Ms + C * LDM;  // [MMA_ROWS][LDX]
 
   const int b = blockIdx.z / j.n_views;
   const int view = blockIdx.z % j.n_views;
@@ -225,9 +220,7 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJob 
     const bool ok = lr < n_rows;
     const int row = r0 + min(lr, n_rows - 1);
     const int64_t roff = ((int64_t)b * j.T + row) * C;
-    const int64_t tok = ((int64_t)b * j.T + row) * H * C + (int64_t)h * C;
     float* dst = j.dst + offset(j.dst_l, b, h, row);
-    float dot = 0.f;
 #pragma unroll
     for (int n = 0; n < KS; ++n) {
       const int col = 8 * n + 2 * ln.t;
@@ -240,30 +233,60 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJob 
         y0 = cc.x * a0 - sg * ss.x * a1;
         y1 = cc.y * a1 + sg * ss.y * a0;
       }
-      if (j.dot) {
-        const float2 d = *reinterpret_cast<const float2*>(j.dot + tok + col);
-        dot = fmaf(y0, d.x, fmaf(y1, d.y, dot));
-      }
       if (ok) *reinterpret_cast<float2*>(dst + col) = make_float2(y0, y1);
     }
-    if (j.dot) {
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      if (ok && ln.t == 0) j.dot_out[((int64_t)b * H + h) * j.T + row] = dot;
-    }
   }
+}
+
+// centre[b, h, :] = the mean of the T rows of (b, h) of `src`: the centre
+// the fused GTA kernels' attention core takes its products about
+// (csrc/attn_core.cuh). grid (H, B), C * MEAN_SPLIT threads: each
+// sums every MEAN_SPLIT-th row of one channel, then the block adds the
+// partial sums in a fixed order (bit-identical reruns).
+constexpr int MEAN_SPLIT = 8;
+
+template <int C>
+__global__ void __launch_bounds__(C * MEAN_SPLIT)
+mean_rows_kernel(const float* __restrict__ src, const Layout l, int T, float* __restrict__ centre) {
+  __shared__ float part[MEAN_SPLIT][C];
+  const int b = blockIdx.y, h = blockIdx.x;
+  const int c = threadIdx.x % C, split = threadIdx.x / C;
+  const float* p = src + b * l.bs + h * l.hs + c;
+  float acc = 0.f;
+  for (int r = split; r < T; r += MEAN_SPLIT) acc += p[r * l.rs];
+  part[split][c] = acc;
+  __syncthreads();
+  if (split == 0) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < MEAN_SPLIT; ++i) sum += part[i][c];
+    centre[((int64_t)b * gridDim.x + h) * C + c] = sum / T;
+  }
+}
+
+template <int C>
+cudaError_t run_mean(const float* src, Layout l, int T, int B, int H, float* centre,
+                     cudaStream_t stream) {
+  mean_rows_kernel<C><<<dim3(H, B), C * MEAN_SPLIT, 0, stream>>>(src, l, T, centre);
+  return cudaGetLastError();
+}
+
+template <int C, bool BWD>
+cudaError_t run_rows_mma(const RowJob& j, int B, int H, cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes<C, BWD>();
+  cudaError_t err = cudaFuncSetAttribute(gta_rows_mma_kernel<C, BWD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int rpv = j.T / j.n_views;
+  const dim3 grid((rpv + MMA_ROWS - 1) / MMA_ROWS, H, B * j.n_views);
+  gta_rows_mma_kernel<C, BWD><<<grid, ROW_THREADS, smem, stream>>>(j, H);
+  return cudaGetLastError();
 }
 
 template <int C>
 cudaError_t run_rows(const RowJob& j, int B, int H, cudaStream_t stream) {
   if (j.m) {
-    const int rpv = j.T / j.n_views;
-    const dim3 grid((rpv + MMA_ROWS - 1) / MMA_ROWS, H, B * j.n_views);
-    if (j.backward) {
-      gta_rows_mma_kernel<C, true><<<grid, ROW_THREADS, 0, stream>>>(j, H);
-    } else {
-      gta_rows_mma_kernel<C, false><<<grid, ROW_THREADS, 0, stream>>>(j, H);
-    }
+    return j.backward ? run_rows_mma<C, true>(j, B, H, stream) : run_rows_mma<C, false>(j, B, H, stream);
   } else {
     const dim3 grid((j.T + ROW_THREADS - 1) / ROW_THREADS, H, B);
     gta_rows_kernel<C><<<grid, ROW_THREADS, 0, stream>>>(j, H);

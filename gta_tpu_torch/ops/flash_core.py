@@ -90,7 +90,7 @@ def _check_kernel_call(name, q, k, v, heads: int, extra=()):
     if C != KERNEL_HEAD_DIM:
         raise NotImplementedError(
             f"{name}: the CUDA kernel is built for head dim {KERNEL_HEAD_DIM}, got {C} "
-            "(ROADMAP queue 1 item 3, msn_so3 slice and other configs)"
+            "(ROADMAP queue 1 item 3d: other head widths)"
         )
     for x in (q, k, v, *extra):
         if x.device != q.device or x.dtype != torch.float32 or not x.is_contiguous():

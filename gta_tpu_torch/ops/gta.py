@@ -6,9 +6,10 @@ K and V by the forward rep; softmax attention runs on the transformed
 triple; the inverse query rep is applied to the output.
 
 This is the block-diagonal form: all per-VIEW group factors (SE(3) vec4
-blocks, identity on triv and so2 spans) compose into one [C, C] matrix per
-view, and the per-TOKEN SO(2) rotors ride one full-width RoPE pass with
-identity (cos=1, sin=0) padding outside the so2 span. It is the oracle the
+blocks, SO(3) Wigner-D blocks, identity on triv and so2 spans) compose into
+one [C, C] matrix per view, and the per-TOKEN SO(2) rotors ride one
+full-width RoPE pass with identity (cos=1, sin=0) padding outside the so2
+span. It is the oracle the
 fused kernel (ops/gta_fused.py) is checked against. Rep mixes the
 block-diagonal form cannot express (t2, euclid, per-token SE(3)) take the
 sliced form, which is not ported yet.
@@ -72,7 +73,8 @@ def _blockdiag_mat(
     side: str,
     dtype,
 ) -> Optional[torch.Tensor]:
-    """Compose the per-view [B, N, C, C] block-diagonal rep for one side.
+    """Compose the per-view [B, N, C, C] block-diagonal rep for one side:
+    SE(3) vec4 blocks and SO(3) Wigner-D blocks repeated over their spans.
 
     side: 'q' (inverse-transpose), 'k' (forward), 'out' (inverse).
     Identity on triv and so2 spans (so2 is per-token, applied separately).
@@ -93,7 +95,21 @@ def _blockdiag_mat(
                 A = reps.se3_q_inv * msk
             parts.append((st, ed, _block_repeat(A.to(dtype), (ed - st) // 4)))
         elif name == "so3":
-            raise NotImplementedError("so3 (Wigner-D) blocks are not ported yet (ROADMAP queue 1, msn_so3 slice)")
+            # Wigner-D blocks of degrees 1..n, detached (reference gta.py:194-197):
+            # orthogonal, so the inverse-transpose for 'q' is D itself and the
+            # inverse for 'out' is D^T
+            Ds = reps.so3_q if side in ("q", "out") else reps.so3_k
+            blocks = [D.detach().to(dtype) for D in Ds]
+            if side == "out":
+                blocks = [D.transpose(-1, -2) for D in blocks]
+            total = sum(D.shape[-1] for D in blocks)
+            stack = torch.zeros((*blocks[0].shape[:2], total, total), dtype=dtype, device=blocks[0].device)
+            cur = 0
+            for D in blocks:
+                d = D.shape[-1]
+                stack[:, :, cur : cur + d, cur : cur + d] = D
+                cur += d
+            parts.append((st, ed, _block_repeat(stack, (ed - st) // total)))
     if not parts:
         return None
     B, N = parts[0][2].shape[:2]
@@ -123,9 +139,17 @@ def _apply_so2_fullwidth(rotors, fd, x: torch.Tensor, inverse: bool = False) -> 
 
 
 def _view_counts(reps: GeomReps) -> Tuple[Optional[int], Optional[int]]:
-    """Query/key view counts from rep table shapes."""
-    nq = reps.se3_q.shape[1] if reps.se3_q is not None else None
-    nk = reps.se3_k.shape[1] if reps.se3_k is not None else None
+    """Query/key view counts from rep table shapes (the se3 tables, else the
+    so3 ones)."""
+    nq = nk = None
+    if reps.se3_q is not None:
+        nq = reps.se3_q.shape[1]
+    elif reps.so3_q is not None:
+        nq = reps.so3_q[0].shape[1]
+    if reps.se3_k is not None:
+        nk = reps.se3_k.shape[1]
+    elif reps.so3_k is not None:
+        nk = reps.so3_k[0].shape[1]
     return nq, nk
 
 

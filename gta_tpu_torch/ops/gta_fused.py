@@ -13,8 +13,8 @@ rep applies before the store.
 
 Dispatch, with no fallbacks: a CPU tensor takes the plain PyTorch versions
 (`gta_fused_fwd_plain`, `gta_fused_bwd_plain`); a CUDA tensor launches the
-hand-written kernels (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu) or
-raises. With grad enabled and an operand that requires it, the call goes
+hand-written kernels (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu, built
+for head widths 64 and 96) or raises. With grad enabled and an operand that requires it, the call goes
 through `GTAFusedAttention`, whose backward is the backward kernel; rotor
 tables get no cotangent, and autograd carries the matrix cotangents back
 through the table construction to `trans_coeff`. Calls the kernels do not
@@ -42,7 +42,7 @@ from gta_tpu_torch.ops import _cuda
 from gta_tpu_torch.ops.gta import _blockdiag_mat, _blockdiag_ok, _fw_rotors, _view_counts
 from gta_tpu_torch.ops.reps import GeomReps
 
-KERNEL_HEAD_DIM = 64  # the head width the CUDA kernels are compiled for
+KERNEL_HEAD_DIMS = (64, 96)  # the head widths the CUDA kernels are compiled for
 _DM_ROWS = 32  # rows per staging step of the backward's dM reduction (csrc/gta_fused_bwd.cu)
 
 # flag bits of the C interfaces (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu)
@@ -292,10 +292,10 @@ def _check_kernel_call(name, qB, kB, vB, t: FusedTables, heads: int, extra=()):
     B, Tq, D = qB.shape
     Tk = kB.shape[1]
     C = D // heads
-    if C != KERNEL_HEAD_DIM:
+    if C not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
-            f"{name}: the CUDA kernel is built for head dim {KERNEL_HEAD_DIM}, got {C} "
-            "(ROADMAP queue 1 item 3, msn_so3 slice and other configs)"
+            f"{name}: the CUDA kernel is built for head dims {KERNEL_HEAD_DIMS}, got {C} "
+            "(ROADMAP queue 1 item 3d: other head widths)"
         )
     for x in [qB, kB, vB, *extra] + [x for x in _tables(t) if x is not None]:
         if x.device != qB.device or x.dtype != torch.float32 or not x.is_contiguous():
@@ -310,7 +310,7 @@ def _check_kernel_call(name, qB, kB, vB, t: FusedTables, heads: int, extra=()):
 def _bind_fwd():
     lib = _cuda.load("gta_fused_fwd")
     fn = lib.gta_fused_fwd
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.gta_fused_error_string.argtypes = [ctypes.c_int]
     lib.gta_fused_error_string.restype = ctypes.c_char_p
@@ -320,7 +320,7 @@ def _bind_fwd():
 def _bind_bwd():
     lib = _cuda.load("gta_fused_bwd")
     fn = lib.gta_fused_bwd
-    fn.argtypes = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.gta_fused_bwd_error_string.argtypes = [ctypes.c_int]
     lib.gta_fused_bwd_error_string.restype = ctypes.c_char_p
@@ -360,9 +360,10 @@ def gta_fused_fwd(
     CPU tensors take `gta_fused_fwd_plain`; CUDA tensors launch the kernel
     or raise. With `residuals`, returns (out, Residuals) for the backward.
     `gta_fused_fwd.launches` counts launches of the C entry point: each one
-    runs the row transforms of Q, K and V (each side that has one), the
-    tensor-core main kernel and the output transform (with v_transform), so
-    the card sees up to five kernel launches per count.
+    runs the row transforms of Q, K and V (each side that has one), the mean
+    of the value rows (the core's centre), the tensor-core main kernel and
+    the output transform (with v_transform), so the card sees up to six
+    kernel launches per count.
     """
     if qB.device.type == "cpu":
         if residuals:
@@ -384,6 +385,7 @@ def gta_fused_fwd(
         torch.empty((B, heads, Tk, C), dtype=torch.float32, device=dev)
         if kv_transform and t.v_transform else None
     )
+    centres = torch.empty((2, B, heads, C), dtype=torch.float32, device=dev)
     out = torch.empty_like(qB)
     z = torch.empty_like(qB) if residuals and t.v_transform else None
     lse = torch.empty((B, heads, Tq), dtype=torch.float32, device=dev) if residuals else None
@@ -392,8 +394,9 @@ def gta_fused_fwd(
     with torch.cuda.device(dev):
         err = lib.gta_fused_fwd(
             _ptr(qB), _ptr(kB), _ptr(vB), _ptr(t.mq), _ptr(t.mk), _ptr(t.mo),
-            _ptr(t.cq), _ptr(t.sq), _ptr(t.ck), _ptr(t.sk), _ptr(qt), _ptr(kt), _ptr(vt), _ptr(out),
-            _ptr(z), _ptr(lse), B, heads, Tq, Tk, C, t.nq, t.nk, _flags(t), float(scale),
+            _ptr(t.cq), _ptr(t.sq), _ptr(t.ck), _ptr(t.sk), _ptr(qt), _ptr(kt), _ptr(vt),
+            _ptr(centres), _ptr(out), _ptr(z), _ptr(lse), B, heads, Tq, Tk, C, t.nq, t.nk, _flags(t),
+            float(scale),
             ctypes.c_void_p(stream),
         )
     if err != 0:
@@ -430,9 +433,11 @@ def gta_fused_bwd(
     CPU tensors take `gta_fused_bwd_plain` (from g and res.z); CUDA tensors
     launch the kernel (csrc/gta_fused_bwd.cu) with the forward kernel's
     residuals, or raise. `gta_fused_bwd.launches` counts launches of the C
-    entry point: each one runs the output chain, a query pass, a key pass,
-    the query and key/value chains and a reduction pair per matrix
-    cotangent, up to eleven kernels.
+    entry point: each one runs the output chain, the means of the key and
+    value rows (the core's centres), a query pass, a key pass, the query and
+    key/value chains and a reduction pair per matrix cotangent, up to
+    thirteen kernels (fourteen at head width 96, whose key pass is two
+    launches).
     """
     if qB.device.type == "cpu":
         return gta_fused_bwd_plain(qB, kB, vB, t, heads, scale, g, res.z)
@@ -452,7 +457,7 @@ def gta_fused_bwd(
         return torch.empty(shape, dtype=torch.float32, device=dev) if cond else None
 
     has_mo = t.mo is not None and t.v_transform
-    do_s = empty((B, heads, Tq, C))
+    do_s = empty((B, Tq, D))
     delta = empty((B, heads, Tq))
     dzq = empty((B, Tq, D), t.mq is not None)
     dz = empty((B, Tq, D), has_mo)
@@ -461,6 +466,7 @@ def gta_fused_bwd(
     splits_q = _dm_splits(dev, B, t.nq, Tq // t.nq * heads)
     splits_k = _dm_splits(dev, B, t.nk, Tk // t.nk * heads)
     part = empty((B * max(t.nq * splits_q, t.nk * splits_k), C, C))
+    centres = empty((2, B, heads, C))
     dq, dk, dv = torch.empty_like(qB), torch.empty_like(kB), torch.empty_like(vB)
     dmq, dmk = (None if M is None else torch.empty_like(M) for M in (t.mq, t.mk))
     dmo = torch.empty_like(t.mo) if has_mo else None
@@ -471,8 +477,8 @@ def gta_fused_bwd(
             _ptr(qB), _ptr(kB), _ptr(vB), _ptr(t.mq), _ptr(t.mk), _ptr(t.mo),
             _ptr(t.cq), _ptr(t.sq), _ptr(t.ck), _ptr(t.sk), _ptr(g), _ptr(res.z),
             _ptr(res.lse), _ptr(res.qt), _ptr(res.kt), _ptr(res.vt), _ptr(do_s), _ptr(delta),
-            _ptr(dzq), _ptr(dz), _ptr(dzk), _ptr(dzv), _ptr(part), _ptr(dq), _ptr(dk), _ptr(dv),
-            _ptr(dmq), _ptr(dmk), _ptr(dmo), B, heads, Tq, Tk, C, t.nq, t.nk, splits_q, splits_k,
+            _ptr(dzq), _ptr(dz), _ptr(dzk), _ptr(dzv), _ptr(part), _ptr(centres), _ptr(dq), _ptr(dk),
+            _ptr(dv), _ptr(dmq), _ptr(dmk), _ptr(dmo), B, heads, Tq, Tk, C, t.nq, t.nk, splits_q, splits_k,
             _flags(t), float(scale), ctypes.c_void_p(stream),
         )
     if err != 0:

@@ -6,10 +6,10 @@ mutable `extras` dict, encoder.py:183-265, decoder.py:247-353).
 
   * SO(2) is stored as (cos, sin) rotor tables and applied RoPE-style.
   * SE(3) inverses are analytic (rotation transpose), never linear solves.
+  * SO(3) Wigner-D matrices are built in-process (geometry/wigner.py).
 
-This slice ports the se3 and so2 spans, which the flagship CLEVR-TR GTA
-model uses; the other rep types raise NotImplementedError naming their
-ROADMAP item.
+The se3, so3 and so2 spans are ported; t2, ray_to_se3 and elementwise_mul
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from gta_tpu_torch.config import GTAArgs
 from gta_tpu_torch.geometry.se3 import se3_inverse
 from gta_tpu_torch.geometry.so2 import so2_angles
+from gta_tpu_torch.geometry.wigner import wigner_d_matrices
 
 
 @dataclasses.dataclass
@@ -32,6 +33,7 @@ class GeomReps:
       so2_*:     (cos, sin) each [B, T, R]
       se3_*:     [B, N, 4, 4]
       se3_q_inv: the unmasked inverse (i.e. the original extrinsic)
+      so3_*:     tuple over degrees 1..n of [B, N, 2d+1, 2d+1]
     """
 
     so2_q: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -39,12 +41,12 @@ class GeomReps:
     se3_q: Optional[torch.Tensor] = None
     se3_q_inv: Optional[torch.Tensor] = None
     se3_k: Optional[torch.Tensor] = None
+    so3_q: Optional[Tuple[torch.Tensor, ...]] = None
+    so3_k: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def _check_supported(args: GTAArgs):
     fd = args.f_dims
-    if fd.so3 > 0:
-        raise NotImplementedError("so3 (Wigner-D) reps are not ported yet (ROADMAP queue 1, msn_so3 slice)")
     if fd.t2 > 0:
         raise NotImplementedError("t2 reps are not ported yet (ROADMAP queue 1, other attention methods)")
     if args.ray_to_se3:
@@ -60,6 +62,23 @@ def _so2_rotors(coord: torch.Tensor, args: GTAArgs):
     coord = coord.reshape(coord.shape[0], -1, 2)
     theta = so2_angles(coord, args.so2, (args.max_freq_h, args.max_freq_w), args.shared_freqs)
     return torch.cos(theta), torch.sin(theta)
+
+
+def _so3_reps(transforms: torch.Tensor, args: GTAArgs) -> Tuple[torch.Tensor, ...]:
+    """Wigner-D matrices of degrees 1..so3 from the rotations of inv(E):
+    a tuple of [B, N, 2d+1, 2d+1], zeros under `zeroout_so3`, identities
+    under `id_so3` (reference encoder.py:251-258)."""
+    R = se3_inverse(transforms)[..., :3, :3]
+    B, N = R.shape[0], R.shape[1]
+    out = []
+    for D in wigner_d_matrices(args.so3, R.reshape(B * N, 3, 3))[1:]:
+        d = D.shape[-1]
+        if args.zeroout_so3:
+            D = torch.zeros((B, N, d, d), dtype=D.dtype, device=D.device)
+        elif args.id_so3:
+            D = torch.eye(d, dtype=D.dtype, device=D.device).expand(B, N, d, d)
+        out.append(D.reshape(B, N, d, d))
+    return tuple(out)
 
 
 def encoder_reps(
@@ -82,6 +101,8 @@ def encoder_reps(
     if fd.se3 > 0:
         rho = se3_inverse(input_transforms)
         r.se3_q, r.se3_q_inv, r.se3_k = rho, input_transforms, rho
+    if fd.so3 > 0:
+        r.so3_q = r.so3_k = _so3_reps(input_transforms, args)
     return r
 
 
@@ -118,4 +139,10 @@ def decoder_reps(
             r.se3_k = enc.se3_k
         else:
             r.se3_k = se3_inverse(input_transforms)
+    if fd.so3 > 0:
+        r.so3_q = _so3_reps(target_transforms, args)
+        if enc is not None and enc.so3_k is not None:
+            r.so3_k = enc.so3_k
+        else:
+            r.so3_k = _so3_reps(input_transforms, args)
     return r

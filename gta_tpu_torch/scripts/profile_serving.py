@@ -6,8 +6,9 @@ Usage (one CUDA card):
     python -m gta_tpu_torch.scripts.profile_serving
 
 Prints the card's name and power limit, then for each configuration (the
-GTA flagship and the SRT baseline) and each of eval_step (batch 32,
-synthetic val scenes) and one full-scale target view at chunk 16384
+GTA flagship and the SRT baseline at batch 32, msn_so3 at batch 64 and
+fp32, its `mixed_prec` overridden) and each of eval_step (synthetic val
+scenes) and one full-scale target view at chunk 16384
 (render_image for the flagship, render_rays on the view's rays for the
 non-transform SRT baseline), over 3 calls after one warm-up: the host wall
 time per call, the device time summed over all kernels, the idle share
@@ -26,10 +27,26 @@ import subprocess
 import time
 from collections import defaultdict
 
-CONFIGS = {"gta": "runs/clevrtr/GTA/gta/config.yaml", "srt": "runs/clevrtr/otherPEs/srt/config.yaml"}
-BATCH = 32  # both configs' batch size
+# name -> (config, batch size)
+CONFIGS = {
+    "gta": ("runs/clevrtr/GTA/gta/config.yaml", 32),
+    "srt": ("runs/clevrtr/otherPEs/srt/config.yaml", 32),
+    "msn_so3": ("runs/msn/GTA/gta_so3/config.yaml", 64),
+}
 STEPS = 3  # profiled calls per phase
 TOP = 15  # kernels listed per phase
+
+
+def profiled_config(path: str):
+    """The config at `path` on synthetic scenes, at fp32: the port does not
+    compute `mixed_prec` yet (ROADMAP queue 1 item 3c)."""
+    from gta_tpu_torch.config import load_config
+
+    cfg = load_config(path)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"),
+        training=dataclasses.replace(cfg.training, mixed_prec=False),
+    )
 
 
 def attention_entry(cfg) -> str:
@@ -97,7 +114,6 @@ def profile(fn, label: str, attention: str):
 def main():
     import torch
 
-    from gta_tpu_torch.config import load_config
     from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
     from gta_tpu_torch.train.trainer import Trainer
 
@@ -105,18 +121,17 @@ def main():
         raise SystemExit("profile_serving needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip())
-    for name, path in CONFIGS.items():
-        cfg = load_config(path)
-        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
+    for name, (path, batch_size) in CONFIGS.items():
+        cfg = profiled_config(path)
         trainer = Trainer(cfg)
         val = SyntheticScenes(cfg.data, "val")
-        batch = collate([val[i] for i in range(BATCH)])
+        batch = collate([val[i] for i in range(batch_size)])
         test = SyntheticScenes(cfg.data, "test", full_scale=True)
         item = collate([test[0]])
         h, w = test.target_h, test.target_w
 
         attention = attention_entry(cfg)
-        profile(lambda: trainer.eval_step(batch), f"{name} eval_step_b{BATCH}", attention)
+        profile(lambda: trainer.eval_step(batch), f"{name} eval_step_b{batch_size}", attention)
         if item.target_transforms is not None:
             profile(
                 lambda: trainer.render_image(
@@ -133,6 +148,8 @@ def main():
                 ),
                 f"{name} render_rays_{h}x{w}", attention,
             )
+        del trainer, batch
+        torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()

@@ -1,12 +1,13 @@
 """Where the train step's time goes on the GPU: a torch.profiler window
-over train_step of the GTA flagship and of the SRT baseline, summed by
-kernel and by kind, with the device's busy and idle share of the window.
+over train_step of the GTA flagship, the SRT baseline and msn_so3, summed
+by kernel and by kind, with the device's busy and idle share of the window.
 
 Usage (one CUDA card):
     python -m gta_tpu_torch.scripts.profile_train
 
 Prints the card's name and power limit, then for train_step of each
-configuration (batch 32, synthetic train scenes, dropout as configured),
+configuration (batch 32, msn_so3 batch 64 at fp32, synthetic train scenes,
+dropout as configured),
 over 3 steps after one warm-up step: the host wall time per step, the
 device time summed over all kernels, the idle share (1 - device / wall),
 device time by kind (this repo's attention forward and backward kernels,
@@ -17,16 +18,14 @@ times do not depend on the weights.
 
 from __future__ import annotations
 
-import dataclasses
 import subprocess
 
-from gta_tpu_torch.scripts.profile_serving import BATCH, CONFIGS, attention_entry, profile
+from gta_tpu_torch.scripts.profile_serving import CONFIGS, attention_entry, profile, profiled_config
 
 
 def main():
     import torch
 
-    from gta_tpu_torch.config import load_config
     from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
     from gta_tpu_torch.train.trainer import Trainer
 
@@ -34,14 +33,14 @@ def main():
         raise SystemExit("profile_train needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip())
-    for name, path in CONFIGS.items():
-        cfg = load_config(path)
-        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
+    for name, (path, batch_size) in CONFIGS.items():
+        cfg = profiled_config(path)
         trainer = Trainer(cfg)
         train = SyntheticScenes(cfg.data, "train", seed=cfg.seed)
-        batch = collate([train[i] for i in range(BATCH)]).to(trainer.device)
-        profile(lambda: trainer.train_step(batch), f"{name} train_step_b{BATCH}", attention_entry(cfg))
+        batch = collate([train[i] for i in range(batch_size)]).to(trainer.device)
+        profile(lambda: trainer.train_step(batch), f"{name} train_step_b{batch_size}", attention_entry(cfg))
         del trainer, batch
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -49,7 +49,7 @@ class Trainer:
     def __init__(self, cfg: Config, device: Optional[str] = None, seed: Optional[int] = None):
         t = cfg.training
         if t.mixed_prec:
-            raise NotImplementedError("mixed precision is not ported yet (ROADMAP queue 1)")
+            raise NotImplementedError("mixed precision is not ported yet (ROADMAP queue 1 item 3c: the bf16 policy)")
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -162,7 +162,7 @@ def test_blockdiag_tables(rng, fd, nf):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(f_dims=FDims(se3=16, so3=16), so3=2),
+    dict(f_dims=FDims(se3=16, so3=16, t2=6), so3=2),  # so3 is ported (tests/test_torch_so3.py), t2 is not
     dict(f_dims=FDims(triv=2, se3=16, t2=6)),
     dict(f_dims=FDims(se3=16, so2=8), so2=2, ray_to_se3=True),
     dict(f_dims=FDims(se3=16, so2=8), so2=2, elementwise_mul=True),
