@@ -5,8 +5,9 @@ Usage, from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Four configurations, all at full width and depth, random weights from the
-config's seed, synthetic scenes of each dataset's shapes:
+Six configurations at full width and depth (but for msn_so3's fp32 paths,
+below), random weights from the config's seed, synthetic scenes of each
+dataset's shapes:
   - GTA, the flagship (runs/clevrtr/GTA/gta): fused GTA attention in every
     layer (kernels gta_fused_fwd, gta_fused_bwd) at head width 64;
   - SRT, the baseline (runs/clevrtr/otherPEs/srt): plain softmax attention
@@ -14,16 +15,23 @@ config's seed, synthetic scenes of each dataset's shapes:
     embeddings, non-transform batches;
   - msn_so3, the MSN-Hard GTA-SO(3) model (runs/msn/GTA/gta_so3): 5 views
     of 128x128, 8 heads of 96 (se3 48, so3 24 Wigner-D, so2 24), batch 64,
-    the fused GTA kernels' C = 96 instances, at fp32 (the config's
-    mixed_prec is overridden: bf16 is ROADMAP queue 1 item 3c);
+    the fused GTA kernels' fp32 C = 96 instances (its mixed_prec
+    overridden); its kernel phases at the full shapes, its serving, train
+    and gradient paths at one attention block a side (the run's time);
   - CLEVR-TR gta_so3 (runs/clevrtr/GTA/gta_so3): 6 heads of 64 (se3 32,
-    so3 16, so2 16).
+    so3 16, so2 16);
+  - msn_so3 as published (bf16: its mixed_prec), through the bf16
+    instances of the fused GTA kernels at C = 96;
+  - the MSN-Hard SRT baseline as published (runs/msn/otherPEs/srt; bf16,
+    12 heads of 64, `ray` embeddings, 5 views of 128x128, batch 64),
+    through the bf16 instances of flash_core.
 All four kernels run one attention core (gta_tpu_torch/csrc/attn_core.cuh:
-a forward, a query pass and a key pass, 3xTF32 mma.sync on the tensor
-cores, P*V, dP and dq taken about centre rows): the fused GTA kernels over
-the transformed rows of their row launches, centred on the rows' means,
-flash_core over the raw token-major q, k, v, centred on the first key's
-rows.
+a forward, a query pass and a key pass) in two precision policies: fp32
+(3xTF32 mma.sync on the tensor cores, P*V, dP and dq taken about centre
+rows: the fused GTA kernels' transformed rows centred on the rows' means,
+flash_core's raw token-major q, k, v on the first key's rows) and bf16
+(bf16 mma.sync with fp32 accumulation; transformed kt, vt centred in fp32
+before their rounding, raw bf16 rows as they are).
 
 Phases (any failure exits non-zero and prints no result line):
   1. The card's name and power limit; build every CUDA kernel of the port
@@ -61,17 +69,30 @@ Phases (any failure exits non-zero and prints no result line):
      Bounds: `bound_ms` at the fp32 CUDA-core peak (67 TFLOP/s),
      `bound_tc_ms` at the fp32-accurate tensor-core rate (3xTF32,
      495 / 3 TFLOP/s), both with bytes at 3.35 TB/s.
+     - each bf16 instance at the published msn configs' shapes (B=64,
+       1280 keys: encoder, decoder eval, render chunk B=1 x 16384, and the
+       two train shapes with the backward): each output's relative L2
+       error against its plain version (fp32 inside) on the same bf16
+       inputs at most 1.5x the bf16 emulation's (the plain version with
+       mxu_dtype=bf16, the TPU kernel's rounding), and the same rule
+       against fp64 at each shape cut to B=2. Yardstick:
+       F.scaled_dot_product_attention on the same bf16 operands; bound at
+       the dense bf16 peak (989 TFLOP/s) and 3.35 TB/s.
   3. Each configuration's serving path: Trainer(cfg) on cuda, eval_step on
      a synthetic val batch of its batch size (msn_so3 64, the others 32),
      one full-scale target view at chunk 16384 (240x320 or 128x128;
      render_image for the GTA configs, render_rays on the view's rays for
      SRT; one warm-up, then the median of 3), with every kernel's launch
-     count asserted (its attention kernel's forward: 5 per encode, 2 per
-     decode chunk; every other kernel: none); then a B=2 forward on the
-     card against the same weights on the CPU (plain versions), atol 1e-4.
+     count asserted (its attention kernel's forward, in the config's compute
+     dtype: 5 per encode, 2 per decode chunk; every other instance: none)
+     and peak memory printed; then a B=2 forward on the card against the
+     same weights on the CPU (plain versions), atol 1e-4 (fp32 configs), or
+     for the bf16 configs: the card's bf16 pixels no further (relative L2)
+     from the CPU's fp32 ones than 1.5x the CPU's bf16 pixels with the TPU
+     kernel's rounding in the attention (see bf16_card_vs_cpu_phase).
   4. Each configuration's train path: train_step on synthetic train
      batches of its batch size (one cold step, then the median of 3 warm
-     steps; the so3 configs cycle two distinct batches), with
+     steps; the so3 and msn configs cycle two distinct batches), with
      7 forward and 7 backward launches of its attention kernels per step
      and none of the other configuration's asserted, and a finite loss and
      finite gradients; then, with dropout 0, a B=2 step's gradients on the
@@ -87,13 +108,14 @@ Phases (any failure exits non-zero and prints no result line):
      step 4, which must resume; the same for CLEVR-TR gta_so3, 2 steps;
      `python -m gta_tpu_torch.evaluate <SRT>
      --synthetic --max-scenes 1`, which must report a finite PSNR.
-  6. One JSON line of kernel numbers (launches by path), then the device
-     JSON as the last line.
+  6. One JSON line of kernel numbers, an entry per kernel instance (fp32
+     and bf16, launches by path), then the device JSON as the last line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -109,13 +131,16 @@ GTA_CONFIG = os.path.join(ROOT, "runs", "clevrtr", "GTA", "gta", "config.yaml")
 SRT_CONFIG = os.path.join(ROOT, "runs", "clevrtr", "otherPEs", "srt", "config.yaml")
 CLEVR_SO3_CONFIG = os.path.join(ROOT, "runs", "clevrtr", "GTA", "gta_so3", "config.yaml")
 MSN_SO3_CONFIG = os.path.join(ROOT, "runs", "msn", "GTA", "gta_so3", "config.yaml")
+MSN_SRT_CONFIG = os.path.join(ROOT, "runs", "msn", "otherPEs", "srt", "config.yaml")
 TOL = 1e-4
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, fp32-accurate products on the tensor cores (3xTF32: three dense
 # TF32 products per fp32 product), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32X3_FLOPS = 495e12 / 3
+PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
+BF16_RULE = 1.5  # a bf16 kernel's error at most this many times the TPU rounding's (the bf16 emulation)
 TIMED_RUNS, WARMUP = 7, 2
 EVAL_BATCH = 32  # the CLEVR-TR configs' batch size
 MSN_BATCH = 64  # msn_so3's batch size
@@ -142,33 +167,34 @@ def time_ms(fn, runs=TIMED_RUNS, warmup=WARMUP) -> float:
     return float(np.median(times))
 
 
-def fused_cost(t, B, H, Tq, Tk, C):
+def fused_cost(t, B, H, Tq, Tk, C, elem=4):
     """(flops, bytes) the fused forward must do and move: matmul flops of
     the core and the per-view transforms; each input read once, the output
-    written once."""
+    written once; q, k, v and out of `elem` bytes (the tables fp32)."""
     flops = 4.0 * Tq * Tk * C
     flops += 2.0 * Tq * C * C * ((t.mq is not None) + (t.mo is not None and t.v_transform))
     flops += 2.0 * Tk * C * C * (t.mk is not None) * (1 + t.v_transform)
     flops *= B * H
     tables = [t.mq, t.mk, t.mo, t.cq, t.sq, t.ck, t.sk]
-    n_bytes = 4.0 * (2 * B * Tq * H * C + 2 * B * Tk * H * C + sum(x.numel() for x in tables if x is not None))
+    n_bytes = elem * (2.0 * B * Tq * H * C + 2 * B * Tk * H * C) + 4.0 * sum(x.numel() for x in tables if x is not None)
     return flops, n_bytes
 
 
-def bwd_cost(t, B, H, Tq, Tk, C):
+def bwd_cost(t, B, H, Tq, Tk, C, elem=4):
     """(flops, bytes) the fused backward must do and move: the JAX package's
     operation count (gta_tpu/ops/gta_fused.py:87 _kernel_flops: 5 core
     products, s, dp, dqt, dkt, dvt, plus two C x C products per transform
     chain); q, k, v, g, z and the tables read once, dq, dk, dv and the
-    matrix cotangents written once."""
+    matrix cotangents written once; operands and their gradients of `elem`
+    bytes (the tables and their cotangents fp32)."""
     flops = 5 * 2.0 * Tq * Tk * C
     flops += 2 * 2.0 * Tq * C * C * ((t.mq is not None) + (t.mo is not None and t.v_transform))
     flops += 2 * 2.0 * Tk * C * C * (t.mk is not None) * (1 + t.v_transform)
     flops *= B * H
     tables = [t.mq, t.mk, t.mo, t.cq, t.sq, t.ck, t.sk]
     mats = [t.mq, t.mk, t.mo]
-    n_bytes = 4.0 * (4 * B * Tq * H * C + 4 * B * Tk * H * C
-                     + sum(x.numel() for x in tables + mats if x is not None))
+    n_bytes = (elem * (4.0 * B * Tq * H * C + 4 * B * Tk * H * C)
+               + 4.0 * sum(x.numel() for x in tables + mats if x is not None))
     return flops, n_bytes
 
 
@@ -460,7 +486,7 @@ def train_kernel_phase(cfg, calls, device):
     return fwd, bwd
 
 
-def srt_shapes(cfg):
+def srt_shapes(cfg, batch=EVAL_BATCH):
     """The SRT baseline's attention calls: name -> (B, Tq, Tk). Keys are the
     encoder's patch tokens over all input views; decoder queries are the
     config's rays per item, or one render chunk."""
@@ -468,22 +494,23 @@ def srt_shapes(cfg):
     h, w = d.height // 2**d.downsample, d.width // 2**d.downsample
     Tk = d.num_input_views * (h >> enc.num_conv_blocks) * (w >> enc.num_conv_blocks)
     return {
-        "encoder_self_b32": (EVAL_BATCH, Tk, Tk),
-        "decoder_eval_b32": (EVAL_BATCH, d.num_points, Tk),
+        f"encoder_self_b{batch}": (batch, Tk, Tk),
+        f"decoder_eval_b{batch}": (batch, d.num_points, Tk),
         "render_chunk_b1": (1, RENDER_CHUNK, Tk),
-        "encoder_train_b32": (EVAL_BATCH, Tk, Tk),
-        "decoder_train_b32": (EVAL_BATCH, d.num_points, Tk),
+        f"encoder_train_b{batch}": (batch, Tk, Tk),
+        f"decoder_train_b{batch}": (batch, d.num_points, Tk),
     }
 
 
-def flash_cost(B, H, Tq, Tk, C, backward=False):
+def flash_cost(B, H, Tq, Tk, C, backward=False, elem=4):
     """(flops, bytes) flash_core must do and move: 2 products of
     2*Tq*Tk*C flops per (b, h) forward, 5 backward (s, dp, dq, dk, dv);
-    q, k, v (and g) read once, out (dq, dk, dv) written once."""
+    q, k, v (and g) read once, out (dq, dk, dv) written once, each element
+    of `elem` bytes."""
     D = H * C
     if backward:
-        return 10.0 * B * H * Tq * Tk * C, 4.0 * B * (3 * Tq * D + 4 * Tk * D)
-    return 4.0 * B * H * Tq * Tk * C, 4.0 * B * (2 * Tq * D + 2 * Tk * D)
+        return 10.0 * B * H * Tq * Tk * C, elem * B * (3.0 * Tq * D + 4 * Tk * D)
+    return 4.0 * B * H * Tq * Tk * C, elem * B * (2.0 * Tq * D + 2 * Tk * D)
 
 
 def flash_kernel_phase(cfg, device):
@@ -583,32 +610,259 @@ def flash_edge_phase(device):
     return worst_fwd, worst_bwd
 
 
+def rel_l2(a, r) -> float:
+    """Relative L2 error of a against r (the norm of a where r is zero)."""
+    den = r.double().norm().item()
+    diff = (a.double() - r.double()).norm().item()
+    return diff / den if den > 0 else diff
+
+
+def bf16_rule(kind, label, got, emu, ref, names):
+    """Each output's relative L2 error against `ref` at most BF16_RULE x the
+    bf16 emulation's (the plain version with mxu_dtype=bf16, the TPU
+    kernel's rounding); returns {output: (kernel, emulation)} errors."""
+    errs = {}
+    for name, a, e, r in zip(names, got, emu, ref):
+        if r is None:
+            continue
+        errs[name] = (rel_l2(a, r), rel_l2(e, r))
+        if not errs[name][0] <= BF16_RULE * errs[name][1]:
+            raise AssertionError(f"{kind} {label} {name}: relative L2 {errs[name][0]:.3e} > {BF16_RULE} x the "
+                                 f"bf16 emulation's {errs[name][1]:.3e}")
+    return errs
+
+
+def bf16_kernel_phase(cfg, label, device):
+    """The bf16 instances of a published msn config's kernels (fused GTA for
+    msn_so3, flash_core for the SRT baseline) at its shapes: encoder
+    self-attention and decoder eval (B=64, 1280 keys) and a render chunk
+    (B=1 x 16384 rays) forward, the encoder and decoder train shapes
+    forward (residuals) and backward. Each output held to its plain version
+    (fp32 inside) on the same bf16 inputs: relative L2 at most BF16_RULE x
+    the bf16 emulation's; and, at the same shape cut to B=2, to the plain
+    version in fp64 by the same rule. Times: the kernel, the plain version,
+    F.scaled_dot_product_attention on the same bf16 operands (forward; its
+    backward alone), CUDA events. Returns ({shape: fwd numbers},
+    {shape: bwd numbers})."""
+    import torch
+    import torch.nn.functional as F
+
+    from gta_tpu_torch.ops import flash_core as fc
+    from gta_tpu_torch.ops import gta_fused as tgf
+    from gta_tpu_torch.ops.gta import gta_transform_qkv
+
+    bf = torch.bfloat16
+    enc = cfg.model.encoder
+    H, C = enc.heads, enc.attdim // enc.heads
+    scale = C**-0.5
+    gta = enc.attn.is_gta
+    if gta:
+        calls = gta_calls(cfg, device, MSN_BATCH, prefix="msn_")
+        shapes = {name: (B, Tq, Tk) for name, (_, _, B, Tq, Tk) in calls.items()}
+        tc = torch.tensor([0.01], device=device).to(bf)
+    else:
+        shapes = {f"msn_{n}": v for n, v in srt_shapes(cfg, MSN_BATCH).items()}
+    kind = "gta_fused" if gta else "flash_core"
+    gen = torch.Generator(device=device).manual_seed(5)
+    fwd, bwd = {}, {}
+    for name, (B, Tq, Tk) in shapes.items():
+        train = "_train_" in name
+        q, k, v, g = (torch.randn((B, T, H * C), generator=gen, device=device).to(bf) for T in (Tq, Tk, Tk, Tq))
+        if gta:
+            args, reps = calls[name][:2]
+            t = tgf.fused_tables(reps, args, tc)
+
+            def run(q, k, v, g, mode, t=t):
+                """(outputs, names) of the kernel ('kernel'), the plain
+                version ('plain', fp32 inside; 'emu', bf16 operands) or the
+                plain version in fp64 ('fp64')."""
+                if mode == "kernel":
+                    out, res = tgf.gta_fused_fwd(q, k, v, t, H, scale, residuals=True)
+                    z = res.z
+                    grads = tgf.gta_fused_bwd(q, k, v, t, H, scale, g, res) if train else ()
+                else:
+                    mxu = bf if mode == "emu" else None
+                    if mode == "fp64":
+                        q, k, v, g = (x.double() for x in (q, k, v, g))
+                        t = tgf.FusedTables(*[None if x is None else x.double() for x in tgf._tables(t)], t.nq,
+                                            t.nk, t.v_transform)
+                    out, z = tgf.gta_fused_fwd_plain(q, k, v, t, H, scale, store_z=True, mxu_dtype=mxu)
+                    grads = tgf.gta_fused_bwd_plain(q, k, v, t, H, scale, g, z, mxu_dtype=mxu) if train else ()
+                return (out, z, *grads), ("out", "z", "dq", "dk", "dv", "dmq", "dmk", "dmo")
+
+            def heads(x):
+                return x.reshape(B, x.shape[1], H, C).transpose(1, 2)
+
+            qkv = [x.contiguous() for x in gta_transform_qkv(heads(q), heads(k), heads(v), reps, args, tc)]
+            time_fwd = lambda: tgf.gta_fused_fwd(q, k, v, t, H, scale, residuals=train)  # noqa: E731
+            time_plain_fwd = lambda: tgf.gta_fused_fwd_plain(q, k, v, t, H, scale, store_z=train)  # noqa: E731
+            f_flops, f_bytes = fused_cost(t, B, H, Tq, Tk, C, elem=2)
+            b_flops, b_bytes = bwd_cost(t, B, H, Tq, Tk, C, elem=2)
+        else:
+            def run(q, k, v, g, mode):
+                if mode == "kernel":
+                    out, lse = fc.flash_core_fwd(q, k, v, H, scale, residuals=True)
+                    grads = fc.flash_core_bwd(q, k, v, H, scale, g, out, lse) if train else ()
+                else:
+                    mxu = bf if mode == "emu" else None
+                    if mode == "fp64":
+                        q, k, v, g = (x.double() for x in (q, k, v, g))
+                    out = fc.flash_core_fwd_plain(q, k, v, H, scale, mxu_dtype=mxu)
+                    grads = fc.flash_core_bwd_plain(q, k, v, H, scale, g, mxu_dtype=mxu) if train else ()
+                return (out, *grads), ("out", "dq", "dk", "dv")
+
+            qkv = [x.reshape(B, x.shape[1], H, C).transpose(1, 2).contiguous() for x in (q, k, v)]
+            time_fwd = lambda: fc.flash_core_fwd(q, k, v, H, scale, residuals=train)  # noqa: E731
+            time_plain_fwd = lambda: fc.flash_core_fwd_plain(q, k, v, H, scale, lse=train)  # noqa: E731
+            f_flops, f_bytes = flash_cost(B, H, Tq, Tk, C, elem=2)
+            b_flops, b_bytes = flash_cost(B, H, Tq, Tk, C, backward=True, elem=2)
+        with torch.no_grad():
+            got, names = run(q, k, v, g, "kernel")
+            torch.cuda.synchronize()
+            plain, _ = run(q, k, v, g, "plain")
+            emu, _ = run(q, k, v, g, "emu")
+            errs = bf16_rule(f"{kind} bf16", name, got, emu, plain, names)
+            worst = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, plain) if b is not None)
+            del plain, emu
+            # the same shape at B=2 against fp64
+            small = [x[:2].contiguous() for x in (q, k, v, g)]
+            kw = {"t": tgf.FusedTables(*[None if x is None else x[:2].contiguous() for x in tgf._tables(t)],
+                                       t.nq, t.nk, t.v_transform)} if gta else {}
+            errs64 = bf16_rule(f"{kind} bf16 fp64", f"{name}[:2]", run(*small, "kernel", **kw)[0],
+                               run(*small, "emu", **kw)[0], run(*small, "fp64", **kw)[0], names)
+            del got
+            ms = time_ms(time_fwd)
+            plain_ms = time_ms(time_plain_fwd, runs=3)
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(*qkv, scale=scale))
+        n_out = 2 if gta else 1  # outputs compared per forward
+        f_bytes += (2.0 * B * Tq * H * C * gta + 4.0 * B * H * Tq) * train  # z (bf16) and lse written
+        fb = bf16_bounds(f_flops, f_bytes)
+        fwd[name] = {"B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": sdpa_ms, **fb, "residuals": train,
+                     "rel_l2_vs_plain": {n: e[0] for n, e in list(errs.items())[:n_out]},
+                     "rel_l2_vs_fp64": {n: e for n, e in list(errs64.items())[:n_out]}}
+        print(f"kernel {kind}_fwd bf16{' (training residuals)' if train else ''} {name}: B={B} Tq={Tq} Tk={Tk} "
+              f"max|d plain|={worst:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_bf16_ms={sdpa_ms:.4f} "
+              f"bound_bf16_ms={fb['bound_ms']:.4f} ({fb['bound_by']}); relative L2 vs plain / emulation "
+              + ", ".join(f"{n} {e[0]:.2e}/{e[1]:.2e}" for n, e in errs.items())
+              + "; at B=2 vs fp64 " + ", ".join(f"{n} {e[0]:.2e}/{e[1]:.2e}" for n, e in errs64.items()),
+              flush=True)
+        if train:
+            with torch.no_grad():
+                if gta:
+                    _, res = tgf.gta_fused_fwd(q, k, v, t, H, scale, residuals=True)
+                    ms = time_ms(lambda: tgf.gta_fused_bwd(q, k, v, t, H, scale, g, res))
+                    plain_ms = time_ms(lambda: tgf.gta_fused_bwd_plain(q, k, v, t, H, scale, g, res.z), runs=3)
+                else:
+                    out, lse = fc.flash_core_fwd(q, k, v, H, scale, residuals=True)
+                    ms = time_ms(lambda: fc.flash_core_bwd(q, k, v, H, scale, g, out, lse))
+                    plain_ms = time_ms(lambda: fc.flash_core_bwd_plain(q, k, v, H, scale, g), runs=3)
+            gh = g.reshape(B, Tq, H, C).transpose(1, 2).contiguous()
+            leaves = [x.requires_grad_() for x in qkv]
+            sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+            sdpa_bwd_ms = time_ms(lambda: sdpa_out.backward(gh, retain_graph=True))
+            del leaves, sdpa_out
+            bb = bf16_bounds(b_flops, b_bytes)
+            bwd[name] = {"B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": sdpa_bwd_ms, **bb,
+                         "rel_l2_vs_plain": {n: e[0] for n, e in list(errs.items())[n_out:]},
+                         "rel_l2_vs_fp64": {n: e for n, e in list(errs64.items())[n_out:]}}
+            print(f"kernel {kind}_bwd bf16 {name}: B={B} Tq={Tq} Tk={Tk} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"sdpa_bf16_bwd_ms={sdpa_bwd_ms:.4f} bound_bf16_ms={bb['bound_ms']:.4f} ({bb['bound_by']}, "
+                  f"{b_flops / 1e9:.1f} GFLOP)", flush=True)
+        del q, k, v, g, qkv
+        torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def bf16_bounds(flops, n_bytes):
+    """The kernels-line bound keys of a bf16 instance: operations at the
+    dense bf16 tensor-core peak, bytes at HBM3's rate."""
+    bound_ms, bound_by = bound(flops, n_bytes, PEAK_BF16_FLOPS)
+    return {"bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def bf16_card_vs_cpu_phase(cfg, label):
+    """A published bf16 config's B=2 forward on the card against the same
+    weights on the CPU. The kernels round like the TPU kernel (bf16 P, dS
+    and operands), the CPU's plain versions compute in fp32 inside: that
+    alone moves the pixels by about bf16's whole error (msn SRT: 3.26e-3
+    relative L2, against 3.34e-3 between the CPU's bf16 and fp32 pixels).
+    So the card's bf16 pixels are held to the CPU's fp32 ones: their
+    relative L2 gap at most BF16_RULE x the gap of the CPU's bf16 pixels
+    with the TPU's rounding in the attention (the plain versions with
+    mxu_dtype=bf16) — the kernel rule, end to end. The card-vs-CPU-bf16 and
+    CPU bf16-vs-fp32 gaps are printed beside it. Returns (card vs CPU fp32,
+    emulated CPU bf16 vs CPU fp32, card vs CPU bf16, CPU bf16 vs fp32)."""
+    import torch
+
+    from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
+    from gta_tpu_torch.models import layers
+    from gta_tpu_torch.train.trainer import Trainer
+
+    card = Trainer(cfg)
+    weights = {k: v.cpu() for k, v in card.model.state_dict().items()}
+    fp32 = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, mixed_prec=False))
+    cpu16, cpu32 = Trainer(cfg, device="cpu"), Trainer(fp32, device="cpu")
+    for t in (cpu16, cpu32):
+        t.model.load_state_dict(weights)
+    val = SyntheticScenes(cfg.data, "val")
+    small = collate([val[i] for i in range(2)])
+    kernels = layers.fused_gta_attention_tokens, layers.flash_attention
+    with torch.no_grad():
+        px_card = card.model(small.to(card.device))[0].cpu()
+        px16, px32 = cpu16.model(small)[0], cpu32.model(small)[0]
+        layers.fused_gta_attention_tokens = functools.partial(plain_gta_attention, mxu_dtype=torch.bfloat16)
+        layers.flash_attention = functools.partial(plain_flash_attention, mxu_dtype=torch.bfloat16)
+        try:
+            px_emu = cpu16.model(small)[0]
+        finally:
+            layers.fused_gta_attention_tokens, layers.flash_attention = kernels
+    card_err, emu_err = rel_l2(px_card, px32), rel_l2(px_emu, px32)
+    gap, own = rel_l2(px_card, px16), rel_l2(px16, px32)
+    print(f"{label} bf16: B=2 pixels, relative L2 against the CPU's fp32 ones: card {card_err:.3e}, CPU bf16 "
+          f"with the TPU's rounding {emu_err:.3e} (rule: at most {BF16_RULE}x), CPU bf16 {own:.3e}; card vs "
+          f"CPU bf16 {gap:.3e}", flush=True)
+    if not (torch.isfinite(px_card).all() and card_err <= BF16_RULE * emu_err):
+        raise AssertionError(f"{label} bf16: card pixels {card_err} from fp32, above {BF16_RULE} x the "
+                             f"emulated TPU rounding's {emu_err}")
+    return card_err, emu_err, gap, own
+
+
 def kernel_wrappers():
-    """Every kernel's wrapper, by kernel name; each counts its launches."""
+    """Every kernel's wrapper, by kernel name; each counts the launches of
+    its fp32 instance (`launches`) and of its bf16 one (`launches_bf16`)."""
     from gta_tpu_torch.ops import _cuda, flash_core, gta_fused
 
     return {name: getattr(flash_core if name.startswith("flash") else gta_fused, name) for name in _cuda.KERNELS}
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """{instance: launches}: `<kernel>` for the fp32 instance, `<kernel>_bf16`
+    for the bf16 one."""
+    counts = {}
+    for name, fn in kernel_wrappers().items():
+        counts[name], counts[f"{name}_bf16"] = fn.launches, fn.launches_bf16
+    return counts
 
 
 def reset_launch_counts():
     for fn in kernel_wrappers().values():
-        fn.launches = 0
+        fn.launches = fn.launches_bf16 = 0
 
 
 def expected_launches(cfg, encodes, decodes, backward_steps=0):
     """Launch counts of a run of `encodes` encoder and `decodes` decoder
     passes, `backward_steps` of them with a backward: each attention layer
     launches its method's kernel (gta_fused for 'gta', flash_core for '')
-    once forward and once backward; every other kernel stays at 0."""
-    want = dict.fromkeys(kernel_wrappers(), 0)
+    in the config's compute dtype (bf16 under mixed_prec) once forward and
+    once backward; every other instance stays at 0."""
+    want = dict.fromkeys(launch_counts(), 0)
+    suffix = "_bf16" if cfg.training.mixed_prec else ""
     for side, n in ((cfg.model.encoder, encodes), (cfg.model.decoder, decodes)):
         kernel = "gta_fused" if side.attn.is_gta else "flash_core"
-        want[f"{kernel}_fwd"] += n * side.num_att_blocks
-        want[f"{kernel}_bwd"] += backward_steps * side.num_att_blocks
+        want[f"{kernel}_fwd{suffix}"] += n * side.num_att_blocks
+        want[f"{kernel}_bwd{suffix}"] += backward_steps * side.num_att_blocks
     return want
 
 
@@ -641,6 +895,7 @@ def serving_path_phase(cfg, label, batch_size=EVAL_BATCH):
             item, item.target_rays[:, :n_rays].numpy(), item.target_camera_pos[:, :n_rays].numpy(), chunk=chunk,
         ).reshape(1, Hf, Wf, 3)
 
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     step_ms = []
     for _ in range(3):
@@ -657,11 +912,13 @@ def serving_path_phase(cfg, label, batch_size=EVAL_BATCH):
         torch.cuda.synchronize()
         render_ms.append((time.perf_counter() - t0) * 1e3)
     launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     renders = 1 + RENDER_RUNS
     want = expected_launches(cfg, 3 + renders, 3 + renders * n_chunks)
     print(f"{label} serving: eval_step B={batch_size} ({rays} rays) psnr={psnr:.4f} ms(cold,warm,warm)="
-          f"{', '.join(f'{x:.2f}' for x in step_ms)} rays/s={rays / (min(step_ms[1:]) / 1e3):.0f}", flush=True)
+          f"{', '.join(f'{x:.2f}' for x in step_ms)} rays/s={rays / (min(step_ms[1:]) / 1e3):.0f} "
+          f"peak_mem_gb(eval_step and renders)={peak_gb:.2f}", flush=True)
     gt = (item.target_pixels[:, 0] if transform_mode else item.target_pixels[:, :n_rays]).numpy()
     render_psnr = float(-10.0 * np.log10(np.mean((img - gt.reshape(1, Hf, Wf, 3)) ** 2)))
     median_ms = float(np.median(render_ms))
@@ -675,6 +932,8 @@ def serving_path_phase(cfg, label, batch_size=EVAL_BATCH):
     if img.shape != (1, Hf, Wf, 3) or not np.isfinite(img).all() or not np.isfinite(psnr):
         raise AssertionError(f"{label} serving path output is not finite / of the expected shape")
 
+    if cfg.training.mixed_prec:  # bf16: card against CPU in bf16_card_vs_cpu_phase
+        return launches
     # the same weights on the CPU through the plain versions
     cpu = Trainer(cfg, device="cpu")
     cpu.model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
@@ -743,22 +1002,25 @@ def train_path_phase(cfg, label, batch_size=EVAL_BATCH, distinct=1 + TRAIN_RUNS)
 TC_TOL = 2e-3
 
 
-def plain_gta_attention(qB, kB, vB, heads, reps, args, trans_coeff, scale):
+def plain_gta_attention(qB, kB, vB, heads, reps, args, trans_coeff, scale, mxu_dtype=None):
     """fused_gta_attention_tokens through the plain forward and torch
-    autograd, on any device (the comparison in grads_phase only)."""
+    autograd, on any device (the comparisons in grads_phase and, with
+    mxu_dtype=bf16, bf16_card_vs_cpu_phase only)."""
     from gta_tpu_torch.ops import gta_fused as tgf
 
     tgf.check_supported(reps, args, qB.shape[1], kB.shape[1])
     t = tgf.fused_tables(reps, args, trans_coeff)
-    return tgf.gta_fused_fwd_plain(qB.contiguous(), kB.contiguous(), vB.contiguous(), t, heads, scale)
+    return tgf.gta_fused_fwd_plain(qB.contiguous(), kB.contiguous(), vB.contiguous(), t, heads, scale,
+                                   mxu_dtype=mxu_dtype)
 
 
-def plain_flash_attention(q, k, v, heads, scale):
+def plain_flash_attention(q, k, v, heads, scale, mxu_dtype=None):
     """flash_attention through the plain forward and torch autograd, on any
-    device (the comparison in grads_phase only)."""
+    device (as plain_gta_attention)."""
     from gta_tpu_torch.ops import flash_core as fc
 
-    return fc.flash_core_fwd_plain(q.contiguous(), k.contiguous(), v.contiguous(), heads, scale)
+    return fc.flash_core_fwd_plain(q.contiguous(), k.contiguous(), v.contiguous(), heads, scale,
+                                   mxu_dtype=mxu_dtype)
 
 
 def grads_phase(cfg, label, fp64_reference=False):
@@ -906,13 +1168,15 @@ def cli_phase():
         raise AssertionError(f"SRT evaluate CLI: unexpected result {result}")
 
 
-def kernel_entry(name, replaces, launches, main, shapes, worst_edge):
-    """One kernel's line in the kernels JSON: numbers at its main shape,
-    launches by path, every shape's numbers."""
-    return {
+def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None):
+    """One kernel instance's line in the kernels JSON: numbers at its main
+    shape, launches by path, every shape's numbers. fp32 instances carry
+    `bound_tc_ms` beside `bound_ms` (fp32 CUDA-core peak); bf16 instances'
+    `bound_ms` is at the dense bf16 peak."""
+    entry = {
         "name": name,
         "route": "cuda",
-        "source": f"gta_tpu_torch/csrc/{name}.cu",
+        "source": f"gta_tpu_torch/csrc/{source or name}.cu",
         "replaces": replaces,
         "launches": sum(launches.values()),
         "launches_by_path": launches,
@@ -921,27 +1185,62 @@ def kernel_entry(name, replaces, launches, main, shapes, worst_edge):
         "plain_ms": shapes[main]["plain_ms"],
         "bound_ms": shapes[main]["bound_ms"],
         "bound_by": shapes[main]["bound_by"],
-        "bound_tc_ms": shapes[main]["bound_tc_ms"],
         "library_ms": shapes[main]["library_ms"],
         "shape": main,
         "shapes": shapes,
     }
+    if "bound_tc_ms" in shapes[main]:
+        entry["bound_tc_ms"] = shapes[main]["bound_tc_ms"]
+    return entry
 
 
 def kernel_label(mangled: str) -> str:
     """A short name of an Itanium-mangled kernel symbol: its namespaces and
-    name with its integer template arguments (`attn::attn_bwd_q_kernel<64, 1>`);
-    the symbol as it is where it is not a nested name."""
+    name with its template arguments (`attn::attn_bwd_q_kernel<Bf16, 96>`,
+    `gta_rows::gta_rows_mma_kernel<64, 1, __nv_bfloat16, float>`); the
+    symbol as it is where it is not a nested name."""
     if not mangled.startswith("_ZN"):
         return mangled
-    s, parts = mangled[3:], []
-    while s[:1].isdigit():
-        n = re.match(r"\d+", s).group()
-        parts.append(s[len(n):len(n) + int(n)])
-        s = s[len(n) + int(n):]
+
+    def ident(i):  # the length-prefixed identifier at i, and the index past it
+        n = re.match(r"\d+", mangled[i:]).group()
+        return mangled[i + len(n):i + len(n) + int(n)], i + len(n) + int(n)
+
+    i, parts = 3, []
+    while mangled[i:i + 1].isdigit():
+        part, i = ident(i)
+        parts.append(part)
     name = "::".join(p for p in parts if not p.startswith("_GLOBAL__N"))
-    args = re.match(r"I((?:L[a-z]\d+E)+)E", s)
-    return f"{name}<{', '.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>" if args else name
+    if mangled[i:i + 1] != "I":
+        return name
+    args, i, builtins = [], i + 1, {"f": "float", "d": "double", "i": "int", "b": "bool"}
+    while i < len(mangled) and mangled[i] != "E":
+        c = mangled[i]
+        if c == "L":  # an integer or bool literal
+            m = re.match(r"L[a-z](\d+)E", mangled[i:])
+            args.append(m.group(1))
+            i += len(m.group(0))
+        elif c == "N":  # a nested type name: keep its last part
+            i, last = i + 1, None
+            while mangled[i] != "E":
+                if mangled[i] == "S":
+                    i = mangled.index("_", i) + 1
+                else:
+                    last, i = ident(i)
+            args.append(last)
+            i += 1
+        elif c.isdigit():
+            arg, i = ident(i)
+            args.append(arg)
+        elif c == "S":  # a substitution: here, a type argument repeated
+            i = mangled.index("_", i) + 1
+            args.append(next((a for a in reversed(args) if not a.isdigit()), "?"))
+        elif c in builtins:
+            args.append(builtins[c])
+            i += 1
+        else:
+            return name
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_report(log: str):
@@ -989,9 +1288,17 @@ def main() -> int:
                                    training=dataclasses.replace(cfg.training, **training))
 
     gta_cfg, srt_cfg, so3_cfg = synthetic(GTA_CONFIG), synthetic(SRT_CONFIG), synthetic(CLEVR_SO3_CONFIG)
-    # msn_so3 at fp32: the config asks for bf16 (mixed_prec), which the port
-    # does not compute yet (ROADMAP queue 1 item 3c)
+    # the two published msn configs as they are (bf16: mixed_prec), and
+    # msn_so3 at fp32 (mixed_prec overridden) for the fp32 instances at C = 96
+    msn_bf16, msn_srt = synthetic(MSN_SO3_CONFIG), synthetic(MSN_SRT_CONFIG)
+    assert msn_bf16.training.mixed_prec and msn_srt.training.mixed_prec
     msn_cfg = synthetic(MSN_SO3_CONFIG, mixed_prec=False)
+    # its serving, train and gradient paths at one attention block a side
+    # (the run's time budget; its kernel phases keep the full shapes)
+    m = msn_cfg.model
+    msn_cut = dataclasses.replace(msn_cfg, model=dataclasses.replace(
+        m, encoder=dataclasses.replace(m.encoder, num_att_blocks=1),
+        decoder=dataclasses.replace(m.decoder, num_att_blocks=1)))
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1009,24 +1316,34 @@ def main() -> int:
         msn_cfg.model.decoder.attn.gta, GTAArgs(f_dims=FDims(triv=96))], heads=msn_cfg.model.decoder.heads)
     flash_fwd, flash_bwd = flash_kernel_phase(srt_cfg, device)
     edge_fwd, edge_bwd = flash_edge_phase(device)
+    gta_bf16_fwd, gta_bf16_bwd = bf16_kernel_phase(msn_bf16, "msn_so3", device)
+    flash_bf16_fwd, flash_bf16_bwd = bf16_kernel_phase(msn_srt, "msn SRT", device)
 
     paths = {
         "gta_serving": serving_path_phase(gta_cfg, "GTA"),
         "gta_train": None,
         "srt_serving": serving_path_phase(srt_cfg, "SRT"),
         "srt_train": None,
-        "msn_so3_serving": serving_path_phase(msn_cfg, "msn_so3", MSN_BATCH),
+        "msn_so3_serving": serving_path_phase(msn_cut, "msn_so3 (1 + 1 blocks)", MSN_BATCH),
         "msn_so3_train": None,
         "clevr_so3_serving": serving_path_phase(so3_cfg, "CLEVR-TR gta_so3"),
         "clevr_so3_train": None,
+        "msn_so3_bf16_serving": serving_path_phase(msn_bf16, "msn_so3 bf16", MSN_BATCH),
+        "msn_so3_bf16_train": None,
+        "msn_srt_bf16_serving": serving_path_phase(msn_srt, "msn SRT bf16", MSN_BATCH),
+        "msn_srt_bf16_train": None,
     }
     paths["gta_train"], gta_step = train_path_phase(gta_cfg, "GTA")
     paths["srt_train"], srt_step = train_path_phase(srt_cfg, "SRT")
-    paths["msn_so3_train"], msn_step = train_path_phase(msn_cfg, "msn_so3", MSN_BATCH, distinct=2)
+    paths["msn_so3_train"], msn_step = train_path_phase(msn_cut, "msn_so3 (1 + 1 blocks)", MSN_BATCH, distinct=2)
     paths["clevr_so3_train"], so3_step = train_path_phase(so3_cfg, "CLEVR-TR gta_so3", distinct=2)
+    paths["msn_so3_bf16_train"], msn_bf16_step = train_path_phase(msn_bf16, "msn_so3 bf16", MSN_BATCH, distinct=2)
+    paths["msn_srt_bf16_train"], msn_srt_step = train_path_phase(msn_srt, "msn SRT bf16", MSN_BATCH, distinct=2)
+    card_vs_cpu = {label: bf16_card_vs_cpu_phase(cfg, label) for cfg, label in
+                   ((msn_bf16, "msn_so3"), (msn_srt, "msn SRT"))}
     gta_grad = grads_phase(gta_cfg, "GTA")
     srt_grad = grads_phase(srt_cfg, "SRT", fp64_reference=True)
-    msn_grad = grads_phase(msn_cfg, "msn_so3")
+    msn_grad = grads_phase(msn_cut, "msn_so3 (1 + 1 blocks)")
     cli_phase()
 
     def by_path(kernel):
@@ -1042,14 +1359,27 @@ def main() -> int:
                      "decoder_eval_b32", flash_fwd, edge_fwd),
         kernel_entry("flash_core_bwd", "gta_tpu/ops/flash_core.py:86", by_path("flash_core_bwd"),
                      "decoder_train_b32", flash_bwd, edge_bwd),
+        kernel_entry("gta_fused_fwd_bf16", "gta_tpu/ops/gta_fused.py:209", by_path("gta_fused_fwd_bf16"),
+                     "msn_decoder_eval_b64", gta_bf16_fwd, 0.0, source="gta_fused_fwd"),
+        kernel_entry("gta_fused_bwd_bf16", "gta_tpu/ops/gta_fused.py:235", by_path("gta_fused_bwd_bf16"),
+                     "msn_decoder_train_b64", gta_bf16_bwd, 0.0, source="gta_fused_bwd"),
+        kernel_entry("flash_core_fwd_bf16", "gta_tpu/ops/flash_core.py:73", by_path("flash_core_fwd_bf16"),
+                     "msn_decoder_eval_b64", flash_bf16_fwd, 0.0, source="flash_core_fwd"),
+        kernel_entry("flash_core_bwd_bf16", "gta_tpu/ops/flash_core.py:86", by_path("flash_core_bwd_bf16"),
+                     "msn_decoder_train_b64", flash_bf16_bwd, 0.0, source="flash_core_bwd"),
     ]
     print(f"GTA train step B={EVAL_BATCH}: {json.dumps(gta_step)}; B=2 grads cuda vs cpu max relative "
           f"{gta_grad[0]:.3e} (trans_coeff {gta_grad[1]:.3e})", flush=True)
     print(f"SRT train step B={EVAL_BATCH}: {json.dumps(srt_step)}; B=2 grads, largest excess of the card's fp32 "
           f"error over the CPU's against fp64 {srt_grad[0]:.3e}", flush=True)
-    print(f"msn_so3 train step B={MSN_BATCH}: {json.dumps(msn_step)}; B=2 grads cuda vs cpu max relative "
+    print(f"msn_so3 (1 + 1 blocks) train step B={MSN_BATCH}: {json.dumps(msn_step)}; B=2 grads cuda vs cpu max relative "
           f"{msn_grad[0]:.3e} (trans_coeff {msn_grad[1]:.3e})", flush=True)
     print(f"CLEVR-TR gta_so3 train step B={EVAL_BATCH}: {json.dumps(so3_step)}", flush=True)
+    for label, step in (("msn_so3 bf16", msn_bf16_step), ("msn SRT bf16", msn_srt_step)):
+        card_err, emu_err, gap, own = card_vs_cpu[label.split(" bf16")[0]]
+        print(f"{label} train step B={MSN_BATCH}: {json.dumps(step)}; B=2 pixels from the CPU's fp32: card "
+              f"{card_err:.3e}, emulated TPU rounding {emu_err:.3e}; card vs CPU bf16 {gap:.3e} (CPU bf16 vs "
+              f"fp32 {own:.3e})", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -1,5 +1,7 @@
-// Fully fused GTA attention backward for Hopper (sm_90a): fp32 accuracy, the
-// attention core on the tensor cores (3xTF32 mma.sync, csrc/tf32x3.cuh).
+// Fully fused GTA attention backward for Hopper (sm_90a), in two precision
+// policies: fp32 accuracy (the attention core as 3xTF32 mma.sync,
+// csrc/tf32x3.cuh) and bf16 operands with fp32 accumulation (bf16 mma.sync,
+// csrc/bf16_mma.cuh).
 //
 // Replaces gta_tpu/ops/gta_fused.py:235 `_bwd_kernel` (the Pallas TPU
 // recompute backward, launched by `_bwd_call` :398 and wrapped by the VJP
@@ -49,15 +51,25 @@
 //    (row, head) pairs, itself a [C x rows] x [rows x C] product on the
 //    tensor cores: each block sums a slice of one view's pairs into a
 //    partial buffer, and a second kernel adds the slices in a fixed order.
+//  * bf16 (`gta_fused_bwd_bf16`): the cotangent, do and the core's
+//    operands are bf16 (qt, and transformed kt, vt centred on their means:
+//    the forward's residuals; raw rows as they are), the core writes dqt,
+//    dkt, dvt in fp32, the chains
+//    read them in fp32 and write dq, dk, dv in bf16, and the dM reduction
+//    reads the bf16 q, k, v, z beside the fp32 chain rows and sums in fp32
+//    (3xTF32) as the fp32 instance does. The core takes delta from its own
+//    products (attn_core.cuh), so z is read for dMo alone.
 // Instances: head width C = 64 (CLEVR-TR) and C = 96 (msn), dispatched on
 // the C argument; at C = 96 the core runs two key passes (attn_core.cuh)
 // and the dM reduction 6 warps a block. Registers and spills of every
 // kernel: PERF.md.
 // Not yet: wgmma and TMA, 5 products in place of 7 (attn_core.cuh).
 //
-// Interface: plain C, bound from Python with ctypes. Every pointer is a
-// contiguous fp32 device array; absent tables and unused scratch are null
-// and flagged off. Returns the cudaError_t of the launches (0 = success).
+// Interface: plain C, bound from Python with ctypes. `gta_fused_bwd`: every
+// pointer a contiguous fp32 device array. `gta_fused_bwd_bf16`: q, k, v, g,
+// z, qt, kt, vt, do_s and dq, dk, dv bf16, the rest fp32. Absent tables and
+// unused scratch are null and flagged off. Returns the cudaError_t of the
+// launches (0 = success).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,8 +81,10 @@
 namespace {
 
 using namespace tf32x3;
+using attn::bf16;
 using attn::Layout;
 using gta_rows::RowJob;
+using gta_rows::RowJobT;
 
 constexpr int HAS_MQ = 1;
 constexpr int HAS_MK = 2;
@@ -92,6 +106,21 @@ __host__ __device__ constexpr int dm_smem_bytes() {
   return 2 * 2 * DM_ROWS * (C + 8) * (int)sizeof(float);
 }
 
+// rows [0, DM_ROWS) of X (row stride C) into a [DM_ROWS][LD] fp32 tile, zero
+// at or past n: by cp.async for fp32 rows, converted for bf16 ones
+template <int C, int THREADS, int LD, class TX>
+__device__ __forceinline__ void stage_x(float* tile, const TX* base, int n) {
+  if constexpr (sizeof(TX) == sizeof(float)) {
+    stage_rows<C, DM_ROWS, THREADS, LD>(tile, reinterpret_cast<const float*>(base), C, n);
+  } else {
+    for (int idx = threadIdx.x; idx < DM_ROWS * C / 4; idx += THREADS) {
+      const int r = idx / (C / 4), c4 = idx % (C / 4);
+      const float4 x = r < n ? attn::load4(base + (int64_t)r * C + 4 * c4) : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(tile + r * LD + 4 * c4) = x;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Matrix cotangents: part[b, view, split] = sum over a slice of the view's
 // (row, head) pairs of X1^T Y1 (+ X2^T Y2), on the tensor cores. X*, Y* are
@@ -102,10 +131,10 @@ __host__ __device__ constexpr int dm_smem_bytes() {
 // starts from zero and joins the running sum by rounded fp32 adds, as in
 // the passes.
 // ---------------------------------------------------------------------------
-template <int C>
+template <int C, class TX>
 __global__ void __launch_bounds__(dm_threads<C>())
-gta_bwd_dm_kernel(const float* __restrict__ X1, const float* __restrict__ Y1,
-                  const float* __restrict__ X2, const float* __restrict__ Y2,
+gta_bwd_dm_kernel(const TX* __restrict__ X1, const float* __restrict__ Y1,
+                  const TX* __restrict__ X2, const float* __restrict__ Y2,
                   float* __restrict__ part, int64_t rows, int rpv, int splits) {
   constexpr int THREADS = dm_threads<C>();
   static_assert(C == 16 * (THREADS / 32), "a warp per 16 rows of the C x C output");
@@ -130,22 +159,22 @@ gta_bwd_dm_kernel(const float* __restrict__ X1, const float* __restrict__ Y1,
 #pragma unroll
   for (int j = 0; j < KS; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   for (int pair = 0; pair < 2; ++pair) {
-    const float* X = pair ? X2 : X1;
+    const TX* X = pair ? X2 : X1;
     const float* Y = pair ? Y2 : Y1;
     if (X == nullptr) continue;
-    const float* xb = X + (int64_t)b * rows * C;
+    const TX* xb = X + (int64_t)b * rows * C;
     const float* yb = Y + (int64_t)b * rows * C;
     const int steps = (int)((r1 - r0 + DM_ROWS - 1) / DM_ROWS);
     for (int st = 0; st < steps; ++st) {
       const int buf = st & 1;
       if (st == 0) {
-        stage_rows<C, DM_ROWS, THREADS, LD>(Xs, xb + r0 * C, C, (int)(r1 - r0));
+        stage_x<C, THREADS, LD>(Xs, xb + r0 * C, (int)(r1 - r0));
         stage_rows<C, DM_ROWS, THREADS, LD>(Ys, yb + r0 * C, C, (int)(r1 - r0));
         cp_async_commit();
       }
       if (st + 1 < steps) {
         const int64_t s1 = r0 + (int64_t)(st + 1) * DM_ROWS;
-        stage_rows<C, DM_ROWS, THREADS, LD>(Xs + (buf ^ 1) * STAGE, xb + s1 * C, C, (int)(r1 - s1));
+        stage_x<C, THREADS, LD>(Xs + (buf ^ 1) * STAGE, xb + s1 * C, (int)(r1 - s1));
         stage_rows<C, DM_ROWS, THREADS, LD>(Ys + (buf ^ 1) * STAGE, yb + s1 * C, C, (int)(r1 - s1));
         cp_async_commit();
         cp_async_wait<1>();
@@ -193,16 +222,16 @@ __global__ void gta_bwd_dm_sum_kernel(const float* __restrict__ part, float* __r
   dm[idx] = s;
 }
 
-template <int C>
-cudaError_t reduce_dm(const float* X1, const float* Y1, const float* X2, const float* Y2,
+template <int C, class TX>
+cudaError_t reduce_dm(const TX* X1, const float* Y1, const TX* X2, const float* Y2,
                       float* part, float* dm, int B, int n, int T, int H, int splits,
                       cudaStream_t stream) {
   const int rpv = (T / n) * H;
   constexpr int smem = dm_smem_bytes<C>();
-  cudaError_t err = cudaFuncSetAttribute(gta_bwd_dm_kernel<C>,
+  cudaError_t err = cudaFuncSetAttribute(gta_bwd_dm_kernel<C, TX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  gta_bwd_dm_kernel<C><<<dim3(splits, n, B), dm_threads<C>(), smem, stream>>>(
+  gta_bwd_dm_kernel<C, TX><<<dim3(splits, n, B), dm_threads<C>(), smem, stream>>>(
       X1, Y1, X2, Y2, part, (int64_t)T * H, rpv, splits);
   if ((err = cudaGetLastError())) return err;
   const int64_t total = (int64_t)B * n * C * C;
@@ -256,13 +285,13 @@ int fused_bwd(const float* q, const float* k, const float* v, const float* mq, c
 
   // the core's centres, as the forward took them: the means of the key and
   // value rows
-  if ((err = gta_rows::run_mean<C>(kp, kl, Tk, B, H, centres, stream))) return (int)err;
-  if ((err = gta_rows::run_mean<C>(vp, vl, Tk, B, H, centres + (int64_t)B * H * C, stream)))
+  if ((err = attn::run_mean<C>(kp, kl, Tk, B, H, centres, stream))) return (int)err;
+  if ((err = attn::run_mean<C>(vp, vl, Tk, B, H, centres + (int64_t)B * H * C, stream)))
     return (int)err;
 
   // the core's passes: dqt into dq (delta = rowsum(do * (z - c_v)) on the
   // way), dkt and dvt into dk and dv
-  err = attn::run_bwd<C>(qp, kp, vp, centres, do_s, z, lse, delta, dq, dk, dv, B, H, Tq, Tk,
+  err = attn::run_bwd<attn::Fp32, C>(qp, kp, vp, centres, do_s, z, lse, delta, dq, dk, dv, B, H, Tq, Tk,
                                ql, kl, vl, tok_q, tok_q, tok_k, scale, stream);
   if (err != cudaSuccess) return (int)err;
 
@@ -286,16 +315,98 @@ int fused_bwd(const float* q, const float* k, const float* v, const float* mq, c
   }
 
   if (flags & HAS_MQ) {
-    err = reduce_dm<C>(q, dzq, nullptr, nullptr, part, dmq, B, nq, Tq, H, splits_q, stream);
+    err = reduce_dm<C, float>(q, dzq, nullptr, nullptr, part, dmq, B, nq, Tq, H, splits_q, stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (has_mo) {
-    err = reduce_dm<C>(z, dz, nullptr, nullptr, part, dmo, B, nq, Tq, H, splits_q, stream);
+    err = reduce_dm<C, float>(z, dz, nullptr, nullptr, part, dmo, B, nq, Tq, H, splits_q, stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (flags & HAS_MK) {
-    err = reduce_dm<C>(k, dzk, vt_flag ? v : nullptr, vt_flag ? dzv : nullptr, part, dmk, B, nk,
+    err = reduce_dm<C, float>(k, dzk, vt_flag ? v : nullptr, vt_flag ? dzv : nullptr, part, dmk, B, nk,
                        Tk, H, splits_k, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+
+// The bf16 instance. q, k, v, g, z: the forward's bf16 inputs, cotangent and
+// residual; lse, qt, kt, vt: its residuals, null as for the fp32 instance
+// (kt, vt centred on their means). do_s [B, Tq, H*C] bf16, delta,
+// dzq, dz, dzk, dzv as above, dq32 [B, Tq, H*C], dk32 and dv32 [B, Tk, H*C]
+// (fp32, the core's gradients before the chains) and part: scratch.
+template <int C>
+int fused_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mq, const float* mk,
+                   const float* mo, const float* cq, const float* sq, const float* ck,
+                   const float* sk, const bf16* g, const bf16* z, const float* lse, const bf16* qt,
+                   const bf16* kt, const bf16* vt, bf16* do_s, float* delta, float* dzq, float* dz,
+                   float* dzk, float* dzv, float* dq32, float* dk32, float* dv32, float* part,
+                   bf16* dq, bf16* dk, bf16* dv, float* dmq, float* dmk, float* dmo, int B, int H,
+                   int Tq, int Tk, int nq, int nk, int splits_q, int splits_k, int flags, float scale,
+                   void* stream_ptr) {
+  const bool q_tf = flags & (HAS_MQ | HAS_ROTQ);
+  const bool kv_tf = flags & (HAS_MK | HAS_ROTK);
+  const bool vt_flag = flags & V_TRANSFORM;
+  const bool has_mo = vt_flag && (flags & HAS_MO);
+  const bool rq = flags & HAS_ROTQ, rk = flags & HAS_ROTK;
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || nq < 1 || nk < 1 || Tq % nq || Tk % nk ||
+      splits_q < 1 || splits_k < 1 || B > 65535 || H > 65535 || (q_tf && !qt) || (kv_tf && !kt) ||
+      (kv_tf && vt_flag && !vt) || !dq32 || !dk32 || !dv32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const Layout tok_q = attn::tokens(Tq, H, C), tok_k = attn::tokens(Tk, H, C);
+  const Layout hf_q = attn::heads_first(Tq, H, C), hf_k = attn::heads_first(Tk, H, C);
+  const float* Mk = flags & HAS_MK ? mk : nullptr;
+  cudaError_t err;
+
+  // output chain: dz = R_q(g) (stored for dMo), do = dz @ Mo^T, in bf16
+  {
+    const RowJobT<bf16, bf16> j{g, do_s, tok_q, tok_q, has_mo ? mo : nullptr,
+                                vt_flag && rq ? cq : nullptr, vt_flag && rq ? sq : nullptr,
+                                has_mo ? dz : nullptr, Tq, nq, 1, 0};
+    if ((err = gta_rows::run_rows<C>(j, B, H, stream))) return (int)err;
+  }
+
+  // the core's passes over the residuals (transformed kt, vt centred; raw
+  // rows as they are): dqt, dkt, dvt in fp32
+  const bool v_side = kv_tf && vt_flag;
+  err = attn::run_bwd<attn::Bf16, C>(q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v, nullptr, do_s,
+                                     nullptr, lse, delta, dq32, dk32, dv32, B, H, Tq, Tk,
+                                     q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k,
+                                     v_side ? hf_k : tok_k, tok_q, tok_q, tok_k, scale, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  // query chain into bf16 dq: dzq = R_q^-1(dqt) (stored for dMq), dq = dzq @ Mq^T
+  {
+    const RowJobT<float, bf16> j{dq32, dq, tok_q, tok_q, flags & HAS_MQ ? mq : nullptr,
+                                 rq ? cq : nullptr, rq ? sq : nullptr,
+                                 flags & HAS_MQ ? dzq : nullptr, Tq, nq, 1, 1};
+    if ((err = gta_rows::run_rows<C>(j, B, H, stream))) return (int)err;
+  }
+  // key / value chains into bf16 dk, dv
+  {
+    const RowJobT<float, bf16> jk{dk32, dk, tok_k, tok_k, Mk, rk ? ck : nullptr, rk ? sk : nullptr,
+                                  Mk ? dzk : nullptr, Tk, nk, 1, 1};
+    if ((err = gta_rows::run_rows<C>(jk, B, H, stream))) return (int)err;
+    const RowJobT<float, bf16> jv{dv32, dv, tok_k, tok_k, v_side ? Mk : nullptr,
+                                  v_side && rk ? ck : nullptr, v_side && rk ? sk : nullptr,
+                                  v_side && Mk ? dzv : nullptr, Tk, nk, 1, 1};
+    if ((err = gta_rows::run_rows<C>(jv, B, H, stream))) return (int)err;
+  }
+
+  if (flags & HAS_MQ) {
+    err = reduce_dm<C, bf16>(q, dzq, nullptr, nullptr, part, dmq, B, nq, Tq, H, splits_q, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (has_mo) {
+    err = reduce_dm<C, bf16>(z, dz, nullptr, nullptr, part, dmo, B, nq, Tq, H, splits_q, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (flags & HAS_MK) {
+    err = reduce_dm<C, bf16>(k, dzk, vt_flag ? v : nullptr, vt_flag ? dzv : nullptr, part, dmk, B,
+                             nk, Tk, H, splits_k, stream);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
@@ -321,6 +432,29 @@ extern "C" int gta_fused_bwd(const float* q, const float* k, const float* v, con
     return fused_bwd<96>(q, k, v, mq, mk, mo, cq, sq, ck, sk, g, z, lse, qt, kt, vt, do_s, delta,
                          dzq, dz, dzk, dzv, part, centres, dq, dk, dv, dmq, dmk, dmo, B, H, Tq, Tk,
                          nq, nk, splits_q, splits_k, flags, scale, stream_ptr);
+  }
+  return (int)cudaErrorInvalidValue;  // no instance of this head width
+}
+
+extern "C" int gta_fused_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mq,
+                                  const float* mk, const float* mo, const float* cq,
+                                  const float* sq, const float* ck, const float* sk, const bf16* g,
+                                  const bf16* z, const float* lse, const bf16* qt, const bf16* kt,
+                                  const bf16* vt, bf16* do_s, float* delta, float* dzq, float* dz,
+                                  float* dzk, float* dzv, float* dq32, float* dk32, float* dv32,
+                                  float* part, bf16* dq, bf16* dk, bf16* dv, float* dmq, float* dmk,
+                                  float* dmo, int B, int H, int Tq, int Tk, int C, int nq, int nk,
+                                  int splits_q, int splits_k, int flags, float scale,
+                                  void* stream_ptr) {
+  if (C == 64) {
+    return fused_bwd_bf16<64>(q, k, v, mq, mk, mo, cq, sq, ck, sk, g, z, lse, qt, kt, vt, do_s, delta,
+                              dzq, dz, dzk, dzv, dq32, dk32, dv32, part, dq, dk, dv, dmq, dmk, dmo, B,
+                              H, Tq, Tk, nq, nk, splits_q, splits_k, flags, scale, stream_ptr);
+  }
+  if (C == 96) {
+    return fused_bwd_bf16<96>(q, k, v, mq, mk, mo, cq, sq, ck, sk, g, z, lse, qt, kt, vt, do_s, delta,
+                              dzq, dz, dzk, dzv, dq32, dk32, dv32, part, dq, dk, dv, dmq, dmk, dmo, B,
+                              H, Tq, Tk, nq, nk, splits_q, splits_k, flags, scale, stream_ptr);
   }
   return (int)cudaErrorInvalidValue;  // no instance of this head width
 }

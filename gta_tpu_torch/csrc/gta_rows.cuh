@@ -9,13 +9,21 @@
 // with R(x) = c*x + s*swap(x), R^-1(x) = c*x - s*swap(x), swap(x0, x1) =
 // (-x1, x0) on lane pairs, per-view row-major [C, C] matrices and per-lane
 // rotor tables [B, T, C]; a row's view is row / (T / n_views). M and the
-// rotor tables may each be absent. The backward form can also store w (the
-// matrix cotangents' input).
+// rotor tables may each be absent (then the job is a copy, converting
+// between the element types). The backward form can also store w (the
+// matrix cotangents' input, fp32).
+//
+// Element types: rows are read as TI and written as TO, fp32 or bf16
+// (`RowJobT`); every product and rotor runs in fp32 from the converted
+// rows, M and the rotor tables are fp32. The bf16 instances of the fused
+// kernels read bf16 q, k, v and cotangents, write fp32 kt, vt for the core's
+// centring (attn_core.cuh `centre_bf16_kernel`) or bf16 qt, and turn the
+// core's fp32 gradients into bf16 dq, dk, dv.
 //
 // What bounds it: 2*C*C flops per row and matrix against 8*C bytes moved
 // (16 flops per byte at C = 64, 24 at C = 96): by bytes at the tensor cores' rate, by
 // operations on the CUDA cores. So a chain with a matrix runs on the tensor
-// cores, 3xTF32 like the attention cores (csrc/tf32x3.cuh): a block owns 64
+// cores, 3xTF32 like the fp32 attention core (csrc/tf32x3.cuh): a block owns 64
 // rows of one view of one (b, h) (blocks never straddle a view), stages the
 // view's matrix and its rows in dynamic shared memory (36 KB at C = 64,
 // 64 KB at C = 96), and each warp multiplies 16
@@ -30,7 +38,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attn_core.cuh"  // Layout: the operands' (batch, head, row) strides
+#include "attn_core.cuh"  // Layout: the operands' (batch, head, row) strides; element I/O
 #include "tf32x3.cuh"
 
 namespace gta_rows {
@@ -53,12 +61,11 @@ __host__ __device__ constexpr int mma_smem_bytes() {
   return (C * ldm<C, BWD>() + MMA_ROWS * (C + 4)) * (int)sizeof(float);
 }
 
-template <int C>
-__device__ __forceinline__ void load_row(const float* __restrict__ src, float (&x)[C]) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
+template <int C, class TI>
+__device__ __forceinline__ void load_row(const TI* __restrict__ src, float (&x)[C]) {
 #pragma unroll
   for (int i = 0; i < C / 4; ++i) {
-    const float4 t = s4[i];
+    const float4 t = attn::load4(src + 4 * i);
     x[4 * i] = t.x;
     x[4 * i + 1] = t.y;
     x[4 * i + 2] = t.z;
@@ -66,12 +73,11 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src, float (&
   }
 }
 
-template <int C>
-__device__ __forceinline__ void store_row(float* __restrict__ dst, const float (&x)[C]) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
+template <int C, class TO>
+__device__ __forceinline__ void store_row(TO* __restrict__ dst, const float (&x)[C]) {
 #pragma unroll
   for (int i = 0; i < C / 4; ++i) {
-    d4[i] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+    attn::store4(dst + 4 * i, make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]));
   }
 }
 
@@ -96,9 +102,10 @@ __device__ __forceinline__ void rotate(float (&x)[C], const float* __restrict__ 
 // One transform of every (b, h, row < T) of an operand. m, c/s and mid may
 // be null. src and dst may be the same array (every row is read before it
 // is written, by the block that writes it). mid is token-major [B, T, H*C].
-struct RowJob {
-  const float* src;
-  float* dst;
+template <class TI, class TO>
+struct RowJobT {
+  const TI* src;
+  TO* dst;
   Layout src_l, dst_l;
   const float* m;  // [B, n_views, C, C]
   const float* c;  // [B, T, C]
@@ -108,11 +115,12 @@ struct RowJob {
   int backward;  // 0: y = R(x @ M); 1: w = R(x), y = w @ M^T
   int inverse;   // R^-1 in place of R
 };
+using RowJob = RowJobT<float, float>;
 
 // A job without a matrix: y = R(x), one row per thread.
 // grid (ceil(T/ROW_THREADS), H, B).
-template <int C>
-__global__ void __launch_bounds__(ROW_THREADS) gta_rows_kernel(const RowJob j, int H) {
+template <int C, class TI, class TO>
+__global__ void __launch_bounds__(ROW_THREADS) gta_rows_kernel(const RowJobT<TI, TO> j, int H) {
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int row = blockIdx.x * ROW_THREADS + threadIdx.x;
@@ -129,8 +137,8 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_kernel(const RowJob j, i
 
 // The same transform for a job with a matrix, on the tensor cores.
 // grid (ceil(T / n_views / MMA_ROWS), H, B * n_views).
-template <int C, bool BWD>
-__global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJob j, int H) {
+template <int C, bool BWD, class TI, class TO>
+__global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJobT<TI, TO> j, int H) {
   using namespace tf32x3;
   static_assert(ROW_THREADS == 2 * MMA_ROWS, "a warp per 16 rows");
   constexpr int LDX = C + 4;
@@ -154,23 +162,24 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJob 
     const int r = idx / (C / 4), c4 = idx % (C / 4);
     cp_async16(Ms + r * LDM + 4 * c4, M + r * C + 4 * c4, true);
   }
-  if (!BWD) {
-    stage_rows<C, MMA_ROWS, ROW_THREADS>(Xs, j.src + offset(j.src_l, b, h, r0), j.src_l.rs, n_rows);
-  } else {  // w = R(x) as the rows are staged (and stored to mid)
+  if constexpr (!BWD && sizeof(TI) == sizeof(float)) {
+    stage_rows<C, MMA_ROWS, ROW_THREADS>(Xs, reinterpret_cast<const float*>(j.src) + offset(j.src_l, b, h, r0),
+                                         j.src_l.rs, n_rows);
+  } else {  // rows converted to fp32 as they are staged; BWD: w = R(x) (and stored to mid)
     for (int idx = threadIdx.x; idx < MMA_ROWS * C / 4; idx += ROW_THREADS) {
       const int r = idx / (C / 4), c4 = idx % (C / 4);
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < n_rows) {
         const int row = r0 + r;
-        x = reinterpret_cast<const float4*>(j.src + offset(j.src_l, b, h, row))[c4];
-        if (j.c) {
+        x = attn::load4(j.src + offset(j.src_l, b, h, row) + 4 * c4);
+        if (BWD && j.c) {
           const int64_t roff = ((int64_t)b * j.T + row) * C + 4 * c4;
           const float4 cc = __ldg(reinterpret_cast<const float4*>(j.c + roff));
           const float4 ss = __ldg(reinterpret_cast<const float4*>(j.s + roff));
           x = make_float4(cc.x * x.x - sg * ss.x * x.y, cc.y * x.y + sg * ss.y * x.x,
                           cc.z * x.z - sg * ss.z * x.w, cc.w * x.w + sg * ss.w * x.z);
         }
-        if (j.mid) {
+        if (BWD && j.mid) {
           const int64_t tok = ((int64_t)b * j.T + row) * H * C + (int64_t)h * C;
           reinterpret_cast<float4*>(j.mid + tok)[c4] = x;
         }
@@ -220,7 +229,7 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJob 
     const bool ok = lr < n_rows;
     const int row = r0 + min(lr, n_rows - 1);
     const int64_t roff = ((int64_t)b * j.T + row) * C;
-    float* dst = j.dst + offset(j.dst_l, b, h, row);
+    TO* dst = j.dst + offset(j.dst_l, b, h, row);
 #pragma unroll
     for (int n = 0; n < KS; ++n) {
       const int col = 8 * n + 2 * ln.t;
@@ -233,63 +242,30 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJob 
         y0 = cc.x * a0 - sg * ss.x * a1;
         y1 = cc.y * a1 + sg * ss.y * a0;
       }
-      if (ok) *reinterpret_cast<float2*>(dst + col) = make_float2(y0, y1);
+      if (ok) attn::store2(dst + col, y0, y1);
     }
   }
 }
 
-// centre[b, h, :] = the mean of the T rows of (b, h) of `src`: the centre
-// the fused GTA kernels' attention core takes its products about
-// (csrc/attn_core.cuh). grid (H, B), C * MEAN_SPLIT threads: each
-// sums every MEAN_SPLIT-th row of one channel, then the block adds the
-// partial sums in a fixed order (bit-identical reruns).
-constexpr int MEAN_SPLIT = 8;
-
-template <int C>
-__global__ void __launch_bounds__(C * MEAN_SPLIT)
-mean_rows_kernel(const float* __restrict__ src, const Layout l, int T, float* __restrict__ centre) {
-  __shared__ float part[MEAN_SPLIT][C];
-  const int b = blockIdx.y, h = blockIdx.x;
-  const int c = threadIdx.x % C, split = threadIdx.x / C;
-  const float* p = src + b * l.bs + h * l.hs + c;
-  float acc = 0.f;
-  for (int r = split; r < T; r += MEAN_SPLIT) acc += p[r * l.rs];
-  part[split][c] = acc;
-  __syncthreads();
-  if (split == 0) {
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < MEAN_SPLIT; ++i) sum += part[i][c];
-    centre[((int64_t)b * gridDim.x + h) * C + c] = sum / T;
-  }
-}
-
-template <int C>
-cudaError_t run_mean(const float* src, Layout l, int T, int B, int H, float* centre,
-                     cudaStream_t stream) {
-  mean_rows_kernel<C><<<dim3(H, B), C * MEAN_SPLIT, 0, stream>>>(src, l, T, centre);
-  return cudaGetLastError();
-}
-
-template <int C, bool BWD>
-cudaError_t run_rows_mma(const RowJob& j, int B, int H, cudaStream_t stream) {
+template <int C, bool BWD, class TI, class TO>
+cudaError_t run_rows_mma(const RowJobT<TI, TO>& j, int B, int H, cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes<C, BWD>();
-  cudaError_t err = cudaFuncSetAttribute(gta_rows_mma_kernel<C, BWD>,
+  cudaError_t err = cudaFuncSetAttribute(gta_rows_mma_kernel<C, BWD, TI, TO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int rpv = j.T / j.n_views;
   const dim3 grid((rpv + MMA_ROWS - 1) / MMA_ROWS, H, B * j.n_views);
-  gta_rows_mma_kernel<C, BWD><<<grid, ROW_THREADS, smem, stream>>>(j, H);
+  gta_rows_mma_kernel<C, BWD, TI, TO><<<grid, ROW_THREADS, smem, stream>>>(j, H);
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t run_rows(const RowJob& j, int B, int H, cudaStream_t stream) {
+template <int C, class TI, class TO>
+cudaError_t run_rows(const RowJobT<TI, TO>& j, int B, int H, cudaStream_t stream) {
   if (j.m) {
     return j.backward ? run_rows_mma<C, true>(j, B, H, stream) : run_rows_mma<C, false>(j, B, H, stream);
   } else {
     const dim3 grid((j.T + ROW_THREADS - 1) / ROW_THREADS, H, B);
-    gta_rows_kernel<C><<<grid, ROW_THREADS, 0, stream>>>(j, H);
+    gta_rows_kernel<C, TI, TO><<<grid, ROW_THREADS, 0, stream>>>(j, H);
   }
   return cudaGetLastError();
 }

@@ -13,8 +13,10 @@ Usage:
         [--ckpt model.pt] [--seed S] [--device cuda|cpu]
 
 --ckpt is a torch file holding the port's state_dict; without it the model
-is randomly initialised from --seed. The device defaults to CUDA and the
-run fails without it unless --device cpu is given.
+is randomly initialised from --seed. The config's `training.mixed_prec`
+picks the compute dtype (bf16 or fp32), named in the result line. The
+device defaults to CUDA and the run fails without it unless --device cpu
+is given.
 """
 
 from __future__ import annotations
@@ -97,6 +99,7 @@ def main(argv=None):
         "mse": float(np.mean(mses)),
         "n_scenes": n,
         "device": str(trainer.device),
+        "dtype": str(trainer.dtype).replace("torch.", ""),
         "not_computed": "ssim, lpips (evaluation slice, ROADMAP queue 1)",
     }
     print(json.dumps(results))

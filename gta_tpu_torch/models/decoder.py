@@ -18,7 +18,7 @@ from torch import nn
 from gta_tpu_torch.config import DecoderConfig
 from gta_tpu_torch.geometry.coords import ray_posenc
 from gta_tpu_torch.models.context import AttnContext, SceneBatch
-from gta_tpu_torch.models.layers import Transformer, tagged
+from gta_tpu_torch.models.layers import Linear, Transformer, tagged, to_compute
 from gta_tpu_torch.ops.reps import decoder_reps
 
 
@@ -40,7 +40,11 @@ def build_decoder_context(
 
 
 class RayPredictor(nn.Module):
-    """Query embedding + cross-attention transformer (decoder.py:27-136)."""
+    """Query embedding + cross-attention transformer (decoder.py:27-136).
+    The queries enter the transformer in the compute dtype
+    (gta_tpu/models/decoder.py:106, :124)."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
@@ -57,7 +61,7 @@ class RayPredictor(nn.Module):
         else:
             # OSRT input MLP (decoder.py:70-77) over ray_posenc's 180 channels
             self.input_mlp = nn.Sequential(
-                tagged(nn.Linear(180, 360), "srt"), nn.ReLU(), tagged(nn.Linear(360, cfg.dim), "srt")
+                tagged(Linear(180, 360), "srt"), nn.ReLU(), tagged(Linear(360, cfg.dim), "srt")
             )
         self.transformer = Transformer(
             dim=cfg.dim,
@@ -74,9 +78,11 @@ class RayPredictor(nn.Module):
         """z [B, K, z_dim], query camera positions x and ray directions rays
         [B, T, 3] -> [B, T, dim]."""
         if self.cfg.emb == "const":
-            queries = self.initial_emb.expand(z.shape[0], rays.shape[1], self.cfg.dim)
+            emb = to_compute(self.initial_emb, self.compute_dtype)
+            queries = emb.expand(z.shape[0], rays.shape[1], self.cfg.dim)
         else:
-            queries = self.input_mlp(ray_posenc(x, rays, 15, self.cfg.pos_start_octave, 15))
+            emb = ray_posenc(x, rays, 15, self.cfg.pos_start_octave, 15)
+            queries = self.input_mlp(to_compute(emb, self.compute_dtype))
         return self.transformer(queries, z, ctx)
 
 
@@ -93,15 +99,16 @@ class SRTDecoder(nn.Module):
         layers = []
         idim = cfg.dim
         for _ in range(4):
-            layers += [tagged(nn.Linear(idim, cfg.rmlp_dim), "srt"), _ACTS[cfg.act]()]
+            layers += [tagged(Linear(idim, cfg.rmlp_dim), "srt"), _ACTS[cfg.act]()]
             idim = cfg.rmlp_dim
-        layers.append(tagged(nn.Linear(idim, 3), "srt"))
+        layers.append(tagged(Linear(idim, 3), "srt"))
         self.render_mlp = nn.Sequential(*layers)
 
     def forward(
         self, z: torch.Tensor, x: torch.Tensor, rays: torch.Tensor, ctx: AttnContext
     ) -> Tuple[torch.Tensor, dict]:
-        """z [B, K, z_dim], x and rays [B, T, 3] -> pixels [B, T, 3] (fp32)."""
+        """z [B, K, z_dim], x and rays [B, T, 3] -> pixels [B, T, 3] (fp32
+        whatever the compute dtype, gta_tpu/models/decoder.py:223)."""
         h = self.render_mlp(self.allocation_transformer(z, x, rays, ctx))
         pixels = torch.sigmoid(h) if self.cfg.sigmoid else h
         return pixels.float(), {}

@@ -17,7 +17,7 @@ from torch import nn
 from gta_tpu_torch.config import EncoderConfig
 from gta_tpu_torch.geometry.coords import ray_posenc
 from gta_tpu_torch.models.context import AttnContext, SceneBatch
-from gta_tpu_torch.models.layers import Transformer, tagged
+from gta_tpu_torch.models.layers import Conv2d, Transformer, tagged, to_compute
 from gta_tpu_torch.ops.reps import encoder_reps
 
 
@@ -36,9 +36,9 @@ class SRTConvBlock(nn.Module):
     def __init__(self, idim: int, hdim: int, odim: int):
         super().__init__()
         self.layers = nn.Sequential(
-            tagged(nn.Conv2d(idim, hdim, 3, padding=1, bias=False), "jax"),
+            tagged(Conv2d(idim, hdim, 3, padding=1, bias=False), "jax"),
             nn.ReLU(),
-            tagged(nn.Conv2d(hdim, odim, 3, stride=2, padding=1, bias=False), "jax"),
+            tagged(Conv2d(hdim, odim, 3, stride=2, padding=1, bias=False), "jax"),
             nn.ReLU(),
         )
 
@@ -57,7 +57,11 @@ def build_encoder_context(cfg: EncoderConfig, batch: SceneBatch) -> AttnContext:
 
 
 class SRTEncoder(nn.Module):
-    """Improved SRT encoder with pluggable attention method."""
+    """Improved SRT encoder with pluggable attention method. The images and
+    ray encodings enter the conv stem in the compute dtype
+    (gta_tpu/models/encoder.py:149-155)."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -73,7 +77,7 @@ class SRTEncoder(nn.Module):
             blocks.append(SRTConvBlock(cur, cur, 2 * cur))
             cur *= 2
         self.conv_blocks = nn.ModuleList(blocks)
-        self.per_patch_linear = tagged(nn.Conv2d(cur, cfg.attdim, 1), "jax")
+        self.per_patch_linear = tagged(Conv2d(cur, cfg.attdim, 1), "jax")
         self.transformer = Transformer(
             dim=cfg.attdim,
             depth=cfg.num_att_blocks,
@@ -91,7 +95,7 @@ class SRTEncoder(nn.Module):
         """images, rays [B, N, H, W, 3], camera_pos [B, N, 3] -> scene latent
         [B, N*Ha*Wa, attdim]."""
         B, N, H, W, _ = images.shape
-        x = images.reshape(B * N, H, W, 3)
+        x = to_compute(images.reshape(B * N, H, W, 3), self.compute_dtype)
         if self.cfg.emb == "ray":
             pos = camera_pos.reshape(B * N, 1, 1, 3).expand(B * N, H, W, 3)
             emb = ray_posenc(pos, rays.reshape(B * N, H, W, 3), 15, self.cfg.pos_start_octave, 15)

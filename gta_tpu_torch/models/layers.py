@@ -1,9 +1,24 @@
-"""Building blocks: weight init schemes, feed-forward, the Attention layer
-and the pre-LN Transformer.
+"""Building blocks: weight init schemes, the compute-dtype layers, feed-forward,
+the Attention layer and the pre-LN Transformer.
 
 Parameter names follow the reference PyTorch implementation's state_dict
 keys (layers.{i}.0.norm, layers.{i}.0.fn.to_qkv, layers.{i}.1.fn.net.0, ...)
 so weights carry across frameworks by a fixed key map (weights.py).
+
+Compute dtype (the JAX package's `dtype=` module attribute,
+gta_tpu/models/layers.py:8-9): parameters stay fp32 whatever it is. A module
+with a `compute_dtype` attribute (set for a whole model by
+`set_compute_dtype`) computes in it: `Linear` and `Conv2d` cast their input
+and weight to it, accumulate in fp32 and add the bias in it (flax
+Dense/Conv with `dtype=`), `LayerNorm` takes its statistics in fp32 and
+returns it, and the attention kernels take q, k and v in it with their
+rep tables in fp32. Softmax stays fp32 (inside the kernels); so do the
+pixels and the loss (models/decoder.py, train/trainer.py). The residual
+stream is in the compute dtype, as in JAX. Unlike torch.autocast, this
+keeps LayerNorm outputs and residual adds in bf16 where JAX has them.
+fp32, the default, casts nothing: the modules are torch's own, so a model
+a caller converts (as chip_smoke.py's fp64 reference step does) computes
+in its own dtype.
 """
 
 from __future__ import annotations
@@ -12,6 +27,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gta_tpu_torch.config import AttnConfig
@@ -75,6 +91,67 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+def to_compute(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x in the compute dtype `dtype`; fp32 leaves x as it is (module
+    docstring)."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor], shape) -> torch.Tensor:
+    """y + bias in y's dtype (flax adds the bias after the product, each
+    result rounded to the compute dtype)."""
+    return y if bias is None else y + bias.to(y.dtype).reshape(shape)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `compute_dtype` (flax Dense with `dtype=`):
+    input and weight cast to it, the product accumulated in fp32 and
+    rounded to it, then the bias added in it."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        d = self.compute_dtype
+        if d == torch.float32:
+            return super().forward(x)
+        return _add_bias(F.linear(x.to(d), self.weight.to(d)), self.bias, (-1,))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in `compute_dtype` (flax Conv with `dtype=`), as
+    `Linear` does."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        d = self.compute_dtype
+        if d == torch.float32:
+            return super().forward(x)
+        return _add_bias(self._conv_forward(x.to(d), self.weight.to(d), None), self.bias, (-1, 1, 1))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm with fp32 statistics and affine, output in
+    `compute_dtype` (flax LayerNorm with `dtype=`)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make every module of `model` that has a compute dtype compute in
+    `dtype`; parameters keep theirs (fp32)."""
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return model
+
+
 class Dropout(nn.Module):
     """Inverted dropout (flax nn.Dropout semantics: keep with probability
     1 - p, scale kept values by 1 / (1 - p)) whose masks are drawn from an
@@ -92,7 +169,8 @@ class Dropout(nn.Module):
             return x
         if self.generator is None:
             raise RuntimeError("Dropout in training mode needs a generator (set_dropout_generator)")
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device, dtype=x.dtype) >= self.p
+        # the mask is drawn in fp32 whatever x's dtype
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
         return x * keep / (1.0 - self.p)
 
 
@@ -110,10 +188,10 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
         self.net = nn.Sequential(
-            tagged(nn.Linear(dim, hidden_dim), "vit"),
+            tagged(Linear(dim, hidden_dim), "vit"),
             nn.GELU(),
             Dropout(dropout),
-            tagged(nn.Linear(hidden_dim, dim), "vit"),
+            tagged(Linear(hidden_dim, dim), "vit"),
             Dropout(dropout),
         )
 
@@ -129,8 +207,12 @@ class Attention(nn.Module):
     kernels (ops/gta_fused), method '' through flash attention
     (ops/flash, the flash_core kernels), as the JAX package's layers do on
     a TPU: the plain versions on CPU tensors, the CUDA kernels on CUDA
-    tensors.
+    tensors. q, k and v come out of the projections in the compute dtype;
+    trans_coeff is cast to it before it enters the fp32 rep tables, as
+    JAX's `.astype(self.dtype)` does.
     """
+
+    compute_dtype = torch.float32
 
     def __init__(
         self,
@@ -155,10 +237,10 @@ class Attention(nn.Module):
         self.scale = dim_head**-0.5
         inner = dim_head * heads
         if kv_dim is None:
-            self.to_qkv = tagged(nn.Linear(dim, 3 * inner, bias=attn.use_bias), "jax")
+            self.to_qkv = tagged(Linear(dim, 3 * inner, bias=attn.use_bias), "jax")
         else:
-            self.to_q = tagged(nn.Linear(dim, inner, bias=attn.use_bias), "jax")
-            self.to_kv = tagged(nn.Linear(kv_dim, 2 * inner, bias=attn.use_bias), "jax")
+            self.to_q = tagged(Linear(dim, inner, bias=attn.use_bias), "jax")
+            self.to_kv = tagged(Linear(kv_dim, 2 * inner, bias=attn.use_bias), "jax")
         if attn.is_gta and attn.gta.f_dims.se3 > 0:
             self.trans_coeff = nn.Parameter(torch.full((1,), 0.01))
         else:
@@ -166,7 +248,7 @@ class Attention(nn.Module):
         if heads == 1 and dim_head == dim:
             self.to_out = nn.Identity()
         else:
-            self.to_out = nn.Sequential(tagged(nn.Linear(inner, dim), "jax"), Dropout(dropout))
+            self.to_out = nn.Sequential(tagged(Linear(inner, dim), "jax"), Dropout(dropout))
 
     def forward(self, x, z=None, ctx: Optional[AttnContext] = None):
         if z is None:
@@ -175,9 +257,8 @@ class Attention(nn.Module):
             q = self.to_q(x)
             k, v = self.to_kv(z).chunk(2, dim=-1)
         if self.attn.is_gta:
-            out = fused_gta_attention_tokens(
-                q, k, v, self.heads, ctx.geom, self.attn.gta, self.trans_coeff, self.scale
-            )
+            tc = None if self.trans_coeff is None else to_compute(self.trans_coeff, self.compute_dtype)
+            out = fused_gta_attention_tokens(q, k, v, self.heads, ctx.geom, self.attn.gta, tc, self.scale)
         else:
             out = flash_attention(q, k, v, self.heads, self.scale)
         return self.to_out(out)
@@ -188,7 +269,7 @@ class PreNorm(nn.Module):
 
     def __init__(self, dim: int, fn: nn.Module):
         super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.norm = LayerNorm(dim, eps=1e-5)
         self.fn = fn
 
     def forward(self, x, **kwargs):

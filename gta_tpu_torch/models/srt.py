@@ -16,6 +16,7 @@ from gta_tpu_torch.config import ModelConfig
 from gta_tpu_torch.models.context import AttnContext, SceneBatch
 from gta_tpu_torch.models.decoder import SRTDecoder, build_decoder_context
 from gta_tpu_torch.models.encoder import SRTEncoder, build_encoder_context
+from gta_tpu_torch.models.layers import set_compute_dtype
 
 
 class SRT(nn.Module):
@@ -55,9 +56,13 @@ class TransformingSRT(SRT):
         super().__init__(cfg)
 
 
-def build_model(cfg: ModelConfig) -> SRT:
+def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.float32) -> SRT:
+    """The model of `cfg`, computing in `dtype` with fp32 parameters
+    (gta_tpu/models/srt.py:108 `build_model(cfg, dtype)`; models/layers.py)."""
     if cfg.model_type == "srt":
-        return SRT(cfg)
-    if cfg.model_type == "tsrt":
-        return TransformingSRT(cfg)
-    raise ValueError(f"unknown model_type {cfg.model_type}")
+        model = SRT(cfg)
+    elif cfg.model_type == "tsrt":
+        model = TransformingSRT(cfg)
+    else:
+        raise ValueError(f"unknown model_type {cfg.model_type}")
+    return set_compute_dtype(model, dtype)

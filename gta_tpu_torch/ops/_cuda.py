@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -28,6 +30,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# the operand dtypes every kernel has an instance for (fp32: 3xTF32 products;
+# bf16: bf16 products with fp32 accumulation; csrc/attn_core.cuh)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -88,3 +94,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _libs[name] = lib
     return lib
+
+
+def check_kernel_dtype(name: str, dtype: torch.dtype) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for an operand
+    dtype that no kernel instance covers (a CUDA tensor of it would
+    otherwise reach no kernel)."""
+    if dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernels have fp32 and bf16 instances, got {dtype} operands "
+            "(ROADMAP queue 1 item 3e: other compute dtypes)"
+        )

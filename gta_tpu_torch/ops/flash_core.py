@@ -15,11 +15,18 @@ backward kernel. Unlike the Pallas kernel (whole K/V of a head in VMEM,
 Tk <= 2048), the forward tiles K with an online softmax, so every key
 length takes the same kernel.
 
-Precision: fp32 accuracy throughout: every product on the tensor cores as
-3xTF32 (each fp32 operand split into two TF32 parts, three products summed
-in fp32; csrc/tf32x3.cuh), the softmax in fp32 (the Pallas kernel rounds
-matmul operands to bf16 on the TPU; its fp32 interpret mode is what the
-port is held to).
+Precision, by the operands' dtype (the JAX package's rules: the output
+and dq, dk, dv in the inputs' dtype, gta_tpu/ops/flash_core.py:83,
+:124-126, :174):
+  * fp32: fp32 accuracy throughout: every product on the tensor cores as
+    3xTF32 (each fp32 operand split into two TF32 parts, three products
+    summed in fp32; csrc/tf32x3.cuh), the softmax in fp32.
+  * bf16: the TPU kernel's rounding: the products take bf16 operands (q,
+    k, v, g, P, dS) with fp32 accumulation (csrc/bf16_mma.cuh); the
+    softmax, lse and delta stay fp32.
+The plain versions compute in fp32 from operands of either dtype (fp64 for
+fp64 ones), the Pallas kernel's interpret mode; `mxu_dtype=torch.bfloat16`
+rounds every product's operands to bf16 as the TPU kernel does.
 """
 
 from __future__ import annotations
@@ -34,6 +41,17 @@ from gta_tpu_torch.ops import _cuda
 KERNEL_HEAD_DIM = 64  # the head width the CUDA kernels are compiled for
 
 
+def work_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic: fp64 for fp64 operands, else fp32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _operand(x: torch.Tensor, work: torch.dtype, mxu_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """x as a product operand of the plain versions: rounded to bf16 when
+    `mxu_dtype` is bf16 (the TPU kernel's `_dot`), in `work` precision."""
+    return (x.to(torch.bfloat16) if mxu_dtype == torch.bfloat16 else x).to(work)
+
+
 def _heads_first(x: torch.Tensor, heads: int) -> torch.Tensor:
     B, T, D = x.shape
     return x.reshape(B, T, heads, D // heads).transpose(1, 2)
@@ -44,44 +62,69 @@ def _tokens(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, T, H * C)
 
 
-def _scores(q, k, heads, scale):
-    return torch.einsum("bhqc,bhkc->bhqk", _heads_first(q, heads), _heads_first(k, heads)) * scale
+def _dot(eq, a, b, work, mxu_dtype):
+    return torch.einsum(eq, _operand(a, work, mxu_dtype), _operand(b, work, mxu_dtype))
 
 
 def flash_core_fwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float, lse: bool = False
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    scale: float,
+    lse: bool = False,
+    mxu_dtype: Optional[torch.dtype] = None,
 ):
-    """Plain PyTorch version of the forward kernel. q [B, Tq, H*C], k/v
-    [B, Tk, H*C] -> out [B, Tq, H*C]; with `lse`, (out, lse) where lse
-    [B, H, Tq] is each row's log-sum-exp of the scaled scores."""
-    s = _scores(q, k, heads, scale)
-    out = _tokens(torch.einsum("bhqk,bhkc->bhqc", torch.softmax(s, dim=-1), _heads_first(v, heads)))
+    """Plain PyTorch version of the forward kernel (with bf16 operands as
+    `_fwd_kernel` computes it: o = (e v) / rowsum(e), e = exp(s - max)). q [B, Tq, H*C],
+    k/v [B, Tk, H*C] -> out [B, Tq, H*C] in q's dtype; with `lse`,
+    (out, lse) where lse [B, H, Tq] is each row's log-sum-exp of the scaled
+    scores. `mxu_dtype=torch.bfloat16` rounds every product's operands to
+    bf16 (see the module docstring)."""
+    work = work_dtype(q)
+    s = _dot("bhqc,bhkc->bhqk", _heads_first(q, heads), _heads_first(k, heads), work, mxu_dtype) * scale
+    if mxu_dtype == torch.bfloat16:  # the TPU kernel rounds e = exp(s - max) for the product, then divides
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        o = _dot("bhqk,bhkc->bhqc", e, _heads_first(v, heads), work, mxu_dtype) / e.sum(-1, keepdim=True)
+    else:
+        o = torch.einsum("bhqk,bhkc->bhqc", torch.softmax(s, dim=-1), _heads_first(v, heads).to(work))
+    out = _tokens(o).to(q.dtype)
     return (out, torch.logsumexp(s, dim=-1)) if lse else out
 
 
 def flash_core_bwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float, g: torch.Tensor
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    scale: float,
+    g: torch.Tensor,
+    mxu_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernel, `_bwd_kernel`'s
     formulas: p recomputed from q and k, ds = p (dp - rowsum(p dp)) scale,
     dq = ds k, dk = ds^T q, dv = p^T g. g is the cotangent of the forward's
-    output; returns token-major (dq, dk, dv)."""
-    p = torch.softmax(_scores(q, k, heads, scale), dim=-1)
+    output; returns token-major (dq, dk, dv) in their inputs' dtype.
+    `mxu_dtype` as in `flash_core_fwd_plain`."""
+    work = work_dtype(q)
     qh, kh, vh, gh = (_heads_first(x, heads) for x in (q, k, v, g))
-    dp = torch.einsum("bhqc,bhkc->bhqk", gh, vh)
+    p = torch.softmax(_dot("bhqc,bhkc->bhqk", qh, kh, work, mxu_dtype) * scale, dim=-1)
+    dp = _dot("bhqc,bhkc->bhqk", gh, vh, work, mxu_dtype)
     ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
-    dq = torch.einsum("bhqk,bhkc->bhqc", ds, kh)
-    dk = torch.einsum("bhqk,bhqc->bhkc", ds, qh)
-    dv = torch.einsum("bhqk,bhqc->bhkc", p, gh)
-    return _tokens(dq), _tokens(dk), _tokens(dv)
+    dq = _dot("bhqk,bhkc->bhqc", ds, kh, work, mxu_dtype)
+    dk = _dot("bhqk,bhqc->bhkc", ds, qh, work, mxu_dtype)
+    dv = _dot("bhqk,bhqc->bhkc", p, gh, work, mxu_dtype)
+    return _tokens(dq).to(q.dtype), _tokens(dk).to(k.dtype), _tokens(dv).to(v.dtype)
 
 
 def _ptr(x: torch.Tensor):
     return ctypes.c_void_p(x.data_ptr())
 
 
-def _check_kernel_call(name, q, k, v, heads: int, extra=()):
-    """Validate a kernel launch's operands; returns (B, Tq, Tk, C)."""
+def _check_kernel_call(name, q, k, v, heads: int, same=(), f32=()):
+    """Validate a kernel launch's operands: q, k, v and `same` contiguous in
+    one dtype that an instance covers, `f32` (log-sum-exp) contiguous fp32,
+    all on q's CUDA device. Returns (B, Tq, Tk, C)."""
     if q.device.type != "cuda":
         raise NotImplementedError(f"no flash_core kernel for device {q.device}")
     B, Tq, D = q.shape
@@ -92,23 +135,29 @@ def _check_kernel_call(name, q, k, v, heads: int, extra=()):
             f"{name}: the CUDA kernel is built for head dim {KERNEL_HEAD_DIM}, got {C} "
             "(ROADMAP queue 1 item 3d: other head widths)"
         )
-    for x in (q, k, v, *extra):
+    bad = ValueError(f"{name} operands must be contiguous fp32 (or bf16 beside an fp32 lse) on one CUDA device")
+    for x in (q, k, v, *same):
+        if x.device != q.device or x.dtype != q.dtype or not x.is_contiguous():
+            raise bad
+    _cuda.check_kernel_dtype(name, q.dtype)
+    for x in f32:
         if x.device != q.device or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name} operands must be contiguous fp32 on one CUDA device")
+            raise bad
     if k.shape != (B, Tk, D) or v.shape != (B, Tk, D) or D != heads * C:
         raise ValueError(f"bad operand shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     return B, Tq, Tk, C
 
 
-def _bind(name: str, n_ptrs: int, n_ints: int):
+def _bind(name: str, bf16: bool, n_ptrs: int, n_ints: int):
+    """(entry, error string) of library `name`: its fp32 or bf16 entry."""
     lib = _cuda.load(name)
-    fn = getattr(lib, name)
+    fn = getattr(lib, f"{name}_bf16" if bf16 else name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return lib
+    return fn, err
 
 
 def flash_core_fwd(
@@ -117,9 +166,10 @@ def flash_core_fwd(
     """softmax(q k^T * scale) v over token-major operands.
 
     CPU tensors take `flash_core_fwd_plain`; CUDA tensors launch the kernel
-    or raise. With `residuals`, returns (out, lse), lse [B, H, Tq] being
-    each row's log-sum-exp for the backward. `flash_core_fwd.launches`
-    counts kernel launches.
+    instance of their dtype (fp32 or bf16) or raise. With `residuals`,
+    returns (out, lse), lse [B, H, Tq] being each row's log-sum-exp for the
+    backward. `flash_core_fwd.launches` (fp32) and
+    `flash_core_fwd.launches_bf16` count launches of the C entry points.
     """
     if q.device.type == "cpu":
         return flash_core_fwd_plain(q, k, v, heads, scale, lse=residuals)
@@ -129,22 +179,27 @@ def flash_core_fwd(
             "flash_core_fwd's output carries no autograd graph: differentiate through "
             "flash_core (FlashCore)"
         )
+    bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
     lse = torch.empty((B, heads, Tq), dtype=torch.float32, device=q.device) if residuals else None
-    lib = _bind("flash_core_fwd", 5, 5)
+    fn, err_str = _bind("flash_core_fwd", bf16, 5, 5)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.flash_core_fwd(
+        err = fn(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), None if lse is None else _ptr(lse),
             B, heads, Tq, Tk, C, float(scale), ctypes.c_void_p(stream),
         )
     if err != 0:
-        raise RuntimeError(f"flash_core_fwd launch failed: {lib.flash_core_fwd_error_string(err).decode()}")
-    flash_core_fwd.launches += 1
+        raise RuntimeError(f"flash_core_fwd launch failed: {err_str(err).decode()}")
+    if bf16:
+        flash_core_fwd.launches_bf16 += 1
+    else:
+        flash_core_fwd.launches += 1
     return (out, lse) if residuals else out
 
 
 flash_core_fwd.launches = 0
+flash_core_fwd.launches_bf16 = 0
 
 
 def flash_core_bwd(
@@ -161,34 +216,45 @@ def flash_core_bwd(
     cotangent g of its output.
 
     CPU tensors take `flash_core_bwd_plain` (from q, k, v and g); CUDA
-    tensors launch the kernel (csrc/flash_core_bwd.cu) with the forward's
-    output and log-sum-exp, or raise. `flash_core_bwd.launches` counts
-    launches of the C entry point (a query pass that also computes
-    delta = rowsum(g * out), then a key pass).
+    tensors launch the kernel instance of their dtype (csrc/flash_core_bwd.cu)
+    with the forward's output and log-sum-exp, or raise.
+    `flash_core_bwd.launches` (fp32) and `flash_core_bwd.launches_bf16`
+    count launches of the C entry points (fp32: a query pass that also
+    computes delta = rowsum(g * out), then a key pass; bf16: a query pass
+    that takes delta from its own products, a key pass and the conversions
+    of the fp32 gradients to bf16).
     """
     if q.device.type == "cpu":
         return flash_core_bwd_plain(q, k, v, heads, scale, g)
     if lse is None:
         raise ValueError("flash_core_bwd needs the forward kernel's log-sum-exp")
-    B, Tq, Tk, C = _check_kernel_call("flash_core_bwd", q, k, v, heads, (g, out, lse))
+    B, Tq, Tk, C = _check_kernel_call("flash_core_bwd", q, k, v, heads, (g, out), (lse,))
     if g.shape != q.shape or out.shape != q.shape or lse.shape != (B, heads, Tq):
         raise ValueError("flash_core_bwd: g, out must be [B, Tq, H*C] and lse [B, H, Tq]")
-    delta = torch.empty((B, heads, Tq), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    dev = q.device
+    delta = torch.empty((B, heads, Tq), dtype=torch.float32, device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = _bind("flash_core_bwd", 10, 5)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = lib.flash_core_bwd(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(out), _ptr(lse), _ptr(delta), _ptr(dq),
-            _ptr(dk), _ptr(dv), B, heads, Tq, Tk, C, float(scale), ctypes.c_void_p(stream),
-        )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if bf16:  # with the core's fp32 gradients before their conversion
+        args = [q, k, v, g, lse, delta, *(torch.empty(x.shape, dtype=torch.float32, device=dev) for x in (q, k, v)),
+                dq, dk, dv]
+    else:
+        args = [q, k, v, g, out, lse, delta, dq, dk, dv]
+    fn, err_str = _bind("flash_core_bwd", bf16, len(args), 5)
+    with torch.cuda.device(dev):
+        err = fn(*(_ptr(x) for x in args), B, heads, Tq, Tk, C, float(scale), ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"flash_core_bwd launch failed: {lib.flash_core_bwd_error_string(err).decode()}")
-    flash_core_bwd.launches += 1
+        raise RuntimeError(f"flash_core_bwd launch failed: {err_str(err).decode()}")
+    if bf16:
+        flash_core_bwd.launches_bf16 += 1
+    else:
+        flash_core_bwd.launches += 1
     return dq, dk, dv
 
 
 flash_core_bwd.launches = 0
+flash_core_bwd.launches_bf16 = 0
 
 
 class FlashCore(torch.autograd.Function):

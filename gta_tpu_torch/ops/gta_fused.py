@@ -14,18 +14,29 @@ rep applies before the store.
 Dispatch, with no fallbacks: a CPU tensor takes the plain PyTorch versions
 (`gta_fused_fwd_plain`, `gta_fused_bwd_plain`); a CUDA tensor launches the
 hand-written kernels (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu, built
-for head widths 64 and 96) or raises. With grad enabled and an operand that requires it, the call goes
+for head widths 64 and 96, an fp32 and a bf16 instance each) or raises.
+With grad enabled and an operand that requires it, the call goes
 through `GTAFusedAttention`, whose backward is the backward kernel; rotor
 tables get no cotangent, and autograd carries the matrix cotangents back
 through the table construction to `trans_coeff`. Calls the kernels do not
 cover raise NotImplementedError naming their ROADMAP item, on every device.
 
-Precision: fp32 accuracy throughout. The kernels run the attention core
-and the per-view C x C transforms on the tensor cores as 3xTF32 (each fp32
-operand split into two TF32 parts, three products summed in fp32;
-csrc/tf32x3.cuh), the rotors and the softmax in fp32 on the CUDA cores.
-(The Pallas kernel rounds matmul operands to bf16 on the TPU; its fp32
-interpret mode is what the port is held to.)
+Precision, by the dtype of q, k and v (the JAX package's rules,
+gta_tpu/ops/gta_fused.py:384, :441-452): the rep tables are fp32 whatever
+the compute dtype; the output and dq, dk, dv take their inputs' dtype, the
+matrix cotangents are fp32.
+  * fp32: fp32 accuracy throughout. The kernels run the attention core and
+    the per-view C x C transforms on the tensor cores as 3xTF32 (each fp32
+    operand split into two TF32 parts, three products summed in fp32;
+    csrc/tf32x3.cuh), the rotors and the softmax in fp32 on the CUDA cores.
+  * bf16: the TPU kernel's rounding. The core's products take bf16
+    operands (qt, kt and vt centred on their means, do, P, dS) with fp32
+    accumulation (csrc/bf16_mma.cuh); the transforms, the softmax, lse,
+    delta and the matrix cotangents stay fp32.
+The plain versions compute in fp32 from operands of either dtype (fp64 for
+fp64 ones), the Pallas kernel's interpret mode; `mxu_dtype=torch.bfloat16`
+rounds every product's operands to bf16 as the TPU kernel does
+(`_dot(..., mxu_dtype)`).
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import torch
 
 from gta_tpu_torch.config import GTAArgs
 from gta_tpu_torch.ops import _cuda
+from gta_tpu_torch.ops.flash_core import work_dtype
 from gta_tpu_torch.ops.gta import _blockdiag_mat, _blockdiag_ok, _fw_rotors, _view_counts
 from gta_tpu_torch.ops.reps import GeomReps
 
@@ -124,28 +136,38 @@ def _pair_swap_neg(z: torch.Tensor) -> torch.Tensor:
 class _Plain:
     """Layout helpers of the plain versions for one call: heads-first
     [B, H, T, C] views of token-major [B, T, H*C] operands, per-view
-    products and the full-width rotors."""
+    products and the full-width rotors. Every product goes through `dot`,
+    which rounds its operands to `mxu_dtype` when that is bf16 (the TPU
+    kernel's `_dot`) and sums in the working dtype `work`."""
 
-    def __init__(self, B: int, heads: int, C: int):
+    def __init__(self, B: int, heads: int, C: int, work: torch.dtype, mxu_dtype: Optional[torch.dtype]):
         self.B, self.H, self.C = B, heads, C
+        self.work = work
+        self.round = mxu_dtype == torch.bfloat16
+
+    def op(self, x):
+        """x as a product operand."""
+        return x.to(torch.bfloat16).to(self.work) if self.round else x.to(self.work)
+
+    def dot(self, eq, a, b):
+        return torch.einsum(eq, self.op(a), self.op(b))
 
     def heads_first(self, x, T):
-        return x.reshape(self.B, T, self.H, self.C).transpose(1, 2)
+        return x.reshape(self.B, T, self.H, self.C).transpose(1, 2).to(self.work)
 
     def tokens(self, x):
         return x.transpose(1, 2).reshape(self.B, x.shape[2], self.H * self.C)
 
     def per_view(self, x, M, n, transpose=False):  # x_row @ M[view] (or M[view]^T)
         eq = "bhntc,bndc->bhntd" if transpose else "bhntc,bncd->bhntd"
-        return torch.einsum(eq, x.reshape(self.B, self.H, n, -1, self.C), M).reshape(x.shape)
+        return self.dot(eq, x.reshape(self.B, self.H, n, -1, self.C), M).reshape(x.shape)
 
     def dmat(self, x, y, n):  # sum over heads and a view's rows of x^T y -> [B, n, C, C]
         shape = (self.B, self.H, n, -1, self.C)
-        return torch.einsum("bhntc,bhntd->bncd", x.reshape(shape), y.reshape(shape))
+        return self.dot("bhntc,bhntd->bncd", x.reshape(shape), y.reshape(shape))
 
-    @staticmethod
-    def rot(x, c, s, sign):
-        return c[:, None] * x + sign * s[:, None] * _pair_swap_neg(x)
+    def rot(self, x, c, s, sign):
+        return c[:, None].to(self.work) * x + sign * s[:, None].to(self.work) * _pair_swap_neg(x)
 
     def transform(self, q, k, v, t: FusedTables):
         """(qt, kt, vt) of heads-first q, k, v: _transform_sides."""
@@ -172,27 +194,34 @@ def gta_fused_fwd_plain(
     heads: int,
     scale: float,
     store_z: bool = False,
+    mxu_dtype: Optional[torch.dtype] = None,
 ):
     """Plain PyTorch version of the forward kernel: the same function of the
     same inputs, as per-view einsums over the block-diagonal matrices and
-    full-width rotors. q [B, Tq, H*C], k/v [B, Tk, H*C] -> [B, Tq, H*C];
-    with `store_z`, (out, z) where z is the output before the output
-    transform (the Pallas kernel's `store_z`)."""
+    full-width rotors (with bf16 operands as `_fwd_kernel` computes it:
+    o = (e vt) / rowsum(e), e = exp(s - max)). q [B, Tq, H*C], k/v [B, Tk, H*C] ->
+    [B, Tq, H*C] in q's dtype; with `store_z`, (out, z) where z is the
+    output before the output transform (the Pallas kernel's `store_z`), in
+    q's dtype too. `mxu_dtype=torch.bfloat16` rounds every product's
+    operands to bf16 (see the module docstring)."""
     B, Tq, D = qB.shape
     Tk = kB.shape[1]
-    P = _Plain(B, heads, D // heads)
+    P = _Plain(B, heads, D // heads, work_dtype(qB), mxu_dtype)
     qt, kt, vt = P.transform(P.heads_first(qB, Tq), P.heads_first(kB, Tk), P.heads_first(vB, Tk), t)
-    sim = torch.einsum("bhqc,bhkc->bhqk", qt, kt) * scale
-    p = torch.softmax(sim, dim=-1)
-    z = torch.einsum("bhqk,bhkc->bhqc", p, vt)
+    sim = P.dot("bhqc,bhkc->bhqk", qt, kt) * scale
+    if P.round:  # the TPU kernel rounds e = exp(s - max) for the product, then divides
+        e = torch.exp(sim - sim.amax(-1, keepdim=True))
+        z = P.dot("bhqk,bhkc->bhqc", e, vt) / e.sum(-1, keepdim=True)
+    else:
+        z = torch.einsum("bhqk,bhkc->bhqc", torch.softmax(sim, dim=-1), vt)
     o = z
     if t.v_transform:
         if t.mo is not None:
             o = P.per_view(o, t.mo, t.nq)
         if t.cq is not None:
             o = P.rot(o, t.cq, t.sq, -1.0)
-    out = P.tokens(o)
-    return (out, P.tokens(z)) if store_z else out
+    out = P.tokens(o).to(qB.dtype)
+    return (out, P.tokens(z).to(qB.dtype)) if store_z else out
 
 
 def gta_fused_bwd_plain(
@@ -204,6 +233,8 @@ def gta_fused_bwd_plain(
     scale: float,
     g: torch.Tensor,
     z: torch.Tensor,
+    mxu_dtype: Optional[torch.dtype] = None,
+    keep: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the backward kernel: `_bwd_kernel`'s
     formulas written out (recompute the transformed triple and the softmax,
@@ -211,14 +242,18 @@ def gta_fused_bwd_plain(
 
     g: the cotangent of the forward's output, z: its `store_z` output, both
     [B, Tq, H*C]. Returns (dq, dk, dv, dmq, dmk, dmo) in the kernel's
-    layouts: token-major dq/dk/dv, per-view [B, N, C, C] matrix cotangents
-    summed over heads (None where the table is absent)."""
+    layouts: token-major dq/dk/dv in their inputs' dtype, per-view
+    [B, N, C, C] matrix cotangents summed over heads, fp32 (fp64 for fp64
+    operands; None where the table is absent). `mxu_dtype` as in
+    `gta_fused_fwd_plain`. `keep`, a dict, receives the chains' inputs
+    dz, dzq, dzk, dzv (token-major, where present): the core's dqt, dkt,
+    dvt after the inverse rotors."""
     B, Tq, D = qB.shape
     Tk = kB.shape[1]
-    P = _Plain(B, heads, D // heads)
+    P = _Plain(B, heads, D // heads, work_dtype(qB), mxu_dtype)
     q0, k0, v0 = P.heads_first(qB, Tq), P.heads_first(kB, Tk), P.heads_first(vB, Tk)
     qt, kt, vt = P.transform(q0, k0, v0, t)
-    s = torch.einsum("bhqc,bhkc->bhqk", qt, kt) * scale
+    s = P.dot("bhqc,bhkc->bhqk", qt, kt) * scale
     p = torch.softmax(s, dim=-1)
     gh = P.heads_first(g, Tq)
 
@@ -235,12 +270,12 @@ def gta_fused_bwd_plain(
         do = gh
 
     # attention core
-    dp = torch.einsum("bhqc,bhkc->bhqk", do, vt)
+    dp = P.dot("bhqc,bhkc->bhqk", do, vt)
     delta = (p * dp).sum(-1, keepdim=True)
     ds = p * (dp - delta) * scale
-    dqt = torch.einsum("bhqk,bhkc->bhqc", ds, kt)
-    dkt = torch.einsum("bhqk,bhqc->bhkc", ds, qt)
-    dvt = torch.einsum("bhqk,bhqc->bhkc", p, do)
+    dqt = P.dot("bhqk,bhkc->bhqc", ds, kt)
+    dkt = P.dot("bhqk,bhqc->bhkc", ds, qt)
+    dvt = P.dot("bhqk,bhqc->bhkc", p, do)
 
     # query chain: qt = rot_q(q @ Mq)
     dzq = P.rot(dqt, t.cq, t.sq, -1.0) if t.cq is not None else dqt
@@ -263,7 +298,12 @@ def gta_fused_bwd_plain(
         if t.v_transform:
             dv = P.per_view(dzv, t.mk, t.nk, transpose=True)
             dmk = dmk + P.dmat(v0, dzv, t.nk)
-    return P.tokens(dq), P.tokens(dk), P.tokens(dv), dmq, dmk, dmo
+    if keep is not None:
+        keep.update(dzq=P.tokens(dzq), dzk=P.tokens(dzk), dzv=P.tokens(dzv))
+        if t.v_transform:
+            keep["dz"] = P.tokens(dz)
+    return (P.tokens(dq).to(qB.dtype), P.tokens(dk).to(kB.dtype), P.tokens(dv).to(vB.dtype),
+            dmq, dmk, dmo)
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -285,8 +325,11 @@ def _flags(t: FusedTables) -> int:
     )
 
 
-def _check_kernel_call(name, qB, kB, vB, t: FusedTables, heads: int, extra=()):
-    """Validate a kernel launch's operands; returns (B, Tq, Tk, D, C)."""
+def _check_kernel_call(name, qB, kB, vB, t: FusedTables, heads: int, same=(), f32=()):
+    """Validate a kernel launch's operands: q, k, v and `same` (cotangent,
+    residuals) contiguous in one dtype that an instance covers, the tables
+    and `f32` (log-sum-exp) contiguous fp32, all on q's CUDA device.
+    Returns (B, Tq, Tk, D, C)."""
     if qB.device.type != "cuda":
         raise NotImplementedError(f"no fused GTA kernel for device {qB.device}")
     B, Tq, D = qB.shape
@@ -297,9 +340,14 @@ def _check_kernel_call(name, qB, kB, vB, t: FusedTables, heads: int, extra=()):
             f"{name}: the CUDA kernel is built for head dims {KERNEL_HEAD_DIMS}, got {C} "
             "(ROADMAP queue 1 item 3d: other head widths)"
         )
-    for x in [qB, kB, vB, *extra] + [x for x in _tables(t) if x is not None]:
+    bad = ValueError(f"{name} operands must be contiguous fp32 (or bf16 beside fp32 tables) on one CUDA device")
+    for x in [qB, kB, vB, *same]:
+        if x.device != qB.device or x.dtype != qB.dtype or not x.is_contiguous():
+            raise bad
+    _cuda.check_kernel_dtype(name, qB.dtype)
+    for x in [*f32] + [x for x in _tables(t) if x is not None]:
         if x.device != qB.device or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name} operands must be contiguous fp32 on one CUDA device")
+            raise bad
     if kB.shape != (B, Tk, D) or vB.shape != (B, Tk, D) or D != heads * C:
         raise ValueError(f"bad operand shapes q {tuple(qB.shape)} k {tuple(kB.shape)} v {tuple(vB.shape)}")
     if Tq % t.nq or Tk % t.nk:
@@ -307,24 +355,28 @@ def _check_kernel_call(name, qB, kB, vB, t: FusedTables, heads: int, extra=()):
     return B, Tq, Tk, D, C
 
 
-def _bind_fwd():
+def _bind(lib, fn_name: str, n_ptrs: int, n_ints: int, err_name: str):
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = getattr(lib, err_name)
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def _bind_fwd(bf16: bool):
     lib = _cuda.load("gta_fused_fwd")
-    fn = lib.gta_fused_fwd
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.gta_fused_error_string.argtypes = [ctypes.c_int]
-    lib.gta_fused_error_string.restype = ctypes.c_char_p
-    return lib
+    if bf16:
+        return _bind(lib, "gta_fused_fwd_bf16", 18, 8, "gta_fused_error_string")
+    return _bind(lib, "gta_fused_fwd", 17, 8, "gta_fused_error_string")
 
 
-def _bind_bwd():
+def _bind_bwd(bf16: bool):
     lib = _cuda.load("gta_fused_bwd")
-    fn = lib.gta_fused_bwd
-    fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.gta_fused_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.gta_fused_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+    if bf16:
+        return _bind(lib, "gta_fused_bwd_bf16", 32, 10, "gta_fused_bwd_error_string")
+    return _bind(lib, "gta_fused_bwd", 30, 10, "gta_fused_bwd_error_string")
 
 
 @dataclasses.dataclass
@@ -332,11 +384,12 @@ class Residuals:
     """What the backward needs from its forward besides the inputs.
 
     z: [B, Tq, H*C], the output before the output transform (`store_z`;
-    the output itself without v_transform). The kernel's forward also keeps
-    lse [B, H, Tq], each row's log-sum-exp of the scaled scores, and its
-    transformed Q/K/V scratch qt [B, H, Tq, C], kt/vt [B, H, Tk, C] (None
-    where that side has no transform); the plain version recomputes them
-    and leaves them None.
+    the output itself without v_transform), in q's dtype. The kernel's
+    forward also keeps lse [B, H, Tq] (fp32), each row's log-sum-exp of the
+    scaled scores, and its transformed Q/K/V scratch qt [B, H, Tq, C],
+    kt/vt [B, H, Tk, C] (fp32: None where that side has no transform; bf16:
+    kt and vt always, minus their means, and lse about kt minus its mean);
+    the plain version recomputes them and leaves them None.
     """
 
     z: torch.Tensor
@@ -358,12 +411,14 @@ def gta_fused_fwd(
     """Fused GTA attention forward over token-major operands.
 
     CPU tensors take `gta_fused_fwd_plain`; CUDA tensors launch the kernel
-    or raise. With `residuals`, returns (out, Residuals) for the backward.
-    `gta_fused_fwd.launches` counts launches of the C entry point: each one
-    runs the row transforms of Q, K and V (each side that has one), the mean
-    of the value rows (the core's centre), the tensor-core main kernel and
-    the output transform (with v_transform), so the card sees up to six
-    kernel launches per count.
+    instance of their dtype (fp32 or bf16) or raise. With `residuals`,
+    returns (out, Residuals) for the backward. `gta_fused_fwd.launches`
+    (fp32) and `gta_fused_fwd.launches_bf16` count launches of the C entry
+    points: each one runs the row transforms of Q, K and V (each side that
+    has one), the means of the key and value rows (the core's centres; bf16
+    then writes the transformed rows centred), the tensor-core main kernel
+    and the output transform (with v_transform), so the card sees up to six
+    kernel launches per count (eight in bf16).
     """
     if qB.device.type == "cpu":
         if residuals:
@@ -376,38 +431,43 @@ def gta_fused_fwd(
             "gta_fused_fwd's output carries no autograd graph: differentiate through "
             "fused_gta_attention_tokens (GTAFusedAttention)"
         )
-    dev = qB.device
+    dev, bf16 = qB.device, qB.dtype == torch.bfloat16
     q_transform = t.mq is not None or t.cq is not None
     kv_transform = t.mk is not None or t.ck is not None
-    qt = torch.empty((B, heads, Tq, C), dtype=torch.float32, device=dev) if q_transform else None
-    kt = torch.empty((B, heads, Tk, C), dtype=torch.float32, device=dev) if kv_transform else None
-    vt = (
-        torch.empty((B, heads, Tk, C), dtype=torch.float32, device=dev)
-        if kv_transform and t.v_transform else None
-    )
+
+    def rows(T, dtype, cond=True):  # heads-first [B, H, T, C] scratch
+        return torch.empty((B, heads, T, C), dtype=dtype, device=dev) if cond else None
+
+    qt = rows(Tq, qB.dtype, q_transform)
+    kt = rows(Tk, qB.dtype, kv_transform)
+    vt = rows(Tk, qB.dtype, kv_transform and t.v_transform)
+    kt32 = rows(Tk, torch.float32, bf16 and kv_transform)  # bf16: transformed rows before centring
     centres = torch.empty((2, B, heads, C), dtype=torch.float32, device=dev)
     out = torch.empty_like(qB)
     z = torch.empty_like(qB) if residuals and t.v_transform else None
     lse = torch.empty((B, heads, Tq), dtype=torch.float32, device=dev) if residuals else None
-    lib = _bind_fwd()
+    fn, err_str = _bind_fwd(bf16)
+    scratch = [qt, kt32, kt, vt] if bf16 else [qt, kt, vt]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.gta_fused_fwd(
-            _ptr(qB), _ptr(kB), _ptr(vB), _ptr(t.mq), _ptr(t.mk), _ptr(t.mo),
-            _ptr(t.cq), _ptr(t.sq), _ptr(t.ck), _ptr(t.sk), _ptr(qt), _ptr(kt), _ptr(vt),
+        err = fn(
+            _ptr(qB), _ptr(kB), _ptr(vB), *(_ptr(x) for x in _tables(t)), *(_ptr(x) for x in scratch),
             _ptr(centres), _ptr(out), _ptr(z), _ptr(lse), B, heads, Tq, Tk, C, t.nq, t.nk, _flags(t),
-            float(scale),
-            ctypes.c_void_p(stream),
+            float(scale), ctypes.c_void_p(stream),
         )
     if err != 0:
-        raise RuntimeError(f"gta_fused_fwd launch failed: {lib.gta_fused_error_string(err).decode()}")
-    gta_fused_fwd.launches += 1
+        raise RuntimeError(f"gta_fused_fwd launch failed: {err_str(err).decode()}")
+    if bf16:
+        gta_fused_fwd.launches_bf16 += 1
+    else:
+        gta_fused_fwd.launches += 1
     if residuals:
         return out, Residuals(out if z is None else z, lse, kt, vt, qt)
     return out
 
 
 gta_fused_fwd.launches = 0
+gta_fused_fwd.launches_bf16 = 0
 
 
 def _dm_splits(dev: torch.device, B: int, n: int, rows_per_view: int) -> int:
@@ -426,38 +486,42 @@ def gta_fused_bwd(
     scale: float,
     g: torch.Tensor,
     res: Residuals,
+    keep: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Fused GTA attention backward: (dq, dk, dv, dmq, dmk, dmo) as
     `gta_fused_bwd_plain` returns them.
 
     CPU tensors take `gta_fused_bwd_plain` (from g and res.z); CUDA tensors
-    launch the kernel (csrc/gta_fused_bwd.cu) with the forward kernel's
-    residuals, or raise. `gta_fused_bwd.launches` counts launches of the C
-    entry point: each one runs the output chain, the means of the key and
-    value rows (the core's centres), a query pass, a key pass, the query and
-    key/value chains and a reduction pair per matrix cotangent, up to
-    thirteen kernels (fourteen at head width 96, whose key pass is two
-    launches).
+    launch the kernel instance of their dtype (csrc/gta_fused_bwd.cu) with
+    the forward kernel's residuals, or raise. `gta_fused_bwd.launches`
+    (fp32) and `gta_fused_bwd.launches_bf16` count launches of the C entry
+    points: each one runs the output chain, the core's centres (fp32), a
+    query pass, a key pass, the query and key/value chains and a reduction
+    pair per matrix cotangent, up to thirteen kernels (fourteen at head
+    width 96, whose key pass is two launches). `keep`, a dict, receives the
+    chains' fp32 inputs dz, dzq, dzk, dzv (None where absent), as
+    `gta_fused_bwd_plain` does.
     """
     if qB.device.type == "cpu":
-        return gta_fused_bwd_plain(qB, kB, vB, t, heads, scale, g, res.z)
+        return gta_fused_bwd_plain(qB, kB, vB, t, heads, scale, g, res.z, keep=keep)
+    bf16 = qB.dtype == torch.bfloat16
     q_transform = t.mq is not None or t.cq is not None
     kv_transform = t.mk is not None or t.ck is not None
     if res.lse is None or (q_transform and res.qt is None) or (kv_transform and res.kt is None) or (
         kv_transform and t.v_transform and res.vt is None
     ):
         raise ValueError("gta_fused_bwd needs the forward kernel's residuals (lse, qt, kt, vt)")
-    extra = [g, res.z, res.lse] + [x for x in (res.qt, res.kt, res.vt) if x is not None]
-    B, Tq, Tk, D, C = _check_kernel_call("gta_fused_bwd", qB, kB, vB, t, heads, extra)
+    same = [g, res.z] + [x for x in (res.qt, res.kt, res.vt) if x is not None]
+    B, Tq, Tk, D, C = _check_kernel_call("gta_fused_bwd", qB, kB, vB, t, heads, same, [res.lse])
     if g.shape != qB.shape or res.z.shape != qB.shape or res.lse.shape != (B, heads, Tq):
         raise ValueError("gta_fused_bwd: g, z must be [B, Tq, H*C] and lse [B, H, Tq]")
     dev = qB.device
 
-    def empty(shape, cond=True):
-        return torch.empty(shape, dtype=torch.float32, device=dev) if cond else None
+    def empty(shape, cond=True, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev) if cond else None
 
     has_mo = t.mo is not None and t.v_transform
-    do_s = empty((B, Tq, D))
+    do_s = empty((B, Tq, D), dtype=qB.dtype)
     delta = empty((B, heads, Tq))
     dzq = empty((B, Tq, D), t.mq is not None)
     dz = empty((B, Tq, D), has_mo)
@@ -466,28 +530,37 @@ def gta_fused_bwd(
     splits_q = _dm_splits(dev, B, t.nq, Tq // t.nq * heads)
     splits_k = _dm_splits(dev, B, t.nk, Tk // t.nk * heads)
     part = empty((B * max(t.nq * splits_q, t.nk * splits_k), C, C))
-    centres = empty((2, B, heads, C))
+    # bf16: the core's fp32 gradients before the chains (before `part`);
+    # fp32: the core's centres (after it)
+    grads32 = [empty((B, Tq, D)), empty((B, Tk, D)), empty((B, Tk, D))] if bf16 else []
+    centres = [] if bf16 else [empty((2, B, heads, C))]
     dq, dk, dv = torch.empty_like(qB), torch.empty_like(kB), torch.empty_like(vB)
     dmq, dmk = (None if M is None else torch.empty_like(M) for M in (t.mq, t.mk))
     dmo = torch.empty_like(t.mo) if has_mo else None
-    lib = _bind_bwd()
+    fn, err_str = _bind_bwd(bf16)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.gta_fused_bwd(
-            _ptr(qB), _ptr(kB), _ptr(vB), _ptr(t.mq), _ptr(t.mk), _ptr(t.mo),
-            _ptr(t.cq), _ptr(t.sq), _ptr(t.ck), _ptr(t.sk), _ptr(g), _ptr(res.z),
+        err = fn(
+            _ptr(qB), _ptr(kB), _ptr(vB), *(_ptr(x) for x in _tables(t)), _ptr(g), _ptr(res.z),
             _ptr(res.lse), _ptr(res.qt), _ptr(res.kt), _ptr(res.vt), _ptr(do_s), _ptr(delta),
-            _ptr(dzq), _ptr(dz), _ptr(dzk), _ptr(dzv), _ptr(part), _ptr(centres), _ptr(dq), _ptr(dk),
+            _ptr(dzq), _ptr(dz), _ptr(dzk), _ptr(dzv), *(_ptr(x) for x in grads32),
+            _ptr(part), *(_ptr(x) for x in centres), _ptr(dq), _ptr(dk),
             _ptr(dv), _ptr(dmq), _ptr(dmk), _ptr(dmo), B, heads, Tq, Tk, C, t.nq, t.nk, splits_q, splits_k,
             _flags(t), float(scale), ctypes.c_void_p(stream),
         )
     if err != 0:
-        raise RuntimeError(f"gta_fused_bwd launch failed: {lib.gta_fused_bwd_error_string(err).decode()}")
-    gta_fused_bwd.launches += 1
+        raise RuntimeError(f"gta_fused_bwd launch failed: {err_str(err).decode()}")
+    if bf16:
+        gta_fused_bwd.launches_bf16 += 1
+    else:
+        gta_fused_bwd.launches += 1
+    if keep is not None:
+        keep.update(dz=dz, dzq=dzq, dzk=dzk, dzv=dzv)
     return dq, dk, dv, dmq, dmk, dmo
 
 
 gta_fused_bwd.launches = 0
+gta_fused_bwd.launches_bf16 = 0
 
 
 @dataclasses.dataclass(frozen=True)

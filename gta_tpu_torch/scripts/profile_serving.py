@@ -5,9 +5,10 @@ the device's busy and idle share of the window.
 Usage (one CUDA card):
     python -m gta_tpu_torch.scripts.profile_serving
 
-Prints the card's name and power limit, then for each configuration (the
-GTA flagship and the SRT baseline at batch 32, msn_so3 at batch 64 and
-fp32, its `mixed_prec` overridden) and each of eval_step (synthetic val
+Prints the card's name and power limit, then for each configuration as
+published (the GTA flagship and the CLEVR-TR SRT baseline at batch 32 and
+fp32; msn_so3 and the MSN-Hard SRT baseline at batch 64 and bf16, their
+`mixed_prec`) and each of eval_step (synthetic val
 scenes) and one full-scale target view at chunk 16384
 (render_image for the flagship, render_rays on the view's rays for the
 non-transform SRT baseline), over 3 calls after one warm-up: the host wall
@@ -32,21 +33,19 @@ CONFIGS = {
     "gta": ("runs/clevrtr/GTA/gta/config.yaml", 32),
     "srt": ("runs/clevrtr/otherPEs/srt/config.yaml", 32),
     "msn_so3": ("runs/msn/GTA/gta_so3/config.yaml", 64),
+    "msn_srt": ("runs/msn/otherPEs/srt/config.yaml", 64),
 }
 STEPS = 3  # profiled calls per phase
 TOP = 15  # kernels listed per phase
 
 
 def profiled_config(path: str):
-    """The config at `path` on synthetic scenes, at fp32: the port does not
-    compute `mixed_prec` yet (ROADMAP queue 1 item 3c)."""
+    """The config at `path` on synthetic scenes, its compute dtype as
+    published (`training.mixed_prec`)."""
     from gta_tpu_torch.config import load_config
 
     cfg = load_config(path)
-    return dataclasses.replace(
-        cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"),
-        training=dataclasses.replace(cfg.training, mixed_prec=False),
-    )
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
 
 
 def attention_entry(cfg) -> str:
@@ -67,6 +66,8 @@ def _kind(name: str, attention: str) -> str:
         return f"{attention}_bwd (this repo)"
     if "gta_rows" in n:  # the C x C chains of both fused GTA kernels
         return "gta_fused row transforms (this repo)"
+    if "mean_rows" in n or "centre_bf16" in n or "to_bf16" in n:
+        return f"{attention} centres and conversions (this repo)"
     # cuDNN's fp32 conv algorithms: implicit GEMM ("fprop"), FFT, layout
     # transforms; checked before "gemm", which implicit-GEMM names contain
     conv_marks = ("conv", "fprop", "fft", "pointwise_mult_and_sum_complex", "nhwctonchw", "cudnn")
@@ -131,6 +132,7 @@ def main():
         h, w = test.target_h, test.target_w
 
         attention = attention_entry(cfg)
+        print(f"{name}: compute dtype {str(trainer.dtype).replace('torch.', '')}", flush=True)
         profile(lambda: trainer.eval_step(batch), f"{name} eval_step_b{batch_size}", attention)
         if item.target_transforms is not None:
             profile(

@@ -1,13 +1,15 @@
 """Where the train step's time goes on the GPU: a torch.profiler window
-over train_step of the GTA flagship, the SRT baseline and msn_so3, summed
-by kernel and by kind, with the device's busy and idle share of the window.
+over train_step of the GTA flagship, the CLEVR-TR SRT baseline, msn_so3
+and the MSN-Hard SRT baseline, summed by kernel and by kind, with the
+device's busy and idle share of the window.
 
 Usage (one CUDA card):
     python -m gta_tpu_torch.scripts.profile_train
 
 Prints the card's name and power limit, then for train_step of each
-configuration (batch 32, msn_so3 batch 64 at fp32, synthetic train scenes,
-dropout as configured),
+configuration as published (the CLEVR-TR ones at batch 32 and fp32, the
+msn ones at batch 64 and bf16; synthetic train scenes, dropout as
+configured),
 over 3 steps after one warm-up step: the host wall time per step, the
 device time summed over all kernels, the idle share (1 - device / wall),
 device time by kind (this repo's attention forward and backward kernels,
@@ -38,7 +40,10 @@ def main():
         trainer = Trainer(cfg)
         train = SyntheticScenes(cfg.data, "train", seed=cfg.seed)
         batch = collate([train[i] for i in range(batch_size)]).to(trainer.device)
+        torch.cuda.reset_peak_memory_stats()
+        print(f"{name}: compute dtype {str(trainer.dtype).replace('torch.', '')}", flush=True)
         profile(lambda: trainer.train_step(batch), f"{name} train_step_b{batch_size}", attention_entry(cfg))
+        print(f"{name} train_step_b{batch_size}: peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
         del trainer, batch
         torch.cuda.empty_cache()
 

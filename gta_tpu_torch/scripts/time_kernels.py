@@ -1,0 +1,117 @@
+"""Times of the four attention kernels at the decoder train shapes of the
+configurations the port runs, in each dtype the kernels have an instance
+for: a quick comparison of two builds of the kernels on one card.
+
+Usage (one CUDA card), from the root of a checkout:
+    python -m gta_tpu_torch.scripts.time_kernels [--label NAME]
+
+Shapes (synthetic batches of each config's data, its train batch size):
+the fused GTA forward (with its training residuals) and backward at
+CLEVR-TR gta's decoder (B=32, 3x856 queries, 600 keys, C = 64) and msn_so3's
+(B=64, 5x512 queries, 1280 keys, C = 96); flash_core forward and backward
+at the SRT baselines' decoders (CLEVR-TR B=32 x 2560 x 600, MSN-Hard B=64 x
+2560 x 1280, C = 64). CUDA events, median of 7 launches after 2 warm-up
+ones. Prints the card's name and power limit, one line per time, and a
+JSON line of them all, labelled with `--label`. Uses only the kernels'
+public wrappers, so it also times an older checkout's kernels when run
+from its root.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+
+import numpy as np
+
+CONFIGS = {  # name -> (config path, batch)
+    "clevr_gta": (("runs", "clevrtr", "GTA", "gta"), 32),
+    "msn_so3": (("runs", "msn", "GTA", "gta_so3"), 64),
+    "clevr_srt": (("runs", "clevrtr", "otherPEs", "srt"), 32),
+    "msn_srt": (("runs", "msn", "otherPEs", "srt"), 64),
+}
+
+
+def time_ms(fn, runs=7, warmup=2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def main():
+    import torch
+
+    from gta_tpu_torch.config import load_config
+    from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
+    from gta_tpu_torch.ops import flash_core as fc
+    from gta_tpu_torch.ops import gta_fused as tgf
+    from gta_tpu_torch.ops.reps import decoder_reps, encoder_reps
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", default="")
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels needs a CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    dtypes = [torch.float32] + ([torch.bfloat16] if hasattr(tgf.gta_fused_fwd, "launches_bf16") else [])
+    results = {}
+    for name, (parts, batch) in CONFIGS.items():
+        cfg = load_config(os.path.join(*parts, "config.yaml"))
+        enc = cfg.model.encoder
+        H, C = enc.heads, enc.attdim // enc.heads
+        val = SyntheticScenes(cfg.data, "val")
+        b = collate([val[i] for i in range(batch)]).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        Tk = b.input_coord.shape[1] * b.input_coord.shape[2] if enc.attn.is_gta else None
+        if enc.attn.is_gta:
+            args = cfg.model.decoder.attn.gta
+            reps = decoder_reps(args, target_coord=b.target_coord, target_transforms=b.target_transforms,
+                                input_coord=b.input_coord, input_transforms=b.input_transforms,
+                                enc=encoder_reps(enc.attn.gta, b.input_coord, b.input_transforms))
+            Tq = b.target_coord[0].numel() // 2
+            t = tgf.fused_tables(reps, args, torch.tensor([0.01], device=dev))
+        else:
+            d = cfg.data
+            h, w = d.height // 2**d.downsample, d.width // 2**d.downsample
+            Tk = d.num_input_views * (h >> enc.num_conv_blocks) * (w >> enc.num_conv_blocks)
+            Tq = d.num_points
+        q, k, v, g = (torch.randn((batch, T, H * C), generator=gen, device=dev) for T in (Tq, Tk, Tk, Tq))
+        for dtype in dtypes:
+            qq, kk, vv, gg = (x.to(dtype) for x in (q, k, v, g))
+            tag = f"{name} B={batch} Tq={Tq} Tk={Tk} C={C} {str(dtype).split('.')[-1]}"
+            with torch.no_grad():
+                if enc.attn.is_gta:
+                    _, res = tgf.gta_fused_fwd(qq, kk, vv, t, H, C**-0.5, residuals=True)
+                    fwd = time_ms(lambda: tgf.gta_fused_fwd(qq, kk, vv, t, H, C**-0.5, residuals=True))
+                    bwd = time_ms(lambda: tgf.gta_fused_bwd(qq, kk, vv, t, H, C**-0.5, gg, res))
+                    kernels = ("gta_fused_fwd", "gta_fused_bwd")
+                else:
+                    out, lse = fc.flash_core_fwd(qq, kk, vv, H, C**-0.5, residuals=True)
+                    fwd = time_ms(lambda: fc.flash_core_fwd(qq, kk, vv, H, C**-0.5, residuals=True))
+                    bwd = time_ms(lambda: fc.flash_core_bwd(qq, kk, vv, H, C**-0.5, gg, out, lse))
+                    kernels = ("flash_core_fwd", "flash_core_bwd")
+            for kernel, ms in zip(kernels, (fwd, bwd)):
+                print(f"time {opts.label} {kernel} {tag}: {ms:.4f} ms", flush=True)
+                results[f"{kernel} {tag}"] = ms
+            torch.cuda.empty_cache()
+    print(json.dumps({"label": opts.label, "ms": results}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,7 @@
 Usage:
     python -m gta_tpu_torch.train <config.yaml> [--synthetic] [--outdir DIR]
         [--exit-after N] [--evalnow] [--max-eval N] [--seed S]
-        [--batch-size B] [--device cuda|cpu]
+        [--batch-size B] [--bf16] [--device cuda|cpu]
 
 Trains on synthetic CLEVR-TR-shaped scenes (the only data family ported so
 far; a config without a data path falls back to them, as train.py does).
@@ -15,7 +15,9 @@ checkpoint and every `backup_every` a stamped backup, all under
 checkpoint and prints "Resumed from checkpoint at it=N". --exit-after N
 stops after step N (N + 1 steps from scratch) and saves `latest`. The
 device defaults to CUDA and the run fails without it unless --device cpu
-is given. Not ported yet: --visnow and visualisation (ROADMAP queue 1
+is given. The config's `training.mixed_prec` picks the compute dtype (bf16
+or fp32; parameters stay fp32); --bf16 forces bf16 (train.py:101-103,
+176-178). Not ported yet: --visnow and visualisation (ROADMAP queue 1
 item 4), loader workers (item 6), gradient accumulation and multi-device
 flags (item 9).
 """
@@ -41,6 +43,9 @@ def main(argv=None):
     parser.add_argument("--max-eval", type=int, default=None)
     parser.add_argument("--synthetic", action="store_true", help="use synthetic scenes")
     parser.add_argument("--batch-size", type=int, default=None, help="override the batch size")
+    parser.add_argument(
+        "--bf16", action="store_true", help="force training.mixed_prec (bf16 compute policy) regardless of config"
+    )
     parser.add_argument("--device", type=str, default=None, help="default: cuda")
     args = parser.parse_args(argv)
     if not os.path.exists(args.config):
@@ -70,6 +75,8 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, seed=args.seed)
     if args.batch_size is not None:
         cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, batch_size=args.batch_size))
+    if args.bf16:
+        cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, mixed_prec=True))
     t_cfg = cfg.training
     max_it = args.exit_after if args.exit_after is not None else t_cfg.max_it
     out_dir = args.outdir or os.path.dirname(args.config)
@@ -90,7 +97,8 @@ def main(argv=None):
     counts = trainer.param_counts()
     print(
         f"Number of parameters: encoder {counts['encoder']:,}, "
-        f"decoder {counts['decoder']:,}, total {counts['total']:,}"
+        f"decoder {counts['decoder']:,}, total {counts['total']:,}; compute dtype "
+        f"{str(trainer.dtype).replace('torch.', '')}"
     )
     restored, scalars = ckpt.try_restore_latest(trainer, max_it)
     if restored:

@@ -6,10 +6,15 @@ MSE -> backward through the attention kernels -> AdamW) and evaluation and
 rendering (`eval_step`, `evaluate`, `render_image`, `render_rays`, always
 with dropout off).
 
-Precision policy for fp32 configs: fp32 accuracy. TF32 is switched off for
-both matmuls and cuDNN convolutions; the attention kernels (fused GTA and
-flash_core, one attention core) compute as 3xTF32 on the tensor cores
-(three TF32 products per fp32 product).
+Precision policy, from `training.mixed_prec` (the JAX trainer's
+`self.dtype`, gta_tpu/train/trainer.py:56): the model computes in bf16 when
+it is set and in fp32 otherwise (`Trainer.dtype`, models/layers.py).
+Parameters and the AdamW state are fp32 either way, and so are the pixels
+and the loss. TF32 is switched off for both matmuls and cuDNN convolutions,
+and bf16 matmuls reduce in fp32; the attention kernels (fused GTA and
+flash_core, one attention core) compute as 3xTF32 on the tensor cores in
+fp32 (three TF32 products per fp32 product) and take bf16 operands with
+fp32 accumulation in bf16.
 """
 
 from __future__ import annotations
@@ -44,18 +49,19 @@ def resolve_device(device: Optional[str]) -> torch.device:
 class Trainer:
     """Owns the model, its optimizer and schedule, and the train, evaluation
     and rendering entry points. `seed` (default cfg.seed) draws the initial
-    weights and seeds the dropout generator."""
+    weights and seeds the dropout generator. `dtype` is the compute dtype:
+    bf16 when `training.mixed_prec` is set, else fp32."""
 
     def __init__(self, cfg: Config, device: Optional[str] = None, seed: Optional[int] = None):
         t = cfg.training
-        if t.mixed_prec:
-            raise NotImplementedError("mixed precision is not ported yet (ROADMAP queue 1 item 3c: the bf16 policy)")
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.cfg = cfg
+        self.dtype = torch.bfloat16 if t.mixed_prec else torch.float32
         seed = cfg.seed if seed is None else seed
-        self.model = build_model(cfg.model)
+        self.model = build_model(cfg.model, dtype=self.dtype)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(seed)

@@ -1,5 +1,8 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions:
-the fused GTA forward and backward, and flash_core forward and backward.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions
+and fp64: the fused GTA forward and backward, and flash_core forward and
+backward, each in its fp32 instance and its bf16 one (the bf16 instances
+held to 1.5x the error of the TPU kernel's rounding, the plain version with
+mxu_dtype=bf16).
 
 A CUDA kernel has no CPU mode, so every test here is marked `cuda` and skips
 without a card. The file imports only torch, numpy and the port, so it runs
@@ -592,3 +595,229 @@ def test_failed_build_raises_with_the_compiler_output(cuda_device, tmp_path, mon
     q = torch.zeros((B, 4, H * C), device=cuda_device)
     with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc failed for flash_core_fwd"):
         fc.flash_core_fwd(q, q, q, H, SCALE)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 instances of all four kernels (bf16 q, k, v and cotangents, fp32
+# tables, fp32 accumulation): each output held to fp64 on the same bf16
+# inputs, beside the plain version with mxu_dtype=bf16, which rounds every
+# product's operands to bf16 as the TPU kernels do. Rule: per output, the
+# kernel's relative L2 error is at most 1.5x the emulation's.
+# ---------------------------------------------------------------------------
+
+BF = torch.bfloat16
+
+
+def _rel(a, r):
+    """Relative L2 error of a against r; where r is all zero (a single key
+    gives dq = dk = 0), the norm of a."""
+    den = r.norm().item()
+    return ((a.double() - r).norm() / den).item() if den > 0 else a.double().norm().item()
+
+
+def _bf16_gta_errors(qB, kB, vB, t, heads, scale, g):
+    """({output: kernel's relative L2 error against fp64}, {output: the
+    bf16 emulation's}) for the fused GTA kernels on bf16 copies of the
+    operands (out, z, dq, dk, dv, dmq, dmk, dmo; absent ones left out)."""
+    q, k, v, gg = (x.to(BF).contiguous() for x in (qB, kB, vB, g))
+    launches = (tgf.gta_fused_fwd.launches_bf16, tgf.gta_fused_bwd.launches_bf16)
+    out, res = tgf.gta_fused_fwd(q, k, v, t, heads, scale, residuals=True)
+    got = tgf.gta_fused_bwd(q, k, v, t, heads, scale, gg, res)
+    torch.cuda.synchronize()
+    assert (tgf.gta_fused_fwd.launches_bf16 - launches[0], tgf.gta_fused_bwd.launches_bf16 - launches[1]) == (1, 1)
+    assert out.dtype == res.z.dtype == BF and all(x.dtype == BF for x in got[:3])
+    assert all(x is None or x.dtype == torch.float32 for x in got[3:])
+    emu_out, emu_z = tgf.gta_fused_fwd_plain(q, k, v, t, heads, scale, store_z=True, mxu_dtype=BF)
+    emu = tgf.gta_fused_bwd_plain(q, k, v, t, heads, scale, gg, emu_z, mxu_dtype=BF)
+    t64 = tgf.FusedTables(*[None if x is None else x.double() for x in tgf._tables(t)], t.nq, t.nk, t.v_transform)
+    q64, k64, v64 = q.double(), k.double(), v.double()
+    ref_out, ref_z = tgf.gta_fused_fwd_plain(q64, k64, v64, t64, heads, scale, store_z=True)
+    ref = tgf.gta_fused_bwd_plain(q64, k64, v64, t64, heads, scale, gg.double(), ref_z)
+    names = ("out", "z", "dq", "dk", "dv", "dmq", "dmk", "dmo")
+
+    def rel(values):
+        return {n: _rel(a, r) for n, a, r in zip(names, values, (ref_out, ref_z, *ref)) if r is not None}
+
+    return rel((out, res.z, *got)), rel((emu_out, emu_z, *emu))
+
+
+def _assert_bf16_rule(errs, emu):
+    for name, err in errs.items():
+        assert err <= 1.5 * emu[name], (name, errs, emu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("args,tq,tk,nv", [
+    (GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8), 600, 600, 2),
+    (GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8), 192, 600, 2),
+    (GTAArgs(f_dims=FDims(triv=16, se3=16, so2=32), so2=8, v_transform=False), 600, 600, 2),
+    (MSN_ARGS, 640, 640, 5),
+    (MSN_ARGS, 192, 640, 5),
+], ids=["clevr-self", "clevr-cross", "no-v-transform", "msn_so3_c96-self", "msn_so3_c96-cross"])
+def test_gta_fused_bf16_error_against_fp64(rng, cuda_device, args, tq, tk, nv):
+    """The bf16 instances (C = 64 and C = 96) against fp64 on the same bf16
+    inputs: every output within 1.5x the relative L2 error of the bf16
+    emulation (the TPU kernel's own rounding)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    heads = H if args.f_dims.total == 64 else MSN_H
+    reps, _, (q, k, v) = _inputs(rng, args, cuda_device, tq=tq, tk=tk, nv=nv, heads=heads)
+    qB, kB, vB = (_tokens(x).to(cuda_device) for x in (q, k, v))
+    g = torch.randn(qB.shape, generator=torch.Generator(device=cuda_device).manual_seed(11), device=cuda_device)
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        errs, emu = _bf16_gta_errors(qB, kB, vB, t, heads, args.f_dims.total**-0.5, g)
+    _assert_bf16_rule(errs, emu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("args,nv", [(GTAArgs(f_dims=FDims(se3=64)), 1), (MSN_ARGS, 2), (MSN_ARGS, 5)],
+                         ids=["se3_64-1view", "msn_so3_c96-2views", "msn_so3_c96-5views"])
+def test_gta_fused_bf16_error_with_common_component(rng, cuda_device, args, nv):
+    """q, k and v rows that share a component of 8x their spread: the bf16
+    instances centre kt and vt in fp32 before rounding them to bf16, so each
+    output stays within 1.5x the bf16 emulation's error (which rounds the
+    uncentred rows)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    heads = H if args.f_dims.total == 64 else MSN_H
+    reps, _, (q, k, v) = _inputs(rng, args, cuda_device, tq=600, tk=600, nv=nv, heads=heads)
+    qB, kB, vB = (_tokens(x).to(cuda_device) for x in (q, k, v))
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    for x in (qB, kB, vB):
+        x += 8 * torch.randn((B, 1, x.shape[-1]), generator=gen, device=cuda_device)
+    g = torch.randn(qB.shape, generator=gen, device=cuda_device)
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        errs, emu = _bf16_gta_errors(qB, kB, vB, t, heads, args.f_dims.total**-0.5, g)
+    _assert_bf16_rule(errs, emu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("args", [GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8), MSN_ARGS], ids=["c64", "c96"])
+def test_gta_fused_bf16_bwd_is_deterministic(rng, cuda_device, args):
+    """Two bf16 backward launches on the same inputs give bit-identical
+    outputs."""
+    heads = H if args.f_dims.total == 64 else MSN_H
+    reps, _, (q, k, v) = _inputs(rng, args, cuda_device, tq=192, tk=640, nv=5, heads=heads)
+    qB, kB, vB = (_tokens(x).to(cuda_device).to(BF) for x in (q, k, v))
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        _, res = tgf.gta_fused_fwd(qB, kB, vB, t, heads, args.f_dims.total**-0.5, residuals=True)
+        g = torch.randn(qB.shape, generator=torch.Generator(device=cuda_device).manual_seed(2), device=cuda_device).to(BF)
+        first = tgf.gta_fused_bwd(qB, kB, vB, t, heads, args.f_dims.total**-0.5, g, res)
+        second = tgf.gta_fused_bwd(qB, kB, vB, t, heads, args.f_dims.total**-0.5, g, res)
+    for name, a, b in zip(("dq", "dk", "dv", "dmq", "dmk", "dmo"), first, second):
+        assert a is not None, name
+        assert torch.equal(a, b), name
+
+
+# an output rounded to bf16 alone is up to 2^-9 off per element: the floor of
+# the edge shapes' rule, where the emulation can be exact (one key)
+BF16_ULP = 2.0**-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fd,so2,vt,heads", [
+    (dict(se3=32, so2=32), 8, True, H),
+    (dict(triv=64), 0, True, H),
+    (dict(se3=48, so3=24, so2=24), 6, True, MSN_H),
+], ids=["c64-every-transform", "c64-none", "c96-msn_so3"])
+@pytest.mark.parametrize("tq", [1, 17, 601])
+@pytest.mark.parametrize("tk", [1, 33, 2100])
+def test_gta_fused_bf16_kernels_at_edge_shapes(rng, cuda_device, fd, so2, vt, heads, tq, tk):
+    """The bf16 instances at the ragged shapes of the fp32 edge test: every
+    output finite and within max(1.5x the bf16 emulation's relative L2
+    error against fp64, 2^-8)."""
+    args = GTAArgs(f_dims=FDims(**fd), so2=so2, so3=2 if "so3" in fd else 0, v_transform=vt)
+    reps, q, k, v, g = _edge_inputs(rng, args, cuda_device, tq, tk, heads=heads)
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        errs, emu = _bf16_gta_errors(q, k, v, t, heads, args.f_dims.total**-0.5, g)
+    for name, err in errs.items():
+        assert err <= max(1.5 * emu[name], BF16_ULP), (name, errs, emu)
+
+
+def _bf16_flash_errors(q, k, v, g):
+    """({output: relative L2 error against fp64}, {output: the bf16
+    emulation's}) for both flash_core kernels on bf16 copies of the
+    operands (out, dq, dk, dv)."""
+    q, k, v, g = (x.to(BF).contiguous() for x in (q, k, v, g))
+    launches = (fc.flash_core_fwd.launches_bf16, fc.flash_core_bwd.launches_bf16)
+    out, lse = fc.flash_core_fwd(q, k, v, H, SCALE, residuals=True)
+    got = fc.flash_core_bwd(q, k, v, H, SCALE, g, out, lse)
+    torch.cuda.synchronize()
+    assert (fc.flash_core_fwd.launches_bf16 - launches[0], fc.flash_core_bwd.launches_bf16 - launches[1]) == (1, 1)
+    assert all(x.dtype == BF for x in (out, *got))
+    emu = (fc.flash_core_fwd_plain(q, k, v, H, SCALE, mxu_dtype=BF), *fc.flash_core_bwd_plain(q, k, v, H, SCALE, g, mxu_dtype=BF))
+    q64, k64, v64 = q.double(), k.double(), v.double()
+    ref = (fc.flash_core_fwd_plain(q64, k64, v64, H, SCALE), *fc.flash_core_bwd_plain(q64, k64, v64, H, SCALE, g.double()))
+    names = ("out", "dq", "dk", "dv")
+    return ({n: _rel(a, r) for n, a, r in zip(names, (out, *got), ref)},
+            {n: _rel(a, r) for n, a, r in zip(names, emu, ref)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,common", [(600, 600, 0.0), (2560, 600, 0.0), (2560, 600, 8.0)],
+                         ids=["self", "cross", "cross-common-component"])
+def test_flash_core_bf16_error_against_fp64(cuda_device, tq, tk, common):
+    """The bf16 instances against fp64 on the same bf16 inputs, also with
+    keys and values that share a component of 8x their spread: every
+    output within 1.5x the relative L2 error of the bf16 emulation."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _flash_inputs(cuda_device, tq, tk, seed=12)
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    k = k + common * torch.randn((B, 1, H * C), generator=gen, device=cuda_device)
+    v = v + common * torch.randn((B, 1, H * C), generator=gen, device=cuda_device)
+    with torch.no_grad():
+        errs, emu = _bf16_flash_errors(q, k, v, g)
+    _assert_bf16_rule(errs, emu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 601])
+@pytest.mark.parametrize("tk", [1, 33, 2100])
+def test_flash_core_bf16_kernels_at_edge_shapes(cuda_device, tq, tk):
+    """The bf16 instances at the fp32 edge shapes: every output within
+    max(1.5x the bf16 emulation's relative L2 error against fp64, 2^-8)."""
+    q, k, v, g = _flash_inputs(cuda_device, tq, tk, seed=14)
+    with torch.no_grad():
+        errs, emu = _bf16_flash_errors(q, k, v, g)
+    for name, err in errs.items():
+        assert err <= max(1.5 * emu[name], BF16_ULP), (name, errs, emu)
+
+
+@pytest.mark.cuda
+def test_flash_core_bf16_bwd_is_deterministic(cuda_device):
+    """Two bf16 backward launches on the same inputs give bit-identical
+    outputs."""
+    q, k, v, g = (x.to(BF) for x in _flash_inputs(cuda_device, 601, 600, seed=15))
+    with torch.no_grad():
+        out, lse = fc.flash_core_fwd(q, k, v, H, SCALE, residuals=True)
+        first = fc.flash_core_bwd(q, k, v, H, SCALE, g, out, lse)
+        second = fc.flash_core_bwd(q, k, v, H, SCALE, g, out, lse)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_uncovered_dtypes_raise(rng, cuda_device):
+    """fp16 operands (no instance) raise NotImplementedError naming their
+    ROADMAP item on both kernels; bf16 operands beside fp32 ones raise
+    ValueError; nothing launches."""
+    q, k, v, g = (x.half() for x in _flash_inputs(cuda_device, 64, 64))
+    args = GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8)
+    reps, _, (qg, kg, vg) = _inputs(rng, args, cuda_device)
+    qB, kB, vB = (_tokens(x).to(cuda_device) for x in (qg, kg, vg))
+    counts = lambda: (fc.flash_core_fwd.launches, fc.flash_core_fwd.launches_bf16,  # noqa: E731
+                      tgf.gta_fused_fwd.launches, tgf.gta_fused_fwd.launches_bf16)
+    before = counts()
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3e"):
+            fc.flash_core_fwd(q, k, v, H, SCALE)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3e"):
+            tgf.gta_fused_fwd(qB.half(), kB.half(), vB.half(), t, H, SCALE)
+        with pytest.raises(ValueError, match="contiguous fp32"):
+            tgf.gta_fused_fwd(qB.to(BF), kB, vB, t, H, SCALE)
+        with pytest.raises(ValueError, match="contiguous fp32"):
+            fc.flash_core_fwd(q.to(BF), k.float(), v.float(), H, SCALE)
+    assert counts() == before

@@ -16,6 +16,8 @@
     2 heads of 96, one block each side, 5 views of 32x32. eval_step pixels
     and a chunked render_image within 1e-4, one step's gradients within
     5e-5 / rtol 1e-3, params after two steps within 1e-5;
+  * the published msn_so3 config (bf16, no override) builds a bf16 Trainer
+    with fp32 parameters;
   * the train and evaluate CLIs on the CLEVR-TR gta_so3 config.
 
 The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py.
@@ -39,7 +41,7 @@ from gta_tpu.train.trainer import Trainer as JTrainer, TrainState
 from gta_tpu_torch import evaluate as t_evaluate
 from gta_tpu_torch.config import DataConfig, FDims, GTAArgs, load_config
 from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
-from gta_tpu_torch.ops import gta_fused as tgf
+from gta_tpu_torch.ops import _cuda, gta_fused as tgf
 from gta_tpu_torch.ops.gta import _blockdiag_mat
 from gta_tpu_torch.ops.reps import decoder_reps, encoder_reps
 from gta_tpu_torch.train import __main__ as t_train
@@ -332,13 +334,21 @@ def test_two_train_steps_match_jax(model):
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), atol=1e-5, err_msg=name)
 
 
-def test_msn_mixed_precision_still_raises():
-    """The published msn_so3 config asks for bf16, which the port does not
-    compute yet: the Trainer refuses it on every device."""
+def test_msn_so3_published_config_builds_bf16_trainer():
+    """The published msn_so3 config (mixed_prec, no override) builds a
+    Trainer that computes in bf16 with fp32 parameters, at full width; an
+    operand dtype no kernel instance covers still raises, naming its
+    ROADMAP item, where a CUDA tensor of it would reach the kernels."""
     cfg = load_config(MSN_SO3)
     assert cfg.training.mixed_prec
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3c"):
-        Trainer(_msn_shrink(cfg), device="cpu")
+    trainer = Trainer(cfg, device="cpu")
+    assert trainer.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    dtypes = {m.compute_dtype for m in trainer.model.modules() if hasattr(m, "compute_dtype")}
+    assert dtypes == {torch.bfloat16}
+    _cuda.check_kernel_dtype("kernel", torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3e"):
+        _cuda.check_kernel_dtype("kernel", torch.float16)
 
 
 def test_train_cli_on_cpu(tmp_path, capsys):
