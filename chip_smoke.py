@@ -25,13 +25,15 @@ dataset's shapes:
   - the MSN-Hard SRT baseline as published (runs/msn/otherPEs/srt; bf16,
     12 heads of 64, `ray` embeddings, 5 views of 128x128, batch 64),
     through the bf16 instances of flash_core.
-All four kernels run one attention core (gta_tpu_torch/csrc/attn_core.cuh:
-a forward, a query pass and a key pass) in two precision policies: fp32
-(3xTF32 mma.sync on the tensor cores, P*V, dP and dq taken about centre
-rows: the fused GTA kernels' transformed rows centred on the rows' means,
-flash_core's raw token-major q, k, v on the first key's rows) and bf16
-(bf16 mma.sync with fp32 accumulation; transformed kt, vt centred in fp32
-before their rounding, raw bf16 rows as they are).
+The fp32 instances of all four kernels and flash_core's bf16 ones run one
+attention core (gta_tpu_torch/csrc/attn_core.cuh: a forward, a query pass
+and a key pass) in two precision policies: fp32 (3xTF32 mma.sync on the
+tensor cores, P*V, dP and dq taken about centre rows: the fused GTA
+kernels' transformed rows centred on the rows' means, flash_core's raw
+token-major q, k, v on the first key's rows) and bf16 (bf16 mma.sync with
+fp32 accumulation). The fused GTA kernels' bf16 instances run their own
+core (gta_tpu_torch/csrc/attn_sm90.cuh: wgmma fed by TMA; transformed kt,
+vt centred in fp32 before their rounding, raw bf16 rows as they are).
 
 Phases (any failure exits non-zero and prints no result line):
   1. The card's name and power limit; build every CUDA kernel of the port
@@ -71,7 +73,9 @@ Phases (any failure exits non-zero and prints no result line):
      495 / 3 TFLOP/s), both with bytes at 3.35 TB/s.
      - each bf16 instance at the published msn configs' shapes (B=64,
        1280 keys: encoder, decoder eval, render chunk B=1 x 16384, and the
-       two train shapes with the backward): each output's relative L2
+       two train shapes with the backward), the fused GTA ones also at
+       CLEVR-TR gta's decoder shapes under --bf16 (B=32, 3x856 queries,
+       600 keys, C = 64; eval and train): each output's relative L2
        error against its plain version (fp32 inside) on the same bf16
        inputs at most 1.5x the bf16 emulation's (the plain version with
        mxu_dtype=bf16, the TPU kernel's rounding), and the same rule
@@ -632,12 +636,13 @@ def bf16_rule(kind, label, got, emu, ref, names):
     return errs
 
 
-def bf16_kernel_phase(cfg, label, device):
-    """The bf16 instances of a published msn config's kernels (fused GTA for
-    msn_so3, flash_core for the SRT baseline) at its shapes: encoder
-    self-attention and decoder eval (B=64, 1280 keys) and a render chunk
-    (B=1 x 16384 rays) forward, the encoder and decoder train shapes
-    forward (residuals) and backward. Each output held to its plain version
+def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=None):
+    """The bf16 instances of a config's kernels (fused GTA for msn_so3 and
+    CLEVR-TR gta under --bf16, flash_core for the MSN SRT baseline) at its
+    shapes (`names` of them, all by default): encoder self-attention and
+    decoder eval (msn: B=64, 1280 keys) and a render chunk (B=1 x 16384
+    rays) forward, the encoder and decoder train shapes forward (residuals)
+    and backward. Each output held to its plain version
     (fp32 inside) on the same bf16 inputs: relative L2 at most BF16_RULE x
     the bf16 emulation's; and, at the same shape cut to B=2, to the plain
     version in fp64 by the same rule. Times: the kernel, the plain version,
@@ -657,11 +662,11 @@ def bf16_kernel_phase(cfg, label, device):
     scale = C**-0.5
     gta = enc.attn.is_gta
     if gta:
-        calls = gta_calls(cfg, device, MSN_BATCH, prefix="msn_")
-        shapes = {name: (B, Tq, Tk) for name, (_, _, B, Tq, Tk) in calls.items()}
+        calls = gta_calls(cfg, device, batch, prefix=prefix)
+        shapes = {name: (B, Tq, Tk) for name, (_, _, B, Tq, Tk) in calls.items() if names is None or name in names}
         tc = torch.tensor([0.01], device=device).to(bf)
     else:
-        shapes = {f"msn_{n}": v for n, v in srt_shapes(cfg, MSN_BATCH).items()}
+        shapes = {f"{prefix}{n}": v for n, v in srt_shapes(cfg, batch).items()}
     kind = "gta_fused" if gta else "flash_core"
     gen = torch.Generator(device=device).manual_seed(5)
     fwd, bwd = {}, {}
@@ -1317,6 +1322,9 @@ def main() -> int:
     flash_fwd, flash_bwd = flash_kernel_phase(srt_cfg, device)
     edge_fwd, edge_bwd = flash_edge_phase(device)
     gta_bf16_fwd, gta_bf16_bwd = bf16_kernel_phase(msn_bf16, "msn_so3", device)
+    clevr_bf16_fwd, clevr_bf16_bwd = bf16_kernel_phase(
+        synthetic(GTA_CONFIG, mixed_prec=True), "CLEVR-TR gta --bf16", device, EVAL_BATCH, "clevr_bf16_",
+        ("clevr_bf16_decoder_eval_b32", "clevr_bf16_decoder_train_b32"))
     flash_bf16_fwd, flash_bf16_bwd = bf16_kernel_phase(msn_srt, "msn SRT", device)
 
     paths = {
@@ -1360,9 +1368,9 @@ def main() -> int:
         kernel_entry("flash_core_bwd", "gta_tpu/ops/flash_core.py:86", by_path("flash_core_bwd"),
                      "decoder_train_b32", flash_bwd, edge_bwd),
         kernel_entry("gta_fused_fwd_bf16", "gta_tpu/ops/gta_fused.py:209", by_path("gta_fused_fwd_bf16"),
-                     "msn_decoder_eval_b64", gta_bf16_fwd, 0.0, source="gta_fused_fwd"),
+                     "msn_decoder_eval_b64", {**gta_bf16_fwd, **clevr_bf16_fwd}, 0.0, source="gta_fused_fwd"),
         kernel_entry("gta_fused_bwd_bf16", "gta_tpu/ops/gta_fused.py:235", by_path("gta_fused_bwd_bf16"),
-                     "msn_decoder_train_b64", gta_bf16_bwd, 0.0, source="gta_fused_bwd"),
+                     "msn_decoder_train_b64", {**gta_bf16_bwd, **clevr_bf16_bwd}, 0.0, source="gta_fused_bwd"),
         kernel_entry("flash_core_fwd_bf16", "gta_tpu/ops/flash_core.py:73", by_path("flash_core_fwd_bf16"),
                      "msn_decoder_eval_b64", flash_bf16_fwd, 0.0, source="flash_core_fwd"),
         kernel_entry("flash_core_bwd_bf16", "gta_tpu/ops/flash_core.py:86", by_path("flash_core_bwd_bf16"),

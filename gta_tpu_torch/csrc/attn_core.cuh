@@ -1,12 +1,13 @@
-// The softmax attention core of every attention kernel of this directory,
+// The softmax attention core of the attention kernels of this directory,
 // forward and backward, on Hopper's tensor cores, in two precision policies:
 // fp32 accuracy (3xTF32 mma.sync, csrc/tf32x3.cuh; `Fp32`) and bf16
 // operands with fp32 accumulation (bf16 mma.sync, csrc/bf16_mma.cuh;
-// `Bf16`), the JAX package's two policies. Shared by the fused GTA kernels
-// (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu), which run it over the
-// transformed qt, kt, vt of their row launches, and by flash_core
-// (csrc/flash_core_fwd.cu, csrc/flash_core_bwd.cu), which runs it over the
-// raw token-major q, k, v. It is the attention core of the TPU kernels
+// `Bf16`), the JAX package's two policies. Shared by the fp32 instances of
+// the fused GTA kernels (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu),
+// which run it over the transformed qt, kt, vt of their row launches, and
+// by flash_core (csrc/flash_core_fwd.cu, csrc/flash_core_bwd.cu), which
+// runs it over the raw token-major q, k, v in either policy. (The fused
+// GTA kernels' bf16 instances run csrc/attn_sm90.cuh.) It is the attention core of the TPU kernels
 // gta_tpu/ops/gta_fused.py:209 `_fwd_kernel` and :235 `_bwd_kernel`, and
 // the whole of gta_tpu/ops/flash_core.py:73 `_fwd_kernel` and :86
 // `_bwd_kernel`. Per (batch b, head h), head width C = 64 or 96:

@@ -76,6 +76,13 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* X, int ld, 
   ldsm_x4(a, X + ((m & 1) * 8 + r) * ld + k0 + (m >> 1) * 8);
 }
 
+// the same with A[m][k] = T[k * ld + m] (T holds one row per k, e.g. rows
+// for X^T Y), m in [m0, m0 + 16)
+__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* T, int ld, int m0, int k0) {
+  const int l = threadIdx.x & 31, m = l >> 3, r = l & 7;
+  ldsm_x4_t(a, T + (k0 + (m >> 1) * 8 + r) * ld + m0 + (m & 1) * 8);
+}
+
 // B of the two n8 tiles n0 and n0 + 8, k in [k0, k0 + 16), with
 // B[k][n] = T[n * ld + k] (T holds one row per n, e.g. keys for q k^T):
 // b[0], b[1] for tile n0, b[2], b[3] for tile n0 + 8

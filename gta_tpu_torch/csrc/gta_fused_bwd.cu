@@ -1,7 +1,7 @@
 // Fully fused GTA attention backward for Hopper (sm_90a), in two precision
 // policies: fp32 accuracy (the attention core as 3xTF32 mma.sync,
-// csrc/tf32x3.cuh) and bf16 operands with fp32 accumulation (bf16 mma.sync,
-// csrc/bf16_mma.cuh).
+// csrc/tf32x3.cuh) and bf16 operands with fp32 accumulation (the attention
+// core as wgmma fed by TMA, csrc/attn_sm90.cuh).
 //
 // Replaces gta_tpu/ops/gta_fused.py:235 `_bwd_kernel` (the Pallas TPU
 // recompute backward, launched by `_bwd_call` :398 and wrapped by the VJP
@@ -53,17 +53,19 @@
 //    partial buffer, and a second kernel adds the slices in a fixed order.
 //  * bf16 (`gta_fused_bwd_bf16`): the cotangent, do and the core's
 //    operands are bf16 (qt, and transformed kt, vt centred on their means:
-//    the forward's residuals; raw rows as they are), the core writes dqt,
-//    dkt, dvt in fp32, the chains
-//    read them in fp32 and write dq, dk, dv in bf16, and the dM reduction
-//    reads the bf16 q, k, v, z beside the fp32 chain rows and sums in fp32
-//    (3xTF32) as the fp32 instance does. The core takes delta from its own
-//    products (attn_core.cuh), so z is read for dMo alone.
+//    the forward's residuals; raw rows as they are). The core is
+//    csrc/attn_sm90.cuh's query pass and one key pass (wgmma, TMA-fed
+//    tiles, no dv/dk split at either head width); it writes dqt, dkt, dvt
+//    in fp32, the chains (bf16 products, the TPU kernel's rounding) read
+//    them in fp32 and write dq, dk, dv in bf16, and the dM reduction reads
+//    the bf16 q, k, v, z beside the fp32 chain rows, rounded to bf16 as the
+//    TPU kernel rounds them, with fp32 sums (`gta_bwd_dm_bf16_kernel`). The
+//    core takes delta from its own products, so z is read for dMo alone.
 // Instances: head width C = 64 (CLEVR-TR) and C = 96 (msn), dispatched on
-// the C argument; at C = 96 the core runs two key passes (attn_core.cuh)
-// and the dM reduction 6 warps a block. Registers and spills of every
-// kernel: PERF.md.
-// Not yet: wgmma and TMA, 5 products in place of 7 (attn_core.cuh).
+// the C argument; at C = 96 the fp32 core runs two key passes
+// (attn_core.cuh) and the dM reduction 6 warps a block. Registers and
+// spills of every kernel: PERF.md.
+// Not yet, fp32: wgmma and TMA, 5 products in place of 7 (attn_core.cuh).
 //
 // Interface: plain C, bound from Python with ctypes. `gta_fused_bwd`: every
 // pointer a contiguous fp32 device array. `gta_fused_bwd_bf16`: q, k, v, g,
@@ -75,6 +77,7 @@
 #include <stdint.h>
 
 #include "attn_core.cuh"
+#include "attn_sm90.cuh"
 #include "gta_rows.cuh"
 #include "tf32x3.cuh"
 
@@ -106,21 +109,6 @@ __host__ __device__ constexpr int dm_smem_bytes() {
   return 2 * 2 * DM_ROWS * (C + 8) * (int)sizeof(float);
 }
 
-// rows [0, DM_ROWS) of X (row stride C) into a [DM_ROWS][LD] fp32 tile, zero
-// at or past n: by cp.async for fp32 rows, converted for bf16 ones
-template <int C, int THREADS, int LD, class TX>
-__device__ __forceinline__ void stage_x(float* tile, const TX* base, int n) {
-  if constexpr (sizeof(TX) == sizeof(float)) {
-    stage_rows<C, DM_ROWS, THREADS, LD>(tile, reinterpret_cast<const float*>(base), C, n);
-  } else {
-    for (int idx = threadIdx.x; idx < DM_ROWS * C / 4; idx += THREADS) {
-      const int r = idx / (C / 4), c4 = idx % (C / 4);
-      const float4 x = r < n ? attn::load4(base + (int64_t)r * C + 4 * c4) : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(tile + r * LD + 4 * c4) = x;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Matrix cotangents: part[b, view, split] = sum over a slice of the view's
 // (row, head) pairs of X1^T Y1 (+ X2^T Y2), on the tensor cores. X*, Y* are
@@ -129,12 +117,12 @@ __device__ __forceinline__ void stage_x(float* tile, const TX* base, int n) {
 // C x C output. Pairs stream through dynamic shared memory DM_ROWS at a time
 // (double-buffered; 36 KB at C = 64, 52 KB at C = 96); each step's product
 // starts from zero and joins the running sum by rounded fp32 adds, as in
-// the passes.
+// the passes. The fp32 instance's form (the bf16 one's is below).
 // ---------------------------------------------------------------------------
-template <int C, class TX>
+template <int C>
 __global__ void __launch_bounds__(dm_threads<C>())
-gta_bwd_dm_kernel(const TX* __restrict__ X1, const float* __restrict__ Y1,
-                  const TX* __restrict__ X2, const float* __restrict__ Y2,
+gta_bwd_dm_kernel(const float* __restrict__ X1, const float* __restrict__ Y1,
+                  const float* __restrict__ X2, const float* __restrict__ Y2,
                   float* __restrict__ part, int64_t rows, int rpv, int splits) {
   constexpr int THREADS = dm_threads<C>();
   static_assert(C == 16 * (THREADS / 32), "a warp per 16 rows of the C x C output");
@@ -159,22 +147,22 @@ gta_bwd_dm_kernel(const TX* __restrict__ X1, const float* __restrict__ Y1,
 #pragma unroll
   for (int j = 0; j < KS; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   for (int pair = 0; pair < 2; ++pair) {
-    const TX* X = pair ? X2 : X1;
+    const float* X = pair ? X2 : X1;
     const float* Y = pair ? Y2 : Y1;
     if (X == nullptr) continue;
-    const TX* xb = X + (int64_t)b * rows * C;
+    const float* xb = X + (int64_t)b * rows * C;
     const float* yb = Y + (int64_t)b * rows * C;
     const int steps = (int)((r1 - r0 + DM_ROWS - 1) / DM_ROWS);
     for (int st = 0; st < steps; ++st) {
       const int buf = st & 1;
       if (st == 0) {
-        stage_x<C, THREADS, LD>(Xs, xb + r0 * C, (int)(r1 - r0));
+        stage_rows<C, DM_ROWS, THREADS, LD>(Xs, xb + r0 * C, C, (int)(r1 - r0));
         stage_rows<C, DM_ROWS, THREADS, LD>(Ys, yb + r0 * C, C, (int)(r1 - r0));
         cp_async_commit();
       }
       if (st + 1 < steps) {
         const int64_t s1 = r0 + (int64_t)(st + 1) * DM_ROWS;
-        stage_x<C, THREADS, LD>(Xs + (buf ^ 1) * STAGE, xb + s1 * C, (int)(r1 - s1));
+        stage_rows<C, DM_ROWS, THREADS, LD>(Xs + (buf ^ 1) * STAGE, xb + s1 * C, C, (int)(r1 - s1));
         stage_rows<C, DM_ROWS, THREADS, LD>(Ys + (buf ^ 1) * STAGE, yb + s1 * C, C, (int)(r1 - s1));
         cp_async_commit();
         cp_async_wait<1>();
@@ -222,17 +210,134 @@ __global__ void gta_bwd_dm_sum_kernel(const float* __restrict__ part, float* __r
   dm[idx] = s;
 }
 
+// The bf16 instance's form of gta_bwd_dm_kernel: the TPU kernel's rounding
+// (`_dot` with mxu = bfloat16), X and Y rounded to bf16, one bf16
+// m16n8k16 product a step with fp32 accumulation across every step (a
+// chain's truncation, ~1e-7 of the sum a step, is far below the operands'
+// rounding; scripts/probe_wgmma.py). A warp owns 16 rows of the C x C
+// output; DM_ROWS_BF16 pairs a step staged as [DM_ROWS_BF16][C + 8] bf16
+// tiles (18 KB at C = 64, 26 KB at C = 96). Same grid and partial sums.
+constexpr int DM_ROWS_BF16 = 64;
+
+template <int C>
+__host__ __device__ constexpr int dm_bf16_smem_bytes() {
+  return 2 * DM_ROWS_BF16 * (C + 8) * (int)sizeof(bf16);
+}
+
+// DM_ROWS_BF16 rows of X and Y (row stride C) in registers, a thread's
+// share of them, zero at or past n; then rounded to bf16 into
+// [DM_ROWS_BF16][C + 8] tiles. The next step's rows load while this
+// step's products run.
+template <int C>
+struct DmRows {
+  static constexpr int PER = DM_ROWS_BF16 * C / 4 / dm_threads<C>();
+  float4 x[PER], y[PER];
+
+  __device__ __forceinline__ void load(const bf16* xb, const float* yb, int n) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = threadIdx.x + i * dm_threads<C>();
+      const int r = idx / (C / 4), c4 = idx % (C / 4);
+      x[i] = y[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < n) {
+        x[i] = attn::load4(xb + (int64_t)r * C + 4 * c4);
+        y[i] = attn::load4(yb + (int64_t)r * C + 4 * c4);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(bf16* Xs, bf16* Ys) const {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = threadIdx.x + i * dm_threads<C>();
+      const int r = idx / (C / 4), c4 = idx % (C / 4);
+      attn::store4(Xs + r * (C + 8) + 4 * c4, x[i]);
+      attn::store4(Ys + r * (C + 8) + 4 * c4, y[i]);
+    }
+  }
+};
+
+template <int C>
+__global__ void __launch_bounds__(dm_threads<C>())
+gta_bwd_dm_bf16_kernel(const bf16* __restrict__ X1, const float* __restrict__ Y1, const bf16* __restrict__ X2,
+                       const float* __restrict__ Y2, float* __restrict__ part, int64_t rows, int rpv,
+                       int splits) {
+  constexpr int LD = C + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);  // [DM_ROWS_BF16][LD]
+  bf16* Ys = Xs + DM_ROWS_BF16 * LD;             // [DM_ROWS_BF16][LD]
+  const int slice = blockIdx.x;
+  const int view = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n = gridDim.y;
+  const int per = (rpv + splits - 1) / splits;
+  const int64_t v0 = (int64_t)view * rpv;
+  const int64_t r0 = v0 + (slice * per < rpv ? slice * per : rpv);
+  const int64_t r1 = r0 + per < v0 + rpv ? r0 + per : v0 + rpv;
+  const Lane ln = lane_coords();
+  const int m0 = 16 * (threadIdx.x / 32);
+
+  float acc[C / 8][4];
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int pair = 0; pair < 2; ++pair) {
+    const bf16* X = pair ? X2 : X1;
+    const float* Y = pair ? Y2 : Y1;
+    if (X == nullptr) continue;
+    const bf16* xb = X + (int64_t)b * rows * C;
+    const float* yb = Y + (int64_t)b * rows * C;
+    auto count = [&](int64_t s0) { return (int)(r1 - s0 < DM_ROWS_BF16 ? r1 - s0 : DM_ROWS_BF16); };
+    DmRows<C> rowsr;
+    if (r0 < r1) rowsr.load(xb + r0 * C, yb + r0 * C, count(r0));
+    for (int64_t s0 = r0; s0 < r1; s0 += DM_ROWS_BF16) {
+      rowsr.store(Xs, Ys);
+      __syncthreads();
+      const int64_t s1 = s0 + DM_ROWS_BF16;
+      if (s1 < r1) rowsr.load(xb + s1 * C, yb + s1 * C, count(s1));
+#pragma unroll
+      for (int ks = 0; ks < DM_ROWS_BF16 / 16; ++ks) {
+        uint32_t a[4];
+        bf16mma::load_a_t(a, Xs, LD, m0, 16 * ks);
+#pragma unroll
+        for (int j = 0; j < C / 8; j += 2) {
+          uint32_t bb[4];
+          bf16mma::load_b_kn2(bb, Ys, LD, 16 * ks, 8 * j);
+          bf16mma::mma(acc[j], a, bb[0], bb[1]);
+          bf16mma::mma(acc[j + 1], a, bb[2], bb[3]);
+        }
+      }
+      __syncthreads();  // every warp is done with the tiles before they are restaged
+    }
+  }
+  float* out = part + (((int64_t)b * n + view) * splits + slice) * C * C;
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    const int col = 8 * j + 2 * ln.t;
+    *reinterpret_cast<float2*>(out + (m0 + ln.g) * C + col) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(out + (m0 + ln.g + 8) * C + col) = make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
 template <int C, class TX>
 cudaError_t reduce_dm(const TX* X1, const float* Y1, const TX* X2, const float* Y2,
                       float* part, float* dm, int B, int n, int T, int H, int splits,
                       cudaStream_t stream) {
   const int rpv = (T / n) * H;
-  constexpr int smem = dm_smem_bytes<C>();
-  cudaError_t err = cudaFuncSetAttribute(gta_bwd_dm_kernel<C, TX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  gta_bwd_dm_kernel<C, TX><<<dim3(splits, n, B), dm_threads<C>(), smem, stream>>>(
-      X1, Y1, X2, Y2, part, (int64_t)T * H, rpv, splits);
+  const dim3 grid(splits, n, B);
+  cudaError_t err;
+  if constexpr (sizeof(TX) == sizeof(bf16)) {
+    constexpr int smem = dm_bf16_smem_bytes<C>();
+    err = cudaFuncSetAttribute(gta_bwd_dm_bf16_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    gta_bwd_dm_bf16_kernel<C><<<grid, dm_threads<C>(), smem, stream>>>(X1, Y1, X2, Y2, part, (int64_t)T * H,
+                                                                       rpv, splits);
+  } else {
+    constexpr int smem = dm_smem_bytes<C>();
+    err = cudaFuncSetAttribute(gta_bwd_dm_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    gta_bwd_dm_kernel<C><<<grid, dm_threads<C>(), smem, stream>>>(X1, Y1, X2, Y2, part, (int64_t)T * H, rpv,
+                                                                  splits);
+  }
   if ((err = cudaGetLastError())) return err;
   const int64_t total = (int64_t)B * n * C * C;
   gta_bwd_dm_sum_kernel<C><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(part, dm, total,
@@ -372,10 +477,9 @@ int fused_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mq,
   // the core's passes over the residuals (transformed kt, vt centred; raw
   // rows as they are): dqt, dkt, dvt in fp32
   const bool v_side = kv_tf && vt_flag;
-  err = attn::run_bwd<attn::Bf16, C>(q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v, nullptr, do_s,
-                                     nullptr, lse, delta, dq32, dk32, dv32, B, H, Tq, Tk,
-                                     q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k,
-                                     v_side ? hf_k : tok_k, tok_q, tok_q, tok_k, scale, stream);
+  err = sm90::run_bwd<C>(q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v, do_s, lse, delta, dq32, dk32, dv32,
+                         B, H, Tq, Tk, q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k, v_side ? hf_k : tok_k,
+                         tok_q, tok_q, tok_k, scale, stream);
   if (err != cudaSuccess) return (int)err;
 
   // query chain into bf16 dq: dzq = R_q^-1(dqt) (stored for dMq), dq = dzq @ Mq^T

@@ -1,7 +1,8 @@
 // Fully fused GTA attention forward for Hopper (sm_90a), in two precision
 // policies: fp32 accuracy (the attention core as 3xTF32 mma.sync,
-// csrc/tf32x3.cuh) and bf16 operands with fp32 accumulation (bf16 mma.sync,
-// csrc/bf16_mma.cuh), the JAX package's two compute dtypes.
+// csrc/tf32x3.cuh) and bf16 operands with fp32 accumulation (the attention
+// core as wgmma fed by TMA, csrc/attn_sm90.cuh), the JAX package's two
+// compute dtypes.
 //
 // Replaces gta_tpu/ops/gta_fused.py:209 `_fwd_kernel` (the Pallas TPU
 // kernel, with its helpers `_transform_sides`, `_per_view`, `_rot_fwd`,
@@ -31,22 +32,29 @@
 //    and V once into scratch laid out [B, H, T, C]; the core's loop holds no
 //    C x C product. The Q scratch doubles as a training residual: the
 //    backward reads it instead of recomputing qt.
-//  * The attention core (csrc/attn_core.cuh `attn_fwd_kernel`, shared with
-//    flash_core): a warp per 16 query rows, 32-key K/V tiles by cp.async,
-//    the online softmax in the accumulator fragments, products about the
-//    means of the kt and vt rows of (b, h) (`mean_rows_kernel` before the
-//    core). fp32: P.V about the mean of vt inside the core. bf16: the row
-//    launches write transformed kt and vt in fp32, and `centre_bf16_kernel`
-//    writes them minus their means in bf16 (the residuals the backward
-//    reads); qt is written in bf16 directly, z and out in bf16; raw bf16
-//    rows (a side without a transform) go to the core as they are.
+//  * The attention core. fp32: csrc/attn_core.cuh `attn_fwd_kernel`
+//    (shared with flash_core), a warp per 16 query rows, 32-key K/V tiles
+//    by cp.async, the online softmax in the accumulator fragments, P.V
+//    about the mean of the vt rows of (b, h) (`mean_rows_kernel` before the
+//    core). bf16: csrc/attn_sm90.cuh `attn_sm90_fwd`, two warpgroups of 64
+//    query rows, 64-key K/V tiles by TMA, every product a wgmma. The row
+//    launches (bf16 products, the TPU kernel's rounding) write transformed
+//    kt and vt in fp32, and `centre_bf16_kernel` writes them minus their
+//    means in bf16 (the residuals the backward reads); qt is written in
+//    bf16 directly, z and out in bf16; raw bf16 rows (a side without a
+//    transform) go to the core as they are. (Transforming the rows twice,
+//    once for their means and once centred, instead of storing them in
+//    fp32 was slower, and so was summing the means inside the row launch:
+//    the row launches are bound by their loads' latency and their
+//    occupancy, not by their stores; PERF.md.)
 //  * The output transform (z @ Mo, inverse rotors) is a row launch after
 //    the core, in place on `out` when z is not kept.
 // Instances: head width C = 64 (CLEVR-TR) and C = 96 (msn), dispatched on
-// the C argument; the core runs 3 blocks of 128 threads per SM at C = 64,
-// 2 at C = 96. Registers and spills of every kernel: PERF.md.
-// Not yet: wgmma and TMA for the core (attn_core.cuh); K/V split once per
-// block.
+// the C argument; the fp32 core runs 3 blocks of 128 threads per SM at
+// C = 64, 2 at C = 96, the bf16 core one block of 288. Registers and spills
+// of every kernel: PERF.md.
+// Not yet, fp32: wgmma and TMA for the core (attn_core.cuh); K/V split once
+// per block.
 //
 // Training residuals: given non-null `z` and `lse`, the kernels also keep z
 // (the attention output before the output transform, the Pallas kernel's
@@ -66,6 +74,7 @@
 #include <cuda_runtime.h>
 
 #include "attn_core.cuh"
+#include "attn_sm90.cuh"
 #include "gta_rows.cuh"
 
 namespace {
@@ -183,10 +192,9 @@ int fused_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mq,
 
   // the core; c_v (centres[1]) is added back to z, 0 for raw value rows
   bf16* zp = z ? z : out;
-  err = attn::run_fwd<attn::Bf16, CC>(q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v,
-                                      v_side ? centres : nullptr, zp, lse, B, H, Tq, Tk,
-                                      q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k,
-                                      v_side ? hf_k : tok_k, tok_q, scale, stream);
+  err = sm90::run_fwd<CC>(q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v, cv, zp, lse, B, H, Tq, Tk,
+                          q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k, v_side ? hf_k : tok_k, tok_q, scale,
+                          stream);
   if (err != cudaSuccess) return (int)err;
 
   if (out_tf) {  // out = R_q^-1(z @ Mo), in place when z is not kept

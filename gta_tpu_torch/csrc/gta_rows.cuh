@@ -14,24 +14,33 @@
 // matrix cotangents' input, fp32).
 //
 // Element types: rows are read as TI and written as TO, fp32 or bf16
-// (`RowJobT`); every product and rotor runs in fp32 from the converted
-// rows, M and the rotor tables are fp32. The bf16 instances of the fused
-// kernels read bf16 q, k, v and cotangents, write fp32 kt, vt for the core's
-// centring (attn_core.cuh `centre_bf16_kernel`) or bf16 qt, and turn the
-// core's fp32 gradients into bf16 dq, dk, dv.
+// (`RowJobT`); M and the rotor tables are fp32, rotors run in fp32. The
+// bf16 instances of the fused kernels read bf16 q, k, v and cotangents,
+// write fp32 kt, vt for the core's centring (attn_core.cuh
+// `centre_bf16_kernel`) or bf16 qt, and turn the core's fp32 gradients into
+// bf16 dq, dk, dv.
 //
 // What bounds it: 2*C*C flops per row and matrix against 8*C bytes moved
 // (16 flops per byte at C = 64, 24 at C = 96): by bytes at the tensor cores' rate, by
 // operations on the CUDA cores. So a chain with a matrix runs on the tensor
-// cores, 3xTF32 like the fp32 attention core (csrc/tf32x3.cuh): a block owns 64
-// rows of one view of one (b, h) (blocks never straddle a view), stages the
-// view's matrix and its rows in dynamic shared memory (36 KB at C = 64,
-// 64 KB at C = 96), and each warp multiplies 16
-// rows by M (or M^T) with m16n8k8 mma.sync. The small-part products gather
-// in an accumulator of their own, so the large part's truncating tensor-core
-// chain is 8 steps long. Rotors act on the output fragments, whose column
-// pairs (2t, 2t+1) are rotor pairs, or on the rows as they are staged.
-// Chains with no matrix (rotors alone) run one row per thread.
+// cores: a block owns 64 rows of one view of one (b, h) (the bf16 kernel 4
+// x 64; blocks never straddle a view), stages the view's matrix and its rows
+// in dynamic shared memory, and each warp multiplies 16 rows by M (or M^T)
+// with mma.sync.
+// Rotors act on the output fragments, whose column pairs (2t, 2t+1) are
+// rotor pairs, or on the rows as they are staged. Chains with no matrix
+// (rotors alone) run one row per thread. The product's precision follows
+// the job's element types:
+//  * fp32 rows in and out (the fp32 instances): 3xTF32 like the fp32
+//    attention core (csrc/tf32x3.cuh), m16n8k8, fp32 tiles (36 KB at
+//    C = 64, 64 KB at C = 96). The small-part products gather in an
+//    accumulator of their own, so the large part's truncating tensor-core
+//    chain is 8 steps long.
+//  * bf16 rows on either side (the bf16 instances): the TPU kernel's
+//    rounding (`_per_view` with mxu = bfloat16): the row (after the
+//    backward form's rotor) and M rounded to bf16, one bf16 m16n8k16 product
+//    with fp32 accumulation (csrc/bf16_mma.cuh), bf16 tiles (18 KB at C = 64,
+//    33 KB at C = 96).
 
 #pragma once
 
@@ -48,6 +57,7 @@ using attn::offset;
 
 constexpr int ROW_THREADS = 128;
 constexpr int MMA_ROWS = 64;  // rows per block of the tensor-core kernel (4 warps x 16)
+constexpr int BF16_CHUNKS = 4;  // MMA_ROWS-row chunks per block of the bf16 kernel (M staged once)
 
 // M is read as B[k][n] = M[k][n] (forward form) or M[n][k] (backward form);
 // each wants its own row stride for conflict-free fragment loads
@@ -59,6 +69,18 @@ __host__ __device__ constexpr int ldm() {
 template <int C, bool BWD>
 __host__ __device__ constexpr int mma_smem_bytes() {
   return (C * ldm<C, BWD>() + MMA_ROWS * (C + 4)) * (int)sizeof(float);
+}
+
+// the bf16 products' tiles: M [C][C + 8] and the rows [MMA_ROWS][C + 8]
+template <int C>
+__host__ __device__ constexpr int bf16_smem_bytes() {
+  return (C + MMA_ROWS) * (C + 8) * (int)sizeof(attn::bf16);
+}
+
+// whether a job's products take the bf16 instances' rounding
+template <class TI, class TO>
+__host__ __device__ constexpr bool bf16_job() {
+  return sizeof(TI) == 2 || sizeof(TO) == 2;
 }
 
 template <int C, class TI>
@@ -135,6 +157,88 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_kernel(const RowJobT<TI,
   store_row<C>(j.dst + offset(j.dst_l, b, h, row), x);
 }
 
+// The output of warp w's 16 rows from its product fragments y (rows (g,
+// g+8), channels 8n + 2t (+1): a rotor pair): the forward form's rotor,
+// then the store of rows below n_rows
+template <int C, bool BWD, class TI, class TO>
+__device__ __forceinline__ void store_out(const RowJobT<TI, TO>& j, const float (&y)[C / 8][4], int b, int h,
+                                          int r0, int n_rows, int w, tf32x3::Lane ln) {
+  const float sg = j.inverse ? -1.f : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int lr = w * 16 + ln.g + 8 * r;
+    const bool ok = lr < n_rows;
+    const int row = r0 + min(lr, n_rows - 1);
+    const int64_t roff = ((int64_t)b * j.T + row) * C;
+    TO* dst = j.dst + offset(j.dst_l, b, h, row);
+    float2 cc[C / 8], ss[C / 8];  // the row's rotor pairs, every load in flight before the stores
+    if (!BWD && j.c) {
+#pragma unroll
+      for (int n = 0; n < C / 8; ++n) {
+        cc[n] = __ldg(reinterpret_cast<const float2*>(j.c + roff + 8 * n + 2 * ln.t));
+        ss[n] = __ldg(reinterpret_cast<const float2*>(j.s + roff + 8 * n + 2 * ln.t));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n) {
+      const int col = 8 * n + 2 * ln.t;
+      float y0 = y[n][2 * r];
+      float y1 = y[n][2 * r + 1];
+      if (!BWD && j.c) {
+        const float a0 = y0, a1 = y1;
+        y0 = cc[n].x * a0 - sg * ss[n].x * a1;
+        y1 = cc[n].y * a1 + sg * ss[n].y * a0;
+      }
+      if (ok) attn::store2(dst + col, y0, y1);
+    }
+  }
+}
+
+// rows [0, MMA_ROWS) of the block into a [MMA_ROWS][ld] tile of TX (fp32 or
+// bf16), zero at or past n_rows; BWD: w = R(x) as they are staged (and
+// stored to mid, fp32)
+template <int C, bool BWD, class TI, class TO, class TX>
+__device__ __forceinline__ void stage_job_rows(const RowJobT<TI, TO>& j, TX* Xs, int ld, int b, int h, int r0,
+                                               int n_rows, int H) {
+  constexpr int PER = MMA_ROWS * C / 4 / ROW_THREADS;  // groups of 4 elements a thread
+  constexpr int BATCH = 4;                             // loads in flight a thread
+  static_assert(PER % BATCH == 0, "whole batches");
+  const float sg = j.inverse ? -1.f : 1.f;
+#pragma unroll
+  for (int i0 = 0; i0 < PER; i0 += BATCH) {
+    float4 x[BATCH], cc[BATCH], ss[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {  // every load of the batch first
+      const int idx = threadIdx.x + (i0 + i) * ROW_THREADS;
+      const int r = idx / (C / 4), c4 = idx % (C / 4);
+      x[i] = cc[i] = ss[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < n_rows) {
+        const int row = r0 + r;
+        x[i] = attn::load4(j.src + offset(j.src_l, b, h, row) + 4 * c4);
+        if (BWD && j.c) {
+          const int64_t roff = ((int64_t)b * j.T + row) * C + 4 * c4;
+          cc[i] = __ldg(reinterpret_cast<const float4*>(j.c + roff));
+          ss[i] = __ldg(reinterpret_cast<const float4*>(j.s + roff));
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int idx = threadIdx.x + (i0 + i) * ROW_THREADS;
+      const int r = idx / (C / 4), c4 = idx % (C / 4);
+      if (BWD && j.c) {
+        x[i] = make_float4(cc[i].x * x[i].x - sg * ss[i].x * x[i].y, cc[i].y * x[i].y + sg * ss[i].y * x[i].x,
+                           cc[i].z * x[i].z - sg * ss[i].z * x[i].w, cc[i].w * x[i].w + sg * ss[i].w * x[i].z);
+      }
+      if (BWD && j.mid && r < n_rows) {
+        const int64_t tok = ((int64_t)b * j.T + r0 + r) * H * C + (int64_t)h * C;
+        reinterpret_cast<float4*>(j.mid + tok)[c4] = x[i];
+      }
+      attn::store4(Xs + r * ld + 4 * c4, x[i]);
+    }
+  }
+}
+
 // The same transform for a job with a matrix, on the tensor cores.
 // grid (ceil(T / n_views / MMA_ROWS), H, B * n_views).
 template <int C, bool BWD, class TI, class TO>
@@ -155,7 +259,6 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJobT
   const int l0 = blockIdx.x * MMA_ROWS;
   const int n_rows = min(MMA_ROWS, rpv - l0);
   const int r0 = view * rpv + l0;
-  const float sg = j.inverse ? -1.f : 1.f;
 
   const float* M = j.m + ((int64_t)b * j.n_views + view) * C * C;
   for (int idx = threadIdx.x; idx < C * C / 4; idx += ROW_THREADS) {
@@ -166,26 +269,7 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJobT
     stage_rows<C, MMA_ROWS, ROW_THREADS>(Xs, reinterpret_cast<const float*>(j.src) + offset(j.src_l, b, h, r0),
                                          j.src_l.rs, n_rows);
   } else {  // rows converted to fp32 as they are staged; BWD: w = R(x) (and stored to mid)
-    for (int idx = threadIdx.x; idx < MMA_ROWS * C / 4; idx += ROW_THREADS) {
-      const int r = idx / (C / 4), c4 = idx % (C / 4);
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < n_rows) {
-        const int row = r0 + r;
-        x = attn::load4(j.src + offset(j.src_l, b, h, row) + 4 * c4);
-        if (BWD && j.c) {
-          const int64_t roff = ((int64_t)b * j.T + row) * C + 4 * c4;
-          const float4 cc = __ldg(reinterpret_cast<const float4*>(j.c + roff));
-          const float4 ss = __ldg(reinterpret_cast<const float4*>(j.s + roff));
-          x = make_float4(cc.x * x.x - sg * ss.x * x.y, cc.y * x.y + sg * ss.y * x.x,
-                          cc.z * x.z - sg * ss.z * x.w, cc.w * x.w + sg * ss.w * x.z);
-        }
-        if (BWD && j.mid) {
-          const int64_t tok = ((int64_t)b * j.T + row) * H * C + (int64_t)h * C;
-          reinterpret_cast<float4*>(j.mid + tok)[c4] = x;
-        }
-      }
-      *reinterpret_cast<float4*>(Xs + r * LDX + 4 * c4) = x;
-    }
+    stage_job_rows<C, BWD>(j, Xs, LDX, b, h, r0, n_rows, H);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -222,41 +306,88 @@ __global__ void __launch_bounds__(ROW_THREADS) gta_rows_mma_kernel(const RowJobT
     }
   }
 
-  // rows (g, g+8) of the warp, channels 8n + 2t (+1): a rotor pair
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int lr = w * 16 + ln.g + 8 * r;
-    const bool ok = lr < n_rows;
-    const int row = r0 + min(lr, n_rows - 1);
-    const int64_t roff = ((int64_t)b * j.T + row) * C;
-    TO* dst = j.dst + offset(j.dst_l, b, h, row);
+  for (int n = 0; n < KS; ++n) {
 #pragma unroll
-    for (int n = 0; n < KS; ++n) {
-      const int col = 8 * n + 2 * ln.t;
-      float y0 = big[n][2 * r] + small[n][2 * r];
-      float y1 = big[n][2 * r + 1] + small[n][2 * r + 1];
-      if (!BWD && j.c) {
-        const float2 cc = __ldg(reinterpret_cast<const float2*>(j.c + roff + col));
-        const float2 ss = __ldg(reinterpret_cast<const float2*>(j.s + roff + col));
-        const float a0 = y0, a1 = y1;
-        y0 = cc.x * a0 - sg * ss.x * a1;
-        y1 = cc.y * a1 + sg * ss.y * a0;
+    for (int e = 0; e < 4; ++e) big[n][e] += small[n][e];
+  }
+  store_out<C, BWD>(j, big, b, h, r0, n_rows, w, ln);
+}
+
+// The bf16 instances' form of gta_rows_mma_kernel: M and the staged rows
+// rounded to bf16, one bf16 product with fp32 accumulation. M stays
+// row-major in shared memory: the forward form reads B[k][n] = M[k][n]
+// (ldmatrix.trans), the backward form B[k][n] = M[n][k]. A block stages M
+// once for BF16_CHUNKS chunks of 64 rows of its view.
+// grid (ceil(T / n_views / (MMA_ROWS * BF16_CHUNKS)), H, B * n_views).
+template <int C, bool BWD, class TI, class TO>
+__global__ void __launch_bounds__(ROW_THREADS) gta_rows_bf16_kernel(const RowJobT<TI, TO> j, int H) {
+  static_assert(ROW_THREADS == 2 * MMA_ROWS, "a warp per 16 rows");
+  using attn::bf16;
+  constexpr int LD = C + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ms = reinterpret_cast<bf16*>(smem_raw);  // [C][LD]
+  bf16* Xs = Ms + C * LD;                        // [MMA_ROWS][LD]
+
+  const int b = blockIdx.z / j.n_views;
+  const int view = blockIdx.z % j.n_views;
+  const int h = blockIdx.y;
+  const int rpv = j.T / j.n_views;
+
+  const float* M = j.m + ((int64_t)b * j.n_views + view) * C * C;
+  for (int idx = threadIdx.x; idx < C * C / 4; idx += ROW_THREADS) {
+    const int r = idx / (C / 4), c4 = idx % (C / 4);
+    attn::store4(Ms + r * LD + 4 * c4, __ldg(reinterpret_cast<const float4*>(M + r * C + 4 * c4)));
+  }
+  const int w = threadIdx.x / 32;
+  const bf16* Xw = Xs + w * 16 * LD;
+  const tf32x3::Lane ln = tf32x3::lane_coords();
+  for (int chunk = 0; chunk < BF16_CHUNKS; ++chunk) {
+    const int l0 = (blockIdx.x * BF16_CHUNKS + chunk) * MMA_ROWS;
+    if (l0 >= rpv) break;
+    const int n_rows = min(MMA_ROWS, rpv - l0);
+    const int r0 = view * rpv + l0;
+    stage_job_rows<C, BWD>(j, Xs, LD, b, h, r0, n_rows, H);
+    __syncthreads();
+    float y[C / 8][4];
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n) y[n][0] = y[n][1] = y[n][2] = y[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < C / 16; ++ks) {
+      uint32_t a[4];
+      bf16mma::load_a(a, Xw, LD, 16 * ks);
+#pragma unroll
+      for (int n = 0; n < C / 8; n += 2) {
+        uint32_t bb[4];
+        if constexpr (BWD) {
+          bf16mma::load_b_nk2(bb, Ms, LD, 8 * n, 16 * ks);
+        } else {
+          bf16mma::load_b_kn2(bb, Ms, LD, 16 * ks, 8 * n);
+        }
+        bf16mma::mma(y[n], a, bb[0], bb[1]);
+        bf16mma::mma(y[n + 1], a, bb[2], bb[3]);
       }
-      if (ok) attn::store2(dst + col, y0, y1);
     }
+    store_out<C, BWD>(j, y, b, h, r0, n_rows, w, ln);
+    __syncthreads();  // every warp is done with Xs before it is restaged
   }
 }
 
 template <int C, bool BWD, class TI, class TO>
 cudaError_t run_rows_mma(const RowJobT<TI, TO>& j, int B, int H, cudaStream_t stream) {
-  constexpr int smem = mma_smem_bytes<C, BWD>();
-  cudaError_t err = cudaFuncSetAttribute(gta_rows_mma_kernel<C, BWD, TI, TO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   const int rpv = j.T / j.n_views;
-  const dim3 grid((rpv + MMA_ROWS - 1) / MMA_ROWS, H, B * j.n_views);
-  gta_rows_mma_kernel<C, BWD, TI, TO><<<grid, ROW_THREADS, smem, stream>>>(j, H);
-  return cudaGetLastError();
+  auto launch = [&](void (*kernel)(const RowJobT<TI, TO>, int), int smem, int rows_per_block) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((rpv + rows_per_block - 1) / rows_per_block, H, B * j.n_views);
+    kernel<<<grid, ROW_THREADS, smem, stream>>>(j, H);
+    return cudaGetLastError();
+  };
+  if constexpr (bf16_job<TI, TO>()) {
+    return launch(gta_rows_bf16_kernel<C, BWD, TI, TO>, bf16_smem_bytes<C>(), MMA_ROWS * BF16_CHUNKS);
+  } else {
+    return launch(gta_rows_mma_kernel<C, BWD, TI, TO>, mma_smem_bytes<C, BWD>(), MMA_ROWS);
+  }
 }
 
 template <int C, class TI, class TO>

@@ -31,8 +31,10 @@ matrix cotangents are fp32.
     csrc/tf32x3.cuh), the rotors and the softmax in fp32 on the CUDA cores.
   * bf16: the TPU kernel's rounding. The core's products take bf16
     operands (qt, kt and vt centred on their means, do, P, dS) with fp32
-    accumulation (csrc/bf16_mma.cuh); the transforms, the softmax, lse,
-    delta and the matrix cotangents stay fp32.
+    accumulation (wgmma fed by TMA, csrc/attn_sm90.cuh), and so do the
+    per-view C x C transforms (the row and the matrix rounded to bf16,
+    csrc/gta_rows.cuh) and the matrix cotangents' reductions; the rotors,
+    the softmax, lse and delta stay fp32.
 The plain versions compute in fp32 from operands of either dtype (fp64 for
 fp64 ones), the Pallas kernel's interpret mode; `mxu_dtype=torch.bfloat16`
 rounds every product's operands to bf16 as the TPU kernel does
@@ -418,7 +420,7 @@ def gta_fused_fwd(
     has one), the means of the key and value rows (the core's centres; bf16
     then writes the transformed rows centred), the tensor-core main kernel
     and the output transform (with v_transform), so the card sees up to six
-    kernel launches per count (eight in bf16).
+    kernel launches per count (nine in bf16).
     """
     if qB.device.type == "cpu":
         if residuals:
@@ -497,10 +499,10 @@ def gta_fused_bwd(
     (fp32) and `gta_fused_bwd.launches_bf16` count launches of the C entry
     points: each one runs the output chain, the core's centres (fp32), a
     query pass, a key pass, the query and key/value chains and a reduction
-    pair per matrix cotangent, up to thirteen kernels (fourteen at head
-    width 96, whose key pass is two launches). `keep`, a dict, receives the
-    chains' fp32 inputs dz, dzq, dzk, dzv (None where absent), as
-    `gta_fused_bwd_plain` does.
+    pair per matrix cotangent, up to thirteen kernels (fourteen for the
+    fp32 instance at head width 96, whose key pass is two launches).
+    `keep`, a dict, receives the chains' fp32 inputs dz, dzq, dzk, dzv
+    (None where absent), as `gta_fused_bwd_plain` does.
     """
     if qB.device.type == "cpu":
         return gta_fused_bwd_plain(qB, kB, vB, t, heads, scale, g, res.z, keep=keep)

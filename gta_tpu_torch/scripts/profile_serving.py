@@ -58,15 +58,16 @@ def _kind(name: str, attention: str) -> str:
     """The kind of a kernel by its name. The attention core
     (csrc/attn_core.cuh) is one set of kernels under both entries, so its
     forward and its two backward passes are counted under `attention`, the
-    entry that the profiled configuration launches."""
+    entry that the profiled configuration launches; so are the bf16 fused
+    GTA kernels' core (csrc/attn_sm90.cuh)."""
     n = name.lower()
-    if "attn_fwd" in n:
+    if "attn_fwd" in n or "sm90_fwd" in n:
         return f"{attention}_fwd (this repo)"
-    if "attn_bwd" in n or "gta_bwd" in n:  # the core's passes; GTA's dM reductions
+    if "attn_bwd" in n or "sm90_bwd" in n or "gta_bwd" in n:  # the core's passes; GTA's dM reductions
         return f"{attention}_bwd (this repo)"
-    if "gta_rows" in n:  # the C x C chains of both fused GTA kernels
+    if "gta_rows" in n and "centre" not in n:  # the C x C chains of both fused GTA kernels
         return "gta_fused row transforms (this repo)"
-    if "mean_rows" in n or "centre_bf16" in n or "to_bf16" in n:
+    if "mean_rows" in n or "centre" in n or "to_bf16" in n:
         return f"{attention} centres and conversions (this repo)"
     # cuDNN's fp32 conv algorithms: implicit GEMM ("fprop"), FFT, layout
     # transforms; checked before "gemm", which implicit-GEMM names contain

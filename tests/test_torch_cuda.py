@@ -692,12 +692,18 @@ def test_gta_fused_bf16_error_with_common_component(rng, cuda_device, args, nv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("args", [GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8), MSN_ARGS], ids=["c64", "c96"])
-def test_gta_fused_bf16_bwd_is_deterministic(rng, cuda_device, args):
+@pytest.mark.parametrize("args,tq,tk", [
+    (GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8), 192, 640),
+    (MSN_ARGS, 192, 640),
+    (GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8), 129, 645),
+    (MSN_ARGS, 129, 645),
+], ids=["c64", "c96", "c64-ragged", "c96-ragged"])
+def test_gta_fused_bf16_bwd_is_deterministic(rng, cuda_device, args, tq, tk):
     """Two bf16 backward launches on the same inputs give bit-identical
-    outputs."""
+    outputs (the query pass and the joint key pass sum in a fixed order;
+    ragged: a part tile on either side)."""
     heads = H if args.f_dims.total == 64 else MSN_H
-    reps, _, (q, k, v) = _inputs(rng, args, cuda_device, tq=192, tk=640, nv=5, heads=heads)
+    reps, _, (q, k, v) = _inputs(rng, args, cuda_device, tq=tq, tk=tk, nv=5, heads=heads)
     qB, kB, vB = (_tokens(x).to(cuda_device).to(BF) for x in (q, k, v))
     with torch.no_grad():
         t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
@@ -715,25 +721,47 @@ def test_gta_fused_bf16_bwd_is_deterministic(rng, cuda_device, args):
 BF16_ULP = 2.0**-8
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("fd,so2,vt,heads", [
+BF16_EDGE_BRANCHES = [
     (dict(se3=32, so2=32), 8, True, H),
     (dict(triv=64), 0, True, H),
     (dict(se3=48, so3=24, so2=24), 6, True, MSN_H),
-], ids=["c64-every-transform", "c64-none", "c96-msn_so3"])
-@pytest.mark.parametrize("tq", [1, 17, 601])
-@pytest.mark.parametrize("tk", [1, 33, 2100])
-def test_gta_fused_bf16_kernels_at_edge_shapes(rng, cuda_device, fd, so2, vt, heads, tq, tk):
-    """The bf16 instances at the ragged shapes of the fp32 edge test: every
-    output finite and within max(1.5x the bf16 emulation's relative L2
-    error against fp64, 2^-8)."""
+    (dict(se3=32, so2=32), 8, False, H),
+    (dict(triv=96), 0, True, MSN_H),
+]
+BF16_EDGE_IDS = ["c64-every-transform", "c64-none", "c96-msn_so3", "c64-raw-v", "c96-none"]
+
+
+def _check_bf16_edge(rng, device, fd, so2, vt, heads, tq, tk):
+    """Every output of the bf16 instances finite and within max(1.5x the
+    bf16 emulation's relative L2 error against fp64, 2^-8)."""
     args = GTAArgs(f_dims=FDims(**fd), so2=so2, so3=2 if "so3" in fd else 0, v_transform=vt)
-    reps, q, k, v, g = _edge_inputs(rng, args, cuda_device, tq, tk, heads=heads)
+    reps, q, k, v, g = _edge_inputs(rng, args, device, tq, tk, heads=heads)
     with torch.no_grad():
-        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=device))
         errs, emu = _bf16_gta_errors(q, k, v, t, heads, args.f_dims.total**-0.5, g)
     for name, err in errs.items():
         assert err <= max(1.5 * emu[name], BF16_ULP), (name, errs, emu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fd,so2,vt,heads", BF16_EDGE_BRANCHES, ids=BF16_EDGE_IDS)
+@pytest.mark.parametrize("tq", [1, 17, 601])
+@pytest.mark.parametrize("tk", [1, 33, 2100])
+def test_gta_fused_bf16_kernels_at_edge_shapes(rng, cuda_device, fd, so2, vt, heads, tq, tk):
+    """The bf16 instances at the ragged shapes of the fp32 edge test, with
+    every transform, none (raw token-major q, k, v: the 4-D tensor maps),
+    and a raw value side beside transformed keys (`c64-raw-v`)."""
+    _check_bf16_edge(rng, cuda_device, fd, so2, vt, heads, tq, tk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fd,so2,vt,heads", BF16_EDGE_BRANCHES, ids=BF16_EDGE_IDS)
+@pytest.mark.parametrize("tq", [63, 64, 65, 127, 129])
+@pytest.mark.parametrize("tk", [63, 64, 65, 127, 129])
+def test_gta_fused_bf16_kernels_at_tile_boundaries(rng, cuda_device, fd, so2, vt, heads, tq, tk):
+    """The bf16 instances one row short of, at and past the 64-row tiles
+    and the 128-row blocks of csrc/attn_sm90.cuh on either side."""
+    _check_bf16_edge(rng, cuda_device, fd, so2, vt, heads, tq, tk)
 
 
 def _bf16_flash_errors(q, k, v, g):
