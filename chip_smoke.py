@@ -25,15 +25,16 @@ dataset's shapes:
   - the MSN-Hard SRT baseline as published (runs/msn/otherPEs/srt; bf16,
     12 heads of 64, `ray` embeddings, 5 views of 128x128, batch 64),
     through the bf16 instances of flash_core.
-The fp32 instances of all four kernels and flash_core's bf16 ones run one
-attention core (gta_tpu_torch/csrc/attn_core.cuh: a forward, a query pass
-and a key pass) in two precision policies: fp32 (3xTF32 mma.sync on the
-tensor cores, P*V, dP and dq taken about centre rows: the fused GTA
-kernels' transformed rows centred on the rows' means, flash_core's raw
-token-major q, k, v on the first key's rows) and bf16 (bf16 mma.sync with
-fp32 accumulation). The fused GTA kernels' bf16 instances run their own
-core (gta_tpu_torch/csrc/attn_sm90.cuh: wgmma fed by TMA; transformed kt,
-vt centred in fp32 before their rounding, raw bf16 rows as they are).
+The fp32 instances of all four kernels run one attention core
+(gta_tpu_torch/csrc/attn_core.cuh: a forward, a query pass and a key pass;
+3xTF32 mma.sync on the tensor cores, P*V, dP and dq taken about centre
+rows: the fused GTA kernels' transformed rows centred on the rows' means,
+flash_core's raw token-major q, k, v on the first key's rows). The bf16
+instances of all four run another (gta_tpu_torch/csrc/attn_sm90.cuh: wgmma
+fed by TMA, bf16 operands with fp32 accumulation; the fused GTA kernels'
+transformed kt, vt centred in fp32 before their rounding, raw bf16 rows as
+they are; flash_core's bf16 gradients stored straight from the fp32
+accumulators).
 
 Phases (any failure exits non-zero and prints no result line):
   1. The card's name and power limit; build every CUDA kernel of the port
@@ -113,7 +114,9 @@ Phases (any failure exits non-zero and prints no result line):
      `python -m gta_tpu_torch.evaluate <SRT>
      --synthetic --max-scenes 1`, which must report a finite PSNR.
   6. One JSON line of kernel numbers, an entry per kernel instance (fp32
-     and bf16, launches by path), then the device JSON as the last line.
+     and bf16, launches by path, the attention core it runs and that core's
+     ptxas registers and spills in its library), then the device JSON as
+     the last line.
 """
 
 from __future__ import annotations
@@ -1175,13 +1178,25 @@ def cli_phase():
 
 def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None):
     """One kernel instance's line in the kernels JSON: numbers at its main
-    shape, launches by path, every shape's numbers. fp32 instances carry
-    `bound_tc_ms` beside `bound_ms` (fp32 CUDA-core peak); bf16 instances'
-    `bound_ms` is at the dense bf16 peak."""
+    shape, launches by path, every shape's numbers, the attention core it
+    runs (`core`: attn_sm90.cuh for the bf16 instances, attn_core.cuh for
+    the fp32 ones) and that core's kernels' ptxas registers and spills in
+    the instance's library (`core_registers`, from this run's build; empty
+    where the library was built before the run). fp32
+    instances carry `bound_tc_ms` beside `bound_ms` (fp32 CUDA-core peak);
+    bf16 instances' `bound_ms` is at the dense bf16 peak."""
+    from gta_tpu_torch.ops import _cuda
+
+    library = source or name
+    bf16 = name.endswith("_bf16")
+    core = "attn_sm90.cuh" if bf16 else "attn_core.cuh"
+    mark = "sm90::attn_sm90_" if bf16 else "attn::attn_"
     entry = {
         "name": name,
         "route": "cuda",
-        "source": f"gta_tpu_torch/csrc/{source or name}.cu",
+        "source": f"gta_tpu_torch/csrc/{library}.cu",
+        "core": f"gta_tpu_torch/csrc/{core}",
+        "core_registers": [line for line in ptxas_report(_cuda.BUILD_LOGS.get(library, "")) if line.startswith(mark)],
         "replaces": replaces,
         "launches": sum(launches.values()),
         "launches_by_path": launches,
@@ -1201,15 +1216,49 @@ def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None
 
 def kernel_label(mangled: str) -> str:
     """A short name of an Itanium-mangled kernel symbol: its namespaces and
-    name with its template arguments (`attn::attn_bwd_q_kernel<Bf16, 96>`,
-    `gta_rows::gta_rows_mma_kernel<64, 1, __nv_bfloat16, float>`); the
-    symbol as it is where it is not a nested name."""
+    name with its template arguments (`attn::attn_bwd_q_kernel<96>`,
+    `sm90::attn_sm90_bwd_q<Cfg<64, 64>, __nv_bfloat16>`); the symbol
+    as it is where it is not a nested name."""
     if not mangled.startswith("_ZN"):
         return mangled
+    builtins = {"f": "float", "d": "double", "i": "int", "b": "bool"}
 
     def ident(i):  # the length-prefixed identifier at i, and the index past it
         n = re.match(r"\d+", mangled[i:]).group()
         return mangled[i + len(n):i + len(n) + int(n)], i + len(n) + int(n)
+
+    def template_args(i):  # the arguments of the list that opens at i ('I'), and the index past its 'E'
+        args, i = [], i + 1
+        while mangled[i] != "E":
+            c = mangled[i]
+            if c == "L":  # an integer or bool literal
+                m = re.match(r"L[a-z](\d+)E", mangled[i:])
+                args.append(m.group(1))
+                i += len(m.group(0))
+            elif c == "N":  # a nested type name: its last part, with its own arguments
+                i, last = i + 1, None
+                while mangled[i] != "E":
+                    if mangled[i] == "S":
+                        i = mangled.index("_", i) + 1
+                    elif mangled[i] == "I":
+                        inner, i = template_args(i)
+                        last = f"{last}<{', '.join(inner)}>"
+                    else:
+                        last, i = ident(i)
+                args.append(last)
+                i += 1
+            elif c.isdigit():
+                arg, i = ident(i)
+                args.append(arg)
+            elif c == "S":  # a substitution: here, a type argument repeated
+                i = mangled.index("_", i) + 1
+                args.append(next((a for a in reversed(args) if not a.isdigit()), "?"))
+            elif c in builtins:
+                args.append(builtins[c])
+                i += 1
+            else:
+                raise ValueError(c)
+        return args, i + 1
 
     i, parts = 3, []
     while mangled[i:i + 1].isdigit():
@@ -1218,33 +1267,10 @@ def kernel_label(mangled: str) -> str:
     name = "::".join(p for p in parts if not p.startswith("_GLOBAL__N"))
     if mangled[i:i + 1] != "I":
         return name
-    args, i, builtins = [], i + 1, {"f": "float", "d": "double", "i": "int", "b": "bool"}
-    while i < len(mangled) and mangled[i] != "E":
-        c = mangled[i]
-        if c == "L":  # an integer or bool literal
-            m = re.match(r"L[a-z](\d+)E", mangled[i:])
-            args.append(m.group(1))
-            i += len(m.group(0))
-        elif c == "N":  # a nested type name: keep its last part
-            i, last = i + 1, None
-            while mangled[i] != "E":
-                if mangled[i] == "S":
-                    i = mangled.index("_", i) + 1
-                else:
-                    last, i = ident(i)
-            args.append(last)
-            i += 1
-        elif c.isdigit():
-            arg, i = ident(i)
-            args.append(arg)
-        elif c == "S":  # a substitution: here, a type argument repeated
-            i = mangled.index("_", i) + 1
-            args.append(next((a for a in reversed(args) if not a.isdigit()), "?"))
-        elif c in builtins:
-            args.append(builtins[c])
-            i += 1
-        else:
-            return name
+    try:
+        args, _ = template_args(i)
+    except (ValueError, AttributeError, IndexError):
+        return name
     return f"{name}<{', '.join(args)}>"
 
 

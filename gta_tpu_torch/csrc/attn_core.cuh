@@ -1,13 +1,12 @@
-// The softmax attention core of the attention kernels of this directory,
-// forward and backward, on Hopper's tensor cores, in two precision policies:
-// fp32 accuracy (3xTF32 mma.sync, csrc/tf32x3.cuh; `Fp32`) and bf16
-// operands with fp32 accumulation (bf16 mma.sync, csrc/bf16_mma.cuh;
-// `Bf16`), the JAX package's two policies. Shared by the fp32 instances of
-// the fused GTA kernels (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu),
-// which run it over the transformed qt, kt, vt of their row launches, and
-// by flash_core (csrc/flash_core_fwd.cu, csrc/flash_core_bwd.cu), which
-// runs it over the raw token-major q, k, v in either policy. (The fused
-// GTA kernels' bf16 instances run csrc/attn_sm90.cuh.) It is the attention core of the TPU kernels
+// The fp32 softmax attention core of the attention kernels of this
+// directory, forward and backward, on Hopper's tensor cores at fp32
+// accuracy (3xTF32 mma.sync, csrc/tf32x3.cuh), the JAX package's fp32
+// policy. Shared by the fp32 instances of the fused GTA kernels
+// (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu), which run it over the
+// transformed qt, kt, vt of their row launches, and of flash_core
+// (csrc/flash_core_fwd.cu, csrc/flash_core_bwd.cu), which runs it over the
+// raw token-major q, k, v. (The bf16 instances of both run
+// csrc/attn_sm90.cuh.) It is the attention core of the TPU kernels
 // gta_tpu/ops/gta_fused.py:209 `_fwd_kernel` and :235 `_bwd_kernel`, and
 // the whole of gta_tpu/ops/flash_core.py:73 `_fwd_kernel` and :86
 // `_bwd_kernel`. Per (batch b, head h), head width C = 64 or 96:
@@ -22,71 +21,57 @@
 // token-major [B, T, H*C] and heads-first [B, H, T, C] alike. The kernels'
 // operand names follow the GTA callers (qt, kt, vt: transformed rows; z:
 // the output before GTA's output transform); flash_core passes its raw q,
-// k, v and its output o in their places.
+// k, v and its output o in their places. The file also holds what the
+// kernels of this directory share around their cores: `Layout`, element
+// I/O in fp32 and bf16, and the centre launches.
 //
 // What bounds it on the H100: 4*Tq*Tk*C flops per (b, h) forward, 10*Tq*Tk*C
 // backward (the function's 5 products), against a few bytes per row: 75 to
 // 300 flops per byte at this repo's shapes (Tk = 600 to 1280, Tq = 600 to
 // 16384). So it is bound by operations: at 165 TFLOP/s for fp32-accurate
-// products on the tensor cores (3xTF32, 495 / 3), at 989 TFLOP/s for bf16.
+// products on the tensor cores (3xTF32, 495 / 3).
 //
 // What the design does about it:
-//  * Every product is one warp-level mma.sync: 3xTF32 m16n8k8 (`Fp32`) or
-//    bf16 m16n8k16 (`Bf16`). A block of 4 warps owns 64 rows, a warp 16;
-//    the other side streams through dynamic shared memory in
-//    double-buffered tiles (cp.async). Score accumulators feed the next
-//    product as A fragments in place (tf32x3.cuh renames their columns,
-//    bf16_mma.cuh packs two n8 tiles into one k16 fragment). Both policies
-//    share the accumulator layout, so the softmax, masking and delta code
-//    is one; only the product helpers (`qk_product`, `tile_mma`) and the
-//    staging differ.
-//  * Forward (attn_fwd_kernel): K/V tiles of 32 keys (fp32: 70 KB a block
-//    at C = 64, 3 blocks per SM; 102 KB at C = 96, 2; the block's q rows
-//    split into TF32 parts once, in shared memory). The online softmax
-//    lives in the S accumulators, its row max reduced across each quad of
-//    lanes by shuffles, and stays in the scores' units, so that where one
-//    key dominates, lse = max exactly.
+//  * Every product is one warp-level 3xTF32 m16n8k8 mma.sync. A block of 4
+//    warps owns 64 rows, a warp 16; the other side streams through dynamic
+//    shared memory in double-buffered tiles (cp.async). Score accumulators
+//    feed the next product as A fragments in place (tf32x3.cuh renames
+//    their columns).
+//  * Forward (attn_fwd_kernel): K/V tiles of 32 keys (70 KB a block at
+//    C = 64, 3 blocks per SM; 102 KB at C = 96, 2; the block's q rows split
+//    into TF32 parts once, in shared memory). The online softmax lives in
+//    the S accumulators, its row max reduced across each quad of lanes by
+//    shuffles, and stays in the scores' units, so that where one key
+//    dominates, lse = max exactly.
 //  * Backward: Hopper's blocks run in parallel, so the work is split by who
 //    owns each output row. A query pass (attn_bwd_q_kernel: S, dP, dq += dS k;
 //    32-key tiles) writes dq; a key pass (attn_bwd_kv_kernel: S^T, dP^T,
 //    dv += P^T do, dk += dS^T q; 64-query tiles, 2 blocks per SM) writes dk
 //    and dv. At C = 96 one key pass would hold 96 accumulator floats a
 //    thread for dk and dv, 48 for a tile product's partial sum and 64 for
-//    S^T and dP^T: past the 255 registers of a thread, in either policy
-//    (the accumulators are fp32 in both). So C = 96 runs two key passes over
-//    32-query tiles: one writes dv (S^T, P^T do), the other dk (S^T, dP^T,
-//    dS^T q). No row is written by two blocks: no atomics, every sum in a
-//    fixed order, bit-identical reruns. Both passes recompute P from lse.
+//    S^T and dP^T: past the 255 registers of a thread. So C = 96 runs two
+//    key passes over 32-query tiles: one writes dv (S^T, P^T do), the other
+//    dk (S^T, dP^T, dS^T q). No row is written by two blocks: no atomics,
+//    every sum in a fixed order, bit-identical reruns. Both passes
+//    recompute P from lse.
 //  * Centres: a layer's rows share a large component. The core takes
 //    o = c_v + P (v - c_v), dP = do (v - c_v)^T and dq = dS (k - c_k) about
 //    centre rows c_k, c_v of each (b, h) (exact rewrites: P's rows sum to 1,
 //    dS's to 0; scores about k - c_k shift each row by q.c_k, which the
-//    softmax ignores). `Fp32` subtracts them itself: the tensor cores
-//    truncate each sum by ~1e-6 of its value, which about uncentred rows
-//    broke the cancellation in dq. flash_core centres its raw rows about
-//    the first key's rows (`centres` null), the fused GTA kernels about the
-//    means of their kt, vt rows (`centres` [2, B, H, C]). `Bf16` takes the
-//    fused GTA kernels' transformed kt, vt already centred, subtracted in
-//    fp32 before the rounding to bf16 (`centre_bf16_kernel`): rounding them
-//    uncentred would let a common component of 8x the spread eat 3 of
-//    bf16's 8 mantissa bits. Its scores are then about kt - c_k in the
-//    forward and both passes alike, and only c_v is added back, to o. Raw
-//    bf16 rows (flash_core, GTA sides without a transform) are taken as
-//    they are, c_v = 0 (`centres` null): they are bf16 already, so a centre
-//    would save no rounding and add one.
-//  * delta: `Fp32` computes delta = rowsum(do * (o - c_v)) in the query
-//    pass's prologue; when every key fits one tile, it takes
-//    delta = rowsum(P * dP) from its own products, so each row's dS sums to
-//    zero as the plain version's does (one key: dS = 0 exactly). `Bf16`
-//    always takes delta = rowsum(P * dP) from the query pass's own products,
-//    in a first sweep over the keys when they span tiles (the TPU kernel's
-//    formula; a bf16 o would carry a rounding of 2^-9 of c_v into delta).
-//  * Precision: `Fp32`'s tensor-core accumulation truncates (tf32x3.cuh), so
+//    softmax ignores), subtracted in the kernels: the tensor cores truncate
+//    each sum by ~1e-6 of its value, which about uncentred rows broke the
+//    cancellation in dq. flash_core centres its raw rows about the first
+//    key's rows (`centres` null), the fused GTA kernels about the means of
+//    their kt, vt rows (`centres` [2, B, H, C]).
+//  * delta = rowsum(do * (o - c_v)) in the query pass's prologue; when
+//    every key fits one tile, it takes delta = rowsum(P * dP) from its own
+//    products, so each row's dS sums to zero as the plain version's does
+//    (one key: dS = 0 exactly). (From its own products over more tiles, a
+//    first sweep, left it 2-3x further from fp64 on rows with a common
+//    component, PERF.md.)
+//  * Precision: the tensor-core accumulation truncates (tf32x3.cuh), so
 //    every mma chain is one shared-memory tile long, starts from zero and
-//    joins its running sum by rounded fp32 adds; `Bf16` keeps the same
-//    chains. Its rounding is that of the TPU kernel's operands: q, k - c_k,
-//    v - c_v, do, P and dS in bf16 as product operands only; softmax, lse,
-//    delta and every accumulator in fp32; gradients written in fp32.
+//    joins its running sum by rounded fp32 adds.
 //  * Ragged Tq and Tk need no padding: rows past the end are zero-filled,
 //    masked (-inf scores, p = 0) and store nothing.
 // ptxas registers and spills of every instance: chip_smoke.py's build report
@@ -129,29 +114,9 @@ __device__ __forceinline__ int64_t offset(const Layout& L, int b, int h, int row
   return b * L.bs + h * L.hs + row * L.rs;
 }
 
-// The precision policies. T: the element type of the operands (q, k, v,
-// do, the forward's output); PAD: shared-memory tiles are [rows][C + PAD]
-// elements (conflict-free fragment loads); CENTRE_INSIDE: the kernels
-// subtract c_k and c_v themselves (else k and v arrive centred, or raw with
-// c_v = 0); SWEEP: delta from the query pass's own products (else from o;
-// from its own products, the sweep was tried for Fp32 and left it 2-3x
-// further from fp64 on rows with a common component, PERF.md).
-struct Fp32 {
-  using T = float;
-  static constexpr bool BF16 = false;
-  static constexpr int PAD = 4;
-  static constexpr bool CENTRE_INSIDE = true;
-  static constexpr bool SWEEP = false;
-};
-
-struct Bf16 {
-  using T = bf16;
-  static constexpr bool BF16 = true;
-  static constexpr int PAD = 8;
-  static constexpr bool CENTRE_INSIDE = false;
-  static constexpr bool SWEEP = true;
-};
-
+// shared-memory tiles are [rows][C + PAD] fp32 elements (conflict-free
+// fragment loads)
+constexpr int PAD = 4;
 constexpr int WARPS = 4;
 constexpr int BM = 16 * WARPS;  // own rows per block
 constexpr int BN = 32;          // keys per shared-memory tile in the forward
@@ -181,38 +146,36 @@ __host__ __device__ constexpr bool split_kv() {
 // what a key pass writes
 constexpr int KV_BOTH = 0, KV_DV = 1, KV_DK = 2;
 
-// bytes of a [rows][C + PAD] tile of P's elements
-template <class P, int C>
+// bytes of a [rows][C + PAD] fp32 tile
+template <int C>
 __host__ __device__ constexpr int tile_bytes(int rows) {
-  return rows * (C + P::PAD) * (int)sizeof(typename P::T);
+  return rows * (C + PAD) * (int)sizeof(float);
 }
 
-template <class P, int C>
+template <int C>
 __host__ __device__ constexpr int fwd_smem_bytes() {
-  // q rows (Fp32: TF32 big and small parts), K and V tiles (two stages
-  // each), the centre of V
-  return (P::BF16 ? 1 : 2) * tile_bytes<P, C>(BM) + 2 * 2 * tile_bytes<P, C>(BN) +
-         C * (int)sizeof(float);
+  // q rows (TF32 big and small parts), K and V tiles (two stages each), the
+  // centre of V
+  return 2 * tile_bytes<C>(BM) + 2 * 2 * tile_bytes<C>(BN) + C * (int)sizeof(float);
 }
 
-template <class P, int C>
+template <int C>
 __host__ __device__ constexpr int q_smem_bytes() {
   // own q and do rows, K and V tiles (two stages each), the centres of K
   // and V
-  return 2 * tile_bytes<P, C>(BM) + 2 * 2 * tile_bytes<P, C>(BN_Q) + 2 * C * (int)sizeof(float);
+  return 2 * tile_bytes<C>(BM) + 2 * 2 * tile_bytes<C>(BN_Q) + 2 * C * (int)sizeof(float);
 }
 
-template <class P, int C>
+template <int C>
 __host__ __device__ constexpr int kv_smem_bytes() {
   // own K and V rows, Q and dO tiles (two stages each), lse and delta
   // tiles, the centre of V: 2 blocks per SM
-  return 2 * tile_bytes<P, C>(BM) + 2 * 2 * tile_bytes<P, C>(bn_k<C>()) +
-         (2 * 2 * bn_k<C>() + C) * (int)sizeof(float);
+  return 2 * tile_bytes<C>(BM) + 2 * 2 * tile_bytes<C>(bn_k<C>()) + (2 * 2 * bn_k<C>() + C) * (int)sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
-// Element I/O in either type (4 or 2 consecutive elements, converted to or
-// from fp32)
+// Element I/O in fp32 or bf16 (4 or 2 consecutive elements, converted to or
+// from fp32), for the kernels of this directory
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
@@ -241,24 +204,21 @@ __device__ __forceinline__ void store4(bf16* p, float4 x) {
 // Stage rows [0, ROWS) of an operand whose row r starts at base + r * rs
 // (elements, 16-byte aligned) into a [ROWS][C + PAD] tile by cp.async;
 // rows at or past n are zero-filled. Every thread of the block calls it.
-template <class P, int C, int ROWS>
-__device__ __forceinline__ void stage(typename P::T* tile, const typename P::T* base, int64_t rs,
-                                      int n) {
-  constexpr int E = 16 / (int)sizeof(typename P::T);  // elements per 16-byte chunk
-  constexpr int CHUNKS = C / E;
-  constexpr int LD = C + P::PAD;
+template <int C, int ROWS>
+__device__ __forceinline__ void stage(float* tile, const float* base, int64_t rs, int n) {
+  constexpr int CHUNKS = C / 4;  // 16-byte chunks of a row
+  constexpr int LD = C + PAD;
   for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
     const int r = idx / CHUNKS;
     const int c = idx % CHUNKS;
     const bool ok = r < n;
-    cp_async16(reinterpret_cast<float*>(tile + r * LD + E * c),
-               reinterpret_cast<const float*>(base + (ok ? r : 0) * rs + E * c), ok);
+    cp_async16(tile + r * LD + 4 * c, base + (ok ? r : 0) * rs + 4 * c, ok);
   }
 }
 
 // the centre rows of (b, h): c_k (which 0) or c_v (which 1)
-// from `centres` [2][B][H][C], or the first key's row `first` when null
-// (Fp32 only); grids are (row blocks, H, B)
+// from `centres` [2][B][H][C], or the first key's row `first` when null;
+// grids are (row blocks, H, B)
 template <int C>
 __device__ __forceinline__ const float* centre_row(const float* centres, int which, int b, int h,
                                                    int H, const float* first) {
@@ -297,110 +257,75 @@ __device__ __forceinline__ void add_tile(float (&acc)[C / 8][4], const float (&t
 }
 
 // ---------------------------------------------------------------------------
-// The products, in either policy
+// The products (3xTF32)
 // ---------------------------------------------------------------------------
 
 // s += A T^T over the C channels: A the warp's 16 own rows [16][C + PAD], T
 // a tile of 8*NT rows [8*NT][C + PAD]; s[n] holds rows (g, g+8), T rows
-// 8n + 2t (+1). Fp32: with PRESPLIT, A holds TF32 big parts and A_lo the
-// small parts (`split_rows`); with SWAP, the key pass's order of the three
-// TF32 products (`mma3_t`: S^T = K Q^T equals S = Q K^T bit for bit).
-template <class P, int C, int NT, bool SWAP = false, bool PRESPLIT = false>
-__device__ __forceinline__ void qk_product(float (&s)[NT][4], const typename P::T* A,
-                                           const typename P::T* T, Lane ln,
-                                           const typename P::T* A_lo = nullptr) {
-  constexpr int LD = C + P::PAD;
-  if constexpr (P::BF16) {
-    static_assert(NT % 2 == 0, "two n8 tiles per ldmatrix");
+// 8n + 2t (+1). With PRESPLIT, A holds TF32 big parts and A_lo the small
+// parts (`split_rows`); with SWAP, the key pass's order of the three TF32
+// products (`mma3_t`: S^T = K Q^T equals S = Q K^T bit for bit).
+template <int C, int NT, bool SWAP = false, bool PRESPLIT = false>
+__device__ __forceinline__ void qk_product(float (&s)[NT][4], const float* A, const float* T, Lane ln,
+                                           const float* A_lo = nullptr) {
+  constexpr int LD = C + PAD;
 #pragma unroll
-    for (int ks = 0; ks < C / 16; ++ks) {
-      uint32_t a[4];
-      bf16mma::load_a(a, A, LD, 16 * ks);
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t b[4];
-        bf16mma::load_b_nk2(b, T, LD, 8 * n, 16 * ks);
-        bf16mma::mma(s[n], a, b[0], b[1]);
-        bf16mma::mma(s[n + 1], a, b[2], b[3]);
-      }
+  for (int ks = 0; ks < C / 8; ++ks) {
+    FragA a;
+    if constexpr (PRESPLIT) {
+      load_a_split(a, A, A_lo, LD, 8 * ks, ln);
+    } else {
+      float af[4];
+      load_a(af, A, LD, 8 * ks, ln);
+      a = split(af);
     }
-  } else {
 #pragma unroll
-    for (int ks = 0; ks < C / 8; ++ks) {
-      FragA a;
-      if constexpr (PRESPLIT) {
-        load_a_split(a, A, A_lo, LD, 8 * ks, ln);
+    for (int n = 0; n < NT; ++n) {
+      float bf[2];
+      load_b_nk(bf, T, LD, 8 * n, 8 * ks, ln);
+      if constexpr (SWAP) {
+        mma3_t(s[n], a, split(bf));
       } else {
-        float af[4];
-        load_a(af, A, LD, 8 * ks, ln);
-        a = split(af);
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        float bf[2];
-        load_b_nk(bf, T, LD, 8 * n, 8 * ks, ln);
-        if constexpr (SWAP) {
-          mma3_t(s[n], a, split(bf));
-        } else {
-          mma3(s[n], a, split(bf));
-        }
+        mma3(s[n], a, split(bf));
       }
     }
   }
 }
 
 // t += A T for a [16 x 8*NT] accumulator tile A (its 8-column tiles are the
-// k-steps) and an [8*NT x C] shared-memory tile T; Fp32 with CENTER:
+// k-steps) and an [8*NT x C] shared-memory tile T; with CENTER:
 // A (T - centre) for a row `centre` [C] in shared memory
-template <class P, int C, int NT, bool CENTER = false>
-__device__ __forceinline__ void tile_mma(float (&t)[C / 8][4], const float (&A)[NT][4],
-                                         const typename P::T* T, Lane ln,
+template <int C, int NT, bool CENTER = false>
+__device__ __forceinline__ void tile_mma(float (&t)[C / 8][4], const float (&A)[NT][4], const float* T, Lane ln,
                                          const float* centre = nullptr) {
-  constexpr int LD = C + P::PAD;
-  if constexpr (P::BF16) {
-    static_assert(!CENTER, "Bf16 takes centred rows");
+  constexpr int LD = C + PAD;
 #pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t a[4];
-      bf16mma::a_from_acc(a, A[j], A[j + 1]);
+  for (int j = 0; j < NT; ++j) {
+    float af[4];
+    a_from_acc(af, A[j]);
+    const FragA a = split(af);
 #pragma unroll
-      for (int n = 0; n < C / 8; n += 2) {
-        uint32_t b[4];
-        bf16mma::load_b_kn2(b, T, LD, 8 * j, 8 * n);
-        bf16mma::mma(t[n], a, b[0], b[1]);
-        bf16mma::mma(t[n + 1], a, b[2], b[3]);
+    for (int n = 0; n < C / 8; ++n) {
+      float bf[2];
+      load_b_kn(bf, T, LD, 8 * j, 8 * n, ln);
+      if constexpr (CENTER) {  // both elements are channel 8n + g
+        const float c = centre[8 * n + ln.g];
+        bf[0] -= c;
+        bf[1] -= c;
       }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float af[4];
-      a_from_acc(af, A[j]);
-      const FragA a = split(af);
-#pragma unroll
-      for (int n = 0; n < C / 8; ++n) {
-        float bf[2];
-        load_b_kn(bf, T, LD, 8 * j, 8 * n, ln);
-        if constexpr (CENTER) {  // both elements are channel 8n + g
-          const float c = centre[8 * n + ln.g];
-          bf[0] -= c;
-          bf[1] -= c;
-        }
-        mma3(t[n], a, split(bf));
-      }
+      mma3(t[n], a, split(bf));
     }
   }
 }
 
 // acc += A T through a zeroed tile sum joined by rounded fp32 adds
-template <class P, int C, int NT, bool CENTER = false>
-__device__ __forceinline__ void tile_product(float (&acc)[C / 8][4], const float (&A)[NT][4],
-                                             const typename P::T* T, Lane ln,
-                                             const float* centre = nullptr) {
+template <int C, int NT, bool CENTER = false>
+__device__ __forceinline__ void tile_product(float (&acc)[C / 8][4], const float (&A)[NT][4], const float* T,
+                                             Lane ln, const float* centre = nullptr) {
   float t[C / 8][4];
 #pragma unroll
   for (int n = 0; n < C / 8; ++n) t[n][0] = t[n][1] = t[n][2] = t[n][3] = 0.f;
-  tile_mma<P, C, NT, CENTER>(t, A, T, ln, centre);
+  tile_mma<C, NT, CENTER>(t, A, T, ln, centre);
   add_tile<C>(acc, t);
 }
 
@@ -421,26 +346,23 @@ __device__ __forceinline__ void centre_rows(float* tile, const float* centre) {
 // z = c_v + softmax(...) (vt - c_v) for the centre c_v of (b, h)
 // (`centre_row`): the products then sum at the scale of the rows' spread,
 // and z keeps no truncation of a large common component for the backward's
-// delta = rowsum(do * (z - c_v)) to inherit (attn_bwd_q_kernel). Bf16: kt
-// and vt arrive centred; z is written in bf16.
+// delta = rowsum(do * (z - c_v)) to inherit (attn_bwd_q_kernel).
 // ---------------------------------------------------------------------------
-template <class P, int C>
+template <int C>
 __global__ void __launch_bounds__(THREADS, min_blocks<C>())
-attn_fwd_kernel(const typename P::T* __restrict__ qt, const typename P::T* __restrict__ kt,
-                const typename P::T* __restrict__ vt, const float* __restrict__ centres,
-                typename P::T* __restrict__ z, float* __restrict__ lse, int H, int Tq, int Tk,
-                Layout ql, Layout kl, Layout vl, Layout zl, float scale) {
-  using T = typename P::T;
+attn_fwd_kernel(const float* __restrict__ qt, const float* __restrict__ kt, const float* __restrict__ vt,
+                const float* __restrict__ centres, float* __restrict__ z, float* __restrict__ lse, int H, int Tq,
+                int Tk, Layout ql, Layout kl, Layout vl, Layout zl, float scale) {
   static_assert(C % 16 == 0, "head width must be a multiple of 16");
-  constexpr int LD = C + P::PAD;
+  constexpr int LD = C + PAD;
   constexpr int KS = C / 8;   // 8-channel tiles
   constexpr int NT = BN / 8;  // 8-key tiles per K tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qh = reinterpret_cast<T*>(smem_raw);    // [BM][LD] qt (Fp32: TF32 big parts)
-  T* Ql = Qh + (P::BF16 ? 0 : BM * LD);      // [BM][LD] Fp32: the small parts
-  T* Ks = Ql + BM * LD;                      // [2][BN][LD]
-  T* Vs = Ks + 2 * BN * LD;                  // [2][BN][LD]
-  float* Cv = reinterpret_cast<float*>(Vs + 2 * BN * LD);  // [C] c_v
+  float* Qh = reinterpret_cast<float*>(smem_raw);  // [BM][LD] qt: TF32 big parts
+  float* Ql = Qh + BM * LD;                        // [BM][LD] the small parts
+  float* Ks = Ql + BM * LD;                        // [2][BN][LD]
+  float* Vs = Ks + 2 * BN * LD;                    // [2][BN][LD]
+  float* Cv = Vs + 2 * BN * LD;                    // [C] c_v
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -455,44 +377,43 @@ attn_fwd_kernel(const typename P::T* __restrict__ qt, const typename P::T* __res
   float m[2] = {-INFINITY, -INFINITY};  // running max of the scaled scores
   float l[2] = {0.f, 0.f};              // this lane's part of the running sum
 
-  // qt rows (Fp32: split once, as every warp reads them at every K tile)
-  // and the first K/V tile; rows past Tq are zero and store nothing
-  const T* kbase = kt + b * kl.bs + h * kl.hs;
-  const T* vbase = vt + b * vl.bs + h * vl.hs;
+  // qt rows (split once, as every warp reads them at every K tile) and the
+  // first K/V tile; rows past Tq are zero and store nothing
+  const float* kbase = kt + b * kl.bs + h * kl.hs;
+  const float* vbase = vt + b * vl.bs + h * vl.hs;
   const int ntiles = (Tk + BN - 1) / BN;
-  stage<P, C, BM>(Qh, qt + offset(ql, b, h, q0), ql.rs, Tq - q0);
-  stage<P, C, BN>(Ks, kbase, kl.rs, Tk);
-  stage<P, C, BN>(Vs, vbase, vl.rs, Tk);
+  stage<C, BM>(Qh, qt + offset(ql, b, h, q0), ql.rs, Tq - q0);
+  stage<C, BN>(Ks, kbase, kl.rs, Tk);
+  stage<C, BN>(Vs, vbase, vl.rs, Tk);
   cp_async_commit();
-  // Bf16 with null centres: raw rows, c_v = 0
-  const float* cv = centre_row<C>(centres, 1, b, h, H, P::BF16 ? nullptr : reinterpret_cast<const float*>(vbase));
-  for (int c = threadIdx.x; c < C; c += THREADS) Cv[c] = cv ? cv[c] : 0.f;
+  const float* cv = centre_row<C>(centres, 1, b, h, H, vbase);
+  for (int c = threadIdx.x; c < C; c += THREADS) Cv[c] = cv[c];
   cp_async_wait<0>();
   __syncthreads();
-  if constexpr (!P::BF16) split_rows<C, BM, THREADS>(Qh, Ql);
-  const T* Qhw = Qh + warp * 16 * LD;
-  const T* Qlw = Ql + warp * 16 * LD;
+  split_rows<C, BM, THREADS>(Qh, Ql);
+  const float* Qhw = Qh + warp * 16 * LD;
+  const float* Qlw = Ql + warp * 16 * LD;
 
   for (int i = 0; i < ntiles; ++i) {
     const int buf = i & 1;
     if (i + 1 < ntiles) {  // the next tile streams in while this one computes
       const int k1 = (i + 1) * BN;
-      stage<P, C, BN>(Ks + (buf ^ 1) * BN * LD, kbase + k1 * kl.rs, kl.rs, Tk - k1);
-      stage<P, C, BN>(Vs + (buf ^ 1) * BN * LD, vbase + k1 * vl.rs, vl.rs, Tk - k1);
+      stage<C, BN>(Ks + (buf ^ 1) * BN * LD, kbase + k1 * kl.rs, kl.rs, Tk - k1);
+      stage<C, BN>(Vs + (buf ^ 1) * BN * LD, vbase + k1 * vl.rs, vl.rs, Tk - k1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* K = Ks + buf * BN * LD;
-    const T* V = Vs + buf * BN * LD;
+    const float* K = Ks + buf * BN * LD;
+    const float* V = Vs + buf * BN * LD;
 
     // S = qt kt^T: rows (g, g+8), keys 8n + 2t (+1)
     float s[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    qk_product<P, C, NT, false, true>(s, Qhw, K, ln, Qlw);
+    qk_product<C, NT, false, true>(s, Qhw, K, ln, Qlw);
 
     // online softmax, exponentials in base 2; keys past Tk score -inf. The
     // max stays in the scores' own units, so that where one key dominates,
@@ -535,7 +456,7 @@ attn_fwd_kernel(const typename P::T* __restrict__ qt, const typename P::T* __res
     float pv[KS][4];
 #pragma unroll
     for (int n = 0; n < KS; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
-    tile_mma<P, C, NT, P::CENTRE_INSIDE>(pv, s, V, ln, Cv);
+    tile_mma<C, NT, true>(pv, s, V, ln, Cv);
 #pragma unroll
     for (int n = 0; n < KS; ++n) {
 #pragma unroll
@@ -550,7 +471,7 @@ attn_fwd_kernel(const typename P::T* __restrict__ qt, const typename P::T* __res
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (row[r] >= Tq) continue;
     const float inv = 1.f / l[r];
-    T* zr = z + offset(zl, b, h, row[r]);
+    float* zr = z + offset(zl, b, h, row[r]);
 #pragma unroll
     for (int n = 0; n < KS; ++n) {
       const float2 c = *reinterpret_cast<const float2*>(Cv + 8 * n + 2 * ln.t);
@@ -573,30 +494,25 @@ attn_fwd_kernel(const typename P::T* __restrict__ qt, const typename P::T* __res
 // ~1e-6 of the common component, dS's rows no longer sum to zero, and dq
 // gains that sum times the common key (2.7e-3 relative L2 on an SRT
 // decoder layer's to_q gradient, against 1.8e-5 for fp32 on the CPU).
-// delta: Fp32 takes rowsum(do * (o - c_v)) from `o` (the forward's output,
-// in do's layout) in the prologue; Bf16 (SWEEP) sums rowsum(P * dP) over a
-// first sweep of the key tiles, then sweeps them again for dq. Either
-// writes it for the key pass.
+// delta = rowsum(do * (o - c_v)) from `o` (the forward's output, in do's
+// layout) in the prologue, written for the key pass.
 // ---------------------------------------------------------------------------
-template <class P, int C>
+template <int C>
 __global__ void __launch_bounds__(THREADS, min_blocks<C>())
-attn_bwd_q_kernel(const typename P::T* __restrict__ qt, const typename P::T* __restrict__ kt,
-                  const typename P::T* __restrict__ vt, const float* __restrict__ centres,
-                  const typename P::T* __restrict__ do_s, const typename P::T* __restrict__ o,
-                  const float* __restrict__ lse, float* __restrict__ delta, float* __restrict__ dqt,
-                  int H, int Tq, int Tk, Layout ql, Layout kl, Layout vl, Layout dol, Layout dql,
-                  float scale) {
-  using T = typename P::T;
-  constexpr int LD = C + P::PAD;
+attn_bwd_q_kernel(const float* __restrict__ qt, const float* __restrict__ kt, const float* __restrict__ vt,
+                  const float* __restrict__ centres, const float* __restrict__ do_s, const float* __restrict__ o,
+                  const float* __restrict__ lse, float* __restrict__ delta, float* __restrict__ dqt, int H, int Tq,
+                  int Tk, Layout ql, Layout kl, Layout vl, Layout dol, Layout dql, float scale) {
+  constexpr int LD = C + PAD;
   constexpr int KS = C / 8;
   constexpr int NT = BN_Q / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qown = reinterpret_cast<T*>(smem_raw);  // [BM][LD]
-  T* Down = Qown + BM * LD;                  // [BM][LD]
-  T* Ks = Down + BM * LD;                    // [2][BN_Q][LD]
-  T* Vs = Ks + 2 * BN_Q * LD;                // [2][BN_Q][LD]
-  float* Ck = reinterpret_cast<float*>(Vs + 2 * BN_Q * LD);  // [C] c_k (Fp32)
-  float* Cv = Ck + C;                                        // [C] c_v (Fp32)
+  float* Qown = reinterpret_cast<float*>(smem_raw);  // [BM][LD]
+  float* Down = Qown + BM * LD;                      // [BM][LD]
+  float* Ks = Down + BM * LD;                        // [2][BN_Q][LD]
+  float* Vs = Ks + 2 * BN_Q * LD;                    // [2][BN_Q][LD]
+  float* Ck = Vs + 2 * BN_Q * LD;                    // [C] c_k
+  float* Cv = Ck + C;                                // [C] c_v
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -605,80 +521,67 @@ attn_bwd_q_kernel(const typename P::T* __restrict__ qt, const typename P::T* __r
   const int q0 = blockIdx.x * BM;
   const int row[2] = {q0 + warp * 16 + ln.g, q0 + warp * 16 + ln.g + 8};
   const int ra = min(row[0], Tq - 1), rb = min(row[1], Tq - 1);
-  stage<P, C, BM>(Qown, qt + offset(ql, b, h, q0), ql.rs, Tq - q0);
-  stage<P, C, BM>(Down, do_s + offset(dol, b, h, q0), dol.rs, Tq - q0);
-  const T* Qw = Qown + warp * 16 * LD;
-  const T* Dw = Down + warp * 16 * LD;
+  stage<C, BM>(Qown, qt + offset(ql, b, h, q0), ql.rs, Tq - q0);
+  stage<C, BM>(Down, do_s + offset(dol, b, h, q0), dol.rs, Tq - q0);
+  const float* Qw = Qown + warp * 16 * LD;
+  const float* Dw = Down + warp * 16 * LD;
   const int64_t hrow = ((int64_t)b * H + h) * Tq;
   const float ls[2] = {lse[hrow + ra], lse[hrow + rb]};
-  const T* kbase = kt + b * kl.bs + h * kl.hs;
-  const T* vbase = vt + b * vl.bs + h * vl.hs;
-  float dl[2] = {0.f, 0.f};
-  if constexpr (P::CENTRE_INSIDE) {
-    const float* ck = centre_row<C>(centres, 0, b, h, H, reinterpret_cast<const float*>(kbase));
-    const float* cv = centre_row<C>(centres, 1, b, h, H, reinterpret_cast<const float*>(vbase));
-    for (int i = threadIdx.x; i < C; i += THREADS) {  // read after the loop's first barrier
-      Ck[i] = ck[i];
-      Cv[i] = cv[i];
-    }
+  const float* kbase = kt + b * kl.bs + h * kl.hs;
+  const float* vbase = vt + b * vl.bs + h * vl.hs;
+  const float* ck = centre_row<C>(centres, 0, b, h, H, kbase);
+  const float* cv = centre_row<C>(centres, 1, b, h, H, vbase);
+  for (int i = threadIdx.x; i < C; i += THREADS) {  // read after the loop's first barrier
+    Ck[i] = ck[i];
+    Cv[i] = cv[i];
   }
-  if constexpr (!P::SWEEP) {
-    // delta = rowsum(do * (o - c_v)): this lane's channels 8n + 2t (+1),
-    // summed across the quad
-    const float* cv = centre_row<C>(centres, 1, b, h, H, reinterpret_cast<const float*>(vbase));
-    const int rr[2] = {ra, rb};
+  // delta = rowsum(do * (o - c_v)): this lane's channels 8n + 2t (+1),
+  // summed across the quad
+  float dl[2];
+  const int rr[2] = {ra, rb};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float* dr = do_s + offset(dol, b, h, rr[r]) + 2 * ln.t;
-      const float* orow = o + offset(dol, b, h, rr[r]) + 2 * ln.t;
-      float d = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const float* dr = do_s + offset(dol, b, h, rr[r]) + 2 * ln.t;
+    const float* orow = o + offset(dol, b, h, rr[r]) + 2 * ln.t;
+    float d = 0.f;
 #pragma unroll
-      for (int n = 0; n < KS; ++n) {
-        const float2 x = *reinterpret_cast<const float2*>(dr + 8 * n);
-        const float2 y = *reinterpret_cast<const float2*>(orow + 8 * n);
-        const float2 c = *reinterpret_cast<const float2*>(cv + 2 * ln.t + 8 * n);
-        d = fmaf(x.x, y.x - c.x, fmaf(x.y, y.y - c.y, d));
-      }
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      dl[r] = d;
-      if (ln.t == 0 && row[r] < Tq) delta[hrow + row[r]] = d;
+    for (int n = 0; n < KS; ++n) {
+      const float2 x = *reinterpret_cast<const float2*>(dr + 8 * n);
+      const float2 y = *reinterpret_cast<const float2*>(orow + 8 * n);
+      const float2 c = *reinterpret_cast<const float2*>(cv + 2 * ln.t + 8 * n);
+      d = fmaf(x.x, y.x - c.x, fmaf(x.y, y.y - c.y, d));
     }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    dl[r] = d;
+    if (ln.t == 0 && row[r] < Tq) delta[hrow + row[r]] = d;
   }
 
   float dq[KS][4];
 #pragma unroll
   for (int n = 0; n < KS; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
-  // steps: each key tile once, or (SWEEP over more than one tile) twice:
-  // first for delta, then for dq
   const int ntiles = (Tk + BN_Q - 1) / BN_Q;
-  const bool sweep = P::SWEEP && ntiles > 1;
-  const int steps = sweep ? 2 * ntiles : ntiles;
-  float dsum[2] = {0.f, 0.f};  // this lane's part of the sweep's rowsum(P * dP)
-  stage<P, C, BN_Q>(Ks, kbase, kl.rs, Tk);
-  stage<P, C, BN_Q>(Vs, vbase, vl.rs, Tk);
+  stage<C, BN_Q>(Ks, kbase, kl.rs, Tk);
+  stage<C, BN_Q>(Vs, vbase, vl.rs, Tk);
   cp_async_commit();
 
-  for (int i = 0; i < steps; ++i) {
+  for (int i = 0; i < ntiles; ++i) {
     const int buf = i & 1;
-    const int tile = i < ntiles ? i : i - ntiles;
-    if (i + 1 < steps) {
-      const int k1 = (i + 1 < ntiles ? i + 1 : i + 1 - ntiles) * BN_Q;
-      stage<P, C, BN_Q>(Ks + (buf ^ 1) * BN_Q * LD, kbase + k1 * kl.rs, kl.rs, Tk - k1);
-      stage<P, C, BN_Q>(Vs + (buf ^ 1) * BN_Q * LD, vbase + k1 * vl.rs, vl.rs, Tk - k1);
+    if (i + 1 < ntiles) {
+      const int k1 = (i + 1) * BN_Q;
+      stage<C, BN_Q>(Ks + (buf ^ 1) * BN_Q * LD, kbase + k1 * kl.rs, kl.rs, Tk - k1);
+      stage<C, BN_Q>(Vs + (buf ^ 1) * BN_Q * LD, vbase + k1 * vl.rs, vl.rs, Tk - k1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* K = Ks + buf * BN_Q * LD;
-    const T* V = Vs + buf * BN_Q * LD;
-    if constexpr (P::CENTRE_INSIDE) {
-      centre_rows<C, BN_Q>(Vs + buf * BN_Q * LD, Cv);  // V is read only as v - c_v here
-      __syncthreads();
-    }
+    const float* K = Ks + buf * BN_Q * LD;
+    const float* V = Vs + buf * BN_Q * LD;
+    centre_rows<C, BN_Q>(Vs + buf * BN_Q * LD, Cv);  // V is read only as v - c_v here
+    __syncthreads();
 
     // S = qt kt^T and dP = do vt^T: rows (g, g+8), keys 8n + 2t (+1)
     float s[NT][4], dp[NT][4];
@@ -687,11 +590,11 @@ attn_bwd_q_kernel(const typename P::T* __restrict__ qt, const typename P::T* __r
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
     }
-    qk_product<P, C, NT>(s, Qw, K, ln);
-    qk_product<P, C, NT>(dp, Dw, V, ln);
+    qk_product<C, NT>(s, Qw, K, ln);
+    qk_product<C, NT>(dp, Dw, V, ln);
 
     // P = exp(S * scale - lse); keys past Tk get 0
-    const int kvalid = Tk - tile * BN_Q;
+    const int kvalid = Tk - i * BN_Q;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
@@ -699,29 +602,6 @@ attn_bwd_q_kernel(const typename P::T* __restrict__ qt, const typename P::T* __r
         const int key = 8 * n + 2 * ln.t + (e & 1);
         s[n][e] = key < kvalid ? exp2f((s[n][e] * scale - ls[e >> 1]) * LOG2E) : 0.f;
       }
-    }
-    if (sweep && i < ntiles) {
-      // the first sweep: delta = rowsum(P * dP) over every key tile, summed
-      // across the quad after the last one
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          dsum[r] = fmaf(s[n][2 * r], dp[n][2 * r], fmaf(s[n][2 * r + 1], dp[n][2 * r + 1], dsum[r]));
-        }
-      }
-      if (i == ntiles - 1) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float d = dsum[r];
-          d += __shfl_xor_sync(0xffffffffu, d, 1);
-          d += __shfl_xor_sync(0xffffffffu, d, 2);
-          dl[r] = d;
-          if (ln.t == 0 && row[r] < Tq) delta[hrow + row[r]] = d;
-        }
-      }
-      __syncthreads();  // every warp is done with this buffer before it is restaged
-      continue;
     }
     if (ntiles == 1) {
       // every key is in this tile: delta = rowsum(P * dP) from these very
@@ -749,7 +629,7 @@ attn_bwd_q_kernel(const typename P::T* __restrict__ qt, const typename P::T* __r
 
     // dqt += dS (kt - c_k): the tile's product from zero, then a rounded
     // add
-    tile_product<P, C, NT, P::CENTRE_INSIDE>(dq, s, K, ln, Ck);
+    tile_product<C, NT, true>(dq, s, K, ln, Ck);
     __syncthreads();
   }
   store_rows<C>(dqt, dql, b, h, row, Tq, dq, ln);
@@ -761,28 +641,25 @@ attn_bwd_q_kernel(const typename P::T* __restrict__ qt, const typename P::T* __r
 // KV_BOTH), or dv alone (KV_DV: S^T and P^T do) or dk alone (KV_DK). Its
 // dP^T is (v - c_v) do^T, as in the query pass.
 // ---------------------------------------------------------------------------
-template <class P, int C, int PART>
+template <int C, int PART>
 __global__ void __launch_bounds__(THREADS, 2)
-attn_bwd_kv_kernel(const typename P::T* __restrict__ kt, const typename P::T* __restrict__ vt,
-                   const float* __restrict__ centres, const typename P::T* __restrict__ qt,
-                   const typename P::T* __restrict__ do_s, const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dkt,
-                   float* __restrict__ dvt, int H, int Tq, int Tk, Layout kl, Layout vl, Layout ql,
-                   Layout dol, Layout dkl, float scale) {
-  using T = typename P::T;
-  constexpr int LD = C + P::PAD;
+attn_bwd_kv_kernel(const float* __restrict__ kt, const float* __restrict__ vt, const float* __restrict__ centres,
+                   const float* __restrict__ qt, const float* __restrict__ do_s, const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dkt, float* __restrict__ dvt, int H, int Tq,
+                   int Tk, Layout kl, Layout vl, Layout ql, Layout dol, Layout dkl, float scale) {
+  constexpr int LD = C + PAD;
   constexpr int KS = C / 8;
   constexpr int BNK = bn_k<C>();
   constexpr int NT = BNK / 8;
   constexpr bool DV = PART != KV_DK, DK = PART != KV_DV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Kown = reinterpret_cast<T*>(smem_raw);          // [BM][LD]
-  T* Vown = Kown + BM * LD;                          // [BM][LD] (dk)
-  T* Qs = Vown + BM * LD;                            // [2][BNK][LD]
-  T* Ds = Qs + 2 * BNK * LD;                         // [2][BNK][LD]
-  float* Ls = reinterpret_cast<float*>(Ds + 2 * BNK * LD);  // [2][BNK]
+  float* Kown = reinterpret_cast<float*>(smem_raw);  // [BM][LD]
+  float* Vown = Kown + BM * LD;                      // [BM][LD] (dk)
+  float* Qs = Vown + BM * LD;                        // [2][BNK][LD]
+  float* Ds = Qs + 2 * BNK * LD;                     // [2][BNK][LD]
+  float* Ls = Ds + 2 * BNK * LD;                     // [2][BNK]
   float* Dl = Ls + 2 * BNK;                          // [2][BNK] (dk)
-  float* Cv = Dl + 2 * BNK;                          // [C] c_v (dk, Fp32)
+  float* Cv = Dl + 2 * BNK;                          // [C] c_v (dk)
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -791,20 +668,19 @@ attn_bwd_kv_kernel(const typename P::T* __restrict__ kt, const typename P::T* __
   const int k0 = blockIdx.x * BM;
   const int row[2] = {k0 + warp * 16 + ln.g, k0 + warp * 16 + ln.g + 8};
 
-  const T* qbase = qt + b * ql.bs + h * ql.hs;
-  const T* dbase = do_s + b * dol.bs + h * dol.hs;
+  const float* qbase = qt + b * ql.bs + h * ql.hs;
+  const float* dbase = do_s + b * dol.bs + h * dol.hs;
   const int64_t hrow = ((int64_t)b * H + h) * Tq;
   const int ntiles = (Tq + BNK - 1) / BNK;
-  stage<P, C, BM>(Kown, kt + offset(kl, b, h, k0), kl.rs, Tk - k0);
-  if constexpr (DK) stage<P, C, BM>(Vown, vt + offset(vl, b, h, k0), vl.rs, Tk - k0);
-  stage<P, C, BNK>(Qs, qbase, ql.rs, Tq);
-  stage<P, C, BNK>(Ds, dbase, dol.rs, Tq);
+  stage<C, BM>(Kown, kt + offset(kl, b, h, k0), kl.rs, Tk - k0);
+  if constexpr (DK) stage<C, BM>(Vown, vt + offset(vl, b, h, k0), vl.rs, Tk - k0);
+  stage<C, BNK>(Qs, qbase, ql.rs, Tq);
+  stage<C, BNK>(Ds, dbase, dol.rs, Tq);
   stage_vec<BNK, THREADS>(Ls, lse + hrow, Tq);
   if constexpr (DK) stage_vec<BNK, THREADS>(Dl, delta + hrow, Tq);
   cp_async_commit();
-  if constexpr (DK && P::CENTRE_INSIDE) {  // read after the loop's first barrier
-    const float* cv = centre_row<C>(centres, 1, b, h, H,
-                                    reinterpret_cast<const float*>(vt + b * vl.bs + h * vl.hs));
+  if constexpr (DK) {  // read after the loop's first barrier
+    const float* cv = centre_row<C>(centres, 1, b, h, H, vt + b * vl.bs + h * vl.hs);
     for (int i = threadIdx.x; i < C; i += THREADS) Cv[i] = cv[i];
   }
 
@@ -814,15 +690,15 @@ attn_bwd_kv_kernel(const typename P::T* __restrict__ kt, const typename P::T* __
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
   }
-  const T* Kw = Kown + warp * 16 * LD;
-  const T* Vw = Vown + warp * 16 * LD;
+  const float* Kw = Kown + warp * 16 * LD;
+  const float* Vw = Vown + warp * 16 * LD;
 
   for (int i = 0; i < ntiles; ++i) {
     const int buf = i & 1;
     if (i + 1 < ntiles) {
       const int q1 = (i + 1) * BNK;
-      stage<P, C, BNK>(Qs + (buf ^ 1) * BNK * LD, qbase + q1 * ql.rs, ql.rs, Tq - q1);
-      stage<P, C, BNK>(Ds + (buf ^ 1) * BNK * LD, dbase + q1 * dol.rs, dol.rs, Tq - q1);
+      stage<C, BNK>(Qs + (buf ^ 1) * BNK * LD, qbase + q1 * ql.rs, ql.rs, Tq - q1);
+      stage<C, BNK>(Ds + (buf ^ 1) * BNK * LD, dbase + q1 * dol.rs, dol.rs, Tq - q1);
       stage_vec<BNK, THREADS>(Ls + (buf ^ 1) * BNK, lse + hrow + q1, Tq - q1);
       if constexpr (DK) stage_vec<BNK, THREADS>(Dl + (buf ^ 1) * BNK, delta + hrow + q1, Tq - q1);
       cp_async_commit();
@@ -831,19 +707,19 @@ attn_bwd_kv_kernel(const typename P::T* __restrict__ kt, const typename P::T* __
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* Q = Qs + buf * BNK * LD;
-    const T* Dt = Ds + buf * BNK * LD;
+    const float* Q = Qs + buf * BNK * LD;
+    const float* Dt = Ds + buf * BNK * LD;
     const float* L = Ls + buf * BNK;
     const float* Dlt = Dl + buf * BNK;
-    if constexpr (DK && P::CENTRE_INSIDE) {
+    if constexpr (DK) {
       if (i == 0) {  // the own V rows have landed with the first tile
-        centre_rows<C, BM>(reinterpret_cast<float*>(Vown), Cv);
+        centre_rows<C, BM>(Vown, Cv);
         __syncthreads();
       }
     }
 
     // S^T = kt qt^T and dP^T = vt do^T: key rows (g, g+8), queries 8n + 2t
-    // (+1); Fp32's mma3_t sums the query pass's products in its order, so
+    // (+1); mma3_t sums the query pass's products in its order, so
     // both passes see the same P and dS bit for bit
     float st[NT][4], dpt[NT][4];
 #pragma unroll
@@ -851,8 +727,8 @@ attn_bwd_kv_kernel(const typename P::T* __restrict__ kt, const typename P::T* __
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
     }
-    qk_product<P, C, NT, true>(st, Kw, Q, ln);
-    if constexpr (DK) qk_product<P, C, NT, true>(dpt, Vw, Dt, ln);
+    qk_product<C, NT, true>(st, Kw, Q, ln);
+    if constexpr (DK) qk_product<C, NT, true>(dpt, Vw, Dt, ln);
 
     // P^T = exp(S^T * scale - lse[q]), dS^T = P^T (dP^T - delta[q]) * scale;
     // queries past Tq get 0
@@ -870,8 +746,8 @@ attn_bwd_kv_kernel(const typename P::T* __restrict__ kt, const typename P::T* __
 
     // dvt += P^T do, then dkt += dS^T qt: each tile's product from zero,
     // then a rounded add
-    if constexpr (DV) tile_product<P, C, NT>(dv, st, Dt, ln);
-    if constexpr (DK) tile_product<P, C, NT>(dk, dpt, Q, ln);
+    if constexpr (DV) tile_product<C, NT>(dv, st, Dt, ln);
+    if constexpr (DK) tile_product<C, NT>(dk, dpt, Q, ln);
     __syncthreads();
   }
   if constexpr (DK) store_rows<C>(dkt, dkl, b, h, row, Tk, dk, ln);
@@ -879,7 +755,7 @@ attn_bwd_kv_kernel(const typename P::T* __restrict__ kt, const typename P::T* __
 }
 
 // ---------------------------------------------------------------------------
-// Centres and conversions around the core
+// Centres around the cores
 // ---------------------------------------------------------------------------
 
 // centre[b, h, :] = the mean of the T rows of (b, h) of `src`: the centre
@@ -936,7 +812,8 @@ cudaError_t run_mean(const float* src, Layout l, int T, int B, int H, float* cen
 }
 
 // dst[b, h, t, :] = bf16(src row t of (b, h) - centre[b, h, :]), dst
-// heads-first [B, H, T, C]: the centred bf16 rows the Bf16 core reads, the
+// heads-first [B, H, T, C]: the centred bf16 rows that the fused GTA
+// kernels' bf16 instances give csrc/attn_sm90.cuh, the
 // difference of fp32 rows taken before the rounding. grid
 // (ceil(T*C/4 / 256), H, B).
 constexpr int CENTRE_THREADS = 256;
@@ -968,83 +845,63 @@ cudaError_t run_centre_bf16(const float* src, Layout l, int T, int B, int H, flo
   return cudaGetLastError();
 }
 
-// dst[i] = bf16(src[i]) for n4 groups of 4 elements
-__global__ void __launch_bounds__(256) to_bf16_kernel(const float* __restrict__ src,
-                                                      bf16* __restrict__ dst, int64_t n4) {
-  const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
-  if (i < n4) store4(dst + 4 * i, load4(src + 4 * i));
-}
-
-inline cudaError_t run_to_bf16(const float* src, bf16* dst, int64_t n, cudaStream_t stream) {
-  const int64_t n4 = n / 4;
-  to_bf16_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(src, dst, n4);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // Host launchers: each sets its kernels' shared-memory limit and launches on
 // `stream`; returns the launch's cudaError_t.
 // ---------------------------------------------------------------------------
 
 // the forward over (q, k, v) into o (and lse when non-null), about
-// `centres` [2, B, H, C] (c_k, c_v), or (Fp32) the first key's rows when
-// null
-template <class P, int C>
-cudaError_t run_fwd(const typename P::T* q, const typename P::T* k, const typename P::T* v,
-                    const float* centres, typename P::T* o, float* lse, int B, int H, int Tq, int Tk,
-                    Layout ql, Layout kl, Layout vl, Layout ol, float scale, cudaStream_t stream) {
-  constexpr int smem = fwd_smem_bytes<P, C>();
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<P, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// `centres` [2, B, H, C] (c_k, c_v), or the first key's rows when null
+template <int C>
+cudaError_t run_fwd(const float* q, const float* k, const float* v, const float* centres, float* o, float* lse,
+                    int B, int H, int Tq, int Tk, Layout ql, Layout kl, Layout vl, Layout ol, float scale,
+                    cudaStream_t stream) {
+  constexpr int smem = fwd_smem_bytes<C>();
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  attn_fwd_kernel<P, C><<<dim3((Tq + BM - 1) / BM, H, B), THREADS, smem, stream>>>(
+  attn_fwd_kernel<C><<<dim3((Tq + BM - 1) / BM, H, B), THREADS, smem, stream>>>(
       q, k, v, centres, o, lse, H, Tq, Tk, ql, kl, vl, ol, scale);
   return cudaGetLastError();
 }
 
 // one key pass writing PART
-template <class P, int C, int PART>
-cudaError_t run_kv(const typename P::T* q, const typename P::T* k, const typename P::T* v,
-                   const float* centres, const typename P::T* dout, const float* lse,
-                   const float* delta, float* dk, float* dv, int B, int H, int Tq, int Tk,
-                   Layout ql, Layout kl, Layout vl, Layout dol, Layout dkl, float scale,
-                   cudaStream_t stream) {
-  constexpr int kv_smem = kv_smem_bytes<P, C>();
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_kv_kernel<P, C, PART>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+template <int C, int PART>
+cudaError_t run_kv(const float* q, const float* k, const float* v, const float* centres, const float* dout,
+                   const float* lse, const float* delta, float* dk, float* dv, int B, int H, int Tq, int Tk,
+                   Layout ql, Layout kl, Layout vl, Layout dol, Layout dkl, float scale, cudaStream_t stream) {
+  constexpr int kv_smem = kv_smem_bytes<C>();
+  cudaError_t err =
+      cudaFuncSetAttribute(attn_bwd_kv_kernel<C, PART>, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_kv_kernel<P, C, PART><<<dim3((Tk + BM - 1) / BM, H, B), THREADS, kv_smem, stream>>>(
+  attn_bwd_kv_kernel<C, PART><<<dim3((Tk + BM - 1) / BM, H, B), THREADS, kv_smem, stream>>>(
       k, v, centres, q, dout, lse, delta, dk, dv, H, Tq, Tk, kl, vl, ql, dol, dkl, scale);
   return cudaGetLastError();
 }
 
-// the query pass (dq through dql), then the key pass (dk, dv through dkl;
-// two of them at C = 96, dv then dk), about `centres` as run_fwd; the query
-// pass writes delta (Fp32: from `o`, in do's layout; Bf16: from its own
-// products, `o` unused)
-template <class P, int C>
-cudaError_t run_bwd(const typename P::T* q, const typename P::T* k, const typename P::T* v,
-                    const float* centres, const typename P::T* dout, const typename P::T* o,
-                    const float* lse, float* delta, float* dq, float* dk, float* dv, int B, int H,
-                    int Tq, int Tk, Layout ql, Layout kl, Layout vl, Layout dol, Layout dql,
-                    Layout dkl, float scale, cudaStream_t stream) {
-  constexpr int q_smem = q_smem_bytes<P, C>();
+// the query pass (dq through dql, delta from `o`, in do's layout), then the
+// key pass (dk, dv through dkl; two of them at C = 96, dv then dk), about
+// `centres` as run_fwd
+template <int C>
+cudaError_t run_bwd(const float* q, const float* k, const float* v, const float* centres, const float* dout,
+                    const float* o, const float* lse, float* delta, float* dq, float* dk, float* dv, int B, int H,
+                    int Tq, int Tk, Layout ql, Layout kl, Layout vl, Layout dol, Layout dql, Layout dkl, float scale,
+                    cudaStream_t stream) {
+  constexpr int q_smem = q_smem_bytes<C>();
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(attn_bwd_q_kernel<P, C>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem)))
+  if ((err = cudaFuncSetAttribute(attn_bwd_q_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem)))
     return err;
-  attn_bwd_q_kernel<P, C><<<dim3((Tq + BM - 1) / BM, H, B), THREADS, q_smem, stream>>>(
+  attn_bwd_q_kernel<C><<<dim3((Tq + BM - 1) / BM, H, B), THREADS, q_smem, stream>>>(
       q, k, v, centres, dout, o, lse, delta, dq, H, Tq, Tk, ql, kl, vl, dol, dql, scale);
   if ((err = cudaGetLastError())) return err;
   if constexpr (split_kv<C>()) {
-    err = run_kv<P, C, KV_DV>(q, k, v, centres, dout, lse, delta, dk, dv, B, H, Tq, Tk, ql, kl, vl,
-                              dol, dkl, scale, stream);
+    err = run_kv<C, KV_DV>(q, k, v, centres, dout, lse, delta, dk, dv, B, H, Tq, Tk, ql, kl, vl, dol, dkl, scale,
+                           stream);
     if (err != cudaSuccess) return err;
-    return run_kv<P, C, KV_DK>(q, k, v, centres, dout, lse, delta, dk, dv, B, H, Tq, Tk, ql, kl, vl,
-                               dol, dkl, scale, stream);
+    return run_kv<C, KV_DK>(q, k, v, centres, dout, lse, delta, dk, dv, B, H, Tq, Tk, ql, kl, vl, dol, dkl, scale,
+                            stream);
   } else {
-    return run_kv<P, C, KV_BOTH>(q, k, v, centres, dout, lse, delta, dk, dv, B, H, Tq, Tk, ql, kl,
-                                 vl, dol, dkl, scale, stream);
+    return run_kv<C, KV_BOTH>(q, k, v, centres, dout, lse, delta, dk, dv, B, H, Tq, Tk, ql, kl, vl, dol, dkl,
+                              scale, stream);
   }
 }
 

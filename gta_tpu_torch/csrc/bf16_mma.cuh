@@ -1,7 +1,10 @@
 // bf16 matrix products on Hopper's tensor cores with fp32 accumulation:
-// warp-level mma.sync m16n8k16, for the bf16 instances of the attention
-// kernels of this directory (the counterpart of csrc/tf32x3.cuh, which
-// holds the fp32-accurate 3xTF32 products).
+// warp-level mma.sync m16n8k16, for the row transforms and dM reductions of
+// the fused GTA kernels' bf16 instances (csrc/gta_rows.cuh,
+// csrc/gta_fused_bwd.cu), and `pack`, which rounds two floats into one
+// bf16x2 register (also csrc/attn_sm90.cuh's P and dS fragments). The
+// counterpart of csrc/tf32x3.cuh, which holds the fp32-accurate 3xTF32
+// products.
 //
 // This is what the TPU kernels compute with bf16 operands: each product
 // a*b of two bf16 values is exact in fp32 and the sums accumulate in fp32
@@ -16,10 +19,7 @@
 //                     a2 (g, 2t+8..2t+9)  a3 (g+8, 2t+8..2t+9)
 //   B (16 x 8, col):  b0 (k=2t..2t+1, n=g)  b1 (k=2t+8..2t+9, n=g)
 //   C (16 x 8):       c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
-// The accumulator layout is m16n8k8's (csrc/tf32x3.cuh), so the softmax
-// code of the attention core serves both policies. Two n8 accumulator tiles
-// (keys 16j..16j+7 and 16j+8..16j+15) are one k16 A fragment once packed
-// to bf16x2 (`a_from_acc`): P and dS feed the next product in place.
+// The accumulator layout is m16n8k8's (csrc/tf32x3.cuh).
 //
 // Fragments come from shared memory by ldmatrix (four 8x8 b16 matrices per
 // instruction, one 16-byte row address per lane): A and the B of X Y^T
@@ -96,15 +96,6 @@ __device__ __forceinline__ void load_b_nk2(uint32_t (&b)[4], const bf16* T, int 
 __device__ __forceinline__ void load_b_kn2(uint32_t (&b)[4], const bf16* T, int ld, int k0, int n0) {
   const int l = threadIdx.x & 31, m = l >> 3, r = l & 7;
   ldsm_x4_t(b, T + (k0 + (m & 1) * 8 + r) * ld + n0 + (m >> 1) * 8);
-}
-
-// the k16 A fragment of two 16 x 8 accumulator tiles c0 (k 0..7) and c1
-// (k 8..15), rounded to bf16
-__device__ __forceinline__ void a_from_acc(uint32_t (&a)[4], const float (&c0)[4], const float (&c1)[4]) {
-  a[0] = pack(c0[0], c0[1]);
-  a[1] = pack(c0[2], c0[3]);
-  a[2] = pack(c1[0], c1[1]);
-  a[3] = pack(c1[2], c1[3]);
 }
 
 }  // namespace bf16mma

@@ -1,7 +1,8 @@
-// Plain softmax attention forward for Hopper (sm_90a), through the attention
-// core that the fused GTA kernels run (csrc/attn_core.cuh), in two precision
-// policies: fp32 accuracy (3xTF32 mma.sync) and bf16 operands with fp32
-// accumulation (bf16 mma.sync).
+// Plain softmax attention forward for Hopper (sm_90a) in two precision
+// policies: fp32 accuracy (3xTF32 mma.sync, through the attention core that
+// the fused GTA kernels' fp32 instances run, csrc/attn_core.cuh) and bf16
+// operands with fp32 accumulation (wgmma fed by TMA, through the core of
+// their bf16 instances, csrc/attn_sm90.cuh).
 //
 // Replaces gta_tpu/ops/flash_core.py:73 `_fwd_kernel` (the Pallas TPU
 // kernel launched by `_fwd_call` :129). Per (batch b, head h):
@@ -13,26 +14,31 @@
 // channels [h*C, (h+1)*C) of each row; lse [B, H, Tq].
 //
 // What bounds it on the H100: 4*Tq*Tk*C flops per (b, h) against
-// (2*Tq + 2*Tk)*C*4 bytes of q, k, v and out, 100 to 300 flops per byte at
-// the SRT shapes (C = 64, Tk = 600, Tq = 600 to 16384): bound by operations,
-// at 165 TFLOP/s for fp32-accurate products on the tensor cores (3xTF32,
-// 495 / 3), 989 TFLOP/s for bf16.
+// (2*Tq + 2*Tk)*C*4 bytes of q, k, v and out (fp32; half in bf16), 100 to
+// 600 flops per byte at the SRT shapes (C = 64, Tk = 600 to 1280, Tq = 600
+// to 16384): bound by operations, at 165 TFLOP/s for fp32-accurate
+// products on the tensor cores (3xTF32, 495 / 3), 989 TFLOP/s for bf16.
 //
-// What the design does about it: one launch of the shared core
-// (`attn_fwd_kernel`) on the raw token-major q, k, v and out, no scratch and
-// no row launch. A warp owns 16 query rows, K/V stream through shared
-// memory in double-buffered 32-key tiles (cp.async), both products are
-// 3xTF32 m16n8k8 mma.sync, and the online softmax lives in the score
-// accumulators; the Pallas kernel's whole-head K/V in VMEM becomes K tiles,
-// so every key length takes the same kernel. P*V is taken about the first
-// key's v row c_v (out = c_v + P (v - c_v)): a layer's v rows share a large
-// component, whose truncation on the tensor cores would otherwise reach the
+// What the design does about it: one launch of a core on the raw
+// token-major q, k, v and out, no scratch and no row launch; the Pallas
+// kernel's whole-head K/V in VMEM becomes K tiles, so every key length
+// takes the same kernel. fp32 (`flash_core_fwd`, `attn_fwd_kernel`): a
+// warp owns 16 query rows, K/V stream through shared memory in
+// double-buffered 32-key tiles (cp.async), both products are 3xTF32
+// m16n8k8 mma.sync, and the online softmax lives in the score
+// accumulators. P*V is taken about the first key's v row c_v
+// (out = c_v + P (v - c_v)): a layer's v rows share a large component,
+// whose truncation on the tensor cores would otherwise reach the
 // backward's delta (attn_core.cuh). lse is the natural-log log-sum-exp
 // with the running max in the scores' units, as the GTA kernels keep it.
-// bf16 (`flash_core_fwd_bf16`): the same launch of the core's bf16
-// instance on the raw bf16 q, k, v, uncentred (they are bf16 already: a
-// centre would add a rounding, attn_core.cuh); out in bf16, lse in fp32.
-// Not yet: wgmma and TMA (attn_core.cuh).
+// bf16 (`flash_core_fwd_bf16`, `attn_sm90_fwd`): two consumer warpgroups
+// of 64 query rows and a producer warpgroup a block, K/V tiles by TMA
+// straight from the token-major rows (4-D tensor maps; rows past Tk
+// zero-filled per head), every product a wgmma, uncentred (the rows are
+// bf16 already: a centre would add a rounding); out in bf16, lse in fp32.
+// Its tiling, `G` below: 128-key K/V tiles (an m64n128k16 score product,
+// half the softmax rescales of 64; PERF.md has the times of both).
+// Not yet: wgmma and TMA for fp32 (attn_core.cuh).
 //
 // Interface: plain C, bound from Python with ctypes. `flash_core_fwd`:
 // every pointer a contiguous fp32 device array; `flash_core_fwd_bf16`: q,
@@ -43,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "attn_core.cuh"
+#include "attn_sm90.cuh"
 
 extern "C" int flash_core_fwd(const float* q, const float* k, const float* v, float* out,
                               float* lse, int B, int H, int Tq, int Tk, int C, float scale,
@@ -52,8 +59,8 @@ extern "C" int flash_core_fwd(const float* q, const float* k, const float* v, fl
     return (int)cudaErrorInvalidValue;
   }
   const attn::Layout tok_q = attn::tokens(Tq, H, CC), tok_k = attn::tokens(Tk, H, CC);
-  return (int)attn::run_fwd<attn::Fp32, CC>(q, k, v, nullptr, out, lse, B, H, Tq, Tk, tok_q, tok_k, tok_k, tok_q,
-                                      scale, static_cast<cudaStream_t>(stream_ptr));
+  return (int)attn::run_fwd<CC>(q, k, v, nullptr, out, lse, B, H, Tq, Tk, tok_q, tok_k, tok_k, tok_q, scale,
+                                static_cast<cudaStream_t>(stream_ptr));
 }
 
 extern "C" int flash_core_fwd_bf16(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v,
@@ -63,9 +70,10 @@ extern "C" int flash_core_fwd_bf16(const attn::bf16* q, const attn::bf16* k, con
   if (C != CC || B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535) {
     return (int)cudaErrorInvalidValue;
   }
+  using G = sm90::Cfg<CC, 128>;  // 128 keys a tile
   const attn::Layout tok_q = attn::tokens(Tq, H, CC), tok_k = attn::tokens(Tk, H, CC);
-  return (int)attn::run_fwd<attn::Bf16, CC>(q, k, v, nullptr, out, lse, B, H, Tq, Tk, tok_q, tok_k,
-                                            tok_k, tok_q, scale, static_cast<cudaStream_t>(stream_ptr));
+  return (int)sm90::run_fwd<G>(q, k, v, nullptr, out, lse, B, H, Tq, Tk, tok_q, tok_k, tok_k, tok_q, scale,
+                               static_cast<cudaStream_t>(stream_ptr));
 }
 
 extern "C" const char* flash_core_fwd_error_string(int code) {

@@ -396,8 +396,8 @@ int fused_bwd(const float* q, const float* k, const float* v, const float* mq, c
 
   // the core's passes: dqt into dq (delta = rowsum(do * (z - c_v)) on the
   // way), dkt and dvt into dk and dv
-  err = attn::run_bwd<attn::Fp32, C>(qp, kp, vp, centres, do_s, z, lse, delta, dq, dk, dv, B, H, Tq, Tk,
-                               ql, kl, vl, tok_q, tok_q, tok_k, scale, stream);
+  err = attn::run_bwd<C>(qp, kp, vp, centres, do_s, z, lse, delta, dq, dk, dv, B, H, Tq, Tk, ql, kl, vl, tok_q,
+                         tok_q, tok_k, scale, stream);
   if (err != cudaSuccess) return (int)err;
 
   // query chain, in place on dq: dzq = R_q^-1(dqt) (stored for dMq), dq = dzq @ Mq^T
@@ -477,9 +477,9 @@ int fused_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mq,
   // the core's passes over the residuals (transformed kt, vt centred; raw
   // rows as they are): dqt, dkt, dvt in fp32
   const bool v_side = kv_tf && vt_flag;
-  err = sm90::run_bwd<C>(q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v, do_s, lse, delta, dq32, dk32, dv32,
-                         B, H, Tq, Tk, q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k, v_side ? hf_k : tok_k,
-                         tok_q, tok_q, tok_k, scale, stream);
+  err = sm90::run_bwd<sm90::Cfg<C>>(q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v, do_s, lse, delta, dq32,
+                                    dk32, dv32, B, H, Tq, Tk, q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k,
+                                    v_side ? hf_k : tok_k, tok_q, tok_q, tok_k, scale, stream);
   if (err != cudaSuccess) return (int)err;
 
   // query chain into bf16 dq: dzq = R_q^-1(dqt) (stored for dMq), dq = dzq @ Mq^T

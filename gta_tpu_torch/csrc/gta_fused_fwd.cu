@@ -133,8 +133,8 @@ int fused_fwd(const float* q, const float* k, const float* v, const float* mq, c
     return (int)err;
 
   float* zp = z ? z : out;
-  err = attn::run_fwd<attn::Fp32, CC>(q_tf ? qt : q, kv_tf ? kt : k, vp, centres, zp, lse, B, H, Tq, Tk,
-                                q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k, vl, tok_q, scale, stream);
+  err = attn::run_fwd<CC>(q_tf ? qt : q, kv_tf ? kt : k, vp, centres, zp, lse, B, H, Tq, Tk,
+                          q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k, vl, tok_q, scale, stream);
   if (err != cudaSuccess) return (int)err;
 
   if (out_tf) {  // out = R_q^-1(z @ Mo), in place when z is not kept
@@ -192,9 +192,9 @@ int fused_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mq,
 
   // the core; c_v (centres[1]) is added back to z, 0 for raw value rows
   bf16* zp = z ? z : out;
-  err = sm90::run_fwd<CC>(q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v, cv, zp, lse, B, H, Tq, Tk,
-                          q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k, v_side ? hf_k : tok_k, tok_q, scale,
-                          stream);
+  err = sm90::run_fwd<sm90::Cfg<CC>>(q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v, cv, zp, lse, B, H, Tq,
+                                     Tk, q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k, v_side ? hf_k : tok_k, tok_q,
+                                     scale, stream);
   if (err != cudaSuccess) return (int)err;
 
   if (out_tf) {  // out = R_q^-1(z @ Mo), in place when z is not kept

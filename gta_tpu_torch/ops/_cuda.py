@@ -31,8 +31,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# the operand dtypes every kernel has an instance for (fp32: 3xTF32 products;
-# bf16: bf16 products with fp32 accumulation; csrc/attn_core.cuh)
+# the operand dtypes every kernel has an instance for (fp32: 3xTF32 products,
+# csrc/attn_core.cuh; bf16: bf16 products with fp32 accumulation,
+# csrc/attn_sm90.cuh)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _lock = threading.Lock()

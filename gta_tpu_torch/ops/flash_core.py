@@ -8,8 +8,8 @@ layer's projections produce them, so no call transposes to heads-first.
 Dispatch, with no fallbacks: a CPU tensor takes the plain PyTorch versions
 (`flash_core_fwd_plain`, `flash_core_bwd_plain`); a CUDA tensor launches the
 hand-written kernels (csrc/flash_core_fwd.cu, csrc/flash_core_bwd.cu, thin
-entries to the attention core the fused GTA kernels share,
-csrc/attn_core.cuh) or raises. With grad enabled and an operand that
+entries to the attention cores the fused GTA kernels share: fp32
+csrc/attn_core.cuh, bf16 csrc/attn_sm90.cuh) or raises. With grad enabled and an operand that
 requires it, the call goes through `FlashCore`, whose backward is the
 backward kernel. Unlike the Pallas kernel (whole K/V of a head in VMEM,
 Tk <= 2048), the forward tiles K with an online softmax, so every key
@@ -22,8 +22,9 @@ and dq, dk, dv in the inputs' dtype, gta_tpu/ops/flash_core.py:83,
     3xTF32 (each fp32 operand split into two TF32 parts, three products
     summed in fp32; csrc/tf32x3.cuh), the softmax in fp32.
   * bf16: the TPU kernel's rounding: the products take bf16 operands (q,
-    k, v, g, P, dS) with fp32 accumulation (csrc/bf16_mma.cuh); the
-    softmax, lse and delta stay fp32.
+    k, v, g, P, dS) with fp32 accumulation (wgmma fed by TMA); the
+    softmax, lse and delta stay fp32, and each output is rounded to bf16
+    once, from its fp32 accumulator.
 The plain versions compute in fp32 from operands of either dtype (fp64 for
 fp64 ones), the Pallas kernel's interpret mode; `mxu_dtype=torch.bfloat16`
 rounds every product's operands to bf16 as the TPU kernel does.
@@ -217,12 +218,12 @@ def flash_core_bwd(
 
     CPU tensors take `flash_core_bwd_plain` (from q, k, v and g); CUDA
     tensors launch the kernel instance of their dtype (csrc/flash_core_bwd.cu)
-    with the forward's output and log-sum-exp, or raise.
+    with the forward's log-sum-exp (and, fp32, its output), or raise.
     `flash_core_bwd.launches` (fp32) and `flash_core_bwd.launches_bf16`
-    count launches of the C entry points (fp32: a query pass that also
-    computes delta = rowsum(g * out), then a key pass; bf16: a query pass
-    that takes delta from its own products, a key pass and the conversions
-    of the fp32 gradients to bf16).
+    count launches of the C entry points, each a query pass and a key pass
+    (fp32: the query pass computes delta = rowsum(g * out); bf16: it takes
+    delta from its own products, and both passes write the bf16 gradients
+    straight from their fp32 accumulators).
     """
     if q.device.type == "cpu":
         return flash_core_bwd_plain(q, k, v, heads, scale, g)
@@ -236,11 +237,7 @@ def flash_core_bwd(
     delta = torch.empty((B, heads, Tq), dtype=torch.float32, device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if bf16:  # with the core's fp32 gradients before their conversion
-        args = [q, k, v, g, lse, delta, *(torch.empty(x.shape, dtype=torch.float32, device=dev) for x in (q, k, v)),
-                dq, dk, dv]
-    else:
-        args = [q, k, v, g, out, lse, delta, dq, dk, dv]
+    args = [q, k, v, g, lse, delta, dq, dk, dv] if bf16 else [q, k, v, g, out, lse, delta, dq, dk, dv]
     fn, err_str = _bind("flash_core_bwd", bf16, len(args), 5)
     with torch.cuda.device(dev):
         err = fn(*(_ptr(x) for x in args), B, heads, Tq, Tk, C, float(scale), ctypes.c_void_p(stream))

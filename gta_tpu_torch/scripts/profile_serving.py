@@ -55,11 +55,10 @@ def attention_entry(cfg) -> str:
 
 
 def _kind(name: str, attention: str) -> str:
-    """The kind of a kernel by its name. The attention core
-    (csrc/attn_core.cuh) is one set of kernels under both entries, so its
-    forward and its two backward passes are counted under `attention`, the
-    entry that the profiled configuration launches; so are the bf16 fused
-    GTA kernels' core (csrc/attn_sm90.cuh)."""
+    """The kind of a kernel by its name. Each attention core (fp32
+    csrc/attn_core.cuh, bf16 csrc/attn_sm90.cuh) is one set of kernels under
+    both entries, so its forward and its two backward passes are counted
+    under `attention`, the entry that the profiled configuration launches."""
     n = name.lower()
     if "attn_fwd" in n or "sm90_fwd" in n:
         return f"{attention}_fwd (this repo)"
@@ -67,8 +66,8 @@ def _kind(name: str, attention: str) -> str:
         return f"{attention}_bwd (this repo)"
     if "gta_rows" in n and "centre" not in n:  # the C x C chains of both fused GTA kernels
         return "gta_fused row transforms (this repo)"
-    if "mean_rows" in n or "centre" in n or "to_bf16" in n:
-        return f"{attention} centres and conversions (this repo)"
+    if "mean_rows" in n or "centre" in n:
+        return f"{attention} centres (this repo)"
     # cuDNN's fp32 conv algorithms: implicit GEMM ("fprop"), FFT, layout
     # transforms; checked before "gemm", which implicit-GEMM names contain
     conv_marks = ("conv", "fprop", "fft", "pointwise_mult_and_sum_complex", "nhwctonchw", "cudnn")

@@ -814,6 +814,22 @@ def test_flash_core_bf16_kernels_at_edge_shapes(cuda_device, tq, tk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tq", [63, 64, 65, 127, 128, 129, 255, 257])
+@pytest.mark.parametrize("tk", [63, 64, 65, 127, 128, 129, 255, 257])
+def test_flash_core_bf16_kernels_at_tile_boundaries(cuda_device, tq, tk):
+    """The bf16 instances one row short of, at and past the 64- and 128-row
+    tiles and the 128-row blocks of csrc/attn_sm90.cuh on either side (TMA
+    fills rows past the end with zeros per head; keys past Tk score -inf,
+    queries past Tq store nothing): every output within max(1.5x the bf16
+    emulation's relative L2 error against fp64, 2^-8)."""
+    q, k, v, g = _flash_inputs(cuda_device, tq, tk, seed=16)
+    with torch.no_grad():
+        errs, emu = _bf16_flash_errors(q, k, v, g)
+    for name, err in errs.items():
+        assert err <= max(1.5 * emu[name], BF16_ULP), (name, errs, emu)
+
+
+@pytest.mark.cuda
 def test_flash_core_bf16_bwd_is_deterministic(cuda_device):
     """Two bf16 backward launches on the same inputs give bit-identical
     outputs."""
