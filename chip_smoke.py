@@ -5,9 +5,9 @@ Usage, from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Six configurations at full width and depth (but for msn_so3's fp32 paths,
-below), random weights from the config's seed, synthetic scenes of each
-dataset's shapes:
+Eleven configurations at full width and depth (but for msn_so3's fp32
+paths, below), random weights from the config's seed, synthetic scenes of
+each dataset's shapes:
   - GTA, the flagship (runs/clevrtr/GTA/gta): fused GTA attention in every
     layer (kernels gta_fused_fwd, gta_fused_bwd) at head width 64;
   - SRT, the baseline (runs/clevrtr/otherPEs/srt): plain softmax attention
@@ -24,7 +24,14 @@ dataset's shapes:
     instances of the fused GTA kernels at C = 96;
   - the MSN-Hard SRT baseline as published (runs/msn/otherPEs/srt; bf16,
     12 heads of 64, `ray` embeddings, 5 views of 128x128, batch 64),
-    through the bf16 instances of flash_core.
+    through the bf16 instances of flash_core;
+  - msn gta, the MSN-Hard GTA model as published (runs/msn/GTA/gta; bf16,
+    8 heads of 96: se3 48, so2 48; batch 64), and its four variants
+    gta_novtrnsfm (no value transform), gta_sharedfreqs (shared so2
+    frequencies), gta_no3demb (an SO(2)-only encoder, so2 96) and
+    gta_no2demb (an SE(3)-only encoder, se3 96), whose decoders recompute
+    so2: all through the bf16 C = 96 instances of the fused GTA kernels
+    that msn_so3 uses, the variants at batch VARIANT_BATCH.
 The fp32 instances of all four kernels run one attention core
 (gta_tpu_torch/csrc/attn_core.cuh: a forward, a query pass and a key pass;
 3xTF32 mma.sync on the tensor cores, P*V, dP and dq taken about centre
@@ -84,7 +91,8 @@ Phases (any failure exits non-zero and prints no result line):
        F.scaled_dot_product_attention on the same bf16 operands; bound at
        the dense bf16 peak (989 TFLOP/s) and 3.35 TB/s.
   3. Each configuration's serving path: Trainer(cfg) on cuda, eval_step on
-     a synthetic val batch of its batch size (msn_so3 64, the others 32),
+     a synthetic val batch of its batch size (the msn configs 64, the
+     others 32),
      one full-scale target view at chunk 16384 (240x320 or 128x128;
      render_image for the GTA configs, render_rays on the view's rays for
      SRT; one warm-up, then the median of 3), with every kernel's launch
@@ -95,24 +103,38 @@ Phases (any failure exits non-zero and prints no result line):
      for the bf16 configs: the card's bf16 pixels no further (relative L2)
      from the CPU's fp32 ones than 1.5x the CPU's bf16 pixels with the TPU
      kernel's rounding in the attention (see bf16_card_vs_cpu_phase).
+     Then the metrics (metrics_phase): SSIM and LPIPS-VGG (random weights,
+     seed 0) of the flagship's 240x320 frame and msn gta's 128x128 frame on
+     the card against the same call on the CPU, with TF32 on around the
+     calls (the metrics turn it off themselves), held to SSIM_TOL and
+     LPIPS_RTOL, and the card's ms per frame beside the render's.
   4. Each configuration's train path: train_step on synthetic train
      batches of its batch size (one cold step, then the median of 3 warm
      steps; the so3 and msn configs cycle two distinct batches), with
      7 forward and 7 backward launches of its attention kernels per step
      and none of the other configuration's asserted, and a finite loss and
      finite gradients; then, with dropout 0, a B=2 step's gradients on the
-     card against the same weights on the CPU (not for CLEVR-TR gta_so3).
+     card against the same weights on the CPU (not for CLEVR-TR gta_so3
+     and the msn gta configs). The four msn GTA variants take one cold
+     eval_step and one cold train_step each (variant_phase), the launch
+     counts of both paths asserted.
      GTA and msn_so3: per parameter tensor |g_cuda - g_cpu| / |g_cpu| <=
      1e-4 (L2 norms), 2e-3 for the per-layer trans_coeff scalars (see
      TC_TOL). SRT: both against a float64 step,
      each tensor's relative L2 error on the card at most 1e-4 above the
      CPU's (fp32 rounding alone moves its conv stem's weight gradients by
      ~5e-3 on either device; see grads_phase); card vs CPU printed.
-  5. The CLIs as subprocesses: `python -m gta_tpu_torch.train <GTA>
-     --synthetic` for 3 steps into a temporary directory, and again to
-     step 4, which must resume; the same for CLEVR-TR gta_so3, 2 steps;
-     `python -m gta_tpu_torch.evaluate <SRT>
-     --synthetic --max-scenes 1`, which must report a finite PSNR.
+  5. The CLIs as subprocesses, each into a temporary directory (nothing
+     under runs/ may change): `python -m gta_tpu_torch.train <GTA>
+     --synthetic --evalnow --visnow` for 3 steps, and again to step 4,
+     which must resume; renders-val.png must decode to its grid; then
+     `python -m gta_tpu_torch.evaluate <GTA> --synthetic --ckpt best` on
+     that run with LPIPS_WEIGHTS naming a random-weight npz, which must
+     restore `best` and report finite psnr, ssim and lpips_vgg on the card
+     and write eval_results.json; the same evaluate on msn gta (bf16, no
+     checkpoint: the random init); CLEVR-TR gta_so3, 2 train steps;
+     `python -m gta_tpu_torch.evaluate <SRT> --synthetic --max-scenes 1`,
+     which must report a finite PSNR.
   6. One JSON line of kernel numbers, an entry per kernel instance (fp32
      and bf16, launches by path, the attention core it runs and that core's
      ptxas registers and spills in its library), then the device JSON as
@@ -139,6 +161,10 @@ SRT_CONFIG = os.path.join(ROOT, "runs", "clevrtr", "otherPEs", "srt", "config.ya
 CLEVR_SO3_CONFIG = os.path.join(ROOT, "runs", "clevrtr", "GTA", "gta_so3", "config.yaml")
 MSN_SO3_CONFIG = os.path.join(ROOT, "runs", "msn", "GTA", "gta_so3", "config.yaml")
 MSN_SRT_CONFIG = os.path.join(ROOT, "runs", "msn", "otherPEs", "srt", "config.yaml")
+MSN_GTA_CONFIG = os.path.join(ROOT, "runs", "msn", "GTA", "gta", "config.yaml")
+# the other msn GTA variants: no value transform, shared frequencies, an
+# SO(2)-only and an SE(3)-only encoder (their decoders recompute so2)
+MSN_VARIANTS = ("gta_novtrnsfm", "gta_sharedfreqs", "gta_no3demb", "gta_no2demb")
 TOL = 1e-4
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, fp32-accurate products on the tensor cores (3xTF32: three dense
@@ -150,7 +176,8 @@ PEAK_BYTES = 3.35e12
 BF16_RULE = 1.5  # a bf16 kernel's error at most this many times the TPU rounding's (the bf16 emulation)
 TIMED_RUNS, WARMUP = 7, 2
 EVAL_BATCH = 32  # the CLEVR-TR configs' batch size
-MSN_BATCH = 64  # msn_so3's batch size
+MSN_BATCH = 64  # the msn configs' batch size
+VARIANT_BATCH = 16  # the four msn GTA variants' batch here (the run's time)
 RENDER_CHUNK = 16384  # the evaluation protocol's chunk
 RENDER_RUNS = 3  # timed full-frame renders, after one warm-up
 TRAIN_RUNS = 3  # timed warm train steps, after one cold step
@@ -172,6 +199,16 @@ def time_ms(fn, runs=TIMED_RUNS, warmup=WARMUP) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+@functools.lru_cache(maxsize=None)
+def synthetic_batch(data, mode, start, stop, seed=0):
+    """Items start..stop-1 of a synthetic split, collated (a host batch),
+    made once per run: the msn configs share one data config."""
+    from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
+
+    ds = SyntheticScenes(data, mode, seed=seed)
+    return collate([ds[i] for i in range(start, stop)])
 
 
 def fused_cost(t, B, H, Tq, Tk, C, elem=4):
@@ -229,8 +266,7 @@ def gta_calls(cfg, device, batch=EVAL_BATCH, prefix=""):
     from gta_tpu_torch.ops.reps import decoder_reps, encoder_reps
 
     enc_cfg, dec_cfg = cfg.model.encoder, cfg.model.decoder
-    val = SyntheticScenes(cfg.data, "val")
-    b32 = collate([val[i] for i in range(batch)]).to(device)
+    b32 = synthetic_batch(cfg.data, "val", 0, batch).to(device)
     enc32 = encoder_reps(enc_cfg.attn.gta, b32.input_coord, b32.input_transforms)
     dec32 = decoder_reps(
         dec_cfg.attn.gta, target_coord=b32.target_coord, target_transforms=b32.target_transforms,
@@ -876,15 +912,15 @@ def expected_launches(cfg, encodes, decodes, backward_steps=0):
 
 def serving_path_phase(cfg, label, batch_size=EVAL_BATCH):
     """Full-width serving path through the kernels; returns the launch
-    counts {kernel: n} of the run."""
+    counts {kernel: n} of the run and its full-scale frame (rendered image,
+    ground truth, median render ms)."""
     import torch
 
     from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
     from gta_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg)  # default device: cuda
-    val = SyntheticScenes(cfg.data, "val")
-    batch = collate([val[i] for i in range(batch_size)])
+    batch = synthetic_batch(cfg.data, "val", 0, batch_size)
     test = SyntheticScenes(cfg.data, "test", full_scale=True)
     item = collate([test[0]])
     Hf, Wf, chunk = test.target_h, test.target_w, RENDER_CHUNK
@@ -928,7 +964,8 @@ def serving_path_phase(cfg, label, batch_size=EVAL_BATCH):
           f"{', '.join(f'{x:.2f}' for x in step_ms)} rays/s={rays / (min(step_ms[1:]) / 1e3):.0f} "
           f"peak_mem_gb(eval_step and renders)={peak_gb:.2f}", flush=True)
     gt = (item.target_pixels[:, 0] if transform_mode else item.target_pixels[:, :n_rays]).numpy()
-    render_psnr = float(-10.0 * np.log10(np.mean((img - gt.reshape(1, Hf, Wf, 3)) ** 2)))
+    gt = gt.reshape(1, Hf, Wf, 3)
+    render_psnr = float(-10.0 * np.log10(np.mean((img - gt) ** 2)))
     median_ms = float(np.median(render_ms))
     print(f"{label} serving: {'render_image' if transform_mode else 'render_rays'} {Hf}x{Wf} chunk={chunk} "
           f"psnr={render_psnr:.4f} ms(median of {RENDER_RUNS} after 1 warm-up)={median_ms:.2f} "
@@ -940,12 +977,13 @@ def serving_path_phase(cfg, label, batch_size=EVAL_BATCH):
     if img.shape != (1, Hf, Wf, 3) or not np.isfinite(img).all() or not np.isfinite(psnr):
         raise AssertionError(f"{label} serving path output is not finite / of the expected shape")
 
+    frame = (img, gt, median_ms)
     if cfg.training.mixed_prec:  # bf16: card against CPU in bf16_card_vs_cpu_phase
-        return launches
+        return launches, frame
     # the same weights on the CPU through the plain versions
     cpu = Trainer(cfg, device="cpu")
     cpu.model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
-    small = collate([val[i] for i in range(2)])
+    small = synthetic_batch(cfg.data, "val", 0, 2)
     with torch.no_grad():
         got, _ = trainer.model(small.to(trainer.device))
         want_px, _ = cpu.model(small)
@@ -953,7 +991,7 @@ def serving_path_phase(cfg, label, batch_size=EVAL_BATCH):
     print(f"{label} serving: B=2 forward cuda vs cpu max|d pixels|={err:.3e}", flush=True)
     if not err <= TOL:
         raise AssertionError(f"{label}: card vs CPU pixels differ by {err} > {TOL}")
-    return launches
+    return launches, frame
 
 
 def train_path_phase(cfg, label, batch_size=EVAL_BATCH, distinct=1 + TRAIN_RUNS):
@@ -962,12 +1000,11 @@ def train_path_phase(cfg, label, batch_size=EVAL_BATCH, distinct=1 + TRAIN_RUNS)
     counts {kernel: n} of the run and the step numbers."""
     import torch
 
-    from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
     from gta_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg)  # default device: cuda
-    train = SyntheticScenes(cfg.data, "train", seed=cfg.seed)
-    made = [collate([train[i] for i in range(n * batch_size, (n + 1) * batch_size)]) for n in range(distinct)]
+    made = [synthetic_batch(cfg.data, "train", n * batch_size, (n + 1) * batch_size, cfg.seed)
+            for n in range(distinct)]
     batches = [made[n % distinct] for n in range(1 + TRAIN_RUNS)]
     rays = batches[0].target_pixels[..., 0].numel()
 
@@ -998,6 +1035,97 @@ def train_path_phase(cfg, label, batch_size=EVAL_BATCH, distinct=1 + TRAIN_RUNS)
         raise AssertionError(f"{label} train path: loss or gradients not finite")
     return launches, {"batch": batch_size, "median_warm_ms": warm, "cold_ms": step_ms[0], "warm_ms": step_ms[1:],
                       "rays_per_s": rays / (warm / 1e3), "rays_per_step": rays, "peak_mem_gb": peak_gb}
+
+
+def variant_phase(cfg, label, batch_size=VARIANT_BATCH):
+    """A config at full width through one eval_step and one train_step (both
+    cold) at `batch_size`, each path's launch counts asserted; returns the
+    launch counts {kernel: n} of the serving and of the train path."""
+    import torch
+
+    from gta_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg)  # default device: cuda
+    val = synthetic_batch(cfg.data, "val", 0, batch_size)
+    train = synthetic_batch(cfg.data, "train", 0, batch_size, cfg.seed)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    psnr = trainer.eval_step(val)["psnr"].mean().item()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    serving = launch_counts()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    m = trainer.train_step(train)
+    loss = m["loss"].item()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    finite = np.isfinite([psnr, loss]).all() and all(bool(torch.isfinite(p.grad).all()) for p in trainer.model.parameters())
+    print(f"{label}: B={batch_size} eval_step psnr={psnr:.4f} ms(cold)={eval_ms:.2f}; train_step loss={loss:.6f} "
+          f"grad_norm={m['grad_norm'].item():.6f} ms(cold)={train_ms:.2f}; launches serving {serving}, train "
+          f"{launches}", flush=True)
+    for path, got, want in (("serving", serving, expected_launches(cfg, 1, 1)),
+                            ("train", launches, expected_launches(cfg, 1, 1, backward_steps=1))):
+        if got != want:
+            raise AssertionError(f"{label} {path} path launches {got}, expected {want}")
+    if not finite:
+        raise AssertionError(f"{label}: psnr, loss or gradients not finite")
+    return serving, launches
+
+
+# Card against CPU for the metrics on a rendered frame, fp32 sums in other
+# orders on each device (SSIM's variances are filt(x^2) - mu^2). Measured on
+# one NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6): SSIM's absolute
+# difference 1.2e-7 (240x320) and 6.0e-8 (128x128), two and one fp32 ulps
+# of the value; LPIPS's relative one 9.4e-8 and 6.0e-8. Held with a margin
+# of 8-17x:
+SSIM_TOL = 1e-6
+LPIPS_RTOL = 1e-6
+METRIC_RUNS = 10  # timed metric calls per frame, after WARMUP
+
+
+def metrics_phase(frames):
+    """SSIM and LPIPS-VGG (random weights: the port's random_params, seed 0)
+    of each rendered full-scale frame {label: (image, ground truth, render
+    ms)} on the card against the same call on the CPU, with TF32 on around
+    the calls (PyTorch's cuDNN default), so the metrics must turn it off
+    themselves. Prints each difference beside its tolerance and the card's
+    ms per frame; returns {label: numbers}."""
+    import torch
+
+    from gta_tpu_torch.utils import lpips
+    from gta_tpu_torch.utils.metrics import ssim
+
+    params = lpips.random_params(np.random.RandomState(0))
+    nets = {dev: lpips.VGG16LPIPS.from_params(params).to(dev) for dev in ("cpu", "cuda")}
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    out = {}
+    try:
+        for label, (img, gt, render_ms) in frames.items():
+            pred = {dev: torch.from_numpy(img).to(dev) for dev in nets}
+            target = {dev: torch.from_numpy(gt).to(dev) for dev in nets}
+            s = {dev: ssim(pred[dev], target[dev]).item() for dev in nets}
+            lp = {dev: lpips.lpips_distance(pred[dev], target[dev], nets[dev]).item() for dev in nets}
+            d_ssim = abs(s["cuda"] - s["cpu"])
+            d_lpips = abs(lp["cuda"] - lp["cpu"]) / abs(lp["cpu"])
+            ssim_ms = time_ms(lambda: ssim(pred["cuda"], target["cuda"]), runs=METRIC_RUNS)
+            lpips_ms = time_ms(lambda: lpips.lpips_distance(pred["cuda"], target["cuda"], nets["cuda"]),
+                               runs=METRIC_RUNS)
+            shape = "x".join(map(str, img.shape[1:3]))
+            print(f"metrics {label} {shape}: ssim card {s['cuda']:.8f} cpu {s['cpu']:.8f} |d|={d_ssim:.3e} "
+                  f"(tolerance {SSIM_TOL:.0e}); lpips_vgg card {lp['cuda']:.8f} cpu {lp['cpu']:.8f} "
+                  f"|d|/|cpu|={d_lpips:.3e} (tolerance {LPIPS_RTOL:.0e})", flush=True)
+            print(f"metrics {label} {shape}: per full-scale view, ms: render {render_ms:.3f}, ssim {ssim_ms:.4f}, "
+                  f"lpips_vgg {lpips_ms:.4f} (CUDA events, median of {METRIC_RUNS} after {WARMUP} warm-ups)",
+                  flush=True)
+            if not (np.isfinite([s["cuda"], lp["cuda"]]).all() and d_ssim <= SSIM_TOL and d_lpips <= LPIPS_RTOL):
+                raise AssertionError(f"metrics {label}: card vs CPU ssim {d_ssim} (tolerance {SSIM_TOL}), "
+                                     f"lpips {d_lpips} (tolerance {LPIPS_RTOL})")
+            out[label] = {"render_ms": render_ms, "ssim_ms": ssim_ms, "lpips_ms": lpips_ms,
+                          "ssim_diff": d_ssim, "lpips_rel_diff": d_lpips}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return out
 
 
 # The per-layer trans_coeff gradients are scalars summed over every head,
@@ -1133,34 +1261,96 @@ def grads_phase(cfg, label, fp64_reference=False):
     return worst["params"][0], worst["trans_coeff"][0]
 
 
-def run_cli(args, label):
-    """Run `python -m <args>` from the repository root; returns its stdout."""
+def run_cli(args, label, env=None):
+    """Run `python -m <args>` from the repository root, with `env` added to
+    the environment; returns its stdout."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, **(env or {})})
     print(f"{label}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
     if proc.returncode != 0:
         raise AssertionError(f"{label} failed:\n{proc.stdout}\n{proc.stderr}")
     return proc.stdout
 
 
+def runs_listing():
+    """Every file under runs/ with its size and modification time."""
+    listing = {}
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "runs")):
+        for name in files:
+            st = os.stat(os.path.join(dirpath, name))
+            listing[os.path.join(dirpath, name)] = (st.st_size, st.st_mtime_ns)
+    return listing
+
+
+def check_eval_result(log, label, out_dir, loaded, dtype):
+    """The evaluate CLI's result line: JAX's keys, finite metrics (lpips_vgg
+    included), on the card, and the same object in <out_dir>/eval_results.json."""
+    result = json.loads(log.strip().splitlines()[-1])
+    print(f"  {json.dumps(result)}", flush=True)
+    with open(os.path.join(out_dir, "eval_results.json")) as f:
+        written = json.load(f)
+    keys = ["psnr", "ssim", "mse", "n_scenes", "lpips_vgg", "device", "dtype", "ckpt"]
+    if (list(result) != keys or written != result or result["n_scenes"] != 1 or result["ckpt"] != loaded
+            or not result["device"].startswith("cuda") or result["dtype"] != dtype
+            or not np.isfinite([result[k] for k in ("psnr", "ssim", "mse", "lpips_vgg")]).all()):
+        raise AssertionError(f"{label}: unexpected result {result} (written: {written})")
+    if os.path.exists(os.path.join(out_dir, "ckpts")) != (loaded is not None):
+        raise AssertionError(f"{label}: evaluate created or lost {out_dir}/ckpts")
+
+
 def cli_phase():
-    """`python -m gta_tpu_torch.train` on the flagship: 3 steps (exit after
-    step 2), then resume to step 4; on CLEVR-TR gta_so3: 2 steps;
-    `python -m gta_tpu_torch.evaluate` on the SRT baseline, one full-scale
-    scene."""
+    """The CLIs as subprocesses, each into a temporary directory (runs/ is
+    left as it was): `python -m gta_tpu_torch.train` on the flagship, 3
+    steps (exit after step 2) under --evalnow --visnow, then resume to step
+    4; `python -m gta_tpu_torch.evaluate --ckpt best` on that run (LPIPS-VGG
+    from a random-weight npz); the same evaluate on msn gta as published
+    (bf16, no checkpoint: the random init); on CLEVR-TR gta_so3, 2 train
+    steps; the SRT baseline's evaluate, one full-scale scene."""
+    from gta_tpu_torch.config import load_config
+    from gta_tpu_torch.utils.lpips import random_params
+    from gta_tpu_torch.utils.visualize import GAP, read_png
+
+    runs_before = runs_listing()
     with tempfile.TemporaryDirectory() as out:
         logs = []
-        for exit_after in (2, 4):
+        for exit_after, extra in ((2, ["--evalnow", "--visnow", "--max-eval", "8"]), (4, [])):
             log = run_cli(["gta_tpu_torch.train", GTA_CONFIG, "--synthetic", "--outdir", out,
-                           "--exit-after", str(exit_after)], f"GTA train CLI --exit-after {exit_after}")
+                           "--exit-after", str(exit_after), *extra], f"GTA train CLI --exit-after {exit_after} {extra}")
             logs.append(log)
             for line in log.splitlines():
-                if "it=" in line or "Resumed" in line or "parameters" in line or "limit" in line:
+                if any(w in line for w in ("it=", "Resumed", "parameters", "limit", "best", "Visualizing")):
                     print(f"  {line}", flush=True)
             if "Iteration limit reached" not in log:
                 raise AssertionError(f"train CLI did not reach its limit:\n{log}")
         if "Resumed" in logs[0] or "Resumed from checkpoint at it=3" not in logs[1]:
             raise AssertionError("train CLI did not start fresh, then resume at it=3")
+        if "Visualizing..." not in logs[0] or "New best model" not in logs[0]:
+            raise AssertionError("train CLI --evalnow --visnow did not visualize and save the best model")
+        # min(6, batch, --max-eval 8) val scenes, the input columns and 6
+        # render columns at the training resolution (240x320 downsampled once)
+        cfg = load_config(GTA_CONFIG)
+        rows, cols = min(6, cfg.training.batch_size, 8), cfg.data.num_input_views + 6
+        h, w = cfg.data.height >> cfg.data.downsample, cfg.data.width >> cfg.data.downsample
+        grid, text = read_png(os.path.join(out, "renders-val.png"))
+        want = (rows * (h + GAP) - GAP, cols * (w + GAP) - GAP, 3)
+        print(f"  renders-val.png: {grid.shape} uint8, columns {text.get('Columns')!r}", flush=True)
+        if grid.shape != want or len(text.get("Columns", "").split(" | ")) != cols:
+            raise AssertionError(f"renders-val.png is {grid.shape} with {text}, expected {want} and {cols} columns")
+
+        lp = os.path.join(out, "lpips_vgg_random.npz")
+        np.savez(lp, **random_params(np.random.RandomState(0)))
+        log = run_cli(["gta_tpu_torch.evaluate", GTA_CONFIG, "--synthetic", "--outdir", out, "--ckpt", "best",
+                       "--max-scenes", "1"], "GTA evaluate CLI --ckpt best", env={"LPIPS_WEIGHTS": lp})
+        if "Loaded checkpoint best" not in log:
+            raise AssertionError(f"GTA evaluate CLI did not restore best:\n{log}")
+        check_eval_result(log, "GTA evaluate CLI", out, "best", "float32")
+        with tempfile.TemporaryDirectory() as msn_out:
+            log = run_cli(["gta_tpu_torch.evaluate", MSN_GTA_CONFIG, "--synthetic", "--outdir", msn_out,
+                           "--max-scenes", "1"], "msn gta evaluate CLI (no checkpoint)", env={"LPIPS_WEIGHTS": lp})
+            if "WARNING: checkpoint 'best' not found" not in log:
+                raise AssertionError(f"msn gta evaluate CLI did not warn of the absent checkpoint:\n{log}")
+            check_eval_result(log, "msn gta evaluate CLI", msn_out, None, "bfloat16")
     with tempfile.TemporaryDirectory() as out:
         log = run_cli(["gta_tpu_torch.train", CLEVR_SO3_CONFIG, "--synthetic", "--outdir", out, "--exit-after", "1"],
                       "CLEVR-TR gta_so3 train CLI --exit-after 1")
@@ -1169,11 +1359,14 @@ def cli_phase():
                 print(f"  {line}", flush=True)
         if "Iteration limit reached" not in log or "it=0, loss=" not in log:
             raise AssertionError(f"gta_so3 train CLI did not take its steps:\n{log}")
-    log = run_cli(["gta_tpu_torch.evaluate", SRT_CONFIG, "--synthetic", "--max-scenes", "1"], "SRT evaluate CLI")
+        log = run_cli(["gta_tpu_torch.evaluate", SRT_CONFIG, "--synthetic", "--outdir", out, "--max-scenes", "1"],
+                      "SRT evaluate CLI")
     result = json.loads(log.strip().splitlines()[-1])
     print(f"  {json.dumps(result)}", flush=True)
     if result["n_scenes"] != 1 or not result["device"].startswith("cuda") or not np.isfinite(result["psnr"]):
         raise AssertionError(f"SRT evaluate CLI: unexpected result {result}")
+    if runs_listing() != runs_before:
+        raise AssertionError("a CLI wrote under runs/")
 
 
 def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None):
@@ -1322,7 +1515,12 @@ def main() -> int:
     # the two published msn configs as they are (bf16: mixed_prec), and
     # msn_so3 at fp32 (mixed_prec overridden) for the fp32 instances at C = 96
     msn_bf16, msn_srt = synthetic(MSN_SO3_CONFIG), synthetic(MSN_SRT_CONFIG)
-    assert msn_bf16.training.mixed_prec and msn_srt.training.mixed_prec
+    # msn gta (the paper's MSN-Hard GTA row) and its four variants, bf16 as
+    # published, through the bf16 C = 96 instances msn_so3 uses
+    msn_gta = synthetic(MSN_GTA_CONFIG)
+    variants = {name: synthetic(os.path.join(ROOT, "runs", "msn", "GTA", name, "config.yaml"))
+                for name in MSN_VARIANTS}
+    assert all(c.training.mixed_prec for c in (msn_bf16, msn_srt, msn_gta, *variants.values()))
     msn_cfg = synthetic(MSN_SO3_CONFIG, mixed_prec=False)
     # its serving, train and gradient paths at one attention block a side
     # (the run's time budget; its kernel phases keep the full shapes)
@@ -1353,26 +1551,28 @@ def main() -> int:
         ("clevr_bf16_decoder_eval_b32", "clevr_bf16_decoder_train_b32"))
     flash_bf16_fwd, flash_bf16_bwd = bf16_kernel_phase(msn_srt, "msn SRT", device)
 
-    paths = {
-        "gta_serving": serving_path_phase(gta_cfg, "GTA"),
-        "gta_train": None,
-        "srt_serving": serving_path_phase(srt_cfg, "SRT"),
-        "srt_train": None,
-        "msn_so3_serving": serving_path_phase(msn_cut, "msn_so3 (1 + 1 blocks)", MSN_BATCH),
-        "msn_so3_train": None,
-        "clevr_so3_serving": serving_path_phase(so3_cfg, "CLEVR-TR gta_so3"),
-        "clevr_so3_train": None,
-        "msn_so3_bf16_serving": serving_path_phase(msn_bf16, "msn_so3 bf16", MSN_BATCH),
-        "msn_so3_bf16_train": None,
-        "msn_srt_bf16_serving": serving_path_phase(msn_srt, "msn SRT bf16", MSN_BATCH),
-        "msn_srt_bf16_train": None,
+    serving = {
+        "gta": serving_path_phase(gta_cfg, "GTA"),
+        "srt": serving_path_phase(srt_cfg, "SRT"),
+        "msn_so3": serving_path_phase(msn_cut, "msn_so3 (1 + 1 blocks)", MSN_BATCH),
+        "clevr_so3": serving_path_phase(so3_cfg, "CLEVR-TR gta_so3"),
+        "msn_so3_bf16": serving_path_phase(msn_bf16, "msn_so3 bf16", MSN_BATCH),
+        "msn_srt_bf16": serving_path_phase(msn_srt, "msn SRT bf16", MSN_BATCH),
+        "msn_gta_bf16": serving_path_phase(msn_gta, "msn gta bf16", MSN_BATCH),
     }
+    paths = {}
+    for key, (launches, _) in serving.items():
+        paths[f"{key}_serving"], paths[f"{key}_train"] = launches, None
+    eval_metrics = metrics_phase({"GTA": serving["gta"][1], "msn gta bf16": serving["msn_gta_bf16"][1]})
     paths["gta_train"], gta_step = train_path_phase(gta_cfg, "GTA")
     paths["srt_train"], srt_step = train_path_phase(srt_cfg, "SRT")
     paths["msn_so3_train"], msn_step = train_path_phase(msn_cut, "msn_so3 (1 + 1 blocks)", MSN_BATCH, distinct=2)
     paths["clevr_so3_train"], so3_step = train_path_phase(so3_cfg, "CLEVR-TR gta_so3", distinct=2)
     paths["msn_so3_bf16_train"], msn_bf16_step = train_path_phase(msn_bf16, "msn_so3 bf16", MSN_BATCH, distinct=2)
     paths["msn_srt_bf16_train"], msn_srt_step = train_path_phase(msn_srt, "msn SRT bf16", MSN_BATCH, distinct=2)
+    paths["msn_gta_bf16_train"], msn_gta_step = train_path_phase(msn_gta, "msn gta bf16", MSN_BATCH, distinct=2)
+    for name, cfg in variants.items():
+        paths[f"msn_{name}_bf16_serving"], paths[f"msn_{name}_bf16_train"] = variant_phase(cfg, f"msn {name} bf16")
     card_vs_cpu = {label: bf16_card_vs_cpu_phase(cfg, label) for cfg, label in
                    ((msn_bf16, "msn_so3"), (msn_srt, "msn SRT"))}
     gta_grad = grads_phase(gta_cfg, "GTA")
@@ -1409,6 +1609,8 @@ def main() -> int:
     print(f"msn_so3 (1 + 1 blocks) train step B={MSN_BATCH}: {json.dumps(msn_step)}; B=2 grads cuda vs cpu max relative "
           f"{msn_grad[0]:.3e} (trans_coeff {msn_grad[1]:.3e})", flush=True)
     print(f"CLEVR-TR gta_so3 train step B={EVAL_BATCH}: {json.dumps(so3_step)}", flush=True)
+    print(f"msn gta bf16 train step B={MSN_BATCH}: {json.dumps(msn_gta_step)}", flush=True)
+    print(f"evaluation per full-scale view: {json.dumps(eval_metrics)}", flush=True)
     for label, step in (("msn_so3 bf16", msn_bf16_step), ("msn SRT bf16", msn_srt_step)):
         card_err, emu_err, gap, own = card_vs_cpu[label.split(" bf16")[0]]
         print(f"{label} train step B={MSN_BATCH}: {json.dumps(step)}; B=2 pixels from the CPU's fp32: card "

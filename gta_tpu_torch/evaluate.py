@@ -1,22 +1,39 @@
-"""Standalone evaluation of the port: PSNR / MSE on full-scale frames.
+"""Standalone evaluation of the port: PSNR / SSIM / MSE, and LPIPS-VGG when
+its weights exist, on full-scale frames (the JAX package's evaluate.py).
 
-Protocol as the JAX package's evaluate.py (reference evaluate.py:81-145):
-batch-1 full-scale test split, render every target view's full frame and
-score it per view: transform-mode models through `render_image(chunk=16384)`
-from the native-resolution canonical ray grid and the view's transform,
-non-transform models (the SRT baseline) through `render_rays(chunk=16384)`
-on the view's own rays. CLEVR-TR configs score 240x320 frames
-from 120x160 inputs. SSIM and LPIPS come with the evaluation slice.
+Protocol as reference evaluate.py:81-145: batch-1 full-scale test split,
+render every target view's full frame and score it per view: transform-mode
+models through `render_image(chunk=16384)` from the native-resolution
+canonical ray grid and the view's transform, non-transform models (the SRT
+baseline) through `render_rays(chunk=16384)` on the view's own rays.
+CLEVR-TR configs score 240x320 frames from 120x160 inputs, msn ones
+128x128. SSIM (`utils/metrics.ssim`) and LPIPS-VGG (`utils/lpips.py`) run
+in fp32 with TF32 off on the device that rendered the frame, whatever the
+model's compute dtype.
 
 Usage:
-    python -m gta_tpu_torch.evaluate <config.yaml> --synthetic [--max-scenes N]
-        [--ckpt model.pt] [--seed S] [--device cuda|cpu]
+    python -m gta_tpu_torch.evaluate <config.yaml> --synthetic
+        [--ckpt latest|best|step_N] [--outdir DIR] [--state-dict model.pt]
+        [--max-scenes N] [--seed S] [--device cuda|cpu]
 
---ckpt is a torch file holding the port's state_dict; without it the model
-is randomly initialised from --seed. The config's `training.mixed_prec`
-picks the compute dtype (bf16 or fp32), named in the result line. The
-device defaults to CUDA and the run fails without it unless --device cpu
-is given.
+--ckpt (default best) names a checkpoint under <outdir>/ckpts, as the port's
+train CLI writes them; --outdir defaults to the config's directory. When the
+checkpoint is absent, the run prints a WARNING and evaluates the random
+init from --seed. Nothing is created under <outdir>/ckpts. --state-dict
+loads a torch file holding the port's state_dict instead (a converted
+reference `model.pt`, README "Weights"). LPIPS-VGG is computed when
+`LPIPS_WEIGHTS` names an npz of exported weights
+(scripts/export_lpips_weights.py); otherwise the run says so and reports
+PSNR / SSIM / MSE only. `lpips_alex` is not ported: the JAX package
+computes it only through the `lpips` package. The positional `datapath`
+waits for the dataset readers (ROADMAP queue 1 item 4b); only synthetic
+scenes are evaluated today.
+
+The result line (also written to <outdir>/eval_results.json) has the JAX
+keys psnr, ssim, mse, n_scenes and lpips_vgg (when computed), plus device,
+dtype (the compute dtype from `training.mixed_prec`) and ckpt (what was
+loaded; null for the random init). The device defaults to CUDA and the run
+fails without it unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -24,6 +41,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 
 import numpy as np
 import torch
@@ -32,8 +50,10 @@ import torch
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("config", type=str)
-    parser.add_argument("--ckpt", type=str, default=None, help="torch file with the port's state_dict")
-    parser.add_argument("--seed", type=int, default=0, help="init seed when no --ckpt is given")
+    parser.add_argument("--ckpt", type=str, default="best", help="latest | best | step_N under <outdir>/ckpts")
+    parser.add_argument("--outdir", type=str, default=None, help="default: the config's directory")
+    parser.add_argument("--state-dict", type=str, default=None, help="torch file with the port's state_dict")
+    parser.add_argument("--seed", type=int, default=0, help="init seed when no checkpoint is loaded")
     parser.add_argument("--device", type=str, default=None, help="default: cuda")
     parser.add_argument("--max-scenes", type=int, default=None)
     parser.add_argument("--synthetic", action="store_true")
@@ -42,7 +62,10 @@ def main(argv=None):
     from gta_tpu_torch.config import load_config
     from gta_tpu_torch.data.registry import get_dataset
     from gta_tpu_torch.data.synthetic import collate
+    from gta_tpu_torch.train.checkpoint import Checkpointer
     from gta_tpu_torch.train.trainer import Trainer
+    from gta_tpu_torch.utils.lpips import LPIPSVGG
+    from gta_tpu_torch.utils.metrics import ssim
 
     cfg = load_config(args.config)
     if args.synthetic or (cfg.data.dataset != "synthetic" and not cfg.data.path):
@@ -51,17 +74,35 @@ def main(argv=None):
         # downsampled training resolution, full-scale targets at native size
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
 
+    out_dir = args.outdir or os.path.dirname(args.config) or "."
     trainer = Trainer(cfg, device=args.device, seed=args.seed)
-    if args.ckpt:
-        trainer.model.load_state_dict(torch.load(args.ckpt, map_location="cpu", weights_only=True))
-        print(f"Loaded checkpoint {args.ckpt}")
+    loaded = None
+    if args.state_dict:
+        trainer.model.load_state_dict(torch.load(args.state_dict, map_location="cpu", weights_only=True))
+        loaded = args.state_dict
+        print(f"Loaded state_dict {args.state_dict}")
     else:
-        print(f"No --ckpt: evaluating random init (seed {args.seed})")
+        ckpt = Checkpointer(out_dir)
+        if ckpt.exists(args.ckpt):
+            ckpt.restore(args.ckpt, trainer)
+            loaded = args.ckpt
+            print(f"Loaded checkpoint {args.ckpt}")
+        else:
+            print(f"WARNING: checkpoint '{args.ckpt}' not found in {out_dir}/ckpts — "
+                  f"evaluating random init (seed {args.seed})")
+
+    lpips_vgg = None
+    try:
+        lpips_vgg = LPIPSVGG(device=trainer.device)
+        print("Using LPIPS (VGG) with exported weights.")
+    except RuntimeError as e:
+        print(f"LPIPS unavailable ({e}); reporting PSNR/SSIM/MSE only")
+
     dataset = get_dataset("test", cfg.data, full_scale=True, max_len=args.max_scenes)
     H, W = dataset.target_h, dataset.target_w
 
     n = len(dataset) if args.max_scenes is None else min(args.max_scenes, len(dataset))
-    psnrs, mses = [], []
+    psnrs, ssims, mses, lp_v = [], [], [], []
     for i in range(n):
         batch = collate([dataset[i]])
         transform_mode = batch.target_transforms is not None
@@ -91,18 +132,26 @@ def main(argv=None):
             mse = float(np.mean((pred - gt) ** 2))
             mses.append(mse)
             psnrs.append(-10.0 * np.log10(mse))
+            pred_d, gt_d = (torch.from_numpy(x).to(trainer.device) for x in (pred, gt))
+            ssims.append(float(ssim(pred_d, gt_d)))
+            if lpips_vgg is not None:
+                lp_v.append(lpips_vgg(pred_d, gt_d))
         if (i + 1) % 10 == 0:
-            print(f"scene {i + 1}/{n}: psnr={np.mean(psnrs):.3f}")
+            print(f"scene {i + 1}/{n}: psnr={np.mean(psnrs):.3f} ssim={np.mean(ssims):.4f}")
 
     results = {
         "psnr": float(np.mean(psnrs)),
+        "ssim": float(np.mean(ssims)),
         "mse": float(np.mean(mses)),
         "n_scenes": n,
-        "device": str(trainer.device),
-        "dtype": str(trainer.dtype).replace("torch.", ""),
-        "not_computed": "ssim, lpips (evaluation slice, ROADMAP queue 1)",
     }
+    if lp_v:
+        results["lpips_vgg"] = float(np.mean(lp_v))
+    results.update(device=str(trainer.device), dtype=str(trainer.dtype).replace("torch.", ""), ckpt=loaded)
     print(json.dumps(results))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "eval_results.json"), "w") as f:
+        json.dump(results, f, indent=2)
     return results
 
 

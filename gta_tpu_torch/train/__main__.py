@@ -2,7 +2,7 @@
 
 Usage:
     python -m gta_tpu_torch.train <config.yaml> [--synthetic] [--outdir DIR]
-        [--exit-after N] [--evalnow] [--max-eval N] [--seed S]
+        [--exit-after N] [--evalnow] [--visnow] [--max-eval N] [--seed S]
         [--batch-size B] [--bf16] [--device cuda|cpu]
 
 Trains on synthetic CLEVR-TR-shaped scenes (the only data family ported so
@@ -11,15 +11,17 @@ Every `print_every` steps it prints the loss and lr, every `validate_every`
 it evaluates on the val split (--max-eval scenes) and keeps `best` by
 `model_selection_metric`, every `checkpoint_every` it writes the rolling
 checkpoint and every `backup_every` a stamped backup, all under
-<outdir>/ckpts/. A rerun with the same outdir resumes from the newest
+<outdir>/ckpts/. Every `visualize_every` steps (and at the first step
+under --visnow) it renders one val batch of min(6, batch size) scenes
+(drawn once, then reused) from 6 angles about the world z-axis into
+<outdir>/renders-val.png. A rerun with the same outdir resumes from the newest
 checkpoint and prints "Resumed from checkpoint at it=N". --exit-after N
 stops after step N (N + 1 steps from scratch) and saves `latest`. The
 device defaults to CUDA and the run fails without it unless --device cpu
 is given. The config's `training.mixed_prec` picks the compute dtype (bf16
 or fp32; parameters stay fp32); --bf16 forces bf16 (train.py:101-103,
-176-178). Not ported yet: --visnow and visualisation (ROADMAP queue 1
-item 4), loader workers (item 6), gradient accumulation and multi-device
-flags (item 9).
+176-178). Not ported yet: loader workers (ROADMAP queue 1 item 6),
+gradient accumulation and multi-device flags (item 9).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ def main(argv=None):
     parser.add_argument("--outdir", type=str, default=None)
     parser.add_argument("--exit-after", type=int, default=None)
     parser.add_argument("--evalnow", action="store_true")
+    parser.add_argument("--visnow", action="store_true")
     parser.add_argument("--max-eval", type=int, default=None)
     parser.add_argument("--synthetic", action="store_true", help="use synthetic scenes")
     parser.add_argument("--batch-size", type=int, default=None, help="override the batch size")
@@ -91,6 +94,10 @@ def main(argv=None):
     eval_ds = get_dataset("val", cfg.data, max_len=args.max_eval)
     train_loader = Loader(train_ds, t_cfg.batch_size, shuffle=True, seed=cfg.seed)
     val_loader = Loader(eval_ds, max(1, t_cfg.batch_size // 8), shuffle=False)
+    # --max-eval can cut the eval split below the vis batch size, and a
+    # loader that drops its last partial batch would then yield none
+    vis_n = max(1, min(6, t_cfg.batch_size, len(eval_ds)))
+    data_vis = None
 
     trainer = Trainer(cfg, device=args.device)
     ckpt = Checkpointer(out_dir)
@@ -108,7 +115,7 @@ def main(argv=None):
     metric_val_best = scalars.get("loss_val_best", -sel_sign * np.inf)
 
     it = trainer.step - 1
-    evalnow = args.evalnow
+    evalnow, visnow = args.evalnow, args.visnow
     t_resumed = time_elapsed
     session_start = time.perf_counter()
     while True:
@@ -129,6 +136,13 @@ def main(argv=None):
             if t_cfg.backup_every > 0 and it % t_cfg.backup_every == 0 and it > 0:
                 ckpt.save(f"step_{it}", trainer, scalars_out)
                 print("Backup checkpoint saved.")
+
+            if visnow or (it > 0 and t_cfg.visualize_every > 0 and it % t_cfg.visualize_every == 0):
+                if data_vis is None:
+                    data_vis = next(iter(Loader(eval_ds, vis_n, shuffle=True)))
+                print("Visualizing...")
+                trainer.visualize(data_vis, os.path.join(out_dir, "renders-val"))
+                visnow = False
 
             if evalnow or (it > 0 and t_cfg.validate_every > 0 and it % t_cfg.validate_every == 0):
                 print("Evaluating...")

@@ -8,7 +8,8 @@ Layout under <out_dir>/ckpts/:
 Each holds `state.pt`, the Trainer's state (model, optimizer, schedule,
 dropout generator, step) as one torch file, and `scalars.json` (epoch_it /
 it / t / loss_val_best, reference train.py:301-305). A save writes a
-temporary file and renames it, so a checkpoint is whole or absent.
+temporary file and renames it, so a checkpoint is whole or absent. Only a
+save creates directories: restoring and `exists` leave the disk as it is.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ import torch
 class Checkpointer:
     def __init__(self, out_dir: str):
         self.root = os.path.abspath(os.path.join(out_dir, "ckpts"))
-        os.makedirs(self.root, exist_ok=True)
 
     def _path(self, name: str) -> str:
         return os.path.join(self.root, name)

@@ -3,8 +3,8 @@
 `Trainer` owns the model on an explicit device, its optimizer, LR schedule
 and dropout generator, and runs the train step (`train_step`: fp32 pixel
 MSE -> backward through the attention kernels -> AdamW) and evaluation and
-rendering (`eval_step`, `evaluate`, `render_image`, `render_rays`, always
-with dropout off).
+rendering (`eval_step`, `evaluate`, `render_image`, `render_rays`,
+`visualize`, always with dropout off).
 
 Precision policy, from `training.mixed_prec` (the JAX trainer's
 `self.dtype`, gta_tpu/train/trainer.py:56): the model computes in bf16 when
@@ -32,6 +32,7 @@ from gta_tpu_torch.models.layers import init_weights, set_dropout_generator
 from gta_tpu_torch.models.srt import build_model
 from gta_tpu_torch.train.schedule import warmup_exp_decay
 from gta_tpu_torch.utils.metrics import mse2psnr
+from gta_tpu_torch.utils.visualize import draw_visualization_grid
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -305,3 +306,30 @@ class Trainer:
             pixels, _ = self.model.decode(z, sub, enc_ctx)
             out[:, i : i + chunk] = pixels.cpu().numpy()
         return out[:, :n]
+
+    def visualize(self, batch: SceneBatch, out_path: str, num_angles: int = 6) -> None:
+        """Render `num_angles` novel views rotated about the world z-axis into
+        an image grid at <out_path>.png (reference trainer.py:184-295).
+        Rotation is conjugated into the canonical frame:
+        T_rel = E_canon R_z(theta) E_canon^-1 (R_z alone without one)."""
+        B, N, H, W = batch.input_rays.shape[:4]
+        columns = [(f"input {i + 1}", batch.input_images[:, i].cpu().numpy()) for i in range(N)]
+        canon = batch.transform.cpu().numpy() if batch.transform is not None else None
+        for i in range(num_angles):
+            angle = i * (2 * np.pi / num_angles)
+            Rz = np.asarray(
+                [
+                    [np.cos(angle), -np.sin(angle), 0, 0],
+                    [np.sin(angle), np.cos(angle), 0, 0],
+                    [0, 0, 1, 0],
+                    [0, 0, 0, 1],
+                ],
+                dtype=np.float32,
+            )
+            if canon is not None:
+                rel = np.einsum("bij,jk,bkl->bil", canon, Rz, np.linalg.inv(canon))
+            else:
+                rel = np.broadcast_to(Rz, (B, 4, 4))
+            img = self.render_image(batch, H, W, target_transform=rel.astype(np.float32))
+            columns.append((f"render {(i * 360) // num_angles}°", img))
+        draw_visualization_grid(columns, out_path)

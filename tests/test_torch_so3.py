@@ -368,7 +368,8 @@ def test_evaluate_cli_matches_jax_render_image(tmp_path):
     params = jtr.init_state(_jbatch(_items(cfg, (0, 1))), seed=0).params
     ckpt = tmp_path / "model.pt"
     torch.save(params_from_jax(jax.tree.map(np.asarray, params)), ckpt)
-    got = t_evaluate.main([path, "--synthetic", "--device", "cpu", "--max-scenes", "1", "--ckpt", str(ckpt)])
+    got = t_evaluate.main([path, "--synthetic", "--device", "cpu", "--max-scenes", "1", "--state-dict", str(ckpt),
+                            "--outdir", str(tmp_path / "eval")])
     assert got["n_scenes"] == 1 and got["device"] == "cpu"
 
     tcfg = load_config(path)

@@ -158,7 +158,8 @@ def test_evaluate_cli_matches_jax_render_rays(j_params, tmp_path, capsys):
     path = _tiny_yaml(tmp_path, SRT)
     ckpt = tmp_path / "model.pt"
     torch.save(params_from_jax(jax.tree.map(np.asarray, j_params)), ckpt)
-    got = t_evaluate.main([path, "--synthetic", "--device", "cpu", "--max-scenes", "1", "--ckpt", str(ckpt)])
+    got = t_evaluate.main([path, "--synthetic", "--device", "cpu", "--max-scenes", "1", "--state-dict", str(ckpt),
+                            "--outdir", str(tmp_path / "eval")])
     assert got["n_scenes"] == 1 and got["device"] == "cpu"
 
     cfg = load_config(path)
