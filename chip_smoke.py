@@ -7,7 +7,8 @@ Usage, from the repository root on a machine with a CUDA card:
 
 Eleven configurations at full width and depth (but for msn_so3's fp32
 paths, below), random weights from the config's seed, synthetic scenes of
-each dataset's shapes:
+each dataset's shapes, and then (phase 6) batches the dataset readers make
+from files written here:
   - GTA, the flagship (runs/clevrtr/GTA/gta): fused GTA attention in every
     layer (kernels gta_fused_fwd, gta_fused_bwd) at head width 64;
   - SRT, the baseline (runs/clevrtr/otherPEs/srt): plain softmax attention
@@ -135,7 +136,21 @@ Phases (any failure exits non-zero and prints no result line):
      checkpoint: the random init); CLEVR-TR gta_so3, 2 train steps;
      `python -m gta_tpu_torch.evaluate <SRT> --synthetic --max-scenes 1`,
      which must report a finite PSNR.
-  6. One JSON line of kernel numbers, an entry per kernel instance (fp32
+  6. The dataset readers (disk_phase), on fixtures written into a
+     temporary directory by the port's PNG encoder, every scanline filter
+     row by row: CLEVR-TR (20 train and 2 test scenes, 5 views of 240x320)
+     and a RealEstate10K dump (2 train videos and 1 test video of 40 frames
+     of 240x320). Every file decodes to the array written; the decode ms per
+     frame and each reader's items/s on the host are printed. The flagship
+     on a CLEVRTR batch of 8 (through Loader) and msn gta (bf16) on 16
+     prep_scene items from seeded raw 10x128x128 scenes: eval_step and
+     train_step beside a synthetic batch of the same shapes, launch counts
+     asserted. The train CLI on the positional datapath, then evaluate
+     --ckpt best, for the flagship (CLEVR-TR reader, 240x320 full-scale
+     views) and re10k gta (bf16; RealEstate10K reader); in process, one
+     evaluate each of the re10k SRT (bf16) and the CLEVR-TR SRT (fp32), the
+     readers' non-transform branches, launch counts asserted.
+  7. One JSON line of kernel numbers, an entry per kernel instance (fp32
      and bf16, launches by path, the attention core it runs and that core's
      ptxas registers and spills in its library), then the device JSON as
      the last line.
@@ -1369,6 +1384,273 @@ def cli_phase():
         raise AssertionError("a CLI wrote under runs/")
 
 
+RE10K_GTA_CONFIG = os.path.join(ROOT, "runs", "re10k", "GTA", "gta", "config.yaml")
+RE10K_SRT_CONFIG = os.path.join(ROOT, "runs", "re10k", "otherPEs", "srt", "config.yaml")
+DISK_H, DISK_W, DISK_VIEWS = 240, 320, 5  # the CLEVR-TR layout; RealEstate10K frames of the same size
+CLEVR_SCENES = {"train": range(20), "test": range(20, 22)}
+RE10K_VIDEOS = {"train": 2, "test": 1}
+RE10K_FRAMES = 40
+DISK_BATCH, MSN_DISK_BATCH = 8, 16
+ROW_FILTERS = np.arange(DISK_H) % 5  # every scanline filter, row by row
+
+
+def write_clevr_fixture(root, rng, written):
+    """CLEVR-TR in the JAX layout (metadata/<n>.json, imgs/img_<n>_<v>.png,
+    masks/masks_<n>_<v>.png): cameras on a ring (tests/test_data.py), seeded
+    noise frames, gray mask indices 0-6, every PNG written by the port's
+    encoder through all five filters; {path: array} into `written`."""
+    from gta_tpu_torch.data.png import write_png
+
+    for split, scenes in CLEVR_SCENES.items():
+        d = os.path.join(root, split)
+        for sub in ("metadata", "imgs", "masks"):
+            os.makedirs(os.path.join(d, sub))
+        for s in scenes:
+            qs, ps = [], []
+            for v in range(DISK_VIEWS):
+                az = 2 * np.pi * v / DISK_VIEWS + 0.3 * s
+                qs.append([np.cos(az / 2), 0.0, 0.0, np.sin(az / 2)])
+                ps.append([7 * np.cos(az), 7 * np.sin(az), 4.0])
+                for path, arr in ((os.path.join(d, "imgs", f"img_{s}_{v}.png"),
+                                   rng.randint(0, 256, (DISK_H, DISK_W, 3)).astype(np.uint8)),
+                                  (os.path.join(d, "masks", f"masks_{s}_{v}.png"),
+                                   rng.randint(0, 7, (DISK_H, DISK_W)).astype(np.uint8))):
+                    write_png(path, arr, filter=ROW_FILTERS)
+                    written[path] = arr
+            with open(os.path.join(d, "metadata", f"{s}.json"), "w") as f:
+                json.dump({"camera": {"quaternions": qs, "positions": ps}}, f)
+
+
+def write_re10k_fixture(root, rng, written):
+    """A RealEstate10K dump ({split}/<video>.txt camera files, frames/<video>/
+    <timestamp>.png): dolly trajectories as tests/test_re10k.py writes them,
+    frames of a colour ramp under seeded noise."""
+    from gta_tpu_torch.data.png import write_png
+
+    for split, n_videos in RE10K_VIDEOS.items():
+        for vid in range(n_videos):
+            vdir = os.path.join(root, split, "frames", f"vid{vid}")
+            os.makedirs(vdir)
+            lines = [f"https://example.com/watch?v=vid{vid}"]
+            for i in range(RE10K_FRAMES):
+                ang = 0.01 * i
+                R = np.asarray([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]])
+                t = -R @ np.asarray([0.05 * i, 0.01 * vid, -0.02 * i])
+                nums = [0.9, 1.2, 0.5, 0.5, 0.0, 0.0] + np.concatenate([R, t[:, None]], 1).reshape(-1).tolist()
+                lines.append(str(1000 * i) + " " + " ".join(f"{v:.9f}" for v in nums))
+                img = rng.randint(0, 64, (DISK_H, DISK_W, 3)).astype(np.uint8)
+                img[..., 0] += np.uint8(191 * i // RE10K_FRAMES)
+                img[..., 1] += np.linspace(0, 191, DISK_W).astype(np.uint8)[None]
+                path = os.path.join(vdir, f"{1000 * i}.png")
+                write_png(path, img, filter=ROW_FILTERS)
+                written[path] = img
+            with open(os.path.join(root, split, f"vid{vid}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+
+
+def raw_msn_scene(rng, nv=10, size=128):
+    """A raw MSN-Hard scene as sunds yields it (no sunds exists here): uint8
+    colour, ray origins and directions of look-at cameras on a ring, and
+    instance ids."""
+    from gta_tpu_torch.geometry.rays import camera_rays_from_extrinsic, lookat_extrinsic
+
+    origins = np.zeros((nv, size, size, 3), np.float32)
+    dirs = np.zeros((nv, size, size, 3), np.float32)
+    for v in range(nv):
+        az = 2 * np.pi * v / nv + rng.uniform(0, 0.5)
+        pos = np.array([6 * np.cos(az), 6 * np.sin(az), 2.0 + rng.uniform(0, 2)])
+        origins[v] = pos
+        dirs[v] = camera_rays_from_extrinsic(lookat_extrinsic(pos), pos, size, size)
+    color = rng.randint(0, 256, (nv, size, size, 3)).astype(np.uint8)
+    return color, origins, dirs, rng.randint(0, 40, (nv, size, size, 1)).astype(np.int32)
+
+
+def disk_steps(cfg, label, key, disk, synthetic, paths):
+    """eval_step and train_step of `cfg` on a batch its reader made from disk
+    and, in the same process, on a synthetic batch of the same shapes (one
+    cold call, then two warm each): the device work is the same. Each run's
+    launch counts are asserted and kept in paths[<key>_<disk|synthetic>_
+    <serving|train>]; returns the warm times."""
+    import torch
+
+    from gta_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg)  # default device: cuda
+    times = {}
+    for kind, batch in (("disk", disk), ("synthetic", synthetic)):
+        for path, step, backward in (("serving", trainer.eval_step, 0), ("train", trainer.train_step, 3)):
+            reset_launch_counts()
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(batch)
+                value = (m["psnr"].mean() if path == "serving" else m["loss"]).item()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            counts = paths[f"{key}_{kind}_{path}"] = launch_counts()
+            want = expected_launches(cfg, 3, 3, backward_steps=backward)
+            if counts != want or not np.isfinite(value):
+                raise AssertionError(f"{label} {kind} {path}: launches {counts}, expected {want}; value {value}")
+            times[f"{kind}_{path}"] = ms
+    B = disk.input_images.shape[0]
+    print(f"{label} B={B}, disk-read batch vs synthetic batch of the same shapes, ms (cold, warm, warm): "
+          + "; ".join(f"{k} {', '.join(f'{x:.2f}' for x in v)}" for k, v in times.items()), flush=True)
+    return {k: float(np.median(v[1:])) for k, v in times.items()}
+
+
+def check_disk_eval(result, label, dtype):
+    print(f"  {json.dumps(result)}", flush=True)
+    if (result["n_scenes"] != 1 or not result["device"].startswith("cuda") or result["dtype"] != dtype
+            or not np.isfinite([result["psnr"], result["ssim"], result["mse"]]).all()):
+        raise AssertionError(f"{label}: unexpected result {result}")
+
+
+def disk_phase(gta_cfg, msn_gta, srt_cfg, paths):
+    """The dataset readers on fixtures written here with the port's PNG
+    encoder (every scanline filter): CLEVR-TR (20 train and 2 test scenes of
+    5 views at 240x320) and a RealEstate10K dump (2 train videos, 1 test
+    video, 40 frames of 240x320).
+      1. Round trip: every fixture file decodes to the array written
+         (exactly); decode ms per 240x320 RGB frame, one file at a time
+         (the median over the files) and 5 at a time as the CLEVR-TR reader
+         decodes a scene; each reader's items/s on the host.
+      2. The flagship (fp32) on a CLEVRTR batch of 8 through Loader, msn gta
+         (bf16) on 16 prep_scene items from seeded raw 10x128x128 scenes:
+         eval_step and train_step beside the same config's synthetic batch
+         (disk_steps), launch counts asserted.
+      3. The CLIs on the positional datapath: train the flagship 3 steps
+         (--exit-after 2 --batch-size 8 --evalnow --max-eval 2) then
+         evaluate --ckpt best on one test scene (the CLEVR-TR reader, 240x320
+         full-scale views); re10k gta (bf16), 2 steps at batch 1 (its split
+         holds one train video) then evaluate --ckpt best on one scene.
+      4. In process: evaluate the re10k SRT (bf16) on the dump and the
+         CLEVR-TR SRT (fp32) on its fixture, one scene each (the readers'
+         non-transform branches), launch counts asserted.
+    Returns the numbers it printed."""
+    from gta_tpu_torch import evaluate
+    from gta_tpu_torch.config import load_config
+    from gta_tpu_torch.data.clevrtr import CLEVRTR
+    from gta_tpu_torch.data.loader import Loader
+    from gta_tpu_torch.data.msn import prep_scene
+    from gta_tpu_torch.data.png import imread, imread_stack
+    from gta_tpu_torch.data.re10k import RealEstate10K
+    from gta_tpu_torch.data.synthetic import collate
+    from gta_tpu_torch.geometry.coords import make_2dcoord
+
+    out = {}
+    runs_before = runs_listing()
+    with tempfile.TemporaryDirectory() as tmp:
+        clevr_dir, re10k_dir = os.path.join(tmp, "clevrtr"), os.path.join(tmp, "re10k")
+        rng, written = np.random.RandomState(0), {}
+        t0 = time.perf_counter()
+        write_clevr_fixture(clevr_dir, rng, written)
+        write_re10k_fixture(re10k_dir, rng, written)
+        print(f"disk: wrote {len(written)} PNGs (filters 0-4 row by row) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        single, stacked = [], []
+        rgb = [p for p, a in written.items() if a.ndim == 3]
+        for i, p in enumerate(rgb):
+            t0 = time.perf_counter()
+            got = imread(p)
+            if i % 4 == 0:  # a quarter of the frames timed one by one
+                single.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(got, written[p]):
+                raise AssertionError(f"disk: {p} does not decode to the array written")
+        for s in CLEVR_SCENES["train"]:
+            for kind, name in (("imgs", "img"), ("masks", "masks")):
+                ps = [os.path.join(clevr_dir, "train", kind, f"{name}_{s}_{v}.png") for v in range(DISK_VIEWS)]
+                t0 = time.perf_counter()
+                got = imread_stack(ps)
+                if kind == "imgs":
+                    stacked.append((time.perf_counter() - t0) * 1e3 / DISK_VIEWS)
+                if not np.array_equal(got, np.stack([written[p] for p in ps])):
+                    raise AssertionError(f"disk: scene {s} {kind} do not decode to the arrays written")
+        out["decode_ms_per_frame"] = float(np.median(single))
+        out["decode_ms_per_frame_in_5"] = float(np.median(stacked))
+        print(f"disk: round trip exact for {len(written)} files; decode ms per {DISK_H}x{DISK_W} RGB frame "
+              f"(host): one file at a time median {out['decode_ms_per_frame']:.2f} (of {len(single)}), 5 at a time "
+              f"as CLEVRTR reads a scene {out['decode_ms_per_frame_in_5']:.2f} (median of {len(stacked)})",
+              flush=True)
+
+        clevr = CLEVRTR(dataclasses.replace(load_config(GTA_CONFIG).data, path=clevr_dir), "train", seed=0)
+        t0 = time.perf_counter()
+        disk = next(iter(Loader(clevr, DISK_BATCH, shuffle=False)))
+        out["clevrtr_items_per_s"] = DISK_BATCH / (time.perf_counter() - t0)
+        re10k_data = dataclasses.replace(load_config(RE10K_GTA_CONFIG).data, path=re10k_dir)
+        re10k = RealEstate10K(re10k_data, "train")
+        t0 = time.perf_counter()
+        for epoch in range(4):
+            re10k.set_epoch(epoch)
+            item = re10k[0]
+        out["re10k_items_per_s"] = 4 / (time.perf_counter() - t0)
+        if item["input_images"].shape != (2, 120, 160, 3):
+            raise AssertionError(f"re10k item input_images {item['input_images'].shape}")
+        raw = [raw_msn_scene(np.random.RandomState(100 + i)) for i in range(MSN_DISK_BATCH)]
+        coord = make_2dcoord(128, 128)
+        t0 = time.perf_counter()
+        items = [prep_scene(msn_gta.data, *scene, i, np.random.RandomState(i), coord) for i, scene in enumerate(raw)]
+        out["prep_scene_items_per_s"] = MSN_DISK_BATCH / (time.perf_counter() - t0)
+        msn_disk = collate(items)
+        print(f"disk: reader items/s on the host: CLEVRTR {out['clevrtr_items_per_s']:.2f} (batch of {DISK_BATCH} "
+              f"through Loader), RealEstate10K {out['re10k_items_per_s']:.2f} (4 frames of {DISK_H}x{DISK_W} "
+              f"resampled to 120x160 each), prep_scene {out['prep_scene_items_per_s']:.2f} (10 views of 128x128)",
+              flush=True)
+
+        out["clevr_gta"] = disk_steps(gta_cfg, "CLEVR-TR gta (disk)", "clevr_gta", disk,
+                                      synthetic_batch(gta_cfg.data, "train", 0, DISK_BATCH, gta_cfg.seed), paths)
+        out["msn_gta_bf16"] = disk_steps(msn_gta, "msn gta bf16 (prep_scene)", "msn_gta_bf16", msn_disk,
+                                         synthetic_batch(msn_gta.data, "train", 0, MSN_DISK_BATCH, msn_gta.seed),
+                                         paths)
+
+        for config, data_dir, label, train_args, dtype in (
+                (GTA_CONFIG, clevr_dir, "CLEVR-TR gta", ["--exit-after", "2", "--batch-size", str(DISK_BATCH),
+                                                         "--max-eval", "2"], "float32"),
+                (RE10K_GTA_CONFIG, re10k_dir, "re10k gta", ["--exit-after", "1", "--batch-size", "1",
+                                                            "--max-eval", "1"], "bfloat16")):
+            run = os.path.join(tmp, label.replace(" ", "_"))
+            log = run_cli(["gta_tpu_torch.train", config, data_dir, "--outdir", run, "--evalnow", *train_args],
+                          f"{label} train CLI on the datapath")
+            for line in log.splitlines():
+                if any(w in line for w in ("Loading", "it=", "best", "limit")):
+                    print(f"  {line}", flush=True)
+            dataset = "clevrtr" if "CLEVR" in label else "re10k"
+            if (f"Loading training set ({dataset})" not in log or "synthetic" in log
+                    or "Iteration limit reached" not in log or "New best model" not in log):
+                raise AssertionError(f"{label} train CLI did not train from the datapath:\n{log}")
+            log = run_cli(["gta_tpu_torch.evaluate", config, data_dir, "--outdir", run, "--ckpt", "best",
+                           "--max-scenes", "1"], f"{label} evaluate CLI on the datapath --ckpt best")
+            views = "240x320" if "CLEVR" in label else "120x160"
+            reader = "CLEVRTR" if "CLEVR" in label else "RealEstate10K"
+            line = f"Evaluating 1 scenes of {reader} (test split) at {views} full-scale views"
+            if "Loaded checkpoint best" not in log or line not in log or "synthetic" in log:
+                raise AssertionError(f"{label} evaluate CLI: not '{line}' from best:\n{log}")
+            print(f"  {line}", flush=True)
+            check_disk_eval(json.loads(log.strip().splitlines()[-1]), f"{label} evaluate CLI", dtype)
+
+        re10k_srt = load_config(RE10K_SRT_CONFIG)
+        for cfg, config, data_dir, label, shape in (
+                (re10k_srt, RE10K_SRT_CONFIG, re10k_dir, "re10k SRT bf16", (2, 2 * 2)),
+                (srt_cfg, SRT_CONFIG, clevr_dir, "CLEVR-TR SRT", (3, 3 * 5))):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            result = evaluate.main([config, data_dir, "--outdir", os.path.join(tmp, label.replace(" ", "_")),
+                                    "--max-scenes", "1"])
+            key = "re10k_srt_bf16_disk_eval" if "re10k" in label else "clevr_srt_disk_eval"
+            counts = paths[key] = launch_counts()
+            # per target view: one encode, and a decode per 16384-ray chunk
+            want = expected_launches(cfg, *shape)
+            print(f"{label} evaluate on the datapath, in process ({time.perf_counter() - t0:.1f} s): launches "
+                  f"{counts}", flush=True)
+            if counts != want:
+                raise AssertionError(f"{label} evaluate: launches {counts}, expected {want}")
+            check_disk_eval(result, f"{label} evaluate", "bfloat16" if "bf16" in label else "float32")
+    if runs_listing() != runs_before:
+        raise AssertionError("the disk phase wrote under runs/")
+    return out
+
+
 def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None):
     """One kernel instance's line in the kernels JSON: numbers at its main
     shape, launches by path, every shape's numbers, the attention core it
@@ -1579,6 +1861,9 @@ def main() -> int:
     srt_grad = grads_phase(srt_cfg, "SRT", fp64_reference=True)
     msn_grad = grads_phase(msn_cut, "msn_so3 (1 + 1 blocks)")
     cli_phase()
+    t_disk = time.perf_counter()
+    disk = disk_phase(gta_cfg, msn_gta, srt_cfg, paths)
+    print(f"disk phase: {time.perf_counter() - t_disk:.1f} s", flush=True)
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
@@ -1611,6 +1896,7 @@ def main() -> int:
     print(f"CLEVR-TR gta_so3 train step B={EVAL_BATCH}: {json.dumps(so3_step)}", flush=True)
     print(f"msn gta bf16 train step B={MSN_BATCH}: {json.dumps(msn_gta_step)}", flush=True)
     print(f"evaluation per full-scale view: {json.dumps(eval_metrics)}", flush=True)
+    print(f"disk: {json.dumps(disk)}", flush=True)
     for label, step in (("msn_so3 bf16", msn_bf16_step), ("msn SRT bf16", msn_srt_step)):
         card_err, emu_err, gap, own = card_vs_cpu[label.split(" bf16")[0]]
         print(f"{label} train step B={MSN_BATCH}: {json.dumps(step)}; B=2 pixels from the CPU's fp32: card "

@@ -7,12 +7,14 @@ models through `render_image(chunk=16384)` from the native-resolution
 canonical ray grid and the view's transform, non-transform models (the SRT
 baseline) through `render_rays(chunk=16384)` on the view's own rays.
 CLEVR-TR configs score 240x320 frames from 120x160 inputs, msn ones
-128x128. SSIM (`utils/metrics.ssim`) and LPIPS-VGG (`utils/lpips.py`) run
-in fp32 with TF32 off on the device that rendered the frame, whatever the
-model's compute dtype.
+128x128, RealEstate10K / ACID ones the config's height and width after
+`downsample` (the reader resamples its frames to that size). SSIM
+(`utils/metrics.ssim`) and LPIPS-VGG (`utils/lpips.py`) run in fp32 with
+TF32 off on the device that rendered the frame, whatever the model's
+compute dtype.
 
 Usage:
-    python -m gta_tpu_torch.evaluate <config.yaml> --synthetic
+    python -m gta_tpu_torch.evaluate <config.yaml> [datapath] [--synthetic]
         [--ckpt latest|best|step_N] [--outdir DIR] [--state-dict model.pt]
         [--max-scenes N] [--seed S] [--device cuda|cpu]
 
@@ -26,8 +28,10 @@ reference `model.pt`, README "Weights"). LPIPS-VGG is computed when
 (scripts/export_lpips_weights.py); otherwise the run says so and reports
 PSNR / SSIM / MSE only. `lpips_alex` is not ported: the JAX package
 computes it only through the `lpips` package. The positional `datapath`
-waits for the dataset readers (ROADMAP queue 1 item 4b); only synthetic
-scenes are evaluated today.
+overrides the config's `data.path` and the test split is read from it
+(CLEVR-TR, RealEstate10K / ACID, or the MSN-Hard stream, which needs
+`sunds`); with --synthetic, or without a data path, synthetic scenes of the
+config's shapes are evaluated instead.
 
 The result line (also written to <outdir>/eval_results.json) has the JAX
 keys psnr, ssim, mse, n_scenes and lpips_vgg (when computed), plus device,
@@ -50,6 +54,7 @@ import torch
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("config", type=str)
+    parser.add_argument("datapath", type=str, nargs="?", default=None)
     parser.add_argument("--ckpt", type=str, default="best", help="latest | best | step_N under <outdir>/ckpts")
     parser.add_argument("--outdir", type=str, default=None, help="default: the config's directory")
     parser.add_argument("--state-dict", type=str, default=None, help="torch file with the port's state_dict")
@@ -68,6 +73,8 @@ def main(argv=None):
     from gta_tpu_torch.utils.metrics import ssim
 
     cfg = load_config(args.config)
+    if args.datapath:
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, path=args.datapath))
     if args.synthetic or (cfg.data.dataset != "synthetic" and not cfg.data.path):
         print("No datapath — evaluating on synthetic scenes.")
         # keep the native height/width AND `downsample`: inputs render at the
@@ -99,12 +106,19 @@ def main(argv=None):
         print(f"LPIPS unavailable ({e}); reporting PSNR/SSIM/MSE only")
 
     dataset = get_dataset("test", cfg.data, full_scale=True, max_len=args.max_scenes)
-    H, W = dataset.target_h, dataset.target_w
+    # full-scale targets at the dataset's native resolution (CLEVR-TR:
+    # 240x320 whatever `downsample`); else its own h/w, else the config's
+    H = getattr(dataset, "target_h", None) or getattr(dataset, "h", cfg.data.height)
+    W = getattr(dataset, "target_w", None) or getattr(dataset, "w", cfg.data.width)
 
     n = len(dataset) if args.max_scenes is None else min(args.max_scenes, len(dataset))
+    print(f"Evaluating {n} scenes of {type(dataset).__name__} (test split) at {H}x{W} full-scale views")
+    items = (dataset[i] for i in range(n)) if hasattr(dataset, "__getitem__") else iter(dataset)
     psnrs, ssims, mses, lp_v = [], [], [], []
-    for i in range(n):
-        batch = collate([dataset[i]])
+    for i, item in enumerate(items):
+        if i >= n:
+            break
+        batch = collate([item])
         transform_mode = batch.target_transforms is not None
         # non-transform items are flat [1, Nt*H*W, 3] in view order
         n_views = batch.target_transforms.shape[1] if transform_mode else batch.target_rays.shape[1] // (H * W)

@@ -1,8 +1,9 @@
 """Pixel-coordinate grids and sinusoidal positional encodings.
 
-`make_2dcoord` is a numpy builder (static, computed once per config); the
-encodings are torch functions. Semantics match the reference framework's
-coordinate conventions (reference gta.py:9-16, layers.py:52-96).
+`make_2dcoord` and `make_2dimgcoord` are numpy builders (static, computed
+once per config); the encodings are torch functions. Semantics match the
+reference framework's coordinate conventions (reference gta.py:9-28,
+layers.py:52-96).
 """
 
 from __future__ import annotations
@@ -21,6 +22,15 @@ def make_2dcoord(h: int, w: int) -> np.ndarray:
     x = np.arange(h, dtype=np.float32) / h
     y = np.arange(w, dtype=np.float32) / w
     xg, yg = np.meshgrid(x, y, indexing="ij")
+    return np.stack([xg, yg], -1).astype(np.float32)
+
+
+def make_2dimgcoord(h: int, w: int) -> np.ndarray:
+    """Image-convention coords (x right-to-left, y bottom-to-top), [h, w, 2]
+    (reference gta.py:19-28)."""
+    x = (np.arange(w, dtype=np.float32) / w)[::-1]
+    y = (np.arange(h, dtype=np.float32) / h)[::-1]
+    xg, yg = np.meshgrid(x, y, indexing="xy")
     return np.stack([xg, yg], -1).astype(np.float32)
 
 

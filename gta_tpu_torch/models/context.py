@@ -32,6 +32,10 @@ class SceneBatch:
     target_coord: Optional[torch.Tensor] = None  # [B, Nt, P, 2]
     transform: Optional[torch.Tensor] = None  # [B, 4, 4] canonical extrinsic
     sceneid: Optional[torch.Tensor] = None  # [B]
+    # pre-downsample extras (reference clevr_tr.py:261,329), emitted on
+    # request (return_org_rays / return_org_images); no model reads them yet
+    input_org_rays: Optional[torch.Tensor] = None  # [B, N, H0, W0, 3]
+    org_input_images: Optional[torch.Tensor] = None  # [B, N, H0, W0, 3]
 
     def to(self, device) -> "SceneBatch":
         """A copy with every tensor field moved to `device`."""

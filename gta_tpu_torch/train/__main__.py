@@ -1,14 +1,18 @@
 """Training entry point of the port (the JAX package's train.py, single device).
 
 Usage:
-    python -m gta_tpu_torch.train <config.yaml> [--synthetic] [--outdir DIR]
-        [--exit-after N] [--evalnow] [--visnow] [--max-eval N] [--seed S]
-        [--batch-size B] [--bf16] [--device cuda|cpu]
+    python -m gta_tpu_torch.train <config.yaml> [datapath] [--synthetic]
+        [--outdir DIR] [--exit-after N] [--evalnow] [--visnow] [--max-eval N]
+        [--seed S] [--batch-size B] [--bf16] [--device cuda|cpu]
 
-Trains on synthetic CLEVR-TR-shaped scenes (the only data family ported so
-far; a config without a data path falls back to them, as train.py does).
-Every `print_every` steps it prints the loss and lr, every `validate_every`
-it evaluates on the val split (--max-eval scenes) and keeps `best` by
+Trains on the config's dataset (`data.dataset`: clevrtr, msn, re10k or
+acid) read from `datapath`, which overrides `data.path`, as train.py does.
+With --synthetic, or without a data path, it trains on synthetic
+CLEVR-TR-shaped scenes at the config's input resolution instead. On a
+resume over an iterable dataset (MSN-Hard's stream) it skips the items of
+the current epoch already consumed, and prints how many. Every
+`print_every` steps it prints the loss and lr, every `validate_every` it
+evaluates on the val split (--max-eval scenes) and keeps `best` by
 `model_selection_metric`, every `checkpoint_every` it writes the rolling
 checkpoint and every `backup_every` a stamped backup, all under
 <outdir>/ckpts/. Every `visualize_every` steps (and at the first step
@@ -38,6 +42,7 @@ import numpy as np
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Train a NVS model (PyTorch/CUDA port)")
     parser.add_argument("config", type=str, help="Path to config file")
+    parser.add_argument("datapath", type=str, nargs="?", default=None, help="Dataset dir")
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--outdir", type=str, default=None)
     parser.add_argument("--exit-after", type=int, default=None)
@@ -61,6 +66,8 @@ def main(argv=None):
     from gta_tpu_torch.train.trainer import Trainer
 
     cfg = load_config(args.config)
+    if args.datapath:
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, path=args.datapath))
     if args.synthetic or (cfg.data.dataset != "synthetic" and not cfg.data.path):
         print("No datapath given — falling back to synthetic scenes.")
         h, w, ds = cfg.data.height, cfg.data.width, cfg.data.downsample
@@ -113,6 +120,15 @@ def main(argv=None):
     epoch_it = scalars.get("epoch_it", -1)
     time_elapsed = scalars.get("t", 0.0)
     metric_val_best = scalars.get("loss_val_best", -sel_sign * np.inf)
+
+    # Stream-position resume for iterable datasets (reference
+    # multishapenet.py:316-320): skip the items already consumed in the
+    # current epoch so resume does not replay from scene 0.
+    if restored and hasattr(train_ds, "skip"):
+        consumed = (trainer.step - max(epoch_it, 0) * len(train_loader)) * t_cfg.batch_size
+        if consumed > 0:
+            train_ds.skip(consumed)
+            print(f"Skipping {consumed} already-consumed stream items.")
 
     it = trainer.step - 1
     evalnow, visnow = args.evalnow, args.visnow

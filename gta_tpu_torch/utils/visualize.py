@@ -7,18 +7,18 @@ keeps its signature and layout (one row per batch item, the columns in
 order, each image clipped to [0, 1], written to `<path>.png`), with one
 deliberate difference: it imports neither matplotlib nor PIL, which the
 machines that run the port on a GPU do not have. It assembles the grid as
-one numpy array and writes it with `write_png`, a stdlib-only encoder
-(zlib, struct); the column titles go into a PNG tEXt chunk ("Columns")
-where matplotlib drew them above the first row.
+one numpy array and writes it with `write_png`, through the port's own
+PNG codec (data/png.py: zlib and numpy); the column titles go into a PNG
+tEXt chunk ("Columns") where matplotlib drew them above the first row.
 """
 
 from __future__ import annotations
 
-import struct
-import zlib
 from typing import Dict, Optional
 
 import numpy as np
+
+from gta_tpu_torch.data import png
 
 # distinct cluster colors for segmentation maps (reference visualize.py
 # colorizes cluster ids over a checkerboard; a fixed palette here)
@@ -40,7 +40,6 @@ _PALETTE = np.array(
     dtype=np.float32,
 )
 GAP = 2  # white pixels between the grid's cells
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def colorize_clusters(ids: np.ndarray) -> np.ndarray:
@@ -58,54 +57,19 @@ def checkerboard_composite(rgba: np.ndarray, square: int = 8) -> np.ndarray:
     return rgba[..., :3] * a + board * (1.0 - a)
 
 
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
-
-
 def write_png(path: str, rgb: np.ndarray, text: Optional[Dict[str, str]] = None) -> None:
     """Write uint8 RGB [H, W, 3] as an 8-bit truecolor PNG (every scanline
-    unfiltered), with `text` as tEXt chunks (Latin-1)."""
+    unfiltered), with `text` as tEXt chunks (Latin-1): the port's codec,
+    data/png.py."""
     rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
-    h, w = rgb.shape[:2]
-    if rgb.shape != (h, w, 3):
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"write_png takes [H, W, 3] uint8, got {rgb.shape}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)  # filter byte 0
-    out = [_PNG_SIGNATURE, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))]
-    for key, value in (text or {}).items():
-        out.append(_chunk(b"tEXt", key.encode("latin-1") + b"\0" + value.encode("latin-1")))
-    out += [_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)), _chunk(b"IEND", b"")]
-    with open(path, "wb") as f:
-        f.write(b"".join(out))
+    png.write_png(path, rgb, text=text)
 
 
 def read_png(path: str):
-    """(uint8 RGB [H, W, 3], {tEXt key: value}) of a PNG as `write_png`
-    writes it: 8-bit truecolor, not interlaced, every scanline unfiltered."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if not data.startswith(_PNG_SIGNATURE):
-        raise ValueError(f"{path} is not a PNG")
-    pos, idat, text, header = len(_PNG_SIGNATURE), [], {}, None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos : pos + 4])
-        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
-        if struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])[0] != zlib.crc32(kind + body):
-            raise ValueError(f"{path}: bad CRC in a {kind!r} chunk")
-        pos += 12 + n
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"tEXt":
-            key, value = body.split(b"\0", 1)
-            text[key.decode("latin-1")] = value.decode("latin-1")
-        elif kind == b"IDAT":
-            idat.append(body)
-    if header is None or header[2:] != (8, 2, 0, 0, 0):
-        raise ValueError(f"{path}: not an 8-bit truecolor non-interlaced PNG ({header})")
-    w, h = header[:2]
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: filtered scanlines are not supported")
-    return rows[:, 1:].reshape(h, w, 3), text
+    """(image, {tEXt key: value}) of a PNG file (data/png.py)."""
+    return png.read_png(path)
 
 
 def draw_visualization_grid(columns, path: str):

@@ -2,6 +2,7 @@
 package's numpy path: the same seed gives byte-equal arrays."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -10,6 +11,7 @@ from gta_tpu.config import DataConfig as JDataConfig
 from gta_tpu.data.sampling import points_per_view as j_points_per_view
 from gta_tpu.data.synthetic import SyntheticScenes as JSyntheticScenes, collate as j_collate
 from gta_tpu_torch.config import DataConfig
+from gta_tpu_torch.data.clevrtr import CLEVRTR
 from gta_tpu_torch.data.registry import get_dataset
 from gta_tpu_torch.data.sampling import points_per_view
 from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
@@ -69,9 +71,14 @@ def test_collate_matches():
             assert g.numpy().tobytes() == np.asarray(w).tobytes(), f.name
 
 
-def test_registry():
+def test_registry(tmp_path):
     ds = get_dataset("val", DataConfig(**SMALL), full_scale=True, max_len=3)
     assert isinstance(ds, SyntheticScenes) and len(ds) == 3
     assert (ds.target_h, ds.target_w) == (32, 48)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataset("val", DataConfig(**{**SMALL, "dataset": "clevrtr"}))
+    (tmp_path / "train" / "metadata").mkdir(parents=True)
+    for s in range(10):
+        (tmp_path / "train" / "metadata" / f"{s}.json").write_text("{}")
+    ds = get_dataset("val", DataConfig(**{**SMALL, "dataset": "clevrtr", "path": str(tmp_path)}))
+    assert isinstance(ds, CLEVRTR) and [os.path.basename(p) for p in ds.metadata_paths] == ["9.json"]
+    with pytest.raises(ValueError, match="unknown dataset"):
+        get_dataset("val", DataConfig(**{**SMALL, "dataset": "imagenet"}))
