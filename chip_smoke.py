@@ -136,20 +136,30 @@ Phases (any failure exits non-zero and prints no result line):
      checkpoint: the random init); CLEVR-TR gta_so3, 2 train steps;
      `python -m gta_tpu_torch.evaluate <SRT> --synthetic --max-scenes 1`,
      which must report a finite PSNR.
-  6. The dataset readers (disk_phase), on fixtures written into a
-     temporary directory by the port's PNG encoder, every scanline filter
-     row by row: CLEVR-TR (20 train and 2 test scenes, 5 views of 240x320)
-     and a RealEstate10K dump (2 train videos and 1 test video of 40 frames
-     of 240x320). Every file decodes to the array written; the decode ms per
-     frame and each reader's items/s on the host are printed. The flagship
-     on a CLEVRTR batch of 8 (through Loader) and msn gta (bf16) on 16
-     prep_scene items from seeded raw 10x128x128 scenes: eval_step and
-     train_step beside a synthetic batch of the same shapes, launch counts
-     asserted. The train CLI on the positional datapath, then evaluate
-     --ckpt best, for the flagship (CLEVR-TR reader, 240x320 full-scale
-     views) and re10k gta (bf16; RealEstate10K reader); in process, one
-     evaluate each of the re10k SRT (bf16) and the CLEVR-TR SRT (fp32), the
-     readers' non-transform branches, launch counts asserted.
+  6. The host data plane and the dataset readers (disk_phase), on fixtures
+     written into a temporary directory by the port's PNG encoder, every
+     scanline filter row by row: CLEVR-TR (256 train scenes over 64
+     distinct image sets, 2 test scenes, 5 views of 240x320) and a
+     RealEstate10K dump (2 train videos and 1 test video of 40 frames of
+     240x320). The host library (gta_tpu_torch/data/native.py: the PNG
+     decoder over zlib and the sphere renderer, built with g++) is held to
+     its plain versions: every file decodes to the array written, natively
+     and through the numpy codec; decode ms per frame, the two in turns,
+     one file and 5 a call (native at least 5x faster, or the phase
+     fails); the synthetic render of 5 views, native and numpy. A CLEVRTR
+     item's host time by part, and items/s through Loader at 1 and 4
+     worker threads. The flagship at its config's B=32 fed from the dump
+     through Loader(4 workers, prefetch 2): 7 train steps (wall and
+     wait-on-loader ms each) between synthetic B=32 steps, then one
+     eval_step on the first disk batch and one on the synthetic batch,
+     launch counts asserted for each run; msn gta (bf16) on 16 prep_scene items from seeded raw
+     10x128x128 scenes: eval_step and train_step beside a synthetic batch
+     of the same shapes, launch counts asserted. The train CLI on the
+     positional datapath, then evaluate --ckpt best, for the flagship
+     (CLEVR-TR reader, 240x320 full-scale views) and re10k gta (bf16;
+     RealEstate10K reader); in process, one evaluate each of the re10k SRT
+     (bf16) and the CLEVR-TR SRT (fp32), the readers' non-transform
+     branches, launch counts asserted.
   7. One JSON line of kernel numbers, an entry per kernel instance (fp32
      and bf16, launches by path, the attention core it runs and that core's
      ptxas registers and spills in its library), then the device JSON as
@@ -1387,18 +1397,29 @@ def cli_phase():
 RE10K_GTA_CONFIG = os.path.join(ROOT, "runs", "re10k", "GTA", "gta", "config.yaml")
 RE10K_SRT_CONFIG = os.path.join(ROOT, "runs", "re10k", "otherPEs", "srt", "config.yaml")
 DISK_H, DISK_W, DISK_VIEWS = 240, 320, 5  # the CLEVR-TR layout; RealEstate10K frames of the same size
-CLEVR_SCENES = {"train": range(20), "test": range(20, 22)}
+# CLEVR-TR train scenes (the reader's 90 % train split holds 230, 7 batches
+# of 32 in one epoch) and test scenes; the train scenes' frames and masks
+# are CLEVR_IMAGE_SETS distinct sets written once, scene s hard-linking set
+# s % CLEVR_IMAGE_SETS (every scene has its own cameras), so writing stays
+# short while the reader decodes 10 files an item as on a real dump
+CLEVR_SCENES = {"train": range(256), "test": range(256, 258)}
+CLEVR_IMAGE_SETS = 64
 RE10K_VIDEOS = {"train": 2, "test": 1}
 RE10K_FRAMES = 40
-DISK_BATCH, MSN_DISK_BATCH = 8, 16
+MSN_DISK_BATCH = 16
 ROW_FILTERS = np.arange(DISK_H) % 5  # every scanline filter, row by row
+DECODE_TURNS = 16  # scenes timed in turns, numpy and native
+LOADER_PREFETCH = 2  # batches the loader keeps ready (its default)
+DISK_STEPS, SYNTHETIC_STEPS = 1 + 6, 3  # disk-fed steps (one cold); synthetic steps before and after them
 
 
 def write_clevr_fixture(root, rng, written):
     """CLEVR-TR in the JAX layout (metadata/<n>.json, imgs/img_<n>_<v>.png,
     masks/masks_<n>_<v>.png): cameras on a ring (tests/test_data.py), seeded
     noise frames, gray mask indices 0-6, every PNG written by the port's
-    encoder through all five filters; {path: array} into `written`."""
+    encoder through all five filters ({path: array} of each file written
+    into `written`); train scenes past CLEVR_IMAGE_SETS link the files of
+    scene s % CLEVR_IMAGE_SETS."""
     from gta_tpu_torch.data.png import write_png
 
     for split, scenes in CLEVR_SCENES.items():
@@ -1411,10 +1432,13 @@ def write_clevr_fixture(root, rng, written):
                 az = 2 * np.pi * v / DISK_VIEWS + 0.3 * s
                 qs.append([np.cos(az / 2), 0.0, 0.0, np.sin(az / 2)])
                 ps.append([7 * np.cos(az), 7 * np.sin(az), 4.0])
-                for path, arr in ((os.path.join(d, "imgs", f"img_{s}_{v}.png"),
-                                   rng.randint(0, 256, (DISK_H, DISK_W, 3)).astype(np.uint8)),
-                                  (os.path.join(d, "masks", f"masks_{s}_{v}.png"),
-                                   rng.randint(0, 7, (DISK_H, DISK_W)).astype(np.uint8))):
+                for kind, name, shape, high in (("imgs", "img", (DISK_H, DISK_W, 3), 256),
+                                                ("masks", "masks", (DISK_H, DISK_W), 7)):
+                    path = os.path.join(d, kind, f"{name}_{s}_{v}.png")
+                    if split == "train" and s >= CLEVR_IMAGE_SETS:
+                        os.link(os.path.join(d, kind, f"{name}_{s % CLEVR_IMAGE_SETS}_{v}.png"), path)
+                        continue
+                    arr = rng.randint(0, high, shape).astype(np.uint8)
                     write_png(path, arr, filter=ROW_FILTERS)
                     written[path] = arr
             with open(os.path.join(d, "metadata", f"{s}.json"), "w") as f:
@@ -1465,6 +1489,237 @@ def raw_msn_scene(rng, nv=10, size=128):
     return color, origins, dirs, rng.randint(0, 40, (nv, size, size, 1)).astype(np.int32)
 
 
+def timed_ms(fn, *args, **kwargs):
+    """(fn's result, its wall ms on the host)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def decode_phase(clevr_dir, written):
+    """Every distinct file written decodes to its array through the host
+    decoder (data/native.py) and through the numpy codec (data/png.py), five
+    files of one directory a call. Then the decode ms per 240x320 RGB frame,
+    the two in turns (the first to run alternating) on the frames of
+    DECODE_TURNS scenes: one file a call and a scene's 5 a call, as uint8
+    (what `imread` returns); and the float32 RGB the CLEVR-TR reader asks
+    for, on one thread as it does."""
+    from gta_tpu_torch.data import native
+    from gta_tpu_torch.data.png import imread, imread_stack
+
+    by_dir = {}
+    for p in sorted(written):
+        by_dir.setdefault(os.path.dirname(p), []).append(p)
+    checked = 0
+    for ps in by_dir.values():
+        for i in range(0, len(ps), DISK_VIEWS):
+            group = ps[i : i + DISK_VIEWS]
+            want = np.stack([written[p] for p in group])
+            for route, got in (("native", native.decode_pngs_u8(group)),
+                               ("numpy", imread_stack(group))):
+                if got.dtype != np.uint8 or got.shape != want.shape or got.tobytes() != want.tobytes():
+                    raise AssertionError(f"disk: {route} decode of {group} differs from the arrays written")
+            checked += len(group)
+    if checked != len(written):
+        raise AssertionError(f"disk: checked {checked} of {len(written)} files")
+    times = {k: [] for k in ("numpy_1", "native_1", "numpy_5", "native_5", "reader_rgb_5")}
+    for s in range(DECODE_TURNS):
+        ps = [os.path.join(clevr_dir, "train", "imgs", f"img_{s}_{v}.png") for v in range(DISK_VIEWS)]
+        runs = [("numpy_1", lambda p=ps: [imread(x) for x in p]),
+                ("numpy_5", lambda p=ps: imread_stack(p)),
+                ("native_1", lambda p=ps: [native.decode_pngs_u8([x]) for x in p]),
+                ("native_5", lambda p=ps: native.decode_pngs_u8(p)),
+                ("reader_rgb_5", lambda p=ps: native.decode_pngs_rgb(p, DISK_H, DISK_W, threads=1))]
+        for key, fn in (runs if s % 2 else runs[::-1]):
+            times[key].append(timed_ms(fn)[1] / DISK_VIEWS)
+    out = {f"decode_ms_per_frame_{k}": float(np.median(v)) for k, v in times.items()}
+    out["decode_speedup_1"] = out["decode_ms_per_frame_numpy_1"] / out["decode_ms_per_frame_native_1"]
+    out["decode_speedup_5"] = out["decode_ms_per_frame_numpy_5"] / out["decode_ms_per_frame_native_5"]
+    print(f"disk: {checked} files decode to the arrays written, native and numpy; decode ms per "
+          f"{DISK_H}x{DISK_W} RGB frame (host; median of {DECODE_TURNS} scenes, in turns): one file a call "
+          f"numpy {out['decode_ms_per_frame_numpy_1']:.3f} native {out['decode_ms_per_frame_native_1']:.3f} "
+          f"({out['decode_speedup_1']:.1f}x); 5 a call numpy {out['decode_ms_per_frame_numpy_5']:.3f} native "
+          f"{out['decode_ms_per_frame_native_5']:.3f} ({out['decode_speedup_5']:.1f}x); float32 RGB as CLEVRTR "
+          f"decodes (1 thread) {out['decode_ms_per_frame_reader_rgb_5']:.3f}", flush=True)
+    if out["decode_speedup_1"] < 5 or out["decode_speedup_5"] < 5:
+        raise AssertionError(f"disk: the native decoder is less than 5x the numpy codec's speed: {out}")
+    return out
+
+
+def reader_phase(clevr, collate, workers):
+    """Where a CLEVRTR item's host time goes, one thread (decode, the whole
+    item natively and through the numpy codec, collating a batch of 32),
+    and the reader's items/s through Loader at 1 and `workers` workers: the
+    first 64 items of an epoch, from the first `next`."""
+    from gta_tpu_torch.data import clevrtr
+    from gta_tpu_torch.data.loader import Loader
+    from gta_tpu_torch.data.native import decode_pngs_gray, decode_pngs_rgb
+
+    d = clevr.dir
+    decode, native_item, numpy_item = [], [], []
+    plain = clevrtr.CLEVRTR(clevr.cfg, clevr.mode, seed=0, native=False)
+    for i in range(6):
+        s = int(os.path.basename(clevr.metadata_paths[i]).split(".")[0])
+        imgs = [os.path.join(d, "imgs", f"img_{s}_{v}.png") for v in range(DISK_VIEWS)]
+        masks = [os.path.join(d, "masks", f"masks_{s}_{v}.png") for v in range(DISK_VIEWS)]
+        t0 = time.perf_counter()
+        decode_pngs_rgb(imgs, DISK_H, DISK_W, threads=1)
+        decode_pngs_gray(masks, DISK_H, DISK_W, threads=1)
+        decode.append((time.perf_counter() - t0) * 1e3)
+        item, ms = timed_ms(clevr.__getitem__, i)
+        native_item.append(ms)
+        if i < 3:
+            ref, ms = timed_ms(plain.__getitem__, i)
+            numpy_item.append(ms)
+            if any(ref[k].tobytes() != item[k].tobytes() for k in item):
+                raise AssertionError(f"disk: CLEVRTR item {i} differs between the native and numpy decoders")
+    items = [clevr[i] for i in range(32)]
+    _, collate_ms = timed_ms(collate, items)
+    out = {"item_ms_native": float(np.median(native_item)), "item_ms_numpy": float(np.median(numpy_item)),
+           "item_decode_ms": float(np.median(decode)), "collate_b32_ms": collate_ms}
+    out["item_assembly_ms"] = out["item_ms_native"] - out["item_decode_ms"]
+    for n_workers in (1, workers):
+        loader = Loader(clevr, 32, shuffle=True, seed=1, num_workers=n_workers, prefetch=LOADER_PREFETCH)
+        t0 = time.perf_counter()
+        it = iter(loader)
+        n = sum(next(it).input_images.shape[0] for _ in range(2))
+        out[f"clevrtr_items_per_s_w{n_workers}"] = n / (time.perf_counter() - t0)
+        it.close()
+    print(f"disk: CLEVRTR item on one host thread: {out['item_ms_native']:.1f} ms native "
+          f"({out['item_decode_ms']:.1f} ms decoding its 10 PNGs, {out['item_assembly_ms']:.1f} ms the rest: rays, "
+          f"masks, sampling), {out['item_ms_numpy']:.1f} ms through the numpy codec; collate of 32 "
+          f"{collate_ms:.1f} ms; items/s through Loader (workers): "
+          + ", ".join(f"{k.split('_s_')[1]} {v:.2f}" for k, v in out.items() if k.startswith("clevrtr_items")),
+          flush=True)
+    return out
+
+
+def render_phase():
+    """The synthetic scenes' renderer, native (data/native.py) and numpy
+    (data/synthetic.py), in turns on one seeded scene of 5 views at
+    240x320: ms each, and their agreement (rays within 1e-4, >= 99.5 % of
+    pixels within 1e-3: float32 against float64)."""
+    from gta_tpu_torch.data.native import render_views
+    from gta_tpu_torch.data.synthetic import _render
+    from gta_tpu_torch.geometry.rays import camera_rays_from_extrinsic, lookat_extrinsic
+
+    rng = np.random.RandomState(0)
+    k = 6
+    spheres = (np.stack([rng.uniform(-3, 3, k), rng.uniform(-3, 3, k), rng.uniform(0.3, 1.8, k)], -1),
+               rng.uniform(0.4, 1.1, k), rng.uniform(0.1, 1.0, (k, 3)))
+    az, el, r = rng.uniform(0, 2 * np.pi, DISK_VIEWS), rng.uniform(0.25, 0.9, DISK_VIEWS), rng.uniform(7, 10, DISK_VIEWS)
+    cam_pos = np.stack([r * np.cos(az) * np.cos(el), r * np.sin(az) * np.cos(el), r * np.sin(el)], -1).astype(np.float32)
+    ext = np.stack([lookat_extrinsic(p) for p in cam_pos])
+
+    def plain():
+        rays = np.stack([camera_rays_from_extrinsic(e, p, DISK_W, DISK_H) for e, p in zip(ext, cam_pos)])
+        return np.stack([_render(p, ray, spheres) for p, ray in zip(cam_pos, rays)]), rays
+
+    times = {"native": [], "numpy": []}
+    for turn in range(3):
+        for key, fn in ((("numpy", plain), ("native", lambda: render_views(cam_pos, ext, *spheres, DISK_H, DISK_W)))
+                        [:: 1 if turn % 2 else -1]):
+            result, ms = timed_ms(fn)
+            times[key].append(ms)
+            if key == "native":
+                native_out = result
+            else:
+                numpy_out = result
+    rays_err = float(np.abs(native_out[1] - numpy_out[1]).max())
+    close = float((np.abs(native_out[0] - numpy_out[0]).max(-1) < 1e-3).mean())
+    out = {f"render_{k}_ms": float(np.median(v)) for k, v in times.items()}
+    print(f"disk: synthetic render of {DISK_VIEWS}x{DISK_H}x{DISK_W} (host, median of 3 in turns): native "
+          f"{out['render_native_ms']:.2f} ms, numpy {out['render_numpy_ms']:.2f} ms; rays |d| {rays_err:.2e}, "
+          f"pixels within 1e-3 {close:.5f}", flush=True)
+    if rays_err > 1e-4 or close < 0.995:
+        raise AssertionError(f"disk: native render disagrees with numpy: rays {rays_err}, close {close}")
+    return out
+
+
+def disk_train_phase(cfg, clevr, paths):
+    """The flagship's train step at its config's batch fed from the CLEVR-TR
+    dump as the train CLI feeds it: Loader(shuffle, the config's
+    num_workers, prefetch 2), DISK_STEPS steps in one epoch (the first
+    waits for the pipeline to fill), between two blocks of SYNTHETIC_STEPS
+    steps on a synthetic batch of the same shapes (the first step cold).
+    Per step: the wall ms, and the ms it waited on `next(loader)`. Then one
+    eval_step on the first disk batch and one on the synthetic batch (the
+    serving path). Launch counts asserted for each run (a train step 7
+    forward, 7 backward; an eval_step 7 forward)."""
+    import torch
+
+    from gta_tpu_torch.data.loader import Loader
+    from gta_tpu_torch.train.trainer import Trainer
+
+    B = cfg.training.batch_size
+    trainer = Trainer(cfg)  # default device: cuda
+    synthetic = synthetic_batch(cfg.data, "train", 0, B, cfg.seed)
+    loader = Loader(clevr, B, shuffle=True, seed=cfg.seed, num_workers=cfg.training.num_workers,
+                    prefetch=LOADER_PREFETCH)
+    if len(loader) < DISK_STEPS:
+        raise AssertionError(f"disk: {len(loader)} batches of {B} in the CLEVR-TR split, need {DISK_STEPS}")
+
+    def step(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(batch)["loss"].item()
+        torch.cuda.synchronize()
+        if not np.isfinite(loss):
+            raise AssertionError(f"disk: B={B} train step loss {loss}")
+        return (time.perf_counter() - t0) * 1e3
+
+    reset_launch_counts()
+    synthetic_ms = [step(synthetic) for _ in range(SYNTHETIC_STEPS)]
+    synthetic_counts = launch_counts()
+    reset_launch_counts()
+    wait_ms, disk_ms, first = [], [], None
+    it = iter(loader)
+    for _ in range(DISK_STEPS):
+        batch, ms = timed_ms(next, it)
+        if batch.input_images.shape[0] != B:
+            raise AssertionError(f"disk: a batch of {batch.input_images.shape[0]}, expected {B}")
+        if first is None:
+            first = batch
+        wait_ms.append(ms)
+        disk_ms.append(step(batch))
+    it.close()
+    disk_counts = paths["clevr_gta_b32_disk_train"] = launch_counts()
+    reset_launch_counts()
+    synthetic_ms += [step(synthetic) for _ in range(SYNTHETIC_STEPS)]
+    synthetic_counts = paths["clevr_gta_b32_synthetic_train"] = {
+        k: n + synthetic_counts[k] for k, n in launch_counts().items()}
+    for kind, counts, n in (("disk", disk_counts, DISK_STEPS), ("synthetic", synthetic_counts, 2 * SYNTHETIC_STEPS)):
+        want = expected_launches(cfg, n, n, backward_steps=n)
+        if counts != want:
+            raise AssertionError(f"disk: B={B} {kind} train launches {counts}, expected {want}")
+    psnr = {}
+    for kind, batch in (("disk", first), ("synthetic", synthetic)):
+        reset_launch_counts()
+        psnr[kind] = trainer.eval_step(batch)["psnr"].mean().item()
+        counts = paths[f"clevr_gta_{kind}_serving"] = launch_counts()
+        want = expected_launches(cfg, 1, 1)
+        if counts != want or not np.isfinite(psnr[kind]):
+            raise AssertionError(f"disk: B={B} {kind} eval_step launches {counts}, expected {want}; psnr {psnr[kind]}")
+    walls = [w + s for w, s in zip(wait_ms, disk_ms)]
+    out = {"b32_disk_wall_ms": float(np.median(walls[1:])), "b32_disk_wait_ms": float(np.median(wait_ms[1:])),
+           "b32_disk_step_ms": float(np.median(disk_ms[1:])), "b32_disk_first_wait_ms": wait_ms[0],
+           "b32_synthetic_step_ms": float(np.median(synthetic_ms[1:]))}
+    print(f"CLEVR-TR gta B={B} train from the dump (Loader: {cfg.training.num_workers} workers, prefetch "
+          f"{LOADER_PREFETCH}), per step wall ms = wait on next(loader) + train_step: "
+          + "; ".join(f"{w + s:.1f} = {w:.1f} + {s:.1f}" for w, s in zip(wait_ms, disk_ms))
+          + f"; synthetic B={B} steps ms (before, after): {', '.join(f'{x:.1f}' for x in synthetic_ms)}; "
+          f"launches disk {disk_counts['gta_fused_fwd']} / {disk_counts['gta_fused_bwd']}, synthetic "
+          f"{synthetic_counts['gta_fused_fwd']} / {synthetic_counts['gta_fused_bwd']} (fwd / bwd); eval_step psnr "
+          f"disk {psnr['disk']:.4f}, synthetic {psnr['synthetic']:.4f}, launches "
+          f"{paths['clevr_gta_disk_serving']['gta_fused_fwd']} / {paths['clevr_gta_synthetic_serving']['gta_fused_fwd']}",
+          flush=True)
+    print(f"CLEVR-TR gta B={B}: warm medians, disk-fed wall {out['b32_disk_wall_ms']:.1f} ms (waited "
+          f"{out['b32_disk_wait_ms']:.1f}, step {out['b32_disk_step_ms']:.1f}), synthetic step "
+          f"{out['b32_synthetic_step_ms']:.1f} ms: {out['b32_disk_wall_ms'] / out['b32_synthetic_step_ms']:.2f}x",
+          flush=True)
+    return out
+
+
 def disk_steps(cfg, label, key, disk, synthetic, paths):
     """eval_step and train_step of `cfg` on a batch its reader made from disk
     and, in the same process, on a synthetic batch of the same shapes (one
@@ -1507,18 +1762,22 @@ def check_disk_eval(result, label, dtype):
 
 
 def disk_phase(gta_cfg, msn_gta, srt_cfg, paths):
-    """The dataset readers on fixtures written here with the port's PNG
-    encoder (every scanline filter): CLEVR-TR (20 train and 2 test scenes of
-    5 views at 240x320) and a RealEstate10K dump (2 train videos, 1 test
-    video, 40 frames of 240x320).
-      1. Round trip: every fixture file decodes to the array written
-         (exactly); decode ms per 240x320 RGB frame, one file at a time
-         (the median over the files) and 5 at a time as the CLEVR-TR reader
-         decodes a scene; each reader's items/s on the host.
-      2. The flagship (fp32) on a CLEVRTR batch of 8 through Loader, msn gta
-         (bf16) on 16 prep_scene items from seeded raw 10x128x128 scenes:
-         eval_step and train_step beside the same config's synthetic batch
-         (disk_steps), launch counts asserted.
+    """The host data plane and the dataset readers on fixtures written here
+    with the port's PNG encoder (every scanline filter): CLEVR-TR (256
+    train scenes over 64 distinct image sets, 2 test scenes, 5 views of
+    240x320) and a RealEstate10K dump (2 train videos, 1 test video, 40
+    frames of 240x320).
+      1. decode_phase: every distinct file decodes to the array written,
+         natively and through the numpy codec; decode ms per frame, the two
+         in turns. render_phase: the synthetic renderer, native and numpy.
+         reader_phase: a CLEVRTR item's host time by part, and items/s
+         through Loader at 1 and 4 workers; RealEstate10K and prep_scene
+         items/s.
+      2. disk_train_phase: the flagship (fp32) at its config's B=32 fed from
+         the dump through Loader(4 workers, prefetch 2), beside synthetic
+         B=32 steps; msn gta (bf16) on 16 prep_scene items from seeded raw
+         10x128x128 scenes: eval_step and train_step beside the same
+         config's synthetic batch (disk_steps). Launch counts asserted.
       3. The CLIs on the positional datapath: train the flagship 3 steps
          (--exit-after 2 --batch-size 8 --evalnow --max-eval 2) then
          evaluate --ckpt best on one test scene (the CLEVR-TR reader, 240x320
@@ -1531,9 +1790,7 @@ def disk_phase(gta_cfg, msn_gta, srt_cfg, paths):
     from gta_tpu_torch import evaluate
     from gta_tpu_torch.config import load_config
     from gta_tpu_torch.data.clevrtr import CLEVRTR
-    from gta_tpu_torch.data.loader import Loader
     from gta_tpu_torch.data.msn import prep_scene
-    from gta_tpu_torch.data.png import imread, imread_stack
     from gta_tpu_torch.data.re10k import RealEstate10K
     from gta_tpu_torch.data.synthetic import collate
     from gta_tpu_torch.geometry.coords import make_2dcoord
@@ -1546,38 +1803,13 @@ def disk_phase(gta_cfg, msn_gta, srt_cfg, paths):
         t0 = time.perf_counter()
         write_clevr_fixture(clevr_dir, rng, written)
         write_re10k_fixture(re10k_dir, rng, written)
-        print(f"disk: wrote {len(written)} PNGs (filters 0-4 row by row) in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        print(f"disk: wrote {len(written)} PNGs (filters 0-4 row by row; {len(CLEVR_SCENES['train'])} CLEVR-TR train "
+              f"scenes over {CLEVR_IMAGE_SETS} image sets) in {time.perf_counter() - t0:.1f} s", flush=True)
 
-        single, stacked = [], []
-        rgb = [p for p, a in written.items() if a.ndim == 3]
-        for i, p in enumerate(rgb):
-            t0 = time.perf_counter()
-            got = imread(p)
-            if i % 4 == 0:  # a quarter of the frames timed one by one
-                single.append((time.perf_counter() - t0) * 1e3)
-            if not np.array_equal(got, written[p]):
-                raise AssertionError(f"disk: {p} does not decode to the array written")
-        for s in CLEVR_SCENES["train"]:
-            for kind, name in (("imgs", "img"), ("masks", "masks")):
-                ps = [os.path.join(clevr_dir, "train", kind, f"{name}_{s}_{v}.png") for v in range(DISK_VIEWS)]
-                t0 = time.perf_counter()
-                got = imread_stack(ps)
-                if kind == "imgs":
-                    stacked.append((time.perf_counter() - t0) * 1e3 / DISK_VIEWS)
-                if not np.array_equal(got, np.stack([written[p] for p in ps])):
-                    raise AssertionError(f"disk: scene {s} {kind} do not decode to the arrays written")
-        out["decode_ms_per_frame"] = float(np.median(single))
-        out["decode_ms_per_frame_in_5"] = float(np.median(stacked))
-        print(f"disk: round trip exact for {len(written)} files; decode ms per {DISK_H}x{DISK_W} RGB frame "
-              f"(host): one file at a time median {out['decode_ms_per_frame']:.2f} (of {len(single)}), 5 at a time "
-              f"as CLEVRTR reads a scene {out['decode_ms_per_frame_in_5']:.2f} (median of {len(stacked)})",
-              flush=True)
-
+        out.update(decode_phase(clevr_dir, written))
+        out.update(render_phase())
         clevr = CLEVRTR(dataclasses.replace(load_config(GTA_CONFIG).data, path=clevr_dir), "train", seed=0)
-        t0 = time.perf_counter()
-        disk = next(iter(Loader(clevr, DISK_BATCH, shuffle=False)))
-        out["clevrtr_items_per_s"] = DISK_BATCH / (time.perf_counter() - t0)
+        out.update(reader_phase(clevr, collate, gta_cfg.training.num_workers))
         re10k_data = dataclasses.replace(load_config(RE10K_GTA_CONFIG).data, path=re10k_dir)
         re10k = RealEstate10K(re10k_data, "train")
         t0 = time.perf_counter()
@@ -1593,19 +1825,17 @@ def disk_phase(gta_cfg, msn_gta, srt_cfg, paths):
         items = [prep_scene(msn_gta.data, *scene, i, np.random.RandomState(i), coord) for i, scene in enumerate(raw)]
         out["prep_scene_items_per_s"] = MSN_DISK_BATCH / (time.perf_counter() - t0)
         msn_disk = collate(items)
-        print(f"disk: reader items/s on the host: CLEVRTR {out['clevrtr_items_per_s']:.2f} (batch of {DISK_BATCH} "
-              f"through Loader), RealEstate10K {out['re10k_items_per_s']:.2f} (4 frames of {DISK_H}x{DISK_W} "
-              f"resampled to 120x160 each), prep_scene {out['prep_scene_items_per_s']:.2f} (10 views of 128x128)",
-              flush=True)
+        print(f"disk: reader items/s on the host, one thread: RealEstate10K {out['re10k_items_per_s']:.2f} (4 frames "
+              f"of {DISK_H}x{DISK_W} resampled to 120x160 each), prep_scene {out['prep_scene_items_per_s']:.2f} "
+              f"(10 views of 128x128)", flush=True)
 
-        out["clevr_gta"] = disk_steps(gta_cfg, "CLEVR-TR gta (disk)", "clevr_gta", disk,
-                                      synthetic_batch(gta_cfg.data, "train", 0, DISK_BATCH, gta_cfg.seed), paths)
+        out.update(disk_train_phase(gta_cfg, clevr, paths))
         out["msn_gta_bf16"] = disk_steps(msn_gta, "msn gta bf16 (prep_scene)", "msn_gta_bf16", msn_disk,
                                          synthetic_batch(msn_gta.data, "train", 0, MSN_DISK_BATCH, msn_gta.seed),
                                          paths)
 
         for config, data_dir, label, train_args, dtype in (
-                (GTA_CONFIG, clevr_dir, "CLEVR-TR gta", ["--exit-after", "2", "--batch-size", str(DISK_BATCH),
+                (GTA_CONFIG, clevr_dir, "CLEVR-TR gta", ["--exit-after", "2", "--batch-size", "8",
                                                          "--max-eval", "2"], "float32"),
                 (RE10K_GTA_CONFIG, re10k_dir, "re10k gta", ["--exit-after", "1", "--batch-size", "1",
                                                             "--max-eval", "1"], "bfloat16")):

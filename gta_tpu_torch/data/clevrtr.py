@@ -9,9 +9,13 @@ the first input view's frame and emit relative transforms E @ inv(E_canon)
 (clevr_tr.py:234-249). Optional SE(3) Lie-algebra camera noise on
 non-canonical input views (clevr_tr.py:15-37, 217-221).
 
-Images and masks decode through the port's own PNG codec (data/png.py),
-all views of an item together, where the JAX package tries its native
-decoder and then imageio or PIL per file: the arrays are the same.
+Images and masks decode through the port's host decoder in C++
+(data/native.py; the numpy codec, data/png.py, with `native=False`), all
+views of an item in one call, where the JAX package tries its libpng
+decoder and then imageio or PIL per file. The arrays are those of the JAX
+reader's imageio path: images x / 255 in float32 (a division; the JAX
+package's libpng path multiplies by 1 / 255, which differs in the last bit
+for 126 of the 256 byte values).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import os
 import numpy as np
 
 from gta_tpu_torch.config import DataConfig
+from gta_tpu_torch.data.native import decode_pngs_gray, decode_pngs_rgb
 from gta_tpu_torch.data.png import imread_stack
 from gta_tpu_torch.data.sampling import points_per_view
 from gta_tpu_torch.geometry.coords import make_2dcoord, make_2dimgcoord
@@ -97,8 +102,9 @@ class CLEVRTR:
     NUM_MAX_ENTITIES = 7
 
     def __init__(self, cfg: DataConfig, mode: str, full_scale: bool = False,
-                 max_len=None, seed=None):
+                 max_len=None, seed=None, native: bool = True):
         self.cfg = cfg
+        self.native = native
         self.mode = mode
         self.full_scale = full_scale
         self.h, self.w = 240, 320
@@ -159,8 +165,12 @@ class CLEVRTR:
             os.path.join(self.dir, "masks", f"masks_{scene_idx}_{v}.png")
             for v in range(NV)
         ]
-        imgs = imread_stack(img_paths)[..., :3].astype(np.float32) / 255.0
-        mask_idx = imread_stack(mask_paths)
+        if self.native:  # one thread: the loader's workers decode items in parallel
+            imgs = decode_pngs_rgb(img_paths, self.h, self.w, threads=1)
+            mask_idx = decode_pngs_gray(mask_paths, self.h, self.w, threads=1)
+        else:
+            imgs = imread_stack(img_paths)[..., :3].astype(np.float32) / 255.0
+            mask_idx = imread_stack(mask_paths)
         masks = np.zeros((NV, self.h, self.w, self.NUM_MAX_ENTITIES), dtype=np.uint8)
         np.put_along_axis(masks, mask_idx[..., None], 1, axis=-1)
 

@@ -22,8 +22,8 @@ Disk layout (the common public dump):
 A 90/10 split of train/ provides the val set, like the CLEVR-TR loader.
 
 PNG frames decode through the port's own codec (data/png.py); JPEG frames
-need PIL, and without it raise (a native decoder is ROADMAP queue 1 item
-4c). Frames of another size than the config's are resampled by
+need PIL, as in the JAX package (its native decoder reads PNG only), and
+without it raise. Frames of another size than the config's are resampled by
 `resize_area`, numpy's form of the cv2.resize INTER_AREA call the JAX
 package makes.
 """
@@ -106,8 +106,8 @@ def _imread(path: str) -> np.ndarray:
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(
-            f"{path}: no JPEG decoder (PIL is not installed); decode the frames to PNG, "
-            "or see ROADMAP queue 1 item 4c (the native decoder)"
+            f"{path}: no JPEG decoder (PIL is not installed); install PIL, as the JAX package "
+            "needs it too, or decode the frames to PNG"
         ) from e
     with Image.open(path) as im:
         return np.asarray(im)

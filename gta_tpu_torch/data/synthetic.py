@@ -1,12 +1,16 @@
 """Synthetic multi-view sphere scenes — dataset-free fixtures.
 
 Analytic scenes (colored spheres on a gradient background, Lambertian-ish
-shading) rendered by ray-sphere intersection in vectorized numpy. Items have
+shading) rendered by ray-sphere intersection: in vectorized numpy
+(float64, the plain version) by default, in C++ threads (`data/native.py`,
+float32) with `use_native=True`. Numpy stays the default because the
+repository's data-sensitive checks were set on its scenes (ROADMAP queue
+3). Items have
 the CLEVR-TR batch structure (canonicalized camera frames, relative
 transforms, sampled target pixels — reference clevr_tr.py:234-327), so
 tests, evaluation and the chip smoke run need no dataset download.
 Deterministic per (seed, index): the same seed gives the same arrays as the
-JAX package's numpy renderer.
+JAX package's renderer of the same kind.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from gta_tpu_torch.config import DataConfig
+from gta_tpu_torch.data.native import render_views
 from gta_tpu_torch.data.sampling import points_per_view
 from gta_tpu_torch.geometry.coords import make_2dcoord
 from gta_tpu_torch.geometry.rays import (
@@ -61,10 +66,11 @@ class SyntheticScenes:
     """Map-style synthetic dataset mirroring the CLEVR-TR item structure."""
 
     def __init__(self, cfg: DataConfig, mode: str = "train", num_scenes: int = 10000,
-                 full_scale: bool = False, seed: int = 0, max_len=None):
+                 full_scale: bool = False, seed: int = 0, max_len=None, use_native: bool = False):
         self.cfg = cfg
         self.mode = mode
         self.full_scale = full_scale
+        self.use_native = use_native
         self.num_scenes = max_len or num_scenes
         base = {"train": 0, "val": 1 << 20, "test": 1 << 21}[mode]
         self.seed_base = seed * (1 << 22) + base
@@ -88,11 +94,14 @@ class SyntheticScenes:
         """Render the given views at the dataset-native (pre-`downsample`)
         resolution; called after every RNG draw in __getitem__ so the
         full-scale split sees the same scene stream as the training split."""
-        h, w = self.target_h, self.target_w
-        rays = np.stack(
-            [camera_rays_from_extrinsic(extrinsics[i], cam_pos[i], w, h) for i in idxs]
-        )
-        imgs = np.stack([_render(cam_pos[i], rays[j], spheres) for j, i in enumerate(idxs)])
+        return self._render_views(cam_pos[idxs], extrinsics[idxs], spheres, self.target_h, self.target_w)
+
+    def _render_views(self, cam_pos, extrinsics, spheres, h, w):
+        """(images, rays) [NV, h, w, 3] of the given cameras."""
+        if self.use_native:
+            return render_views(cam_pos, extrinsics, *spheres, h, w)
+        rays = np.stack([camera_rays_from_extrinsic(e, p, w, h) for e, p in zip(extrinsics, cam_pos)])
+        imgs = np.stack([_render(p, r, spheres) for p, r in zip(cam_pos, rays)])
         return imgs, rays
 
     def __getitem__(self, idx: int) -> dict:
@@ -117,10 +126,7 @@ class SyntheticScenes:
         ).astype(np.float32)
 
         extrinsics = np.stack([lookat_extrinsic(p) for p in cam_pos])
-        all_rays = np.stack(
-            [camera_rays_from_extrinsic(extrinsics[i], cam_pos[i], self.w, self.h) for i in range(NV)]
-        )
-        imgs = np.stack([_render(cam_pos[i], all_rays[i], spheres) for i in range(NV)])
+        imgs, all_rays = self._render_views(cam_pos, extrinsics, spheres, self.h, self.w)
 
         input_idx = rng.choice(NV, size=cfg.num_input_views, replace=False)
         if cfg.reconstruction:

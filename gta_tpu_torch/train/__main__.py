@@ -24,8 +24,10 @@ stops after step N (N + 1 steps from scratch) and saves `latest`. The
 device defaults to CUDA and the run fails without it unless --device cpu
 is given. The config's `training.mixed_prec` picks the compute dtype (bf16
 or fp32; parameters stay fp32); --bf16 forces bf16 (train.py:101-103,
-176-178). Not ported yet: loader workers (ROADMAP queue 1 item 6),
-gradient accumulation and multi-device flags (item 9).
+176-178). The loaders read with the config's `training.num_workers`
+threads (2 for the render batch), prefetching 2 batches. Not ported yet:
+host sharding, gradient accumulation and multi-device flags (ROADMAP
+queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -99,8 +101,8 @@ def main(argv=None):
     print(f"Loading training set ({cfg.data.dataset})...")
     train_ds = get_dataset("train", cfg.data, seed=cfg.seed)
     eval_ds = get_dataset("val", cfg.data, max_len=args.max_eval)
-    train_loader = Loader(train_ds, t_cfg.batch_size, shuffle=True, seed=cfg.seed)
-    val_loader = Loader(eval_ds, max(1, t_cfg.batch_size // 8), shuffle=False)
+    train_loader = Loader(train_ds, t_cfg.batch_size, shuffle=True, seed=cfg.seed, num_workers=t_cfg.num_workers)
+    val_loader = Loader(eval_ds, max(1, t_cfg.batch_size // 8), shuffle=False, num_workers=t_cfg.num_workers)
     # --max-eval can cut the eval split below the vis batch size, and a
     # loader that drops its last partial batch would then yield none
     vis_n = max(1, min(6, t_cfg.batch_size, len(eval_ds)))
@@ -155,7 +157,7 @@ def main(argv=None):
 
             if visnow or (it > 0 and t_cfg.visualize_every > 0 and it % t_cfg.visualize_every == 0):
                 if data_vis is None:
-                    data_vis = next(iter(Loader(eval_ds, vis_n, shuffle=True)))
+                    data_vis = next(iter(Loader(eval_ds, vis_n, shuffle=True, num_workers=2)))
                 print("Visualizing...")
                 trainer.visualize(data_vis, os.path.join(out_dir, "renders-val"))
                 visnow = False

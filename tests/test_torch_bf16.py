@@ -362,3 +362,46 @@ def test_train_cli_bf16_flag_forces_the_policy(tmp_path, capsys):
                   "--bf16"])
     out = capsys.readouterr().out
     assert "compute dtype bfloat16" in out and "it=0, loss=" in out
+
+
+# ---------------------------------------------------------------------------
+# The model-level statistics over many item pairs (a probe, not a test)
+# ---------------------------------------------------------------------------
+
+
+def _item_pairs(pairs):
+    """Print the model-level statistics above on items (2p, 2p + 1), p <
+    `pairs`, from the numpy renderer and from the host renderer
+    (`SyntheticScenes(use_native=True)`), for both shrunk msn configs: the
+    tests hold them on items (0, 1) from the numpy renderer only. How often
+    a statistic passes over the pairs tells whether its limit sits in the
+    tail of its distribution or near its middle. From the repository root
+    (CPU, ~10 min): JAX_PLATFORMS=cpu python -m tests.test_torch_bf16 [pairs]"""
+    for path, name in ((MSN_SO3, "msn_so3"), (MSN_SRT, "msn_srt")):
+        tcfg = {mp: _shrink(load_config(path), mp) for mp in (True, False)}
+        jcfg = {mp: _shrink(j_load_config(path), mp) for mp in (True, False)}
+        jcfg = {mp: dataclasses.replace(c, training=dataclasses.replace(c.training, flash="fused"))
+                for mp, c in jcfg.items()}
+        jtr = {mp: JTrainer(jcfg[mp]) for mp in (True, False)}
+        for native in (False, True):
+            ds = SyntheticScenes(tcfg[False].data, "train", use_native=native)
+            for p in range(pairs):
+                pair = (2 * p, 2 * p + 1)
+                with pytest.MonkeyPatch.context() as patch:
+                    _tpu_numerics(patch)
+                    out, _ = _four(jtr, tcfg, [ds[i] for i in pair])
+                jax_gap = _gap(out["jax", True][0], out["jax", False][0])
+                port_gap = _gap(out["port", True][0], out["port", False][0])
+                cross = _gap(out["port", True][0], out["jax", True][0])
+                j16, j32, t16 = out["jax", True][2], out["jax", False][2], out["port", True][2]
+                ratios = sorted(((_gap(t16[n].numpy(), j16[n].numpy()) / _gap(j16[n].numpy(), j32[n].numpy()), n)
+                                 for n in t16), reverse=True)
+                print(f"{name} {'native' if native else 'numpy'} items {pair}: pixels cross/jax_gap "
+                      f"{cross / jax_gap:.3f} (held <= 1), port/jax {port_gap / jax_gap:.3f} (0.5-2); grads worst "
+                      + ", ".join(f"{r:.3f} ({n})" for r, n in ratios[:3]) + " (held <= 2)", flush=True)
+
+
+if __name__ == "__main__":
+    import sys
+
+    _item_pairs(int(sys.argv[1]) if len(sys.argv) > 1 else 6)
