@@ -5,10 +5,10 @@ Usage, from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Eleven configurations at full width and depth (but for msn_so3's fp32
+Twenty-five configurations at full width and depth (but for msn_so3's fp32
 paths, below), random weights from the config's seed, synthetic scenes of
-each dataset's shapes, and then (phase 6) batches the dataset readers make
-from files written here:
+each dataset's shapes (the host renderer, the default), and then (phase 6)
+batches the dataset readers make from files written here:
   - GTA, the flagship (runs/clevrtr/GTA/gta): fused GTA attention in every
     layer (kernels gta_fused_fwd, gta_fused_bwd) at head width 64;
   - SRT, the baseline (runs/clevrtr/otherPEs/srt): plain softmax attention
@@ -32,12 +32,25 @@ from files written here:
     frequencies), gta_no3demb (an SO(2)-only encoder, so2 96) and
     gta_no2demb (an SE(3)-only encoder, se3 96), whose decoders recompute
     so2: all through the bf16 C = 96 instances of the fused GTA kernels
-    that msn_so3 uses, the variants at batch VARIANT_BATCH.
+    that msn_so3 uses, the variants at batch VARIANT_BATCH;
+  - GTA's t2 ablation, CLEVR-TR gta_t2 (fp32, 6 heads of 64: triv 2, se3
+    32, t2 30; batch 32) and msn gta_t2 as published (bf16, 8 heads of 96:
+    se3 48, t2 48; batch 64): the sliced rep transforms in torch around
+    flash_core (kernels flash_core_fwd, flash_core_bwd; at C = 96 for msn),
+    as the JAX package's GTA layers run t2 on a TPU;
+  - the other attention methods' configs (OTHER_METHODS: gta_euclid,
+    elementwise_mul, ape, mln, gbt, repast, repast_cnoise0.1, rpe,
+    frustum_posemb_dmax20 and ftl_rope of CLEVR-TR; msn gta_so3_euclid and
+    repast, bf16) at batch VARIANT_BATCH: frustum_posemb through flash_core,
+    ftl_rope's decoder through the fused GTA kernels (once per target
+    view), every other attention in torch eager with no kernel, as JAX
+    computes them with XLA (`side_kernel`).
 The fp32 instances of all four kernels run one attention core
 (gta_tpu_torch/csrc/attn_core.cuh: a forward, a query pass and a key pass;
 3xTF32 mma.sync on the tensor cores, P*V, dP and dq taken about centre
 rows: the fused GTA kernels' transformed rows centred on the rows' means,
-flash_core's raw token-major q, k, v on the first key's rows). The bf16
+flash_core's raw token-major q, k, v on the key and value rows' means, taken
+by a first launch). The bf16
 instances of all four run another (gta_tpu_torch/csrc/attn_sm90.cuh: wgmma
 fed by TMA, bf16 operands with fp32 accumulation; the fused GTA kernels'
 transformed kt, vt centred in fp32 before their rounding, raw bf16 rows as
@@ -70,7 +83,13 @@ Phases (any failure exits non-zero and prints no result line):
        eval B=32 x 2560 x 600, render chunk B=1 x 16384 x 600), then with
        its training residual (log-sum-exp) at the two train shapes;
        flash_core_bwd at encoder_train_b32 and decoder_train_b32; both at
-       the edge shapes B=2, Tq in {1, 601}, Tk in {1, 33, 2100}.
+       the edge shapes B=2, Tq in {1, 601}, Tk in {1, 33, 2100};
+     - both flash_core kernels again at C = 96, msn gta_t2's shapes (its
+       mixed_prec overridden: B=64, 8 heads of 96, encoder 1280 x 1280,
+       decoder eval 2560 x 1280, render chunk 16384 x 1280, the two train
+       shapes);
+     - every fp32 flash_core shape also against the plain version in fp64
+       at B=2: each output (out, lse, dq, dk, dv) within 1e-5 relative L2.
      Pass: forward max|kernel - plain| <= 1e-4; backward, for each output,
      max|kernel - plain| <= 1e-4 * max(1, max|plain|) (fp32; the order of
      summation over keys, queries or rows x heads differs). Times: CUDA
@@ -82,7 +101,9 @@ Phases (any failure exits non-zero and prints no result line):
      495 / 3 TFLOP/s), both with bytes at 3.35 TB/s.
      - each bf16 instance at the published msn configs' shapes (B=64,
        1280 keys: encoder, decoder eval, render chunk B=1 x 16384, and the
-       two train shapes with the backward), the fused GTA ones also at
+       two train shapes with the backward; flash_core's at MSN SRT's C = 64
+       and, writing fp32 as GTA's sliced path does, msn gta_t2's C = 96),
+       the fused GTA ones also at
        CLEVR-TR gta's decoder shapes under --bf16 (B=32, 3x856 queries,
        600 keys, C = 64; eval and train): each output's relative L2
        error against its plain version (fp32 inside) on the same bf16
@@ -98,7 +119,8 @@ Phases (any failure exits non-zero and prints no result line):
      render_image for the GTA configs, render_rays on the view's rays for
      SRT; one warm-up, then the median of 3), with every kernel's launch
      count asserted (its attention kernel's forward, in the config's compute
-     dtype: 5 per encode, 2 per decode chunk; every other instance: none)
+     dtype: 5 per encode, 2 per decode chunk; every other instance: none;
+     the kernel of each side by `side_kernel`)
      and peak memory printed; then a B=2 forward on the card against the
      same weights on the CPU (plain versions), atol 1e-4 (fp32 configs), or
      for the bf16 configs: the card's bf16 pixels no further (relative L2)
@@ -115,16 +137,17 @@ Phases (any failure exits non-zero and prints no result line):
      7 forward and 7 backward launches of its attention kernels per step
      and none of the other configuration's asserted, and a finite loss and
      finite gradients; then, with dropout 0, a B=2 step's gradients on the
-     card against the same weights on the CPU (not for CLEVR-TR gta_so3
-     and the msn gta configs). The four msn GTA variants take one cold
-     eval_step and one cold train_step each (variant_phase), the launch
-     counts of both paths asserted.
-     GTA and msn_so3: per parameter tensor |g_cuda - g_cpu| / |g_cpu| <=
-     1e-4 (L2 norms), 2e-3 for the per-layer trans_coeff scalars (see
-     TC_TOL). SRT: both against a float64 step,
-     each tensor's relative L2 error on the card at most 1e-4 above the
-     CPU's (fp32 rounding alone moves its conv stem's weight gradients by
-     ~5e-3 on either device; see grads_phase); card vs CPU printed.
+     card and on the CPU against a float64 step on the card (GTA, SRT,
+     msn_so3 at one block a side; see grads_phase): every attention call's
+     q, k, v cotangents, and a fused GTA call's cotangents of its rep
+     matrices, against the call's fp64 VJP (1e-5 + 10x the plain fp32
+     version's error), the whole gradient's error at most 1e-4 above
+     that of the same step through the plain attention, each trans_coeff
+     scalar's error at most 1e-4 x the sum of its terms' absolute values;
+     card vs CPU printed. The four msn GTA variants and the other attention
+     methods' configs take one cold eval_step and one cold train_step each
+     (variant_phase), the launch counts of both paths asserted (zero for
+     the torch-eager methods) and peak memory printed.
   5. The CLIs as subprocesses, each into a temporary directory (nothing
      under runs/ may change): `python -m gta_tpu_torch.train <GTA>
      --synthetic --evalnow --visnow` for 3 steps, and again to step 4,
@@ -135,7 +158,9 @@ Phases (any failure exits non-zero and prints no result line):
      and write eval_results.json; the same evaluate on msn gta (bf16, no
      checkpoint: the random init); CLEVR-TR gta_so3, 2 train steps;
      `python -m gta_tpu_torch.evaluate <SRT> --synthetic --max-scenes 1`,
-     which must report a finite PSNR.
+     which must report a finite PSNR; the gbt baseline (non-transform
+     batches, torch-eager attention) trained one step with --evalnow and
+     evaluated --ckpt best.
   6. The host data plane and the dataset readers (disk_phase), on fixtures
      written into a temporary directory by the port's PNG encoder, every
      scanline filter row by row: CLEVR-TR (256 train scenes over 64
@@ -187,6 +212,15 @@ CLEVR_SO3_CONFIG = os.path.join(ROOT, "runs", "clevrtr", "GTA", "gta_so3", "conf
 MSN_SO3_CONFIG = os.path.join(ROOT, "runs", "msn", "GTA", "gta_so3", "config.yaml")
 MSN_SRT_CONFIG = os.path.join(ROOT, "runs", "msn", "otherPEs", "srt", "config.yaml")
 MSN_GTA_CONFIG = os.path.join(ROOT, "runs", "msn", "GTA", "gta", "config.yaml")
+GBT_CONFIG = os.path.join(ROOT, "runs", "clevrtr", "otherPEs", "gbt", "config.yaml")
+# the other attention methods (ROADMAP queue 1 item 7): GTA's t2 ablation at
+# full paths, and every other config at one eval_step and train step
+T2_CONFIG = os.path.join(ROOT, "runs", "clevrtr", "GTA", "gta_t2", "config.yaml")
+MSN_T2_CONFIG = os.path.join(ROOT, "runs", "msn", "GTA", "gta_t2", "config.yaml")
+OTHER_METHODS = ("clevrtr/GTA/gta_euclid", "clevrtr/otherPEs/elementwise_mul", "clevrtr/otherPEs/ape",
+                 "clevrtr/otherPEs/mln", "clevrtr/otherPEs/gbt", "clevrtr/otherPEs/repast",
+                 "clevrtr/otherPEs/repast_cnoise0.1", "clevrtr/otherPEs/rpe", "clevrtr/otherPEs/frustum_posemb_dmax20",
+                 "clevrtr/otherPEs/ftl_rope", "msn/GTA/gta_so3_euclid", "msn/otherPEs/repast")
 # the other msn GTA variants: no value transform, shared frequencies, an
 # SO(2)-only and an SE(3)-only encoder (their decoders recompute so2)
 MSN_VARIANTS = ("gta_novtrnsfm", "gta_sharedfreqs", "gta_no3demb", "gta_no2demb")
@@ -570,20 +604,43 @@ def srt_shapes(cfg, batch=EVAL_BATCH):
     }
 
 
-def flash_cost(B, H, Tq, Tk, C, backward=False, elem=4):
+def flash_cost(B, H, Tq, Tk, C, backward=False, elem=4, out_elem=None):
     """(flops, bytes) flash_core must do and move: 2 products of
     2*Tq*Tk*C flops per (b, h) forward, 5 backward (s, dp, dq, dk, dv);
-    q, k, v (and g) read once, out (dq, dk, dv) written once, each element
-    of `elem` bytes."""
+    q, k, v (and g) read once, each element of `elem` bytes, out (dq, dk,
+    dv) written once, of `out_elem` bytes (`elem` by default)."""
     D = H * C
+    out_elem = elem if out_elem is None else out_elem
     if backward:
-        return 10.0 * B * H * Tq * Tk * C, elem * B * (3.0 * Tq * D + 4 * Tk * D)
-    return 4.0 * B * H * Tq * Tk * C, elem * B * (2.0 * Tq * D + 2 * Tk * D)
+        return 10.0 * B * H * Tq * Tk * C, B * (elem * (2.0 * Tq * D + 2 * Tk * D) + out_elem * (Tq * D + 2 * Tk * D))
+    return 4.0 * B * H * Tq * Tk * C, B * (elem * (Tq * D + 2 * Tk * D) + out_elem * Tq * D)
 
 
-def flash_kernel_phase(cfg, device):
-    """flash_core forward and backward against their plain versions at the
-    SRT shapes; returns ({shape: fwd numbers}, {shape: bwd numbers})."""
+# flash_core's fp32 instances against fp64 at each shape cut to B=2: each
+# output's relative L2 error within FP64_TOL (fp32 accuracy; the plain
+# version's own fp32 error on the card is printed beside it)
+FP64_TOL = 1e-5
+
+
+def fp64_check(label, got, plain32, ref, names):
+    """Each output's relative L2 error against fp64 within FP64_TOL; returns
+    {output: (kernel, plain fp32)}."""
+    errs = {}
+    for name, a, p, r in zip(names, got, plain32, ref):
+        errs[name] = (rel_l2(a, r), rel_l2(p, r))
+        if not errs[name][0] <= FP64_TOL:
+            raise AssertionError(f"{label} {name}: relative L2 from fp64 {errs[name][0]:.3e} > {FP64_TOL} (the "
+                                 f"plain fp32 version's {errs[name][1]:.3e})")
+    return errs
+
+
+def flash_kernel_phase(cfg, device, batch=EVAL_BATCH, prefix=""):
+    """flash_core forward and backward (fp32 instances) against their plain
+    versions at the shapes of a config's attention (`srt_shapes`: the
+    encoder's heads and head width; the SRT baseline's, or msn gta_t2's
+    after its sliced transforms), and against fp64 at each shape cut to
+    B=2 (`fp64_check`); returns ({shape: fwd numbers}, {shape: bwd
+    numbers})."""
     import torch
     import torch.nn.functional as F
 
@@ -594,8 +651,9 @@ def flash_kernel_phase(cfg, device):
     scale = C**-0.5
     gen = torch.Generator(device=device).manual_seed(2)
     fwd, bwd = {}, {}
-    for name, (B, Tq, Tk) in srt_shapes(cfg).items():
-        train = name.endswith("train_b32")
+    for name, (B, Tq, Tk) in srt_shapes(cfg, batch).items():
+        name = prefix + name
+        train = "_train_" in name
         q, k, v, g = (torch.randn((B, T, H * C), generator=gen, device=device) for T in (Tq, Tk, Tk, Tq))
         qh, kh, vh, gh = (x.reshape(B, x.shape[1], H, C).transpose(1, 2).contiguous() for x in (q, k, v, g))
         with torch.no_grad():
@@ -606,6 +664,16 @@ def flash_kernel_phase(cfg, device):
             if train:
                 err = max(err, (lse - want_lse).abs().max().item())
             del want, want_lse
+            small = [x[:2].contiguous() for x in (q, k, v, g)]
+            got2 = fc.flash_core_fwd(*small[:3], H, scale, residuals=True)
+            got2 += fc.flash_core_bwd(*small[:3], H, scale, small[3], *got2) if train else ()
+            p32 = fc.flash_core_fwd_plain(*small[:3], H, scale, lse=True)
+            p32 += fc.flash_core_bwd_plain(*small[:3], H, scale, small[3]) if train else ()
+            small = [x.double() for x in small]
+            ref = fc.flash_core_fwd_plain(*small[:3], H, scale, lse=True)
+            ref += fc.flash_core_bwd_plain(*small[:3], H, scale, small[3]) if train else ()
+            errs64 = fp64_check(f"flash_core {name}[:2]", got2, p32, ref, ("out", "lse", "dq", "dk", "dv"))
+            del small, got2, p32, ref
             ms = time_ms(lambda: fc.flash_core_fwd(q, k, v, H, scale, residuals=train))
             plain_ms = time_ms(lambda: fc.flash_core_fwd_plain(q, k, v, H, scale, lse=train), runs=5)
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
@@ -613,12 +681,14 @@ def flash_kernel_phase(cfg, device):
         n_bytes += 4.0 * B * H * Tq * train  # lse written
         bd = bounds(flops, n_bytes)
         fwd[name] = {
-            "B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **bd, "residuals": train,
+            "B": B, "Tq": Tq, "Tk": Tk, "C": C, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bd, "residuals": train, "rel_l2_vs_fp64": errs64,
         }
-        print(f"kernel flash_core_fwd{' (training residual)' if train else ''} {name}: B={B} Tq={Tq} Tk={Tk} "
+        print(f"kernel flash_core_fwd{' (training residual)' if train else ''} {name}: B={B} Tq={Tq} Tk={Tk} C={C} "
               f"max|d|={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-              f"bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']}) bound_tc_ms={bd['bound_tc_ms']:.4f}", flush=True)
+              f"bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']}) bound_tc_ms={bd['bound_tc_ms']:.4f}; at B=2 "
+              "relative L2 from fp64 kernel / plain fp32 "
+              + ", ".join(f"{n} {e[0]:.2e}/{e[1]:.2e}" for n, e in errs64.items()), flush=True)
         if not err <= TOL:
             raise AssertionError(f"flash_core_fwd {name}: max|kernel - plain| = {err} > {TOL}")
         if train:
@@ -637,7 +707,7 @@ def flash_kernel_phase(cfg, device):
             flops, n_bytes = flash_cost(B, H, Tq, Tk, C, backward=True)
             bd = bounds(flops, n_bytes)
             bwd[name] = {
-                "B": B, "Tq": Tq, "Tk": Tk, "max_abs_err": berr, "ms": ms, "plain_ms": plain_ms,
+                "B": B, "Tq": Tq, "Tk": Tk, "C": C, "max_abs_err": berr, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, **bd,
             }
             print(f"kernel flash_core_bwd {name}: B={B} Tq={Tq} Tk={Tk} max|d|={berr:.3e} ms={ms:.4f} "
@@ -700,7 +770,7 @@ def bf16_rule(kind, label, got, emu, ref, names):
     return errs
 
 
-def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=None):
+def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=None, flash=False):
     """The bf16 instances of a config's kernels (fused GTA for msn_so3 and
     CLEVR-TR gta under --bf16, flash_core for the MSN SRT baseline) at its
     shapes (`names` of them, all by default): encoder self-attention and
@@ -712,7 +782,10 @@ def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=
     version in fp64 by the same rule. Times: the kernel, the plain version,
     F.scaled_dot_product_attention on the same bf16 operands (forward; its
     backward alone), CUDA events. Returns ({shape: fwd numbers},
-    {shape: bwd numbers})."""
+    {shape: bwd numbers}). With `flash`, flash_core's instances at a GTA
+    config's shapes (msn gta_t2's attention after its sliced transforms),
+    as that path calls them: bf16 operands, the output and gradients in
+    fp32 (ops/gta_pallas.py)."""
     import torch
     import torch.nn.functional as F
 
@@ -724,7 +797,7 @@ def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=
     enc = cfg.model.encoder
     H, C = enc.heads, enc.attdim // enc.heads
     scale = C**-0.5
-    gta = enc.attn.is_gta
+    gta = enc.attn.is_gta and not flash
     if gta:
         calls = gta_calls(cfg, device, batch, prefix=prefix)
         shapes = {name: (B, Tq, Tk) for name, (_, _, B, Tq, Tk) in calls.items() if names is None or name in names}
@@ -768,23 +841,27 @@ def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=
             f_flops, f_bytes = fused_cost(t, B, H, Tq, Tk, C, elem=2)
             b_flops, b_bytes = bwd_cost(t, B, H, Tq, Tk, C, elem=2)
         else:
+            od = torch.float32 if enc.attn.is_gta else None  # GTA's sliced path: fp32 out and gradients
+
             def run(q, k, v, g, mode):
                 if mode == "kernel":
-                    out, lse = fc.flash_core_fwd(q, k, v, H, scale, residuals=True)
-                    grads = fc.flash_core_bwd(q, k, v, H, scale, g, out, lse) if train else ()
+                    out, lse = fc.flash_core_fwd(q, k, v, H, scale, residuals=True, out_dtype=od)
+                    grads = fc.flash_core_bwd(q, k, v, H, scale, g, out, lse, out_dtype=od) if train else ()
                 else:
-                    mxu = bf if mode == "emu" else None
+                    mxu, o = (bf if mode == "emu" else None), od
                     if mode == "fp64":
                         q, k, v, g = (x.double() for x in (q, k, v, g))
-                    out = fc.flash_core_fwd_plain(q, k, v, H, scale, mxu_dtype=mxu)
-                    grads = fc.flash_core_bwd_plain(q, k, v, H, scale, g, mxu_dtype=mxu) if train else ()
+                        o = None
+                    out = fc.flash_core_fwd_plain(q, k, v, H, scale, mxu_dtype=mxu, out_dtype=o)
+                    grads = fc.flash_core_bwd_plain(q, k, v, H, scale, g, mxu_dtype=mxu, out_dtype=o) if train else ()
                 return (out, *grads), ("out", "dq", "dk", "dv")
 
             qkv = [x.reshape(B, x.shape[1], H, C).transpose(1, 2).contiguous() for x in (q, k, v)]
-            time_fwd = lambda: fc.flash_core_fwd(q, k, v, H, scale, residuals=train)  # noqa: E731
-            time_plain_fwd = lambda: fc.flash_core_fwd_plain(q, k, v, H, scale, lse=train)  # noqa: E731
-            f_flops, f_bytes = flash_cost(B, H, Tq, Tk, C, elem=2)
-            b_flops, b_bytes = flash_cost(B, H, Tq, Tk, C, backward=True, elem=2)
+            time_fwd = lambda: fc.flash_core_fwd(q, k, v, H, scale, residuals=train, out_dtype=od)  # noqa: E731
+            time_plain_fwd = lambda: fc.flash_core_fwd_plain(q, k, v, H, scale, lse=train, out_dtype=od)  # noqa: E731
+            out_elem = 2 if od is None else 4
+            f_flops, f_bytes = flash_cost(B, H, Tq, Tk, C, elem=2, out_elem=out_elem)
+            b_flops, b_bytes = flash_cost(B, H, Tq, Tk, C, backward=True, elem=2, out_elem=out_elem)
         with torch.no_grad():
             got, names = run(q, k, v, g, "kernel")
             torch.cuda.synchronize()
@@ -823,9 +900,9 @@ def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=
                     ms = time_ms(lambda: tgf.gta_fused_bwd(q, k, v, t, H, scale, g, res))
                     plain_ms = time_ms(lambda: tgf.gta_fused_bwd_plain(q, k, v, t, H, scale, g, res.z), runs=3)
                 else:
-                    out, lse = fc.flash_core_fwd(q, k, v, H, scale, residuals=True)
-                    ms = time_ms(lambda: fc.flash_core_bwd(q, k, v, H, scale, g, out, lse))
-                    plain_ms = time_ms(lambda: fc.flash_core_bwd_plain(q, k, v, H, scale, g), runs=3)
+                    out, lse = fc.flash_core_fwd(q, k, v, H, scale, residuals=True, out_dtype=od)
+                    ms = time_ms(lambda: fc.flash_core_bwd(q, k, v, H, scale, g, out, lse, out_dtype=od))
+                    plain_ms = time_ms(lambda: fc.flash_core_bwd_plain(q, k, v, H, scale, g, out_dtype=od), runs=3)
             gh = g.reshape(B, Tq, H, C).transpose(1, 2).contiguous()
             leaves = [x.requires_grad_() for x in qkv]
             sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
@@ -866,7 +943,6 @@ def bf16_card_vs_cpu_phase(cfg, label):
     import torch
 
     from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
-    from gta_tpu_torch.models import layers
     from gta_tpu_torch.train.trainer import Trainer
 
     card = Trainer(cfg)
@@ -877,16 +953,15 @@ def bf16_card_vs_cpu_phase(cfg, label):
         t.model.load_state_dict(weights)
     val = SyntheticScenes(cfg.data, "val")
     small = collate([val[i] for i in range(2)])
-    kernels = layers.fused_gta_attention_tokens, layers.flash_attention
     with torch.no_grad():
         px_card = card.model(small.to(card.device))[0].cpu()
         px16, px32 = cpu16.model(small)[0], cpu32.model(small)[0]
-        layers.fused_gta_attention_tokens = functools.partial(plain_gta_attention, mxu_dtype=torch.bfloat16)
-        layers.flash_attention = functools.partial(plain_flash_attention, mxu_dtype=torch.bfloat16)
+        restore = swap_entries(functools.partial(plain_gta_attention, mxu_dtype=torch.bfloat16),
+                               functools.partial(plain_flash_attention, mxu_dtype=torch.bfloat16))
         try:
             px_emu = cpu16.model(small)[0]
         finally:
-            layers.fused_gta_attention_tokens, layers.flash_attention = kernels
+            restore()
     card_err, emu_err = rel_l2(px_card, px32), rel_l2(px_emu, px32)
     gap, own = rel_l2(px_card, px16), rel_l2(px16, px32)
     print(f"{label} bf16: B=2 pixels, relative L2 against the CPU's fp32 ones: card {card_err:.3e}, CPU bf16 "
@@ -920,18 +995,43 @@ def reset_launch_counts():
         fn.launches = fn.launches_bf16 = 0
 
 
-def expected_launches(cfg, encodes, decodes, backward_steps=0):
+def side_kernel(attn):
+    """The kernel a side's attention layers launch, by the JAX package's
+    routing on a TPU (gta_tpu/models/layers.py:192-209,
+    gta_tpu/config.py:137-144, gta_tpu/ops/gta_pallas.py:63-72): GTA with a
+    static tau and neither euclid_sim nor elementwise_mul takes the fused
+    GTA kernel where its reps are block-diagonal ('gta_fused'), else the
+    sliced transforms and flash_core ('flash_core'); another method takes
+    flash_core where it is flash_eligible; everything else (an adjustable
+    tau, euclid, elementwise_mul, gbt, repast, rpe) launches no kernel
+    (None): JAX computes it with XLA."""
+    static = attn.softmax == "standard" and not attn.rpe
+    if not attn.is_gta:
+        return "flash_core" if static and attn.flash_eligible else None
+    g = attn.gta
+    if not static or g.euclid_sim or g.elementwise_mul:
+        return None
+    spans = g.f_dims.slices()
+    odd = any(name == "so2" for name, _, _ in spans) and any((ed - st) % 2 for _, st, ed in spans)
+    return "flash_core" if g.f_dims.t2 > 0 or g.ray_to_se3 or odd else "gta_fused"
+
+
+def expected_launches(cfg, encodes, decodes, backward_steps=0, target_views=1):
     """Launch counts of a run of `encodes` encoder and `decodes` decoder
     passes, `backward_steps` of them with a backward: each attention layer
-    launches its method's kernel (gta_fused for 'gta', flash_core for '')
-    in the config's compute dtype (bf16 under mixed_prec) once forward and
-    once backward; every other instance stays at 0."""
+    launches its side's kernel (side_kernel) in the config's compute dtype
+    (bf16 under mixed_prec) once forward and once backward, and FTL's
+    decoder once per target view (`target_views`); every other instance
+    stays at 0."""
     want = dict.fromkeys(launch_counts(), 0)
     suffix = "_bf16" if cfg.training.mixed_prec else ""
     for side, n in ((cfg.model.encoder, encodes), (cfg.model.decoder, decodes)):
-        kernel = "gta_fused" if side.attn.is_gta else "flash_core"
-        want[f"{kernel}_fwd{suffix}"] += n * side.num_att_blocks
-        want[f"{kernel}_bwd{suffix}"] += backward_steps * side.num_att_blocks
+        kernel = side_kernel(side.attn)
+        if kernel is None:
+            continue
+        per_pass = side.num_att_blocks * (target_views if cfg.model.ftl and side is cfg.model.decoder else 1)
+        want[f"{kernel}_fwd{suffix}"] += n * per_pass
+        want[f"{kernel}_bwd{suffix}"] += backward_steps * per_pass
     return want
 
 
@@ -1064,8 +1164,11 @@ def train_path_phase(cfg, label, batch_size=EVAL_BATCH, distinct=1 + TRAIN_RUNS)
 
 def variant_phase(cfg, label, batch_size=VARIANT_BATCH):
     """A config at full width through one eval_step and one train_step (both
-    cold) at `batch_size`, each path's launch counts asserted; returns the
-    launch counts {kernel: n} of the serving and of the train path."""
+    cold) at `batch_size`, each path's launch counts asserted (zero where
+    the config's attention launches no kernel, side_kernel), the peak
+    memory of each printed; returns the launch counts {kernel: n} of the
+    serving and of the train path, and {eval_ms, train_ms, eval_gb,
+    train_gb} (cold times, peak GB)."""
     import torch
 
     from gta_tpu_torch.train.trainer import Trainer
@@ -1074,27 +1177,37 @@ def variant_phase(cfg, label, batch_size=VARIANT_BATCH):
     val = synthetic_batch(cfg.data, "val", 0, batch_size)
     train = synthetic_batch(cfg.data, "train", 0, batch_size, cfg.seed)
     reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     psnr = trainer.eval_step(val)["psnr"].mean().item()
     eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_gb = torch.cuda.max_memory_allocated() / 1e9
     serving = launch_counts()
     reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     m = trainer.train_step(train)
     loss = m["loss"].item()
     train_ms = (time.perf_counter() - t0) * 1e3
+    train_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = launch_counts()
     finite = np.isfinite([psnr, loss]).all() and all(bool(torch.isfinite(p.grad).all()) for p in trainer.model.parameters())
-    print(f"{label}: B={batch_size} eval_step psnr={psnr:.4f} ms(cold)={eval_ms:.2f}; train_step loss={loss:.6f} "
-          f"grad_norm={m['grad_norm'].item():.6f} ms(cold)={train_ms:.2f}; launches serving {serving}, train "
-          f"{launches}", flush=True)
-    for path, got, want in (("serving", serving, expected_launches(cfg, 1, 1)),
-                            ("train", launches, expected_launches(cfg, 1, 1, backward_steps=1))):
+    kernels = {k: n for k, n in {**serving, **launches}.items() if n}
+    print(f"{label}: B={batch_size} eval_step psnr={psnr:.4f} ms(cold)={eval_ms:.2f} peak_mem_gb={eval_gb:.2f}; "
+          f"train_step loss={loss:.6f} grad_norm={m['grad_norm'].item():.6f} ms(cold)={train_ms:.2f} "
+          f"peak_mem_gb={train_gb:.2f}; launches serving {serving}, train {launches}"
+          + ("" if kernels else " (no kernel: the JAX package computes this attention with XLA)"), flush=True)
+    nt = val.target_transforms.shape[1] if val.target_transforms is not None else 1
+    for path, got, want in (("serving", serving, expected_launches(cfg, 1, 1, target_views=nt)),
+                            ("train", launches, expected_launches(cfg, 1, 1, backward_steps=1, target_views=nt))):
         if got != want:
             raise AssertionError(f"{label} {path} path launches {got}, expected {want}")
     if not finite:
         raise AssertionError(f"{label}: psnr, loss or gradients not finite")
-    return serving, launches
+    del trainer
+    torch.cuda.empty_cache()
+    return serving, launches, {"batch": batch_size, "eval_ms": eval_ms, "train_ms": train_ms, "eval_gb": eval_gb,
+                               "train_gb": train_gb}
 
 
 # Card against CPU for the metrics on a rendered frame, fp32 sums in other
@@ -1153,24 +1266,94 @@ def metrics_phase(frames):
     return out
 
 
-# The per-layer trans_coeff gradients are scalars summed over every head,
-# row and C x C matrix entry of a layer's attention, terms that largely
-# cancel. fp32 rounding upstream (cuDNN's FFT convolutions, cuBLAS) moves
-# them by several 1e-4 relative between the card and the CPU even with the
-# plain PyTorch attention on the card; grads_phase prints that comparison
-# beside the kernel's. They are held to TC_TOL, every other parameter
-# tensor to TOL.
-TC_TOL = 2e-3
+# The flagship's per-layer trans_coeff scalars. Each one's gradient is a
+# sum over the entries of its layer's rep matrices (Mq, Mk, Mo) of terms
+# dL/dM * dM/dtc that cancel heavily: the sum is near zero on some scenes
+# while its terms are not (kappa = sum |terms| / |sum| up to ~5000 on
+# CLEVR-TR scenes; PERF.md, section 6), so its relative error says
+# nothing about the arithmetic. A scalar is held instead to an error
+# scaled by its conditioning: |g - g_fp64| <= TC_TOL * sum |terms|, the
+# terms taken in the float64 step (fp32 rounding of each term, ~1e-7 of
+# it, and of the cotangents that reach it: TC_TOL leaves the same room as
+# TOL does for a tensor's relative L2 error).
+TC_TOL = 1e-4
+# an attention call's q, k, v cotangents in a step against the call's fp64
+# VJP: each within CALL_TOL (the card tests' limit for the fp32 kernels
+# against fp64) plus CALL_RULE x the plain version's own fp32 error on the
+# same call. A call's dq can be a sum that cancels (near-uniform attention
+# at a random init), which fp32 itself leaves ~1e-5 from fp64; the kernels'
+# 3xTF32 products err up to ~10x fp32's (at the SRT shapes, forward out
+# 6.7x and dq 9.3x the plain version's error against fp64; PERF.md,
+# section 6). A fault of 1e-3 in one cotangent stays far outside.
+CALL_TOL = 1e-5
+CALL_RULE = 10.0
+# the rep matrices of a fused GTA call whose cotangents the per-call check
+# holds as it holds dq, dk, dv (the fused backward kernel's dMq, dMk, dMo)
+MATS = ("mq", "mk", "mo")
 
 
-def plain_gta_attention(qB, kB, vB, heads, reps, args, trans_coeff, scale, mxu_dtype=None):
+def swap_entries(gta, flash):
+    """Point the layers' attention entries at `gta` (the fused GTA kernels'
+    entry, behind ops/gta_pallas.fused_gta_attention) and `flash` (flash
+    attention, for method '' and behind the sliced GTA path); returns a
+    function that restores them."""
+    from gta_tpu_torch.models import layers
+    from gta_tpu_torch.ops import gta_pallas
+
+    saved = gta_pallas.fused_gta_attention_tokens, gta_pallas.flash_attention, layers.flash_attention
+    gta_pallas.fused_gta_attention_tokens, gta_pallas.flash_attention, layers.flash_attention = gta, flash, flash
+
+    def restore():
+        gta_pallas.fused_gta_attention_tokens, gta_pallas.flash_attention, layers.flash_attention = saved
+    return restore
+
+
+def tables_in(reps, args, trans_coeff, dtype):
+    """fused_tables (fp32 whatever the operands) with every table in
+    `dtype` (an fp64 step's tables in fp64)."""
+    import torch
+
+    from gta_tpu_torch.ops import gta_fused as tgf
+    from gta_tpu_torch.ops.gta import _blockdiag_mat, _fw_rotors
+
+    t = tgf.fused_tables(reps, args, trans_coeff)
+    if dtype == torch.float32:
+        return t
+    mats = {f: None if getattr(t, f) is None else
+            _blockdiag_mat(reps, args, trans_coeff, side, dtype).transpose(-1, -2).contiguous()
+            for f, side in (("mq", "q"), ("mk", "k"), ("mo", "out"))}
+    rot = {}
+    for c, s_, r in (("cq", "sq", reps.so2_q), ("ck", "sk", reps.so2_k)):
+        if r is not None:
+            cos, sin = _fw_rotors(r, args.f_dims, dtype)
+            rot[c], rot[s_] = cos.repeat_interleave(2, -1), sin.repeat_interleave(2, -1)
+    return dataclasses.replace(t, **mats, **rot)
+
+
+def plain_gta_attention(qB, kB, vB, heads, reps, args, trans_coeff, scale, mxu_dtype=None, terms=None):
     """fused_gta_attention_tokens through the plain forward and torch
     autograd, on any device (the comparisons in grads_phase and, with
-    mxu_dtype=bf16, bf16_card_vs_cpu_phase only)."""
+    mxu_dtype=bf16, bf16_card_vs_cpu_phase only); fp64 operands take fp64
+    tables. With `terms` (called once per call in the forward, it returns
+    the sink of that call's trans_coeff), each rep matrix's cotangent
+    reports sum |dL/dM * dM/dtc| to the sink when the backward reaches it
+    (M is linear in trans_coeff: dM/dtc = M(1) - M(0))."""
+    import torch
+
     from gta_tpu_torch.ops import gta_fused as tgf
 
     tgf.check_supported(reps, args, qB.shape[1], kB.shape[1])
-    t = tgf.fused_tables(reps, args, trans_coeff)
+    dtype = torch.float64 if qB.dtype == torch.float64 else torch.float32
+    t = tables_in(reps, args, trans_coeff, dtype)
+    if terms is not None and trans_coeff is not None:
+        sink = terms()
+        with torch.no_grad():
+            one, zero = (tables_in(reps, args, torch.full_like(trans_coeff, x), dtype) for x in (1.0, 0.0))
+        for f in ("mq", "mk", "mo"):
+            M = getattr(t, f)
+            if M is not None and M.requires_grad:
+                d = getattr(one, f) - getattr(zero, f)
+                M.register_hook(lambda g, d=d: sink((g * d).abs().sum().item()))
     return tgf.gta_fused_fwd_plain(qB.contiguous(), kB.contiguous(), vB.contiguous(), t, heads, scale,
                                    mxu_dtype=mxu_dtype)
 
@@ -1184,36 +1367,105 @@ def plain_flash_attention(q, k, v, heads, scale, mxu_dtype=None):
                                    mxu_dtype=mxu_dtype)
 
 
-def grads_phase(cfg, label, fp64_reference=False):
-    """A B=2 full-width step's gradients (dropout 0) on the card against the
-    same weights on the CPU; returns the largest relative L2 difference of
-    the tensors held to TOL and of the trans_coeff scalars (0 where the
-    model has none).
+def grads_phase(cfg, label, items=(0, 1), trainers=None, card_entry=None, native=True):
+    """A B=2 full-width step's gradients (dropout 0; training items `items`)
+    on the card, through the kernels, against a float64 step on the card
+    through the plain attention (which agrees with a float64 step on the
+    CPU to ~1e-14), fed the same fp32 ray encodings as the fp32 steps, so
+    that it differs from them in arithmetic alone. Three checks:
 
-    With `fp64_reference`, the tensors are held instead to a float64 step
-    on the card through the plain attention (which agrees with a float64
-    step on the CPU to ~1e-14), fed the same fp32 ray encodings as the fp32
-    steps, so that it differs from them in arithmetic alone: each tensor's
-    relative L2 error on the card in fp32 through the kernels may exceed the
-    CPU's fp32 error by at most TOL. Where the CPU's own fp32 error is small
-    this is the card-vs-CPU check; where fp32 rounding alone moves a
-    gradient by more than TOL on either device (the SRT conv stem's
-    weights; PERF.md, section 6), it still catches a kernel fault,
-    which adds error on the card only. The card-vs-CPU numbers are printed
-    either way; the returned one is the largest excess over the CPU's
-    error."""
+      * per attention call: the cotangents that reached the call's q, k
+        and v in the step, and in a fused GTA call those of its rep
+        matrices (MATS: the backward kernel's dMq, dMk, dMo, which reach
+        trans_coeff), against the float64 VJP of the same call (the plain
+        version on the call's own inputs and output cotangent, fp64
+        tables): each one's relative L2 within CALL_TOL + CALL_RULE x the
+        plain version's fp32 error on the card. This holds the kernels,
+        their wrappers and whatever sits between them and the layer;
+      * the whole gradient, every parameter tensor concatenated: its
+        relative L2 error against fp64 may exceed that of the same step on
+        the card through the plain attention by at most TOL. Both steps
+        share the card's cuDNN and cuBLAS rounding (a conv stem's weight
+        gradient moves by up to ~5e-4 from fp64 on some scenes), so the
+        excess is the kernels' own; per tensor it is not a statistic: a
+        tensor whose gradient is a sum that cancels (a last layer's to_q
+        weight) turns the kernels' ~1e-6 into ~1e-4 (PERF.md, section 6);
+      * each trans_coeff scalar: |g_card - g_fp64| <= TC_TOL x sum |terms|
+        (see TC_TOL).
+    Card vs CPU, and the card with plain attention vs CPU, are printed.
+    Returns (the whole gradient's excess, the largest trans_coeff error
+    over its terms, the largest per-call error over its limit).
+
+    `trainers` (card, CPU) reuse two Trainers of `cfg` across calls;
+    `card_entry` wraps the card's fp32 fused GTA entry for its kernel step
+    (a planted fault: gta_tpu_torch/scripts/probe_grad_scenes.py);
+    `native` picks the synthetic renderer (the host one by default)."""
+    import torch
+
     from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
     from gta_tpu_torch.models import decoder, encoder, layers
+    from gta_tpu_torch.ops import gta_fused as tgf
+    from gta_tpu_torch.ops import gta_pallas
     from gta_tpu_torch.train.trainer import Trainer
 
     m = cfg.model
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         m, encoder=dataclasses.replace(m.encoder, dropout=0.0), decoder=dataclasses.replace(m.decoder, dropout=0.0)))
-    card, cpu = Trainer(cfg), Trainer(cfg, device="cpu")
-    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
-    train = SyntheticScenes(cfg.data, "train", seed=cfg.seed)
-    batch = collate([train[i] for i in range(2)])
+    if trainers is None:
+        trainers = Trainer(cfg), Trainer(cfg, device="cpu")
+        trainers[1].model.load_state_dict({k: v.cpu() for k, v in trainers[0].model.state_dict().items()})
+    card, cpu = trainers
+    train = SyntheticScenes(cfg.data, "train", seed=cfg.seed, use_native=native)
+    batch = collate([train[i] for i in items])
     names = [name for name, _ in cpu.model.named_parameters()]
+
+    # the trans_coeff each GTA call belongs to, and its terms' absolute sum
+    # in the float64 step
+    sums, current = {}, {}
+    hooks = [mod.register_forward_pre_hook(lambda mod, args, n=name: current.update(name=n))
+             for name, mod in card.model.named_modules() if isinstance(mod, layers.Attention)]
+
+    def add_terms():
+        """The sink of the running call's trans_coeff (the backward runs
+        after every forward: the name is taken now)."""
+        name = f"{current['name']}.trans_coeff"
+
+        def add(x):
+            sums[name] = sums.get(name, 0.0) + x
+        return add
+
+    calls = []
+
+    def capture(entry, kind):
+        """`entry` recording each call's inputs, the cotangent of its output
+        and the cotangents that reach its q, k, v and, in a fused GTA call,
+        its rep matrices (the tables `fused_tables` builds inside the call:
+        the fused backward kernel's dMq, dMk, dMo)."""
+        def run(q, k, v, heads, *rest, **kw):
+            call = dict(kind=kind, layer=current["name"], inputs=[x.detach() for x in (q, k, v)], heads=heads,
+                        rest=rest, kw=kw, grads=[None] * (3 + len(MATS)))
+
+            def hook(x, i):
+                if x is not None and x.requires_grad:
+                    x.register_hook(lambda g: call["grads"].__setitem__(i, g.detach()))
+            for i, x in enumerate((q, k, v)):
+                hook(x, i)
+            build = tgf.fused_tables
+
+            def tables(*a):
+                t = build(*a)
+                for i, f in enumerate(MATS):
+                    hook(getattr(t, f), 3 + i)
+                return t
+            tgf.fused_tables = tables
+            try:
+                out = entry(q, k, v, heads, *rest, **kw)
+            finally:
+                tgf.fused_tables = build
+            out.register_hook(lambda g, call=call: call.update(g=g.detach()))
+            calls.append(call)
+            return out
+        return run
 
     def grads(trainer, b=batch):
         loss, _, g = trainer.loss_and_grads(b)
@@ -1223,67 +1475,121 @@ def grads_phase(cfg, label, fp64_reference=False):
         return (a - b).norm().item() / max(b.norm().item(), 1e-30)
 
     def worst_rel(g, ref):
-        worst = {"params": (0.0, None), "trans_coeff": (0.0, None)}
-        for name, a, b in zip(names, g, ref):
-            kind = "trans_coeff" if name.endswith("trans_coeff") else "params"
-            if worst[kind][1] is None or rel(a, b) > worst[kind][0]:
-                worst[kind] = (rel(a, b), name)
-        return worst
+        return max((rel(a, b), n) for n, a, b in zip(names, g, ref) if not n.endswith("trans_coeff"))
 
-    def plain_attention():
+    def plain_attention(terms=None):
         """Swap the layers' attention entries for the plain versions and the
         ray encodings for fp32 ones (a no-op in fp32); returns a function
         that swaps them back."""
-        kernels = layers.fused_gta_attention_tokens, layers.flash_attention
+        restore_entries = swap_entries(functools.partial(plain_gta_attention, terms=terms), plain_flash_attention)
         posenc = encoder.ray_posenc
 
         def posenc_fp32(pos, rays, *args):
             return posenc(pos.float(), rays.float(), *args).to(pos.dtype)
 
-        layers.fused_gta_attention_tokens, layers.flash_attention = plain_gta_attention, plain_flash_attention
         encoder.ray_posenc = decoder.ray_posenc = posenc_fp32
 
         def restore():
-            layers.fused_gta_attention_tokens, layers.flash_attention = kernels
+            restore_entries()
             encoder.ray_posenc = decoder.ray_posenc = posenc
         return restore
 
-    loss_card, g_card = grads(card)
-    loss_cpu, g_cpu = grads(cpu)
-    restore = plain_attention()
     try:
-        _, g_card_plain = grads(card)
-        if fp64_reference:
-            card.model.double()
-            batch64 = dataclasses.replace(batch, **{
-                f.name: getattr(batch, f.name).double() for f in dataclasses.fields(batch)
-                if getattr(batch, f.name) is not None and getattr(batch, f.name).is_floating_point()})
+        kernel_gta, kernel_flash = gta_pallas.fused_gta_attention_tokens, gta_pallas.flash_attention
+        inner = kernel_gta if card_entry is None else card_entry(kernel_gta)
+        restore = swap_entries(capture(inner, "gta"), capture(kernel_flash, "flash"))
+        try:
+            loss_card, g_card = grads(card)
+        finally:
+            restore()
+        loss_cpu, g_cpu = grads(cpu)
+        restore = plain_attention()
+        try:
+            _, g_card_plain = grads(card)
+        finally:
+            restore()
+        restore = plain_attention(add_terms)
+        card.model.double()
+        batch64 = dataclasses.replace(batch, **{
+            f.name: getattr(batch, f.name).double() for f in dataclasses.fields(batch)
+            if getattr(batch, f.name) is not None and getattr(batch, f.name).is_floating_point()})
+        try:
             _, g_ref = grads(card, batch64)
+        finally:
+            card.model.float()
+            restore()
     finally:
-        restore()
+        for h in hooks:
+            h.remove()
+
+    def call_vjp(c, dtype):
+        """The plain version's VJP of call `c` on its inputs and output
+        cotangent, in `dtype` (tables too): the cotangents of q, k, v and,
+        in a GTA call, of its rep matrices (None where there is none)."""
+        xs = [x.to(dtype).detach().contiguous().requires_grad_() for x in c["inputs"]]
+        mats = [None] * len(MATS)
+        if c["kind"] == "gta":
+            reps, args, tc, scale = c["rest"]
+            reps = dataclasses.replace(reps, **{
+                f.name: (tuple(t.to(dtype) for t in getattr(reps, f.name)) if isinstance(getattr(reps, f.name), tuple)
+                         else getattr(reps, f.name).to(dtype)) for f in dataclasses.fields(reps)
+                if getattr(reps, f.name) is not None})
+            t = tables_in(reps, args, None if tc is None else tc.to(dtype), dtype)
+            mats = [None if getattr(t, f) is None else getattr(t, f).detach().requires_grad_() for f in MATS]
+            t = dataclasses.replace(t, **dict(zip(MATS, mats)))
+            out = tgf.gta_fused_fwd_plain(*xs, t, c["heads"], scale)
+        else:
+            out = plain_flash_attention(*xs, c["heads"], *c["rest"], **c["kw"])
+        leaves = [x for x in xs + mats if x is not None]
+        got = iter(torch.autograd.grad(out, leaves, c["g"].to(dtype)))
+        return [None if x is None else next(got) for x in xs + mats]
+
+    # per call: the step's cotangents of q, k, v (and a GTA call's rep
+    # matrices) against the fp64 VJP, beside the plain fp32 VJP's error;
+    # each row (ratio to the limit, error, plain error, output, layer, kind)
+    call_rows = []
+    for c in calls:
+        want, plain32 = call_vjp(c, torch.float64), call_vjp(c, torch.float32)
+        for name, a, p, r in zip(("q", "k", "v") + MATS, c["grads"], plain32, want):
+            if a is not None:
+                err, err32 = rel(a.double(), r), rel(p.double(), r)
+                call_rows.append((err / (CALL_TOL + CALL_RULE * err32), err, err32, f"d{name}", c["layer"], c["kind"]))
+    call_worst = max(call_rows, default=(0.0, 0.0, 0.0, None, None, None))
+
+    flat = lambda g: torch.cat([x.flatten() for n, x in zip(names, g)])  # noqa: E731
+    err_kernels, err_plain, err_cpu = (rel(flat(g), flat(g_ref)) for g in (g_card, g_card_plain, g_cpu))
+    excess = err_kernels - err_plain
     worst, plain = worst_rel(g_card, g_cpu), worst_rel(g_card_plain, g_cpu)
-    print(f"{label} train: B=2 grads cuda vs cpu, loss {loss_card:.7f} vs {loss_cpu:.7f}, "
-          f"max |g_cuda - g_cpu| / |g_cpu|: {worst['params'][0]:.3e} ({worst['params'][1]}), "
-          f"trans_coeff {worst['trans_coeff'][0]:.3e} ({worst['trans_coeff'][1]}); "
-          f"the card with plain attention vs cpu: {plain['params'][0]:.3e} ({plain['params'][1]}), "
-          f"trans_coeff {plain['trans_coeff'][0]:.3e} ({plain['trans_coeff'][1]})", flush=True)
-    if fp64_reference:
-        rows = [(rel(a, r) - rel(c, r), rel(a, r), rel(c, r), n) for n, a, c, r in zip(names, g_card, g_cpu, g_ref)]
-        excess, err_card, err_cpu, name = max(rows)
-        top = max(rows, key=lambda row: row[2])
-        print(f"{label} train: B=2 grads against fp64 (card, plain attention, fp32 ray encodings): largest excess of the card's "
-              f"relative L2 error over the CPU's {excess:.3e} ({name}: card {err_card:.3e}, cpu {err_cpu:.3e}; "
-              f"tolerance {TOL}); largest fp32 error on the CPU {top[2]:.3e} ({top[3]}, card {top[1]:.3e})",
-              flush=True)
-        if not excess <= TOL:
-            raise AssertionError(f"{label}: the card's fp32 gradient of {name} is {excess} (relative L2) "
-                                 f"further from fp64 than the CPU's > {TOL}")
-        return excess, 0.0
-    for kind, tol in (("params", TOL), ("trans_coeff", TC_TOL)):
-        rel_err, name = worst[kind]
-        if not rel_err <= tol:
-            raise AssertionError(f"{label}: card vs CPU gradients of {name} differ by {rel_err} (relative) > {tol}")
-    return worst["params"][0], worst["trans_coeff"][0]
+    print(f"{label} train: B=2 items {tuple(items)} grads cuda vs cpu, loss {loss_card:.7f} vs {loss_cpu:.7f}, "
+          f"max |g_cuda - g_cpu| / |g_cpu|: {worst[0]:.3e} ({worst[1]}); the card with plain attention vs cpu: "
+          f"{plain[0]:.3e} ({plain[1]})", flush=True)
+    per_tensor = max((rel(a, r), n) for n, a, r in zip(names, g_card, g_ref) if not n.endswith("trans_coeff"))
+    print(f"{label} train: against fp64, {len(calls)} attention calls' q/k/v and rep-matrix cotangents: closest to "
+          f"its limit {call_worst[3]} of the {call_worst[5]} call in {call_worst[4]}, relative L2 {call_worst[1]:.3e} (the plain "
+          f"version's fp32 {call_worst[2]:.3e}; limit {CALL_TOL} + {CALL_RULE} x that); largest "
+          f"{max((r[1] for r in call_rows), default=0.0):.3e}; the whole gradient's "
+          f"relative L2: card through the kernels {err_kernels:.3e}, through the plain attention {err_plain:.3e}, "
+          f"cpu {err_cpu:.3e}: excess {excess:.3e} (tolerance {TOL}); largest per tensor on the card "
+          f"{per_tensor[0]:.3e} ({per_tensor[1]})", flush=True)
+    tc = [(abs(a.item() - r.item()) / sums[n], abs(c.item() - r.item()) / sums[n], n, r.item(), sums[n])
+          for n, a, c, r in zip(names, g_card, g_cpu, g_ref) if n.endswith("trans_coeff")]
+    tc_worst = max(tc, default=(0.0, 0.0, None, 0.0, 1.0))
+    if tc:
+        print(f"{label} train: trans_coeff against fp64, largest |g_card - g_fp64| / sum |terms| {tc_worst[0]:.3e} "
+              f"({tc_worst[2]}: fp64 {tc_worst[3]:.3e}, sum |terms| {tc_worst[4]:.3e}, kappa "
+              f"{tc_worst[4] / max(abs(tc_worst[3]), 1e-300):.1f}; cpu {tc_worst[1]:.3e}; over all scalars the cpu's "
+              f"largest {max(row[1] for row in tc):.3e}); tolerance {TC_TOL}", flush=True)
+    if not call_worst[0] <= 1.0:
+        raise AssertionError(f"{label}: {call_worst[3]} of a {call_worst[5]} call in {call_worst[4]} is "
+                             f"{call_worst[1]} (relative L2) from the call's fp64 VJP > {CALL_TOL} + {CALL_RULE} x "
+                             f"the plain fp32 version's {call_worst[2]}")
+    if not excess <= TOL:
+        raise AssertionError(f"{label}: the gradient through the kernels is {excess} (relative L2) further from "
+                             f"fp64 than through the plain attention > {TOL}")
+    if not tc_worst[0] <= TC_TOL:
+        raise AssertionError(f"{label}: the card's gradient of {tc_worst[2]} is {tc_worst[0]} x the sum of its terms' "
+                             f"absolute values from fp64 > {TC_TOL}")
+    return excess, tc_worst[0], call_worst[0]
 
 
 def run_cli(args, label, env=None):
@@ -1390,6 +1696,23 @@ def cli_phase():
     print(f"  {json.dumps(result)}", flush=True)
     if result["n_scenes"] != 1 or not result["device"].startswith("cuda") or not np.isfinite(result["psnr"]):
         raise AssertionError(f"SRT evaluate CLI: unexpected result {result}")
+    with tempfile.TemporaryDirectory() as out:
+        # a baseline of the other attention methods (torch eager, its
+        # Plücker bias) on non-transform batches: train, then evaluate best
+        log = run_cli(["gta_tpu_torch.train", GBT_CONFIG, "--synthetic", "--outdir", out, "--exit-after", "1",
+                       "--evalnow", "--max-eval", "8"], "gbt train CLI --exit-after 1 --evalnow")
+        for line in log.splitlines():
+            if any(w in line for w in ("it=", "parameters", "best")):
+                print(f"  {line}", flush=True)
+        if "Iteration limit reached" not in log or "New best model" not in log:
+            raise AssertionError(f"gbt train CLI did not take its steps and save the best model:\n{log}")
+        lp = os.path.join(out, "lpips_vgg_random.npz")
+        np.savez(lp, **random_params(np.random.RandomState(0)))
+        log = run_cli(["gta_tpu_torch.evaluate", GBT_CONFIG, "--synthetic", "--outdir", out, "--ckpt", "best",
+                       "--max-scenes", "1"], "gbt evaluate CLI --ckpt best", env={"LPIPS_WEIGHTS": lp})
+        if "Loaded checkpoint best" not in log:
+            raise AssertionError(f"gbt evaluate CLI did not restore best:\n{log}")
+        check_eval_result(log, "gbt evaluate CLI", out, "best", "float32")
     if runs_listing() != runs_before:
         raise AssertionError("a CLI wrote under runs/")
 
@@ -2062,6 +2385,13 @@ def main() -> int:
         synthetic(GTA_CONFIG, mixed_prec=True), "CLEVR-TR gta --bf16", device, EVAL_BATCH, "clevr_bf16_",
         ("clevr_bf16_decoder_eval_b32", "clevr_bf16_decoder_train_b32"))
     flash_bf16_fwd, flash_bf16_bwd = bf16_kernel_phase(msn_srt, "msn SRT", device)
+    # flash_core at head width 96, at msn gta_t2's shapes (its attention
+    # after the sliced transforms): fp32 (mixed_prec overridden) and bf16
+    t2_cfg, msn_t2 = synthetic(T2_CONFIG), synthetic(MSN_T2_CONFIG)
+    assert msn_t2.training.mixed_prec and not t2_cfg.training.mixed_prec
+    flash96_fwd, flash96_bwd = flash_kernel_phase(synthetic(MSN_T2_CONFIG, mixed_prec=False), device, MSN_BATCH,
+                                                  prefix="msn_t2_")
+    flash96_bf16_fwd, flash96_bf16_bwd = bf16_kernel_phase(msn_t2, "msn gta_t2", device, prefix="msn_t2_", flash=True)
 
     serving = {
         "gta": serving_path_phase(gta_cfg, "GTA"),
@@ -2071,6 +2401,8 @@ def main() -> int:
         "msn_so3_bf16": serving_path_phase(msn_bf16, "msn_so3 bf16", MSN_BATCH),
         "msn_srt_bf16": serving_path_phase(msn_srt, "msn SRT bf16", MSN_BATCH),
         "msn_gta_bf16": serving_path_phase(msn_gta, "msn gta bf16", MSN_BATCH),
+        "clevr_t2": serving_path_phase(t2_cfg, "CLEVR-TR gta_t2"),
+        "msn_t2_bf16": serving_path_phase(msn_t2, "msn gta_t2 bf16", MSN_BATCH),
     }
     paths = {}
     for key, (launches, _) in serving.items():
@@ -2083,12 +2415,19 @@ def main() -> int:
     paths["msn_so3_bf16_train"], msn_bf16_step = train_path_phase(msn_bf16, "msn_so3 bf16", MSN_BATCH, distinct=2)
     paths["msn_srt_bf16_train"], msn_srt_step = train_path_phase(msn_srt, "msn SRT bf16", MSN_BATCH, distinct=2)
     paths["msn_gta_bf16_train"], msn_gta_step = train_path_phase(msn_gta, "msn gta bf16", MSN_BATCH, distinct=2)
+    paths["clevr_t2_train"], t2_step = train_path_phase(t2_cfg, "CLEVR-TR gta_t2", distinct=2)
+    paths["msn_t2_bf16_train"], msn_t2_step = train_path_phase(msn_t2, "msn gta_t2 bf16", MSN_BATCH, distinct=2)
     for name, cfg in variants.items():
-        paths[f"msn_{name}_bf16_serving"], paths[f"msn_{name}_bf16_train"] = variant_phase(cfg, f"msn {name} bf16")
+        paths[f"msn_{name}_bf16_serving"], paths[f"msn_{name}_bf16_train"], _ = variant_phase(cfg, f"msn {name} bf16")
+    other = {}
+    for rel in OTHER_METHODS:
+        cfg = synthetic(os.path.join(ROOT, "runs", *rel.split("/"), "config.yaml"))
+        key = rel.split("/", 1)[0] + "_" + rel.rsplit("/", 1)[1]
+        paths[f"{key}_serving"], paths[f"{key}_train"], other[rel] = variant_phase(cfg, rel)
     card_vs_cpu = {label: bf16_card_vs_cpu_phase(cfg, label) for cfg, label in
-                   ((msn_bf16, "msn_so3"), (msn_srt, "msn SRT"))}
+                   ((msn_bf16, "msn_so3"), (msn_srt, "msn SRT"), (msn_t2, "msn gta_t2"))}
     gta_grad = grads_phase(gta_cfg, "GTA")
-    srt_grad = grads_phase(srt_cfg, "SRT", fp64_reference=True)
+    srt_grad = grads_phase(srt_cfg, "SRT")
     msn_grad = grads_phase(msn_cut, "msn_so3 (1 + 1 blocks)")
     cli_phase()
     t_disk = time.perf_counter()
@@ -2105,29 +2444,31 @@ def main() -> int:
         kernel_entry("gta_fused_bwd", "gta_tpu/ops/gta_fused.py:235", by_path("gta_fused_bwd"),
                      "decoder_train_b32", {**train_bwd, **msn_train_bwd}, max(branch_bwd, gta_edge_bwd, msn_edge_bwd)),
         kernel_entry("flash_core_fwd", "gta_tpu/ops/flash_core.py:73", by_path("flash_core_fwd"),
-                     "decoder_eval_b32", flash_fwd, edge_fwd),
+                     "decoder_eval_b32", {**flash_fwd, **flash96_fwd}, edge_fwd),
         kernel_entry("flash_core_bwd", "gta_tpu/ops/flash_core.py:86", by_path("flash_core_bwd"),
-                     "decoder_train_b32", flash_bwd, edge_bwd),
+                     "decoder_train_b32", {**flash_bwd, **flash96_bwd}, edge_bwd),
         kernel_entry("gta_fused_fwd_bf16", "gta_tpu/ops/gta_fused.py:209", by_path("gta_fused_fwd_bf16"),
                      "msn_decoder_eval_b64", {**gta_bf16_fwd, **clevr_bf16_fwd}, 0.0, source="gta_fused_fwd"),
         kernel_entry("gta_fused_bwd_bf16", "gta_tpu/ops/gta_fused.py:235", by_path("gta_fused_bwd_bf16"),
                      "msn_decoder_train_b64", {**gta_bf16_bwd, **clevr_bf16_bwd}, 0.0, source="gta_fused_bwd"),
         kernel_entry("flash_core_fwd_bf16", "gta_tpu/ops/flash_core.py:73", by_path("flash_core_fwd_bf16"),
-                     "msn_decoder_eval_b64", flash_bf16_fwd, 0.0, source="flash_core_fwd"),
+                     "msn_decoder_eval_b64", {**flash_bf16_fwd, **flash96_bf16_fwd}, 0.0, source="flash_core_fwd"),
         kernel_entry("flash_core_bwd_bf16", "gta_tpu/ops/flash_core.py:86", by_path("flash_core_bwd_bf16"),
-                     "msn_decoder_train_b64", flash_bf16_bwd, 0.0, source="flash_core_bwd"),
+                     "msn_decoder_train_b64", {**flash_bf16_bwd, **flash96_bf16_bwd}, 0.0, source="flash_core_bwd"),
     ]
-    print(f"GTA train step B={EVAL_BATCH}: {json.dumps(gta_step)}; B=2 grads cuda vs cpu max relative "
-          f"{gta_grad[0]:.3e} (trans_coeff {gta_grad[1]:.3e})", flush=True)
-    print(f"SRT train step B={EVAL_BATCH}: {json.dumps(srt_step)}; B=2 grads, largest excess of the card's fp32 "
-          f"error over the CPU's against fp64 {srt_grad[0]:.3e}", flush=True)
-    print(f"msn_so3 (1 + 1 blocks) train step B={MSN_BATCH}: {json.dumps(msn_step)}; B=2 grads cuda vs cpu max relative "
-          f"{msn_grad[0]:.3e} (trans_coeff {msn_grad[1]:.3e})", flush=True)
+    for label, step, batch, grad in (("GTA", gta_step, EVAL_BATCH, gta_grad), ("SRT", srt_step, EVAL_BATCH, srt_grad),
+                                     ("msn_so3 (1 + 1 blocks)", msn_step, MSN_BATCH, msn_grad)):
+        print(f"{label} train step B={batch}: {json.dumps(step)}; B=2 grads against fp64: the whole gradient's "
+              f"excess through the kernels {grad[0]:.3e}, trans_coeff error over its terms {grad[1]:.3e}, "
+              f"attention calls' cotangents {grad[2]:.3e}", flush=True)
     print(f"CLEVR-TR gta_so3 train step B={EVAL_BATCH}: {json.dumps(so3_step)}", flush=True)
+    print(f"CLEVR-TR gta_t2 train step B={EVAL_BATCH}: {json.dumps(t2_step)}", flush=True)
+    print(f"other attention methods (cold eval_step and train_step): {json.dumps(other)}", flush=True)
     print(f"msn gta bf16 train step B={MSN_BATCH}: {json.dumps(msn_gta_step)}", flush=True)
     print(f"evaluation per full-scale view: {json.dumps(eval_metrics)}", flush=True)
     print(f"disk: {json.dumps(disk)}", flush=True)
-    for label, step in (("msn_so3 bf16", msn_bf16_step), ("msn SRT bf16", msn_srt_step)):
+    for label, step in (("msn_so3 bf16", msn_bf16_step), ("msn SRT bf16", msn_srt_step),
+                        ("msn gta_t2 bf16", msn_t2_step)):
         card_err, emu_err, gap, own = card_vs_cpu[label.split(" bf16")[0]]
         print(f"{label} train step B={MSN_BATCH}: {json.dumps(step)}; B=2 pixels from the CPU's fp32: card "
               f"{card_err:.3e}, emulated TPU rounding {emu_err:.3e}; card vs CPU bf16 {gap:.3e} (CPU bf16 vs "

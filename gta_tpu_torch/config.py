@@ -85,19 +85,40 @@ class GTAArgs:
 
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
-    """Attention-method configuration (reference attn_args block), reduced
-    to the fields the port reads. Methods other than 'gta' and '' are
-    rejected by models/layers.Attention."""
+    """Attention-method configuration (reference attn_args block): the
+    JAX package's fields less its runtime switches (flash, fused, ring),
+    which the port replaces by one rule (`flash_eligible`, models/layers.py)."""
 
-    method: str = "gta"
+    method: str = "gta"  # '', 'gta', 'ape', 'mln', 'repast', 'gbt', 'frustum_posemb', 'invatt_directsum'
     gta: GTAArgs = GTAArgs()
     softmax: str = "standard"  # 'standard' | 'adjustable'
     use_bias: bool = False
+    # repast
+    q_emb_dim: int = 0
+    k_emb_dim: int = 0
+    v_bias: bool = False
+    enable_scale: bool = False
+    # frustum_posemb
+    frustum_D: int = 0
+    frustum_dmin: float = 0.1
+    frustum_dmax: float = 10.0
+    frustum_normalize: bool = False
+    frustum_fourier: bool = False
+    frustum_freqs: int = 15
+    # rpe (learned-rep "invatt_directsum")
     rpe: bool = False
+    rpe_so2: int = 0
 
     @property
     def is_gta(self) -> bool:
         return self.method == "gta"
+
+    @property
+    def flash_eligible(self) -> bool:
+        """Whether the JAX package takes its flash kernels for this non-GTA
+        method on a TPU (gta_tpu/config.py:137-144): plain dot-product
+        softmax only. GTA routes by its own rule (models/layers.Attention)."""
+        return self.softmax == "standard" and self.method in ("", "ape", "mln", "frustum_posemb")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,7 +269,18 @@ def _parse_attn(attn_args: dict) -> AttnConfig:
         gta=gta,
         softmax=softmax,
         use_bias=bool(args.get("use_bias", False)),
+        q_emb_dim=int(args.get("q_emb_dim", 0)),
+        k_emb_dim=int(args.get("k_emb_dim", 0)),
+        v_bias=bool(args.get("v_bias", False)),
+        enable_scale=bool(args.get("enable_scale", False)),
+        frustum_D=int(args.get("D", 0)),
+        frustum_dmin=float(args.get("dmin", 0.1)),
+        frustum_dmax=float(args.get("dmax", 10.0)),
+        frustum_normalize=bool(args.get("normalize", False)),
+        frustum_fourier=bool(args.get("fourier", False)),
+        frustum_freqs=int(args.get("freqs", 15)),
         rpe=bool(args.get("rpe", False)),
+        rpe_so2=int(args.get("so2", 0)),
     )
 
 

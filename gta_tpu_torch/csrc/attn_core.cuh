@@ -60,9 +60,9 @@
 //    dS's to 0; scores about k - c_k shift each row by q.c_k, which the
 //    softmax ignores), subtracted in the kernels: the tensor cores truncate
 //    each sum by ~1e-6 of its value, which about uncentred rows broke the
-//    cancellation in dq. flash_core centres its raw rows about the first
-//    key's rows (`centres` null), the fused GTA kernels about the means of
-//    their kt, vt rows (`centres` [2, B, H, C]).
+//    cancellation in dq. Every caller centres about the means of the rows
+//    it hands the core (`centres` [2, B, H, C], from `run_mean`): flash_core
+//    its raw k, v rows, the fused GTA kernels their kt, vt rows.
 //  * delta = rowsum(do * (o - c_v)) in the query pass's prologue; when
 //    every key fits one tile, it takes delta = rowsum(P * dP) from its own
 //    products, so each row's dS sums to zero as the plain version's does
@@ -217,12 +217,10 @@ __device__ __forceinline__ void stage(float* tile, const float* base, int64_t rs
 }
 
 // the centre rows of (b, h): c_k (which 0) or c_v (which 1)
-// from `centres` [2][B][H][C], or the first key's row `first` when null;
-// grids are (row blocks, H, B)
+// from `centres` [2][B][H][C]; grids are (row blocks, H, B)
 template <int C>
-__device__ __forceinline__ const float* centre_row(const float* centres, int which, int b, int h,
-                                                   int H, const float* first) {
-  return centres ? centres + (((int64_t)which * gridDim.z + b) * H + h) * C : first;
+__device__ __forceinline__ const float* centre_row(const float* centres, int which, int b, int h, int H) {
+  return centres + (((int64_t)which * gridDim.z + b) * H + h) * C;
 }
 
 // rows (g, g+8) of an accumulator tile [16 x C] into an fp32 operand,
@@ -386,7 +384,7 @@ attn_fwd_kernel(const float* __restrict__ qt, const float* __restrict__ kt, cons
   stage<C, BN>(Ks, kbase, kl.rs, Tk);
   stage<C, BN>(Vs, vbase, vl.rs, Tk);
   cp_async_commit();
-  const float* cv = centre_row<C>(centres, 1, b, h, H, vbase);
+  const float* cv = centre_row<C>(centres, 1, b, h, H);
   for (int c = threadIdx.x; c < C; c += THREADS) Cv[c] = cv[c];
   cp_async_wait<0>();
   __syncthreads();
@@ -529,8 +527,8 @@ attn_bwd_q_kernel(const float* __restrict__ qt, const float* __restrict__ kt, co
   const float ls[2] = {lse[hrow + ra], lse[hrow + rb]};
   const float* kbase = kt + b * kl.bs + h * kl.hs;
   const float* vbase = vt + b * vl.bs + h * vl.hs;
-  const float* ck = centre_row<C>(centres, 0, b, h, H, kbase);
-  const float* cv = centre_row<C>(centres, 1, b, h, H, vbase);
+  const float* ck = centre_row<C>(centres, 0, b, h, H);
+  const float* cv = centre_row<C>(centres, 1, b, h, H);
   for (int i = threadIdx.x; i < C; i += THREADS) {  // read after the loop's first barrier
     Ck[i] = ck[i];
     Cv[i] = cv[i];
@@ -680,7 +678,7 @@ attn_bwd_kv_kernel(const float* __restrict__ kt, const float* __restrict__ vt, c
   if constexpr (DK) stage_vec<BNK, THREADS>(Dl, delta + hrow, Tq);
   cp_async_commit();
   if constexpr (DK) {  // read after the loop's first barrier
-    const float* cv = centre_row<C>(centres, 1, b, h, H, vt + b * vl.bs + h * vl.hs);
+    const float* cv = centre_row<C>(centres, 1, b, h, H);
     for (int i = threadIdx.x; i < C; i += THREADS) Cv[i] = cv[i];
   }
 
@@ -851,7 +849,7 @@ cudaError_t run_centre_bf16(const float* src, Layout l, int T, int B, int H, flo
 // ---------------------------------------------------------------------------
 
 // the forward over (q, k, v) into o (and lse when non-null), about
-// `centres` [2, B, H, C] (c_k, c_v), or the first key's rows when null
+// `centres` [2, B, H, C] (c_k, c_v)
 template <int C>
 cudaError_t run_fwd(const float* q, const float* k, const float* v, const float* centres, float* o, float* lse,
                     int B, int H, int Tq, int Tk, Layout ql, Layout kl, Layout vl, Layout ol, float scale,

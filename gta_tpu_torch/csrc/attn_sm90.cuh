@@ -21,9 +21,11 @@
 // (v is centred, so c_v, the mean of the value rows, is added back to z;
 // 0 for raw rows.) Rounding, that of the TPU kernel: q, k, v, do, P and dS
 // are bf16 product operands; the softmax, lse, delta and every accumulator
-// are fp32; gradients are written from the fp32 accumulators once, in the
-// caller's type (`Out`: fp32 for the fused GTA kernels, whose chains and
-// dM reductions go on in fp32; bf16 for flash_core, the TPU kernel's
+// are fp32; z and the gradients are written from the fp32 accumulators
+// once, in the caller's type (`Out`: fp32 for the fused GTA kernels, whose
+// chains and dM reductions go on in fp32, and for flash_core behind GTA's
+// sliced transforms, whose rows are fp32 on the TPU and only their product
+// operands bf16; bf16 for flash_core on bf16 rows, the TPU kernel's
 // `.astype(q.dtype)`).
 //
 // What bounds it on the H100: 4*Tq*Tk*C flops per (b, h) forward, 10*Tq*Tk*C
@@ -672,14 +674,15 @@ struct STwo {
 };
 
 // ---------------------------------------------------------------------------
-// Forward. grid (ceil(Tq / 128), H, B). m0: q; m2, m3: k, v. z (bf16)
-// through `zl`, lse [B, H, Tq] when non-null; cv: c_v [B, H, C] or null (0).
+// Forward. grid (ceil(Tq / 128), H, B). m0: q; m2, m3: k, v. z (Out: bf16,
+// or fp32 where the caller keeps the output unrounded) through `zl`, lse
+// [B, H, Tq] when non-null; cv: c_v [B, H, C] or null (0).
 // ---------------------------------------------------------------------------
-template <class G>
+template <class G, class Out>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_sm90_fwd(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
               const __grid_constant__ CUtensorMap mv, int hf, const float* __restrict__ cv,
-              bf16* __restrict__ z, float* __restrict__ lse, int H, int Tq, int Tk, Layout zl, float scale) {
+              Out* __restrict__ z, float* __restrict__ lse, int H, int Tq, int Tk, Layout zl, float scale) {
   constexpr int C = G::C, KT = G::KT;
   using Frags = uint32_t[1][KT / 16][4];
   extern __shared__ __align__(16) uint8_t sm90_smem[];
@@ -732,7 +735,7 @@ attn_sm90_fwd(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CU
     const int row = row0 + 8 * r;
     if (row >= Tq) continue;
     const float inv = 1.f / lr;
-    bf16* zr = z + attn::offset(zl, b, h, row);
+    Out* zr = z + attn::offset(zl, b, h, row);
 #pragma unroll
     for (int j = 0; j < C / 8; ++j) {
       const int col = 8 * j + 2 * p.t;
@@ -986,16 +989,17 @@ cudaError_t allow_smem(Kernel k, int bytes) {
   return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// the forward over bf16 (q, k, v) into z (and lse when non-null); cv: the
-// value rows' centre c_v [B, H, C] added back to z, or null
-template <class G>
-cudaError_t run_fwd(const bf16* q, const bf16* k, const bf16* v, const float* cv, bf16* z, float* lse, int B, int H,
+// the forward over bf16 (q, k, v) into z (Out: bf16 or fp32; and lse when
+// non-null); cv: the value rows' centre c_v [B, H, C] added back to z, or
+// null
+template <class G, class Out>
+cudaError_t run_fwd(const bf16* q, const bf16* k, const bf16* v, const float* cv, Out* z, float* lse, int B, int H,
                     int Tq, int Tk, Layout ql, Layout kl, Layout vl, Layout zl, float scale, cudaStream_t stream) {
   Maps maps;
   cudaError_t err = make_maps(maps, {q, q, k, v}, {ql, ql, kl, vl}, {Tq, Tq, Tk, Tk}, H, B, G::C);
   if (err != cudaSuccess) return err;
-  if ((err = allow_smem(attn_sm90_fwd<G>, G::BYTES))) return err;
-  attn_sm90_fwd<G><<<dim3((Tq + NC * ROWS - 1) / (NC * ROWS), H, B), THREADS, G::BYTES, stream>>>(
+  if ((err = allow_smem(attn_sm90_fwd<G, Out>, G::BYTES))) return err;
+  attn_sm90_fwd<G, Out><<<dim3((Tq + NC * ROWS - 1) / (NC * ROWS), H, B), THREADS, G::BYTES, stream>>>(
       maps.m[0], maps.m[2], maps.m[3], maps.hf, cv, z, lse, H, Tq, Tk, zl, scale);
   return cudaGetLastError();
 }

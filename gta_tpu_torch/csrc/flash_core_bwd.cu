@@ -28,10 +28,11 @@
 // writes dq and delta, the key pass dk and dv. Each row is owned by one
 // warp (fp32) or warpgroup (bf16): no atomics, a fixed summation order,
 // bit-identical reruns.
-// fp32 (`flash_core_bwd`): the query pass (`attn_bwd_q_kernel<64>`)
+// fp32 (`flash_core_bwd`): the query pass (`attn_bwd_q_kernel<C>`)
 // computes delta = rowsum(g * (o - c_v)) in its prologue; the key pass
-// (`attn_bwd_kv_kernel<64, KV_BOTH>`) writes dk and dv. Both take dP and
-// dq about centres c_k, c_v (the first key's rows of each (b, h)): a
+// (`attn_bwd_kv_kernel<C, ...>`: one at C = 64, a dv and a dk pass at 96)
+// writes dk and dv. Both take dP and dq about centres c_k, c_v (the means
+// of the key and value rows of each (b, h), from two first launches): a
 // layer's tokens share a large component, and without the centres the
 // tensor cores' truncation of it (~1e-6) broke the cancellation in dq
 // (attn_core.cuh). Every product is 3xTF32 m16n8k8 mma.sync over one
@@ -44,18 +45,22 @@
 // (from the bf16 o, dq's error against fp64 grew to 116x and dk's to 5.5x
 // the TPU rounding's on keys and values that share a component of 8x their
 // spread: scripts/probe_delta_from_o.py, PERF.md). Both passes store their
-// bf16 gradients straight from their fp32 accumulators (one rounding, the
-// TPU kernel's `.astype(q.dtype)`): no fp32 scratch, no conversion launch.
+// gradients straight from their fp32 accumulators: bf16 (one rounding, the
+// TPU kernel's `.astype(q.dtype)`), or fp32 with `grads_fp32` (GTA's sliced
+// path, whose rows are fp32 on the TPU: gta_tpu/ops/flash_core.py:168-174);
+// no scratch, no conversion launch.
 // Its tiling, `G` below: 128-key K/V tiles in the query pass (the key pass
 // streams 64 queries; PERF.md has the times of both).
 // Not yet: wgmma and TMA for fp32; 5 products in place of 7 (fp32) or 9
 // (bf16: the sweep and both passes' S).
 //
 // Interface: plain C, bound from Python with ctypes. `flash_core_bwd`:
-// every pointer a contiguous fp32 device array. `flash_core_bwd_bf16`: q,
-// k, v, g, dq, dk, dv bf16; lse and the scratch delta fp32. Returns the
+// every pointer a contiguous fp32 device array (delta and centres
+// scratch). `flash_core_bwd_bf16`: q,
+// k, v, g bf16; dq, dk, dv bf16 (fp32 when `grads_fp32` is nonzero); lse
+// and the scratch delta fp32. Returns the
 // cudaError_t of the launches (0 = success): cudaErrorInvalidValue for a
-// head width other than 64, an empty side, or B or H above the grid's
+// head width other than 64 and 96, an empty side, or B or H above the grid's
 // 65535.
 
 #include <cuda_runtime.h>
@@ -63,34 +68,66 @@
 #include "attn_core.cuh"
 #include "attn_sm90.cuh"
 
+template <int CC>
+static cudaError_t bwd_fp32(const float* q, const float* k, const float* v, const float* g, const float* o,
+                            const float* lse, float* delta, float* centres, float* dq, float* dk, float* dv, int B,
+                            int H, int Tq, int Tk, float scale, cudaStream_t stream) {
+  const attn::Layout tok_q = attn::tokens(Tq, H, CC), tok_k = attn::tokens(Tk, H, CC);
+  // c_k, c_v: the means of the key and value rows (the forward's c_v, bit
+  // for bit: the same launch on the same rows)
+  cudaError_t err = attn::run_mean<CC>(k, tok_k, Tk, B, H, centres, stream);
+  if (err == cudaSuccess) err = attn::run_mean<CC>(v, tok_k, Tk, B, H, centres + (int64_t)B * H * CC, stream);
+  if (err != cudaSuccess) return err;
+  return attn::run_bwd<CC>(q, k, v, centres, g, o, lse, delta, dq, dk, dv, B, H, Tq, Tk, tok_q, tok_k, tok_k, tok_q,
+                           tok_q, tok_k, scale, stream);
+}
+
+// G: the query pass's tiling, 128-key tiles at C = 64; 64 at C = 96 (as
+// the forward's, csrc/flash_core_fwd.cu)
+template <class G, class Out>
+static cudaError_t bwd_bf16(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v, const attn::bf16* g,
+                            const float* lse, float* delta, Out* dq, Out* dk, Out* dv, int B,
+                            int H, int Tq, int Tk, float scale, cudaStream_t stream) {
+  const attn::Layout tok_q = attn::tokens(Tq, H, G::C), tok_k = attn::tokens(Tk, H, G::C);
+  return sm90::run_bwd<G>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Tq, Tk, tok_q, tok_k, tok_k, tok_q, tok_q, tok_k,
+                          scale, stream);
+}
+
+static bool bad_call(int B, int H, int Tq, int Tk, int C) {
+  return (C != 64 && C != 96) || B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535;
+}
+
 // q, k, v: the forward's inputs; g: the cotangent of its output o; lse: its
-// log-sum-exp residual. delta [B, H, Tq]: scratch. dq, dk, dv: outputs.
+// log-sum-exp residual. delta [B, H, Tq], centres [2, B, H, C]: scratch.
+// dq, dk, dv: outputs.
 extern "C" int flash_core_bwd(const float* q, const float* k, const float* v, const float* g,
-                              const float* o, const float* lse, float* delta, float* dq,
+                              const float* o, const float* lse, float* delta, float* centres, float* dq,
                               float* dk, float* dv, int B, int H, int Tq, int Tk, int C,
                               float scale, void* stream_ptr) {
-  constexpr int CC = 64;  // the only head width instantiated
-  if (C != CC || B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const attn::Layout tok_q = attn::tokens(Tq, H, CC), tok_k = attn::tokens(Tk, H, CC);
-  return (int)attn::run_bwd<CC>(q, k, v, nullptr, g, o, lse, delta, dq, dk, dv, B, H, Tq, Tk, tok_q, tok_k, tok_k,
-                                tok_q, tok_q, tok_k, scale, static_cast<cudaStream_t>(stream_ptr));
+  if (bad_call(B, H, Tq, Tk, C) || !centres) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  return (int)(C == 64 ? bwd_fp32<64>(q, k, v, g, o, lse, delta, centres, dq, dk, dv, B, H, Tq, Tk, scale, stream)
+                       : bwd_fp32<96>(q, k, v, g, o, lse, delta, centres, dq, dk, dv, B, H, Tq, Tk, scale, stream));
+}
+
+template <class Out>
+static cudaError_t bwd_bf16_c(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v, const attn::bf16* g,
+                              const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H, int Tq,
+                              int Tk, int C, float scale, cudaStream_t stream) {
+  Out *dq_ = static_cast<Out*>(dq), *dk_ = static_cast<Out*>(dk), *dv_ = static_cast<Out*>(dv);
+  return C == 64 ? bwd_bf16<sm90::Cfg<64, 128>>(q, k, v, g, lse, delta, dq_, dk_, dv_, B, H, Tq, Tk, scale, stream)
+                 : bwd_bf16<sm90::Cfg<96, 64>>(q, k, v, g, lse, delta, dq_, dk_, dv_, B, H, Tq, Tk, scale, stream);
 }
 
 // the same in bf16, without o (delta comes from the query pass's products)
 extern "C" int flash_core_bwd_bf16(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v,
-                                   const attn::bf16* g, const float* lse, float* delta, attn::bf16* dq,
-                                   attn::bf16* dk, attn::bf16* dv, int B, int H, int Tq, int Tk, int C,
-                                   float scale, void* stream_ptr) {
-  constexpr int CC = 64;  // the only head width instantiated
-  if (C != CC || B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  using G = sm90::Cfg<CC, 128>;  // 128 keys a tile in the query pass
-  const attn::Layout tok_q = attn::tokens(Tq, H, CC), tok_k = attn::tokens(Tk, H, CC);
-  return (int)sm90::run_bwd<G>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Tq, Tk, tok_q, tok_k, tok_k, tok_q,
-                               tok_q, tok_k, scale, static_cast<cudaStream_t>(stream_ptr));
+                                   const attn::bf16* g, const float* lse, float* delta, void* dq, void* dk, void* dv,
+                                   int B, int H, int Tq, int Tk, int C, int grads_fp32, float scale,
+                                   void* stream_ptr) {
+  if (bad_call(B, H, Tq, Tk, C)) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  return (int)(grads_fp32 ? bwd_bf16_c<float>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Tq, Tk, C, scale, stream)
+                          : bwd_bf16_c<attn::bf16>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Tq, Tk, C, scale, stream));
 }
 
 extern "C" const char* flash_core_bwd_error_string(int code) {

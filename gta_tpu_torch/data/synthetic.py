@@ -1,11 +1,10 @@
 """Synthetic multi-view sphere scenes — dataset-free fixtures.
 
 Analytic scenes (colored spheres on a gradient background, Lambertian-ish
-shading) rendered by ray-sphere intersection: in vectorized numpy
-(float64, the plain version) by default, in C++ threads (`data/native.py`,
-float32) with `use_native=True`. Numpy stays the default because the
-repository's data-sensitive checks were set on its scenes (ROADMAP queue
-3). Items have
+shading) rendered by ray-sphere intersection: in C++ threads
+(`data/native.py`, float32) by default, as the JAX package does
+(gta_tpu/data/synthetic.py:62), or in vectorized numpy (float64, the plain
+version) with `use_native=False`. Items have
 the CLEVR-TR batch structure (canonicalized camera frames, relative
 transforms, sampled target pixels — reference clevr_tr.py:234-327), so
 tests, evaluation and the chip smoke run need no dataset download.
@@ -66,7 +65,7 @@ class SyntheticScenes:
     """Map-style synthetic dataset mirroring the CLEVR-TR item structure."""
 
     def __init__(self, cfg: DataConfig, mode: str = "train", num_scenes: int = 10000,
-                 full_scale: bool = False, seed: int = 0, max_len=None, use_native: bool = False):
+                 full_scale: bool = False, seed: int = 0, max_len=None, use_native: bool = True):
         self.cfg = cfg
         self.mode = mode
         self.full_scale = full_scale

@@ -64,3 +64,39 @@ def ray_posenc(pos: torch.Tensor, rays: torch.Tensor, pos_octaves: int = 15,
         ],
         -1,
     )
+
+
+def posenc_2d_grid(d_model: int, height: int, width: int) -> np.ndarray:
+    """Fixed 2D transformer positional encoding [d_model, h, w] (reference
+    common.py:115-140): a sin/cos ladder with base 10000, the first half
+    of the channels over the width, the second half over the height."""
+    if d_model % 4 != 0:
+        raise ValueError(f"d_model must be divisible by 4, got {d_model}")
+    pe = np.zeros((d_model, height, width), dtype=np.float32)
+    half = d_model // 2
+    div_term = np.exp(np.arange(0.0, half, 2) * -(np.log(10000.0) / half))  # [half/2]
+    pos_w = np.arange(0.0, width)[:, None]
+    pos_h = np.arange(0.0, height)[:, None]
+    pe[0:half:2] = np.sin(pos_w * div_term).T[:, None, :].repeat(height, 1)
+    pe[1:half:2] = np.cos(pos_w * div_term).T[:, None, :].repeat(height, 1)
+    pe[half::2] = np.sin(pos_h * div_term).T[:, :, None].repeat(width, 2)
+    pe[half + 1 :: 2] = np.cos(pos_h * div_term).T[:, :, None].repeat(width, 2)
+    return pe
+
+
+def posenc_2d_coord(d_model: int, coord: torch.Tensor, scale=(1.0, 1.0)) -> torch.Tensor:
+    """Coord-conditioned 2D positional encoding [..., 2] -> [..., d_model]
+    (reference common.py:143-168): coord in [0, 1] rescaled by `scale` to
+    pixel units; sin/cos interleaved over the width ladder, then the height
+    ladder."""
+    if d_model % 4 != 0:
+        raise ValueError(f"d_model must be divisible by 4, got {d_model}")
+    coord = coord * torch.tensor(scale, dtype=coord.dtype, device=coord.device)
+    half = d_model // 2
+    log_base = torch.log(torch.tensor(10000.0)) / half  # in fp32, as the JAX package takes it
+    div_term = torch.exp(torch.arange(0.0, half, 2) * -log_base).to(coord.dtype).to(coord.device)
+    h = coord[..., 0:1] * div_term
+    w = coord[..., 1:2] * div_term
+    pe_w = torch.stack([torch.sin(w), torch.cos(w)], -1).reshape(*coord.shape[:-1], -1)
+    pe_h = torch.stack([torch.sin(h), torch.cos(h)], -1).reshape(*coord.shape[:-1], -1)
+    return torch.cat([pe_w, pe_h], -1)

@@ -1,6 +1,8 @@
-"""Pinhole camera ray grids, look-at extrinsics, and point transforms.
+"""Pinhole camera ray grids, look-at extrinsics, point transforms, and
+per-ray rotation frames.
 
-Numpy builders for host-side dataset construction. Conventions mirror the
+Numpy builders for host-side dataset construction (`ray_to_rotation` is a
+torch function of the model's rays). Conventions mirror the
 reference (source/utils/nerf.py:7-53, 131-237): world z is up, cameras are
 level, camera rows are (right, down-ish y, forward), focal 0.035 / sensor
 0.032.
@@ -9,6 +11,7 @@ level, camera rows are (right, down-ish y, forward), focal 0.035 / sensor
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def lookat_extrinsic(camera_pos: np.ndarray, track_point=None, fourxfour: bool = True) -> np.ndarray:
@@ -79,3 +82,24 @@ def transform_points(points, transform, translate: bool = True):
     p = np.concatenate((points, const), axis=-1)
     out = np.einsum("...nm,...m->...n", transform, p)
     return out[..., :3]
+
+
+def ray_to_rotation(rays: torch.Tensor, return_4x4: bool = False) -> torch.Tensor:
+    """Per-ray rotation R whose columns are (right, up, ray), with world z as
+    the up reference and world x where a ray is parallel to z: [..., 3] unit
+    directions -> [..., 3, 3] (or [..., 4, 4]). The JAX package's own
+    construction for the reference's `ray_to_se3` hook
+    (gta_tpu/geometry/rays.py:106)."""
+    z = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+    vertical = torch.tensor([0.0, 0.0, 1.0], dtype=rays.dtype, device=rays.device).expand(z.shape)
+    x = torch.linalg.cross(z, vertical, dim=-1)
+    nx = torch.linalg.norm(x, dim=-1, keepdim=True)
+    fallback = torch.tensor([1.0, 0.0, 0.0], dtype=rays.dtype, device=rays.device).expand(z.shape)
+    x = torch.where(nx > 1e-6, x / torch.clamp(nx, min=1e-12), fallback)
+    R = torch.stack([x, torch.linalg.cross(z, x, dim=-1), z], -1)
+    if not return_4x4:
+        return R
+    out = torch.zeros((*R.shape[:-2], 4, 4), dtype=rays.dtype, device=rays.device)
+    out[..., :3, :3] = R
+    out[..., 3, 3] = 1.0
+    return out

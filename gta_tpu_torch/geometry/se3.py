@@ -35,3 +35,23 @@ def scale_mask(trans_coeff, dtype=torch.float32, device=None) -> torch.Tensor:
     ones = torch.ones((1,), dtype=dtype, device=tc.device)
     col = torch.cat([tc.expand(3), ones])  # [4]
     return torch.cat([torch.ones((4, 3), dtype=dtype, device=tc.device), col[:, None]], 1)
+
+
+def homogenize(v: torch.Tensor, trans_coeff: float = 1.0) -> torch.Tensor:
+    """Append a constant `trans_coeff` coordinate: [..., K] -> [..., K+1]."""
+    return torch.cat([v, torch.full((*v.shape[:-1], 1), trans_coeff, dtype=v.dtype, device=v.device)], -1)
+
+
+def rigid_transform(mat: torch.Tensor, points: torch.Tensor, trans_coeff: float = 1.0) -> torch.Tensor:
+    """Apply [..., 4, 4] rigid transforms to [..., K, 3] points; trans_coeff
+    1 transforms points, 0 directions (reference common.py:182-196).
+
+    Each output sums its four products pairwise, (m0 x + m1 y) + (m2 z +
+    m3 w), the order XLA's CPU dot takes: repast feeds these points to
+    octave encodings up to 2^9 pi, which turn one ulp of a coordinate into
+    ~1e-3 of an embedding, so the two packages agree only where they sum
+    alike."""
+    p = homogenize(points, trans_coeff)[..., None, :]  # [..., K, 1, 4]
+    m = mat[..., None, :3, :]  # [..., 1, 3, 4]
+    prod = m * p  # [..., K, 3, 4]
+    return (prod[..., 0] + prod[..., 1]) + (prod[..., 2] + prod[..., 3])

@@ -51,3 +51,16 @@ def apply_rotor_inv(cos: torch.Tensor, sin: torch.Tensor, x: torch.Tensor) -> to
     """Left-multiply by R(theta)^T = R(-theta)."""
     x0, x1 = x[..., 0], x[..., 1]
     return torch.stack([cos * x0 + sin * x1, -sin * x0 + cos * x1], -1)
+
+
+def make_so2_mats(
+    coord: torch.Tensor,
+    nfreqs: int,
+    max_freqs: Sequence[float] = (1.0, 1.0),
+    shared_freqs: bool = False,
+) -> torch.Tensor:
+    """Full rotation matrices [..., D*nfreqs, 2, 2] (reference form
+    gta.py:47-69), for the flattened-rep (elementwise_mul) ablation."""
+    theta = so2_angles(coord, nfreqs, max_freqs, shared_freqs)
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)

@@ -2,7 +2,8 @@
 
 `SceneBatch` is the canonical batch layout the data pipeline produces
 (NHWC images). `AttnContext` carries per-batch geometry through the model:
-the precomputed GeomReps tables.
+the precomputed GeomReps tables and each method's side tables
+(gta_tpu/models/context.py:51-66).
 """
 
 from __future__ import annotations
@@ -49,6 +50,24 @@ class SceneBatch:
 
 @dataclasses.dataclass
 class AttnContext:
-    """Geometry context threaded through attention layers."""
+    """Geometry context threaded through attention layers: the group-rep
+    tables, and the method-specific extras (reference encoder.py:122-181,
+    layers.py:348-385, decoder.py:355-371)."""
 
     geom: GeomReps = dataclasses.field(default_factory=GeomReps)
+    # camera transforms (ape, mln, repast, ftl)
+    input_transforms: Optional[torch.Tensor] = None  # [B, N, 4, 4]
+    target_transforms: Optional[torch.Tensor] = None  # [B, Nt, 4, 4]
+    # 2D coordinate embeddings (ape, mln)
+    input_coord_emb: Optional[torch.Tensor] = None  # [B, N, T', E]
+    target_coord_emb: Optional[torch.Tensor] = None  # [B, Nt, P, E]
+    # patch / pixel coords (frustum_posemb)
+    input_coord: Optional[torch.Tensor] = None  # [B, N, T', 2]
+    target_coord: Optional[torch.Tensor] = None  # [B, Nt, P, 2]
+    # GBT Plücker-distance bias, late-fusion ray embedding, input rays
+    plucker_dist: Optional[torch.Tensor] = None  # [B, Tq, Tk]
+    gbt_ray_emb: Optional[torch.Tensor] = None  # [B, T, E]
+    gbt_ray_input: Optional[torch.Tensor] = None  # [B, Tk, 6]
+    # RePAST per-view ray embeddings
+    key_ray_emb: Optional[torch.Tensor] = None  # [B, Nk, Lk, E]
+    query_ray_emb: Optional[torch.Tensor] = None  # [B, Tq, Nk, E]

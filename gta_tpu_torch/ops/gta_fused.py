@@ -1,9 +1,9 @@
 """Fully fused GTA attention, forward and backward: rep transforms inside
 the kernels.
 
-Port of gta_tpu/ops/gta_fused.py (`_fwd_kernel`, `_bwd_kernel`, the VJP glue
-`_core_fwd`/`_core_bwd` and the dispatch through
-ops/gta_pallas.fused_gta_attention). Operands arrive token-major
+Port of gta_tpu/ops/gta_fused.py (`_fwd_kernel`, `_bwd_kernel` and the VJP
+glue `_core_fwd`/`_core_bwd`), reached through the port's
+ops/gta_pallas.fused_gta_attention where the reps are block-diagonal. Operands arrive token-major
 [B, T, H*C], as the q/k/v projections produce them. The per-view group
 action (SE(3) vec4 blocks composed into one [C, C] block-diagonal matrix per
 view by ops/gta._blockdiag_mat) is applied as a row-vector product
@@ -19,7 +19,8 @@ With grad enabled and an operand that requires it, the call goes
 through `GTAFusedAttention`, whose backward is the backward kernel; rotor
 tables get no cotangent, and autograd carries the matrix cotangents back
 through the table construction to `trans_coeff`. Calls the kernels do not
-cover raise NotImplementedError naming their ROADMAP item, on every device.
+cover raise (the dispatch in ops/gta_pallas.py sends them elsewhere), on
+every device.
 
 Precision, by the dtype of q, k and v (the JAX package's rules,
 gta_tpu/ops/gta_fused.py:384, :441-452): the rep tables are fp32 whatever
@@ -94,16 +95,19 @@ def _expand_rotors(rotors, fd):
 
 
 def check_supported(reps: GeomReps, args: GTAArgs, Tq: int, Tk: int) -> None:
-    """Raise NotImplementedError for calls the fused forward does not cover.
+    """Raise ValueError for calls the fused kernels do not cover: t2,
+    euclid, elementwise_mul, per-token SE(3) reps and odd spans beside
+    rotors, which ops/gta_pallas.fused_gta_attention routes to the sliced
+    transforms and flash_core (or the layer to torch eager).
 
     The Pallas kernel's limits (whole K/V in VMEM up to 2048 keys, 8-row
     aligned query blocks) do not apply: the port tiles K with an online
     softmax and finds each row's view from its index.
     """
     if args.elementwise_mul or not _blockdiag_ok(reps, args):
-        raise NotImplementedError(
-            "GTA with t2 / euclid / elementwise_mul / per-token SE(3) reps has no fused "
-            "kernel (ROADMAP queue 1 item 7: the sliced GTA transforms, then flash_core)"
+        raise ValueError(
+            "GTA with t2 / euclid / elementwise_mul / per-token SE(3) reps has no fused kernel: "
+            "ops/gta_pallas.fused_gta_attention routes it to the sliced transforms and flash_core"
         )
     nq, nk = _view_counts(reps)
     if Tq % (nq or 1) or Tk % (nk or 1):

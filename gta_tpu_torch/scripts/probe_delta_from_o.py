@@ -41,7 +41,7 @@ def bwd_delta_from_o(q, k, v, g, o, heads, mxu_dtype):
 
     work = torch.float32
     scale = C**-0.5
-    qh, kh, vh, gh, oh = (fc._heads_first(x, heads) for x in (q, k, v, g, o))
+    qh, kh, vh, gh, oh = (fc.split_heads(x, heads) for x in (q, k, v, g, o))
     p = torch.softmax(fc._dot("bhqc,bhkc->bhqk", qh, kh, work, mxu_dtype) * scale, dim=-1)
     dp = fc._dot("bhqc,bhkc->bhqk", gh, vh, work, mxu_dtype)
     delta = (gh.float() * oh.float()).sum(-1, keepdim=True)
@@ -49,7 +49,7 @@ def bwd_delta_from_o(q, k, v, g, o, heads, mxu_dtype):
     dq = fc._dot("bhqk,bhkc->bhqc", ds, kh, work, mxu_dtype)
     dk = fc._dot("bhqk,bhqc->bhkc", ds, qh, work, mxu_dtype)
     dv = fc._dot("bhqk,bhqc->bhkc", p, gh, work, mxu_dtype)
-    return fc._tokens(dq), fc._tokens(dk), fc._tokens(dv)
+    return fc.merge_heads(dq), fc.merge_heads(dk), fc.merge_heads(dv)
 
 
 def main():

@@ -17,9 +17,12 @@ of them all, labelled with `--label`. With `--digest`, also one line per
 kernel and shape with a SHA-256 digest of every output of one call (the
 forward's output and residuals, the backward's gradients) on the same
 seeded inputs: two builds whose digests agree computed the same bits.
-`--configs` times only the named configs of CONFIGS (all by default). Uses
-only the kernels' public wrappers, so it also times an older checkout's
-kernels when run from its root.
+`--configs` times only the named configs of CONFIGS (all by default). With
+`--fp64`, also each fp32 flash_core output's relative L2 error against the
+plain version in fp64 on the same inputs cut to B=2, beside the plain fp32
+version's. Uses only the kernels' public wrappers, so it also times an
+older checkout's kernels, run from its root, or with that root on
+PYTHONPATH ahead of this script's checkout.
 """
 
 from __future__ import annotations
@@ -87,6 +90,23 @@ def digest(outputs) -> str:
     return h.hexdigest()[:16]
 
 
+def flash_fp64_errors(fc, q, k, v, g, heads, scale) -> dict:
+    """{output: (kernel, plain fp32)} relative L2 errors of flash_core's fp32
+    forward and backward against its plain version in fp64."""
+    import torch
+
+    def rel(a, r):
+        return ((a.double() - r).norm() / r.norm()).item()
+
+    with torch.no_grad():
+        out, lse = fc.flash_core_fwd(q, k, v, heads, scale, residuals=True)
+        got = (out, *fc.flash_core_bwd(q, k, v, heads, scale, g, out, lse))
+        plain = (fc.flash_core_fwd_plain(q, k, v, heads, scale), *fc.flash_core_bwd_plain(q, k, v, heads, scale, g))
+        q, k, v, g = (x.double() for x in (q, k, v, g))
+        ref = (fc.flash_core_fwd_plain(q, k, v, heads, scale), *fc.flash_core_bwd_plain(q, k, v, heads, scale, g))
+    return {n: (rel(a, r), rel(p, r)) for n, a, p, r in zip(("out", "dq", "dk", "dv"), got, plain, ref)}
+
+
 def main():
     import torch
 
@@ -100,6 +120,7 @@ def main():
     ap.add_argument("--label", default="")
     ap.add_argument("--digest", action="store_true", help="print a digest of each kernel's outputs")
     ap.add_argument("--configs", nargs="*", help=f"time only these of {list(CONFIGS)}")
+    ap.add_argument("--fp64", action="store_true", help="print fp32 flash_core's error against fp64")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels needs a CUDA card")
@@ -148,6 +169,11 @@ def main():
                         bwd = time_ms(lambda: fc.flash_core_bwd(qq, kk, vv, H, C**-0.5, gg, out, lse))
                         kernels = ("flash_core_fwd", "flash_core_bwd")
                         grads = fc.flash_core_bwd(qq, kk, vv, H, C**-0.5, gg, out, lse) if opts.digest else None
+                if opts.fp64 and dtype == torch.float32 and not enc.attn.is_gta:
+                    errors = flash_fp64_errors(fc, *(x[:2].contiguous() for x in (q, k, v, g)), H, C**-0.5)
+                    print(f"fp64 {opts.label} flash_core {tag}[:2]: relative L2, kernel / plain fp32: "
+                          + ", ".join(f"{n} {a:.3e} / {b:.3e}" for n, (a, b) in errors.items()), flush=True)
+                    results[f"fp64 flash_core {tag}"] = errors
                 if opts.digest:
                     for kernel, outputs in zip(kernels, (first, grads)):
                         print(f"digest {kernel} {tag}: {digest(outputs)}", flush=True)

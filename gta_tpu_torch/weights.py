@@ -3,8 +3,11 @@ state_dict.
 
 The port names its parameters after the reference PyTorch implementation's
 state_dict keys, so the map is the reference key map: `flax_path_to_torch_key`
-is the port's own copy of the JAX package's utils/ref_import.py:223 mapping
-(the cases the flagship and SRT models reach). Orientation: Dense kernels
+is the port's own copy of the JAX package's utils/ref_import.py:223-286
+mapping: every attention method's parameters (tau as `attend.tau`, rpe's
+q/k/v_bias, gbt's geo_weights, ape/mln's linear*, repast's to_q/to_k/to_v,
+elementwise_mul's rep_to_vec), the encoder's lin_ray, frustum_phi.{0,2}
+and FTL's top-level trans_coeff. Orientation: Dense kernels
 [in, out] -> Linear weights [out, in]; Conv kernels HWIO -> OIHW; the fused
 to_qkv column order q|k|v carries over unchanged. No so3 basis change is
 applied: the port's reps use the JAX package's basis as it is.
@@ -24,40 +27,34 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
     out = []
     n = len(path)
     for i, t in enumerate(path):
+        leaf = "weight" if i + 1 < n and path[i + 1] in ("kernel", "scale") else "bias"
         if t.startswith("conv") and t[4:].isdigit() and i + 2 < n:
             j = int(path[i + 1].split("_")[1])  # Conv_{j}
             return ".".join(out + [f"conv_blocks.{t[4:]}.layers.{2 * j}.weight"])
         if t.startswith("norm_attn_") or t.startswith("norm_ff_"):
             which = 0 if t.startswith("norm_attn_") else 1
-            idx = t.rsplit("_", 1)[1]
-            leaf = "weight" if path[i + 1] == "scale" else "bias"
-            return ".".join(out + [f"layers.{idx}.{which}.norm.{leaf}"])
+            return ".".join(out + [f"layers.{t.rsplit('_', 1)[1]}.{which}.norm.{leaf}"])
         if t.startswith("attn_"):
             idx = t[len("attn_"):]
             sub = list(path[i + 1 :])
+            if sub == ["tau"]:  # the adjustable softmax's temperature
+                return ".".join(out + [f"layers.{idx}.0.fn.attend.tau"])
             if sub[0] == "to_out":  # Sequential(linear, dropout)
-                leaf = "weight" if sub[1] == "kernel" else "bias"
-                return ".".join(out + [f"layers.{idx}.0.fn.to_out.0.{leaf}"])
+                return ".".join(out + [f"layers.{idx}.0.fn.to_out.0.{'weight' if sub[1] == 'kernel' else 'bias'}"])
             if sub[-1] in ("kernel", "bias"):
-                leaf = "weight" if sub[-1] == "kernel" else "bias"
-                return ".".join(out + [f"layers.{idx}.0.fn"] + sub[:-1] + [leaf])
-            return ".".join(out + [f"layers.{idx}.0.fn"] + sub)  # trans_coeff
+                return ".".join(out + [f"layers.{idx}.0.fn"] + sub[:-1] + ["weight" if sub[-1] == "kernel" else "bias"])
+            return ".".join(out + [f"layers.{idx}.0.fn"] + sub)  # trans_coeff, *_bias, geo_weights
         if t.startswith("ff_"):
-            idx = t[len("ff_"):]
             dense = {"Dense_0": "0", "Dense_1": "3"}[path[i + 1]]
             leaf = "weight" if path[i + 2] == "kernel" else "bias"
-            return ".".join(out + [f"layers.{idx}.1.fn.net.{dense}.{leaf}"])
-        if t.startswith("input_mlp"):
-            j = int(t[len("input_mlp"):])
-            leaf = "weight" if path[i + 1] == "kernel" else "bias"
-            return ".".join(out + [f"input_mlp.{2 * j}.{leaf}"])
+            return ".".join(out + [f"layers.{t[len('ff_'):]}.1.fn.net.{dense}.{leaf}"])
+        for stem, step in (("input_mlp", 2), ("frustum_phi", 2), ("render_mlp", 2)):
+            if t.startswith(stem) and t[len(stem):].isdigit():
+                return ".".join(out + [f"{stem}.{step * int(t[len(stem):])}.{leaf}"])
         if t == "render_mlp_out":
-            leaf = "weight" if path[i + 1] == "kernel" else "bias"
             return ".".join(out + [f"render_mlp.8.{leaf}"])
-        if t.startswith("render_mlp"):
-            j = int(t[len("render_mlp"):])
-            leaf = "weight" if path[i + 1] == "kernel" else "bias"
-            return ".".join(out + [f"render_mlp.{2 * j}.{leaf}"])
+        if t == "ftl_trans_coeff":
+            return "trans_coeff"
         if i == n - 1 and t in ("kernel", "bias"):
             return ".".join(out + ["weight" if t == "kernel" else "bias"])
         out.append(t)

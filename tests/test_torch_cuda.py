@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions
 and fp64: the fused GTA forward and backward, and flash_core forward and
-backward, each in its fp32 instance and its bf16 one (the bf16 instances
-held to 1.5x the error of the TPU kernel's rounding, the plain version with
-mxu_dtype=bf16).
+backward, each in its fp32 instance and its bf16 one, at head widths 64 and
+96 (the bf16 instances held to 1.5x the error of the TPU kernel's rounding,
+the plain version with mxu_dtype=bf16).
 
 A CUDA kernel has no CPU mode, so every test here is marked `cuda` and skips
 without a card. The file imports only torch, numpy and the port, so it runs
@@ -865,3 +865,221 @@ def test_uncovered_dtypes_raise(rng, cuda_device):
         with pytest.raises(ValueError, match="contiguous fp32"):
             fc.flash_core_fwd(q.to(BF), k.float(), v.float(), H, SCALE)
     assert counts() == before
+
+
+# flash_core at head width 96 (msn gta_t2: 8 heads of 96 after the sliced
+# GTA transforms): fp32 on attn_core.cuh, bf16 on attn_sm90.cuh with 64-key
+# tiles
+H96, C96 = 4, 96
+SCALE96 = C96**-0.5
+
+
+def _flash96(device, tq, tk, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((B, t, H96 * C96), generator=gen, device=device) for t in (tq, tk, tk, tq)]
+
+
+def _flash96_run(q, k, v, g):
+    """Both kernels' outputs (out, lse, dq, dk, dv) on q, k, v, g, one
+    launch each."""
+    bf16 = q.dtype == BF
+    count = lambda: (fc.flash_core_fwd.launches_bf16, fc.flash_core_bwd.launches_bf16) if bf16 else (  # noqa: E731
+        fc.flash_core_fwd.launches, fc.flash_core_bwd.launches)
+    before = count()
+    out, lse = fc.flash_core_fwd(q, k, v, H96, SCALE96, residuals=True)
+    grads = fc.flash_core_bwd(q, k, v, H96, SCALE96, g, out, lse)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(count(), before)) == (1, 1)
+    return out, lse, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 601])
+@pytest.mark.parametrize("tk", [1, 33, 2100])
+def test_flash_core_c96_kernels_match_plain_at_edge_shapes(cuda_device, tq, tk):
+    """The fp32 instances at head width 96 on the C = 64 edge shapes: the
+    forward and its log-sum-exp within atol 1e-4, each backward output
+    within 1e-4 * max(1, max|plain|)."""
+    q, k, v, g = _flash96(cuda_device, tq, tk, seed=20)
+    with torch.no_grad():
+        out, lse, grads = _flash96_run(q, k, v, g)
+        want, want_lse = fc.flash_core_fwd_plain(q, k, v, H96, SCALE96, lse=True)
+        want_grads = fc.flash_core_bwd_plain(q, k, v, H96, SCALE96, g)
+    assert (out - want).abs().max().item() <= 1e-4
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want_grads):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk", [(1280, 1280), (2560, 1280)], ids=["encoder", "decoder"])
+def test_flash_core_c96_error_against_fp64(cuda_device, tq, tk):
+    """The fp32 instances at head width 96 at msn's encoder and decoder
+    shapes against fp64: out, lse, dq, dk, dv within 1e-5 relative L2."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _flash96(cuda_device, tq, tk, seed=21)
+    with torch.no_grad():
+        out, lse, grads = _flash96_run(q, k, v, g)
+        q64, k64, v64, g64 = (x.double() for x in (q, k, v, g))
+        ref_out, ref_lse = fc.flash_core_fwd_plain(q64, k64, v64, H96, SCALE96, lse=True)
+        ref = fc.flash_core_bwd_plain(q64, k64, v64, H96, SCALE96, g64)
+    for name, a, r in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads), (ref_out, ref_lse, *ref)):
+        assert _rel(a, r) <= 1e-5, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,common", [(1280, 1280, 0.0), (2560, 1280, 0.0), (2560, 1280, 8.0)],
+                         ids=["self", "cross", "cross-common-component"])
+def test_flash_core_c96_bf16_error_against_fp64(cuda_device, tq, tk, common):
+    """The bf16 instances at head width 96 against fp64 on the same bf16
+    inputs, also with keys and values that share a component of 8x their
+    spread: out, dq, dk, dv within 1.5x the relative L2 error of the bf16
+    emulation (the TPU kernel's rounding)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _flash96(cuda_device, tq, tk, seed=22)
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    k = k + common * torch.randn((B, 1, H96 * C96), generator=gen, device=cuda_device)
+    v = v + common * torch.randn((B, 1, H96 * C96), generator=gen, device=cuda_device)
+    q, k, v, g = (x.to(BF) for x in (q, k, v, g))
+    with torch.no_grad():
+        out, _, grads = _flash96_run(q, k, v, g)
+        assert all(x.dtype == BF for x in (out, *grads))
+        emu = (fc.flash_core_fwd_plain(q, k, v, H96, SCALE96, mxu_dtype=BF),
+               *fc.flash_core_bwd_plain(q, k, v, H96, SCALE96, g, mxu_dtype=BF))
+        q64, k64, v64, g64 = (x.double() for x in (q, k, v, g))
+        ref = (fc.flash_core_fwd_plain(q64, k64, v64, H96, SCALE96),
+               *fc.flash_core_bwd_plain(q64, k64, v64, H96, SCALE96, g64))
+    names = ("out", "dq", "dk", "dv")
+    _assert_bf16_rule({n: _rel(a, r) for n, a, r in zip(names, (out, *grads), ref)},
+                      {n: _rel(a, r) for n, a, r in zip(names, emu, ref)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 63, 64, 65, 127, 129, 601])
+@pytest.mark.parametrize("tk", [1, 33, 63, 64, 65, 127, 129, 2100])
+def test_flash_core_c96_bf16_kernels_at_edge_shapes(cuda_device, tq, tk):
+    """The bf16 instances at head width 96 one row short of, at and past
+    their 64-row tiles and 128-row blocks, and at the edge shapes: every
+    output within max(1.5x the bf16 emulation's relative L2 error against
+    fp64, 2^-8)."""
+    q, k, v, g = (x.to(BF) for x in _flash96(cuda_device, tq, tk, seed=24))
+    with torch.no_grad():
+        out, _, grads = _flash96_run(q, k, v, g)
+        emu = (fc.flash_core_fwd_plain(q, k, v, H96, SCALE96, mxu_dtype=BF),
+               *fc.flash_core_bwd_plain(q, k, v, H96, SCALE96, g, mxu_dtype=BF))
+        q64, k64, v64, g64 = (x.double() for x in (q, k, v, g))
+        ref = (fc.flash_core_fwd_plain(q64, k64, v64, H96, SCALE96),
+               *fc.flash_core_bwd_plain(q64, k64, v64, H96, SCALE96, g64))
+    for name, a, e, r in zip(("out", "dq", "dk", "dv"), (out, *grads), emu, ref):
+        assert _rel(a, r) <= max(1.5 * _rel(e, r), BF16_ULP), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["fp32", "bf16"])
+def test_flash_core_c96_bwd_is_deterministic(cuda_device, dtype):
+    """Two backward launches at head width 96 on the same inputs give
+    bit-identical outputs."""
+    q, k, v, g = (x.to(dtype) for x in _flash96(cuda_device, 601, 1280, seed=25))
+    with torch.no_grad():
+        out, lse = fc.flash_core_fwd(q, k, v, H96, SCALE96, residuals=True)
+        first = fc.flash_core_bwd(q, k, v, H96, SCALE96, g, out, lse)
+        second = fc.flash_core_bwd(q, k, v, H96, SCALE96, g, out, lse)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+# the bf16 instances writing fp32 (GTA's sliced path under bf16: the TPU
+# kernel takes the transforms' fp32 rows, rounds its product operands to
+# bf16 and writes out, dq, dk, dv in fp32, gta_tpu/ops/flash_core.py:145,
+# :168-174)
+WIDTHS = {64: (H, C), 96: (H96, C96)}
+
+
+def _wide_inputs(device, width, tq, tk, seed):
+    heads, c = WIDTHS[width]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((B, t, heads * c), generator=gen, device=device).to(BF) for t in (tq, tk, tk, tq)]
+
+
+def _wide_errors(q, k, v, g, heads, scale):
+    """({output: the fp32-writing bf16 instance's relative L2 error against
+    fp64}, {output: the bf16 emulation's, fp32 out}); one launch of each
+    kernel, every output fp32."""
+    f32 = torch.float32
+    before = (fc.flash_core_fwd.launches_bf16, fc.flash_core_bwd.launches_bf16)
+    out, lse = fc.flash_core_fwd(q, k, v, heads, scale, residuals=True, out_dtype=f32)
+    grads = fc.flash_core_bwd(q, k, v, heads, scale, g, out, lse, out_dtype=f32)
+    torch.cuda.synchronize()
+    assert (fc.flash_core_fwd.launches_bf16 - before[0], fc.flash_core_bwd.launches_bf16 - before[1]) == (1, 1)
+    assert all(x.dtype == f32 for x in (out, *grads))
+    emu = (fc.flash_core_fwd_plain(q, k, v, heads, scale, mxu_dtype=BF, out_dtype=f32),
+           *fc.flash_core_bwd_plain(q, k, v, heads, scale, g, mxu_dtype=BF, out_dtype=f32))
+    q64, k64, v64, g64 = (x.double() for x in (q, k, v, g))
+    ref = (fc.flash_core_fwd_plain(q64, k64, v64, heads, scale), *fc.flash_core_bwd_plain(q64, k64, v64, heads, scale, g64))
+    names = ("out", "dq", "dk", "dv")
+    return ({n: _rel(a, r) for n, a, r in zip(names, (out, *grads), ref)},
+            {n: _rel(a, r) for n, a, r in zip(names, emu, ref)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,tq,tk", [(64, 2560, 600), (96, 1280, 1280), (96, 2560, 1280)],
+                         ids=["c64-cross", "c96-self", "c96-cross"])
+def test_flash_core_bf16_fp32_out_error_against_fp64(cuda_device, width, tq, tk):
+    """The bf16 instances writing fp32, at CLEVR-TR's decoder and msn's
+    encoder and decoder shapes, against fp64 on the same bf16 inputs: out,
+    dq, dk, dv within 1.5x the relative L2 error of the bf16 emulation with
+    fp32 outputs; and rounded to bf16, bit for bit the bf16 outputs of the
+    same instance (one accumulator, two stores)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    heads, c = WIDTHS[width]
+    q, k, v, g = _wide_inputs(cuda_device, width, tq, tk, seed=30)
+    with torch.no_grad():
+        errs, emu = _wide_errors(q, k, v, g, heads, c**-0.5)
+        wide, lse = fc.flash_core_fwd(q, k, v, heads, c**-0.5, residuals=True, out_dtype=torch.float32)
+        narrow, _ = fc.flash_core_fwd(q, k, v, heads, c**-0.5, residuals=True)
+        wide_grads = fc.flash_core_bwd(q, k, v, heads, c**-0.5, g, wide, lse, out_dtype=torch.float32)
+        narrow_grads = fc.flash_core_bwd(q, k, v, heads, c**-0.5, g, narrow, lse)
+    _assert_bf16_rule(errs, emu)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (wide, *wide_grads), (narrow, *narrow_grads)):
+        assert torch.equal(a.to(BF), b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 96])
+@pytest.mark.parametrize("tq", [1, 65, 601])
+@pytest.mark.parametrize("tk", [1, 33, 129, 2100])
+def test_flash_core_bf16_fp32_out_at_edge_shapes(cuda_device, width, tq, tk):
+    """The bf16 instances writing fp32 at edge and tile-boundary shapes:
+    every output within max(1.5x the bf16 emulation's relative L2 error
+    against fp64, 2^-8)."""
+    heads, c = WIDTHS[width]
+    q, k, v, g = _wide_inputs(cuda_device, width, tq, tk, seed=31)
+    with torch.no_grad():
+        errs, emu = _wide_errors(q, k, v, g, heads, c**-0.5)
+    for name, err in errs.items():
+        assert err <= max(1.5 * emu[name], BF16_ULP), (name, errs, emu)
+
+
+@pytest.mark.cuda
+def test_flash_core_bf16_products_on_fp32_rows_through_autograd(cuda_device):
+    """flash_core(..., mxu_dtype=bf16) on fp32 operands that require grad
+    (GTA's sliced path under bf16): one launch of each bf16 instance, the
+    output and the gradients fp32 and equal to the fp32-writing instance's
+    on the operands and the cotangent rounded to bf16."""
+    q, k, v, g = (x.float() for x in _wide_inputs(cuda_device, 96, 601, 1280, seed=32))
+    g = g + 1e-3 * torch.randn_like(g)  # a cotangent that is not on the bf16 grid
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fc.flash_core_fwd.launches_bf16, fc.flash_core_bwd.launches_bf16, fc.flash_core_fwd.launches)
+    out = fc.flash_core(*leaves, H96, SCALE96, mxu_dtype=BF)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (fc.flash_core_fwd.launches_bf16 - before[0], fc.flash_core_bwd.launches_bf16 - before[1],
+            fc.flash_core_fwd.launches - before[2]) == (1, 1, 0)
+    assert out.dtype == torch.float32 and all(x.grad.dtype == torch.float32 for x in leaves)
+    with torch.no_grad():
+        rq, rk, rv = (x.to(BF) for x in (q, k, v))
+        want, lse = fc.flash_core_fwd(rq, rk, rv, H96, SCALE96, residuals=True, out_dtype=torch.float32)
+        want_grads = fc.flash_core_bwd(rq, rk, rv, H96, SCALE96, g.to(BF), want, lse, out_dtype=torch.float32)
+    assert torch.equal(out.detach(), want)
+    for name, x, w in zip(("dq", "dk", "dv"), leaves, want_grads):
+        assert torch.equal(x.grad, w), name

@@ -23,7 +23,7 @@ SMALL = dict(dataset="synthetic", height=32, width=48, downsample=1, num_points=
 def _pair(mode="val", full_scale=False, seed=0, **over):
     kw = {**SMALL, **over}
     return (
-        SyntheticScenes(DataConfig(**kw), mode, full_scale=full_scale, seed=seed),
+        SyntheticScenes(DataConfig(**kw), mode, full_scale=full_scale, seed=seed, use_native=False),
         JSyntheticScenes(JDataConfig(**kw), mode, full_scale=full_scale, seed=seed, use_native=False),
     )
 

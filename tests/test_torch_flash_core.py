@@ -100,3 +100,43 @@ def test_non_cuda_devices_raise_naming_the_device():
         fc.flash_core_fwd(q, q, q, H, SCALE)
     with pytest.raises(NotImplementedError, match="no flash_core kernel for device meta"):
         fc.flash_core_bwd(q, q, q, H, SCALE, q, q, torch.empty(B, H, 5, device="meta"))
+
+
+def test_bf16_operands_with_fp32_outputs_on_the_cpu(rng):
+    """out_dtype=fp32 on bf16 operands (the bf16 instances' fp32 outputs,
+    GTA's sliced path) takes the plain versions on CPU tensors: fp32
+    results equal to the fp32 arithmetic on the bf16 values. Other pairings
+    of operand and output dtypes have no instance and raise."""
+    bf = torch.bfloat16
+    q, k, v, g = (_tokens(x).to(bf) for x in _inputs(rng, 37, 45))
+    out, lse = fc.flash_core_fwd(q, k, v, H, SCALE, residuals=True, out_dtype=torch.float32)
+    grads = fc.flash_core_bwd(q, k, v, H, SCALE, g, out, lse, out_dtype=torch.float32)
+    want = fc.flash_core_fwd_plain(*(x.float() for x in (q, k, v)), H, SCALE)
+    want_grads = fc.flash_core_bwd_plain(*(x.float() for x in (q, k, v)), H, SCALE, g.float())
+    assert out.dtype == torch.float32 and all(x.dtype == torch.float32 for x in grads)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-7)
+    for a, b, name in zip(grads, want_grads, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-7, err_msg=name)
+    with pytest.raises(ValueError, match="no instance writes"):
+        fc.flash_core_fwd(q.float(), k.float(), v.float(), H, SCALE, out_dtype=bf)
+    with pytest.raises(ValueError, match="no instance writes"):
+        fc.flash_core_bwd(q, k, v, H, SCALE, g, out, lse, out_dtype=torch.float16)
+
+
+def test_bf16_products_on_fp32_rows_compute_as_interpret_mode_on_the_cpu(rng):
+    """flash_core(..., mxu_dtype=bf16) on fp32 CPU tensors: the plain
+    versions in fp32, as the JAX kernel's interpret mode computes (its
+    mxu_dtype is fp32 there): the output and gradients equal those of
+    mxu_dtype None, in fp32, and match the JAX kernel on the same rows."""
+    q, k, v, g = _inputs(rng, 48, 600)
+    got = [_tokens(x).requires_grad_() for x in (q, k, v)]
+    ref = [_tokens(x).requires_grad_() for x in (q, k, v)]
+    out = fc.flash_core(*got, H, SCALE, mxu_dtype=torch.bfloat16)
+    out.backward(_tokens(g))
+    want = fc.flash_core(*ref, H, SCALE)
+    want.backward(_tokens(g))
+    assert out.dtype == torch.float32 and torch.equal(out, want)
+    for a, b in zip(got, ref):
+        assert a.grad.dtype == torch.float32 and torch.equal(a.grad, b.grad)
+    j_out = j_flash_core(*(jnp.asarray(x) for x in (q, k, v)), SCALE, True)
+    np.testing.assert_allclose(_heads(out), np.asarray(j_out), atol=FWD_ATOL)

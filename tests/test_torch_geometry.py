@@ -162,15 +162,35 @@ def test_blockdiag_tables(rng, fd, nf):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(f_dims=FDims(se3=16, so3=16, t2=6), so3=2),  # so3 is ported (tests/test_torch_so3.py), t2 is not
+    dict(f_dims=FDims(se3=16, so3=16, t2=6), so3=2),
     dict(f_dims=FDims(triv=2, se3=16, t2=6)),
     dict(f_dims=FDims(se3=16, so2=8), so2=2, ray_to_se3=True),
     dict(f_dims=FDims(se3=16, so2=8), so2=2, elementwise_mul=True),
 ])
 def test_unported_reps_raise(rng, kw):
-    ic, itf, _, _ = _geometry(rng)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encoder_reps(GTAArgs(**kw), _t(ic), _t(itf))
+    """The rep mixes that raised before the other attention methods were
+    ported (t2, per-token SE(3) from ray_to_se3, elementwise_mul's
+    flattened reps) now build, and every table of the encoder's and the
+    decoder's GeomReps matches the JAX package's."""
+    import dataclasses
+
+    from gta_tpu.config import GTAArgs as JArgs
+
+    jkw = dict(kw, f_dims=JFDims(**dataclasses.asdict(kw["f_dims"])))
+    ic, itf, tc, ttf = _geometry(rng)
+    irays = rng.randn(*ic.shape[:3], 3).astype(np.float32)
+    trays = rng.randn(*tc.shape[:3], 3).astype(np.float32)
+    jenc = j_encoder_reps(JArgs(**jkw), jnp.asarray(ic), jnp.asarray(itf), jnp.asarray(irays))
+    tenc = encoder_reps(GTAArgs(**kw), _t(ic), _t(itf), _t(irays))
+    jdec = j_decoder_reps(JArgs(**jkw), jnp.asarray(tc), jnp.asarray(ttf), jnp.asarray(trays), jnp.asarray(ic),
+                          jnp.asarray(itf), jnp.asarray(irays), jenc)
+    tdec = decoder_reps(GTAArgs(**kw), _t(tc), _t(ttf), _t(trays), _t(ic), _t(itf), _t(irays), tenc)
+    for treps, jreps in ((tenc, jenc), (tdec, jdec)):
+        for f in dataclasses.fields(treps):
+            t, j = getattr(treps, f.name), getattr(jreps, f.name)
+            assert (t is None) == (j is None), f.name
+            for a, b in zip(*((t, j) if isinstance(t, tuple) else ((t,), (j,)))) if t is not None else ():
+                _close(a, b)
 
 
 def test_downsample_grid(rng):

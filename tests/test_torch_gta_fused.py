@@ -155,12 +155,16 @@ def test_subblocked_large_view(rng, monkeypatch):
 
 
 def test_uncovered_calls_raise(rng):
-    _, targs = _args("clevr")
+    """The fused kernels take no call they do not cover: euclid_sim and
+    t2 reps raise, naming the dispatch that routes them
+    (ops/gta_pallas.fused_gta_attention: the sliced transforms, then
+    flash_core or torch eager)."""
     _, treps = _reps(rng, *_args("clevr"), nv=2, tpv=8)
     q, k, v = (_t(x) for x in _qkv(rng, 64, 16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="gta_pallas"):
         _fused(q, k, v, treps, GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8, euclid_sim=True), None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encoder_reps(GTAArgs(f_dims=FDims(triv=2, se3=16, t2=6)), torch.zeros(B, 2, 8, 2),
-                     torch.eye(4).expand(B, 2, 4, 4))
+    t2_args = GTAArgs(f_dims=FDims(triv=2, se3=32, t2=30))
+    t2_reps = encoder_reps(t2_args, torch.rand(B, 2, 8, 2), torch.eye(4).expand(B, 2, 4, 4))
+    with pytest.raises(ValueError, match="gta_pallas"):
+        _fused(q, k, v, t2_reps, t2_args, None)
 

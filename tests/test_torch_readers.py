@@ -478,7 +478,8 @@ class _Stream:
 
 def test_iterable_loader_batches_the_stream_in_jax_order():
     kw = dict(dataset="synthetic", height=16, width=24, num_points=16, downsample_input_coord=2)
-    ours = Loader(_Stream(DataConfig(**kw), 11), 3)
+    ours = Loader(_Stream(DataConfig(**kw), 11, lambda c, m, max_len: SyntheticScenes(
+        c, m, max_len=max_len, use_native=False)), 3)
     theirs = JLoader(_Stream(JDataConfig(**kw), 11, lambda c, m, max_len: JSyntheticScenes(
         c, m, max_len=max_len, use_native=False)), 3, num_workers=1)
     assert len(ours) == len(theirs) == 3

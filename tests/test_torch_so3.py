@@ -201,7 +201,7 @@ def test_synthetic_scenes_match_jax_at_msn_shapes():
     assert (cfg.height, cfg.width, cfg.num_input_views, cfg.num_target_views, cfg.num_views) == (128, 128, 5, 5, 10)
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     kw["dataset"] = "synthetic"
-    ours = SyntheticScenes(DataConfig(**kw), "train")
+    ours = SyntheticScenes(DataConfig(**kw), "train", use_native=False)
     theirs = JSyntheticScenes(JDataConfig(**kw), "train", use_native=False)
     got, want = ours[3], theirs[3]
     assert sorted(got) == sorted(want)
