@@ -5,10 +5,11 @@ Usage, from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Twenty-five configurations at full width and depth (but for msn_so3's fp32
-paths, below), random weights from the config's seed, synthetic scenes of
-each dataset's shapes (the host renderer, the default), and then (phase 6)
-batches the dataset readers make from files written here:
+Twenty-seven configurations at full width and depth (but for msn_so3's
+fp32 paths, below), random weights from the config's seed, synthetic scenes
+of each dataset's shapes (the host renderer, the default) or procedural
+images (the DiT), and then (phase 6) batches the dataset readers make from
+files written here:
   - GTA, the flagship (runs/clevrtr/GTA/gta): fused GTA attention in every
     layer (kernels gta_fused_fwd, gta_fused_bwd) at head width 64;
   - SRT, the baseline (runs/clevrtr/otherPEs/srt): plain softmax attention
@@ -44,7 +45,13 @@ batches the dataset readers make from files written here:
     repast, bf16) at batch VARIANT_BATCH: frustum_posemb through flash_core,
     ftl_rope's decoder through the fused GTA kernels (once per target
     view), every other attention in torch eager with no kernel, as JAX
-    computes them with XLA (`side_kernel`).
+    computes them with XLA (`side_kernel`);
+  - the DiT family as published (runs/imagenet/DiT; bf16, DiT-S/2: 32x32x3
+    images in patches of 2, 256 tokens, hidden 384, depth 12, 6 heads of
+    64, 1000 classes, T = 1000, batch 256): dit_gta's 2D GTA (triv 32 +
+    so2 32, rotor tables only, one view) through the bf16 fused GTA
+    kernels, dit_base (a frozen sin/cos table, plain attention) through the
+    bf16 flash_core kernels.
 The fp32 instances of all four kernels run one attention core
 (gta_tpu_torch/csrc/attn_core.cuh: a forward, a query pass and a key pass;
 3xTF32 mma.sync on the tensor cores, P*V, dP and dq taken about centre
@@ -185,6 +192,23 @@ Phases (any failure exits non-zero and prints no result line):
      RealEstate10K reader); in process, one evaluate each of the re10k SRT
      (bf16) and the CLEVR-TR SRT (fp32), the readers' non-transform
      branches, launch counts asserted.
+  4b. The DiT family (each config as published, the trainer's seeded
+     init): dit_kernel_phase, each bf16 instance at the DiT's shapes (the
+     train batch 256 forward and backward, the sampler's CFG batch 16
+     forward) as in phase 2's bf16 rule, against plain and fp64;
+     dit_path_phase through DiTTrainer: a cold and 3 warm train_steps, 4
+     more fed by Loader(4 worker threads, collate_images) with the wait on
+     the loader beside each step, evaluate on two val batches of 64, and
+     sample of 8 labels (CFG, guidance 4, 50 DDIM steps), every path's
+     launch counts asserted (12 forward + 12 backward of its kernel per
+     train step, 12 forward per evaluated batch and per sampler step, none
+     of any other instance); dit_card_vs_cpu_phase, B=2 outputs at nonzero
+     random weights, the card's bf16 within 1.5x the emulated TPU
+     rounding's gap from the CPU's fp32; dit_cli_phase, `python -m
+     gta_tpu_torch.train_dit` at batch 256 with --samplenow: dit_gta 2
+     steps, then resumed for a third, then `python -m
+     gta_tpu_torch.scripts.eval_dit_samples --per-class 1` on the run;
+     dit_base one step (the run's time).
   7. One JSON line of kernel numbers, an entry per kernel instance (fp32
      and bf16, launches by path, the attention core it runs and that core's
      ptxas registers and spills in its library), then the device JSON as
@@ -221,6 +245,9 @@ OTHER_METHODS = ("clevrtr/GTA/gta_euclid", "clevrtr/otherPEs/elementwise_mul", "
                  "clevrtr/otherPEs/mln", "clevrtr/otherPEs/gbt", "clevrtr/otherPEs/repast",
                  "clevrtr/otherPEs/repast_cnoise0.1", "clevrtr/otherPEs/rpe", "clevrtr/otherPEs/frustum_posemb_dmax20",
                  "clevrtr/otherPEs/ftl_rope", "msn/GTA/gta_so3_euclid", "msn/otherPEs/repast")
+# the DiT family (runs/imagenet/DiT): DiT-S/2 with 2D GTA and the stock baseline
+DIT_GTA_CONFIG = os.path.join(ROOT, "runs", "imagenet", "DiT", "dit_gta", "config.yaml")
+DIT_BASE_CONFIG = os.path.join(ROOT, "runs", "imagenet", "DiT", "dit_base", "config.yaml")
 # the other msn GTA variants: no value transform, shared frequencies, an
 # SO(2)-only and an SE(3)-only encoder (their decoders recompute so2)
 MSN_VARIANTS = ("gta_novtrnsfm", "gta_sharedfreqs", "gta_no3demb", "gta_no2demb")
@@ -770,7 +797,7 @@ def bf16_rule(kind, label, got, emu, ref, names):
     return errs
 
 
-def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=None, flash=False):
+def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=None, flash=False, geometry=None):
     """The bf16 instances of a config's kernels (fused GTA for msn_so3 and
     CLEVR-TR gta under --bf16, flash_core for the MSN SRT baseline) at its
     shapes (`names` of them, all by default): encoder self-attention and
@@ -785,7 +812,10 @@ def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=
     {shape: bwd numbers}). With `flash`, flash_core's instances at a GTA
     config's shapes (msn gta_t2's attention after its sliced transforms),
     as that path calls them: bf16 operands, the output and gradients in
-    fp32 (ops/gta_pallas.py)."""
+    fp32 (ops/gta_pallas.py). `geometry` (heads, head width, shapes) gives
+    the shapes of a model that is no NVS config (the DiT) in place of
+    `cfg`'s: GTA calls as `gta_calls` returns them, or (with `flash`)
+    flash_core shapes as `srt_shapes` does, taken as bf16 rows."""
     import torch
     import torch.nn.functional as F
 
@@ -794,16 +824,20 @@ def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=
     from gta_tpu_torch.ops.gta import gta_transform_qkv
 
     bf = torch.bfloat16
-    enc = cfg.model.encoder
-    H, C = enc.heads, enc.attdim // enc.heads
+    if geometry is None:
+        enc = cfg.model.encoder
+        H, C = enc.heads, enc.attdim // enc.heads
+        gta, sliced = enc.attn.is_gta and not flash, enc.attn.is_gta
+    else:
+        H, C, given = geometry
+        gta, sliced = not flash, False
     scale = C**-0.5
-    gta = enc.attn.is_gta and not flash
     if gta:
-        calls = gta_calls(cfg, device, batch, prefix=prefix)
+        calls = gta_calls(cfg, device, batch, prefix=prefix) if geometry is None else given
         shapes = {name: (B, Tq, Tk) for name, (_, _, B, Tq, Tk) in calls.items() if names is None or name in names}
         tc = torch.tensor([0.01], device=device).to(bf)
     else:
-        shapes = {f"{prefix}{n}": v for n, v in srt_shapes(cfg, batch).items()}
+        shapes = {f"{prefix}{n}": v for n, v in (srt_shapes(cfg, batch) if geometry is None else given).items()}
     kind = "gta_fused" if gta else "flash_core"
     gen = torch.Generator(device=device).manual_seed(5)
     fwd, bwd = {}, {}
@@ -841,7 +875,7 @@ def bf16_kernel_phase(cfg, label, device, batch=MSN_BATCH, prefix="msn_", names=
             f_flops, f_bytes = fused_cost(t, B, H, Tq, Tk, C, elem=2)
             b_flops, b_bytes = bwd_cost(t, B, H, Tq, Tk, C, elem=2)
         else:
-            od = torch.float32 if enc.attn.is_gta else None  # GTA's sliced path: fp32 out and gradients
+            od = torch.float32 if sliced else None  # GTA's sliced path: fp32 out and gradients
 
             def run(q, k, v, g, mode):
                 if mode == "kernel":
@@ -1293,18 +1327,22 @@ MATS = ("mq", "mk", "mo")
 
 
 def swap_entries(gta, flash):
-    """Point the layers' attention entries at `gta` (the fused GTA kernels'
-    entry, behind ops/gta_pallas.fused_gta_attention) and `flash` (flash
-    attention, for method '' and behind the sliced GTA path); returns a
-    function that restores them."""
-    from gta_tpu_torch.models import layers
+    """Point the layers' attention entries (the NVS layers' and the DiT's)
+    at `gta` (the fused GTA kernels' entry, behind
+    ops/gta_pallas.fused_gta_attention) and `flash` (flash attention, for
+    method '' and behind the sliced GTA path); returns a function that
+    restores them."""
+    from gta_tpu_torch.models import dit, layers
     from gta_tpu_torch.ops import gta_pallas
 
-    saved = gta_pallas.fused_gta_attention_tokens, gta_pallas.flash_attention, layers.flash_attention
-    gta_pallas.fused_gta_attention_tokens, gta_pallas.flash_attention, layers.flash_attention = gta, flash, flash
+    saved = (gta_pallas.fused_gta_attention_tokens, gta_pallas.flash_attention, layers.flash_attention,
+             dit.flash_attention)
+    (gta_pallas.fused_gta_attention_tokens, gta_pallas.flash_attention, layers.flash_attention,
+     dit.flash_attention) = gta, flash, flash, flash
 
     def restore():
-        gta_pallas.fused_gta_attention_tokens, gta_pallas.flash_attention, layers.flash_attention = saved
+        (gta_pallas.fused_gta_attention_tokens, gta_pallas.flash_attention, layers.flash_attention,
+         dit.flash_attention) = saved
     return restore
 
 
@@ -2204,6 +2242,235 @@ def disk_phase(gta_cfg, msn_gta, srt_cfg, paths):
     return out
 
 
+DIT_BATCH = 256  # the DiT configs' batch size
+DIT_VAL_BATCH = DIT_BATCH // 4  # the train CLI's val batches (train_dit.py)
+DIT_SAMPLE_LABELS = 8  # the sample grid's labels: 2 x 8 rows under CFG
+DIT_SAMPLE_STEPS = 50  # DDIM steps (the train CLI's default)
+DIT_GUIDANCE = 4.0
+DIT_LOADER_STEPS = 4  # warm steps fed by the loader's 4 worker threads
+
+
+def dit_kernel_phase(cfg, label, device):
+    """The DiT config's bf16 kernel instances at its shapes: self-attention
+    over one view of 16 x 16 patch tokens, 6 heads of 64, at the train
+    batch (forward with residuals, backward) and at the sampler's CFG batch
+    (2 x DIT_SAMPLE_LABELS, forward); the fused GTA kernels with dit_gta's
+    rotor-only tables (models/dit.grid_reps: no per-view matrix, a trivial
+    span beside the rotors), flash_core on raw bf16 rows for dit_base.
+    Numbers as bf16_kernel_phase's."""
+    from gta_tpu_torch.models.dit import grid_reps
+
+    m = cfg.model
+    T, sample_b = m.num_patches, 2 * DIT_SAMPLE_LABELS
+    names = {f"dit_train_b{DIT_BATCH}": DIT_BATCH, f"dit_sample_b{sample_b}": sample_b}
+    if m.attn.is_gta:
+        given = {n: (m.attn.gta, grid_reps(m, b, device), b, T, T) for n, b in names.items()}
+    else:
+        given = {n: (b, T, T) for n, b in names.items()}
+    return bf16_kernel_phase(None, label, device, prefix="", flash=not m.attn.is_gta,
+                             geometry=(m.heads, m.hidden_size // m.heads, given))
+
+
+def check_dit_launches(label, cfg, forwards, backwards):
+    """The launch counts since the last reset: `forwards` and `backwards` of
+    the instance the DiT config's attention launches (the fused GTA kernels
+    for method 'gta', flash_core for ''; bf16 under mixed_prec), none of any
+    other. Returns them."""
+    kernel = "gta_fused" if cfg.model.attn.is_gta else "flash_core"
+    suffix = "_bf16" if cfg.training.mixed_prec else ""
+    launches, want = launch_counts(), {name: 0 for name in launch_counts()}
+    want[f"{kernel}_fwd{suffix}"], want[f"{kernel}_bwd{suffix}"] = forwards, backwards
+    print(f"{label}: launches {launches}, expected {want}", flush=True)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    return launches
+
+
+def dit_path_phase(cfg, label):
+    """A published DiT config as it is (bf16, batch 256, the trainer's
+    seeded init) on the card, through its entry points (DiTTrainer):
+    train_step on procedural images, a cold step and TRAIN_RUNS warm ones
+    (CUDA-synchronised host time), then DIT_LOADER_STEPS steps fed by
+    Loader(4 worker threads, collate_images) with the wait on next(loader)
+    beside each step; evaluate on two val batches of DIT_VAL_BATCH; sample
+    of DIT_SAMPLE_LABELS labels (CFG, DDIM, DIT_SAMPLE_STEPS steps). Each
+    path's launch counts asserted: depth forward + depth backward launches
+    of its kernel per train step, depth forward per evaluated batch and per
+    sampler step, none of any other instance. Returns ({path: launches},
+    numbers)."""
+    import torch
+
+    from gta_tpu_torch.data.images import SyntheticImages, collate_images
+    from gta_tpu_torch.data.loader import Loader
+    from gta_tpu_torch.train.dit_trainer import DiTTrainer
+
+    m, depth = cfg.model, cfg.model.depth
+    trainer = DiTTrainer(cfg)  # default device: cuda
+    ds = SyntheticImages(m.input_size, m.num_classes, "train", cfg.data.num_images, cfg.seed)
+    made = [collate_images([ds[i] for i in range(n * DIT_BATCH, (n + 1) * DIT_BATCH)]) for n in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step_ms, losses = [], []
+    for n in range(1 + TRAIN_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.train_step(made[n % 2])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append([out[k].item() for k in ("loss", "mse", "vb")])
+    loader = Loader(ds, DIT_BATCH, shuffle=True, seed=cfg.seed, num_workers=cfg.training.num_workers,
+                    collate_fn=collate_images)
+    batches = iter(loader)
+    wait_ms, fed_ms = [], []
+    for _ in range(DIT_LOADER_STEPS):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        out = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wait_ms.append((t1 - t0) * 1e3)
+        fed_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append([out[k].item() for k in ("loss", "mse", "vb")])
+    batches.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = 1 + TRAIN_RUNS + DIT_LOADER_STEPS
+    paths = {"train": check_dit_launches(f"{label} train ({steps} steps)", cfg, depth * steps, depth * steps)}
+    finite = np.isfinite(losses).all() and all(bool(torch.isfinite(p.grad).all()) for p in trainer.model.parameters())
+    if not finite or out["grad_norm"].item() <= 0:
+        raise AssertionError(f"{label} train: losses {losses}, grad_norm {out['grad_norm'].item()}")
+    warm = float(np.median(step_ms[1:]))
+    print(f"{label} train: train_step B={DIT_BATCH} (loss, mse, vb)={losses} lr={out['lr']:.3e} "
+          f"grad_norm={out['grad_norm'].item():.6f} ms(cold)={step_ms[0]:.2f} ms(warm)=[{', '.join(f'{x:.2f}' for x in step_ms[1:])}] "
+          f"median_warm_ms={warm:.2f} images/s={DIT_BATCH / (warm / 1e3):.0f} peak_mem_gb={peak_gb:.2f}; loader-fed "
+          f"(4 workers): wait ms=[{', '.join(f'{x:.2f}' for x in wait_ms)}] step ms=[{', '.join(f'{x:.2f}' for x in fed_ms)}]",
+          flush=True)
+
+    val = SyntheticImages(m.input_size, m.num_classes, "val", 2 * DIT_VAL_BATCH, cfg.seed)
+    val_batches = [collate_images([val[i] for i in range(n * DIT_VAL_BATCH, (n + 1) * DIT_VAL_BATCH)]) for n in range(2)]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = trainer.evaluate(val_batches, seed=cfg.seed)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    paths["evaluate"] = check_dit_launches(f"{label} evaluate", cfg, 2 * depth, 0)
+    if sorted(ev) != ["loss", "mse", "vb"] or not np.isfinite(list(ev.values())).all():
+        raise AssertionError(f"{label} evaluate: {ev}")
+
+    labels = np.arange(DIT_SAMPLE_LABELS) % m.num_classes
+    trainer.sample(labels[:1], seed=1, steps=1, guidance=DIT_GUIDANCE)  # warm-up
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imgs = trainer.sample(labels, seed=0, steps=DIT_SAMPLE_STEPS, guidance=DIT_GUIDANCE)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    paths["sample"] = check_dit_launches(f"{label} sample", cfg, depth * DIT_SAMPLE_STEPS, 0)
+    if imgs.shape != (DIT_SAMPLE_LABELS, m.input_size, m.input_size, m.in_channels) or not (
+            np.isfinite(imgs).all() and imgs.min() >= -1.0 and imgs.max() <= 1.0):
+        raise AssertionError(f"{label} sample: shape {imgs.shape}, range {imgs.min()}..{imgs.max()}")
+    print(f"{label} evaluate: 2 batches of {DIT_VAL_BATCH} in {eval_ms:.2f} ms {json.dumps(ev)}; sample: "
+          f"{DIT_SAMPLE_LABELS} labels x {DIT_SAMPLE_STEPS} DDIM steps (CFG batch {2 * DIT_SAMPLE_LABELS}, guidance "
+          f"{DIT_GUIDANCE}) in {sample_ms:.2f} ms ({sample_ms / DIT_SAMPLE_STEPS:.3f} ms per step)", flush=True)
+    numbers = {"batch": DIT_BATCH, "median_warm_ms": warm, "cold_ms": step_ms[0], "warm_ms": step_ms[1:],
+               "images_per_s": DIT_BATCH / (warm / 1e3), "peak_mem_gb": peak_gb, "loader_wait_ms": wait_ms,
+               "loader_fed_step_ms": fed_ms, "median_loader_wait_ms": float(np.median(wait_ms)),
+               "evaluate_ms": eval_ms, "sample_ms": sample_ms, "sample_step_ms": sample_ms / DIT_SAMPLE_STEPS}
+    del trainer
+    torch.cuda.empty_cache()
+    return paths, numbers
+
+
+def dit_card_vs_cpu_phase(cfg, label):
+    """A DiT config's B=2 forward on the card against the same weights on
+    the CPU: every parameter redrawn nonzero (adaLN-Zero would give exact
+    zeros: N(0, 1/fan_in) weights, N(0, 0.1^2) biases, seed 0); the card's
+    bf16 output at most BF16_RULE x as far (relative L2) from the CPU's
+    fp32 one as the CPU's bf16 output with the TPU's rounding in the
+    attention (the plain versions with mxu_dtype=bf16), as
+    bf16_card_vs_cpu_phase holds the NVS configs. Returns (card vs CPU
+    fp32, emulation vs CPU fp32, card vs CPU bf16, CPU bf16 vs fp32)."""
+    import torch
+
+    from gta_tpu_torch.data.images import SyntheticImages, collate_images
+    from gta_tpu_torch.train.dit_trainer import DiTTrainer
+
+    gen = torch.Generator().manual_seed(0)
+    cpu32 = DiTTrainer(dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, mixed_prec=False)),
+                       device="cpu")
+    with torch.no_grad():
+        for name, p in cpu32.model.named_parameters():
+            std = 0.1 if name.endswith("bias") else p[0].numel() ** -0.5
+            p.copy_(torch.randn(p.shape, generator=gen) * std)
+    weights = cpu32.model.state_dict()
+    card, cpu16 = DiTTrainer(cfg), DiTTrainer(cfg, device="cpu")
+    for t in (card, cpu16):
+        t.model.load_state_dict(weights)
+    m = cfg.model
+    val = SyntheticImages(m.input_size, m.num_classes, "val", 2, cfg.seed)
+    x = torch.from_numpy(collate_images([val[0], val[1]])["image"])
+    t_, y = torch.tensor([10, 700]), torch.tensor([3, m.num_classes - 1])
+    with torch.no_grad():
+        out_card = card.model(x.cuda(), t_.cuda(), y.cuda()).cpu()
+        out16, out32 = cpu16.model(x, t_, y), cpu32.model(x, t_, y)
+        restore = swap_entries(functools.partial(plain_gta_attention, mxu_dtype=torch.bfloat16),
+                               functools.partial(plain_flash_attention, mxu_dtype=torch.bfloat16))
+        try:
+            out_emu = cpu16.model(x, t_, y)
+        finally:
+            restore()
+    card_err, emu_err = rel_l2(out_card, out32), rel_l2(out_emu, out32)
+    gap, own = rel_l2(out_card, out16), rel_l2(out16, out32)
+    print(f"{label} bf16: B=2 outputs, relative L2 against the CPU's fp32 ones: card {card_err:.3e}, CPU bf16 with "
+          f"the TPU's rounding {emu_err:.3e} (rule: at most {BF16_RULE}x), CPU bf16 {own:.3e}; card vs CPU bf16 "
+          f"{gap:.3e}", flush=True)
+    if not (torch.isfinite(out_card).all() and out32.abs().max() > 0.1 and card_err <= BF16_RULE * emu_err):
+        raise AssertionError(f"{label} bf16: card output {card_err} from fp32, above {BF16_RULE} x the emulated TPU "
+                             f"rounding's {emu_err}")
+    return card_err, emu_err, gap, own
+
+
+def dit_cli_phase(path, label, steps=2, resume=True, evaluate=True, sample_steps=10):
+    """The DiT CLIs as subprocesses into a temporary directory, at the
+    config's batch (256) through the loader's worker threads: `python -m
+    gta_tpu_torch.train_dit <config> --exit-after steps-1 --samplenow`
+    (the procedural fallback printed, a sample grid that decodes, the loss
+    printed, metrics.jsonl), optionally (`resume`) again to step `steps`,
+    which must resume; then (`evaluate`) `python -m
+    gta_tpu_torch.scripts.eval_dit_samples --per-class 1` on the run, whose
+    JSON line must hold JAX's fields with finite numbers and be written to
+    dit_sample_eval.json."""
+    from gta_tpu_torch.data.png import imread
+
+    with tempfile.TemporaryDirectory() as out:
+        base = ["gta_tpu_torch.train_dit", path, "--outdir", out, "--sample-steps", str(sample_steps)]
+        first = run_cli(base + ["--exit-after", str(steps - 1), "--samplenow"], f"{label} train_dit")
+        grid = imread(os.path.join(out, "samples_0.png"))
+        if ("No ImageNet datapath — falling back to procedural images." not in first or "it=0 loss=" not in first
+                or "Sample grid written: samples_0.png" not in first or grid.ndim != 3):
+            raise AssertionError(f"{label} train_dit: unexpected output\n{first}")
+        if resume:
+            second = run_cli(base + ["--exit-after", str(steps)], f"{label} train_dit resume")
+            if f"Resumed from checkpoint at it={steps}" not in second:
+                raise AssertionError(f"{label} train_dit did not resume:\n{second}")
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        if logged[0]["kind"] != "train" or not np.isfinite(logged[0]["loss"]):
+            raise AssertionError(f"{label} train_dit: metrics.jsonl {logged}")
+        if not evaluate:
+            return
+        log = run_cli(["gta_tpu_torch.scripts.eval_dit_samples", path, "--outdir", out, "--per-class", "1",
+                       "--steps", str(sample_steps), "--max-eval", "16"], f"{label} eval_dit_samples")
+        result = json.loads(log.strip().splitlines()[-2])
+        with open(os.path.join(out, "dit_sample_eval.json")) as f:
+            written = json.load(f)
+    keys = ["config", "it", "per_class_n", "sample_class_accuracy", "per_class_accuracy", "per_class_eval_loss",
+            "eval_loss_mean", "steps", "guidance"]
+    if (list(result) != keys or written != result or result["it"] != steps + resume
+            or len(result["per_class_accuracy"]) != 1000 or not np.isfinite(result["eval_loss_mean"])):
+        raise AssertionError(f"{label} eval_dit_samples: {result} (written {written})")
+    print(f"  {label} eval_dit_samples: it={result['it']} sample_class_accuracy={result['sample_class_accuracy']} "
+          f"eval_loss_mean={result['eval_loss_mean']}", flush=True)
+
+
 def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None):
     """One kernel instance's line in the kernels JSON: numbers at its main
     shape, launches by path, every shape's numbers, the attention core it
@@ -2327,6 +2594,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from gta_tpu_torch.config import FDims, GTAArgs, load_config
     from gta_tpu_torch.ops import _cuda
+    from gta_tpu_torch.train.dit_trainer import load_dit_config
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2426,6 +2694,19 @@ def main() -> int:
         paths[f"{key}_serving"], paths[f"{key}_train"], other[rel] = variant_phase(cfg, rel)
     card_vs_cpu = {label: bf16_card_vs_cpu_phase(cfg, label) for cfg, label in
                    ((msn_bf16, "msn_so3"), (msn_srt, "msn SRT"), (msn_t2, "msn gta_t2"))}
+    t_dit = time.perf_counter()
+    dit_cfgs = {"dit_gta": load_dit_config(DIT_GTA_CONFIG), "dit_base": load_dit_config(DIT_BASE_CONFIG)}
+    assert all(c.training.mixed_prec and c.training.batch_size == DIT_BATCH for c in dit_cfgs.values())
+    dit_kernels = {key: dit_kernel_phase(cfg, key, device) for key, cfg in dit_cfgs.items()}
+    dit_steps, dit_vs_cpu = {}, {}
+    for key, cfg in dit_cfgs.items():
+        launches, dit_steps[key] = dit_path_phase(cfg, key)
+        for path, counts in launches.items():
+            paths[f"{key}_{path}"] = counts
+        dit_vs_cpu[key] = dit_card_vs_cpu_phase(cfg, key)
+    dit_cli_phase(DIT_GTA_CONFIG, "dit_gta")
+    dit_cli_phase(DIT_BASE_CONFIG, "dit_base", steps=1, resume=False, evaluate=False, sample_steps=2)
+    print(f"DiT phases: {time.perf_counter() - t_dit:.1f} s", flush=True)
     gta_grad = grads_phase(gta_cfg, "GTA")
     srt_grad = grads_phase(srt_cfg, "SRT")
     msn_grad = grads_phase(msn_cut, "msn_so3 (1 + 1 blocks)")
@@ -2448,13 +2729,17 @@ def main() -> int:
         kernel_entry("flash_core_bwd", "gta_tpu/ops/flash_core.py:86", by_path("flash_core_bwd"),
                      "decoder_train_b32", {**flash_bwd, **flash96_bwd}, edge_bwd),
         kernel_entry("gta_fused_fwd_bf16", "gta_tpu/ops/gta_fused.py:209", by_path("gta_fused_fwd_bf16"),
-                     "msn_decoder_eval_b64", {**gta_bf16_fwd, **clevr_bf16_fwd}, 0.0, source="gta_fused_fwd"),
+                     "msn_decoder_eval_b64", {**gta_bf16_fwd, **clevr_bf16_fwd, **dit_kernels["dit_gta"][0]}, 0.0,
+                     source="gta_fused_fwd"),
         kernel_entry("gta_fused_bwd_bf16", "gta_tpu/ops/gta_fused.py:235", by_path("gta_fused_bwd_bf16"),
-                     "msn_decoder_train_b64", {**gta_bf16_bwd, **clevr_bf16_bwd}, 0.0, source="gta_fused_bwd"),
+                     "msn_decoder_train_b64", {**gta_bf16_bwd, **clevr_bf16_bwd, **dit_kernels["dit_gta"][1]}, 0.0,
+                     source="gta_fused_bwd"),
         kernel_entry("flash_core_fwd_bf16", "gta_tpu/ops/flash_core.py:73", by_path("flash_core_fwd_bf16"),
-                     "msn_decoder_eval_b64", {**flash_bf16_fwd, **flash96_bf16_fwd}, 0.0, source="flash_core_fwd"),
+                     "msn_decoder_eval_b64", {**flash_bf16_fwd, **flash96_bf16_fwd, **dit_kernels["dit_base"][0]}, 0.0,
+                     source="flash_core_fwd"),
         kernel_entry("flash_core_bwd_bf16", "gta_tpu/ops/flash_core.py:86", by_path("flash_core_bwd_bf16"),
-                     "msn_decoder_train_b64", {**flash_bf16_bwd, **flash96_bf16_bwd}, 0.0, source="flash_core_bwd"),
+                     "msn_decoder_train_b64", {**flash_bf16_bwd, **flash96_bf16_bwd, **dit_kernels["dit_base"][1]},
+                     0.0, source="flash_core_bwd"),
     ]
     for label, step, batch, grad in (("GTA", gta_step, EVAL_BATCH, gta_grad), ("SRT", srt_step, EVAL_BATCH, srt_grad),
                                      ("msn_so3 (1 + 1 blocks)", msn_step, MSN_BATCH, msn_grad)):
@@ -2473,6 +2758,11 @@ def main() -> int:
         print(f"{label} train step B={MSN_BATCH}: {json.dumps(step)}; B=2 pixels from the CPU's fp32: card "
               f"{card_err:.3e}, emulated TPU rounding {emu_err:.3e}; card vs CPU bf16 {gap:.3e} (CPU bf16 vs "
               f"fp32 {own:.3e})", flush=True)
+    for key, step in dit_steps.items():
+        card_err, emu_err, gap, own = dit_vs_cpu[key]
+        print(f"{key} bf16 train step B={DIT_BATCH}: {json.dumps(step)}; B=2 outputs from the CPU's fp32: card "
+              f"{card_err:.3e}, emulated TPU rounding {emu_err:.3e}; card vs CPU bf16 {gap:.3e} (CPU bf16 vs fp32 "
+              f"{own:.3e})", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -45,6 +45,8 @@ from gta_tpu_torch.ops.gta_pallas import fused_gta_attention
 #   jax    = trunc-normal std sqrt(1/fan_in) (flax lecun_normal), bias zeros
 #   vit    = xavier uniform, bias ~ N(0, 1e-6)
 #   srt    = xavier uniform, bias zeros
+#   zeros  = weight and bias zeros (the DiT's adaLN-Zero layers)
+#   embed  = normal std sqrt(1/features) (flax nn.Embed's default)
 # Modules are tagged with their scheme at construction; `init_weights`
 # draws them in module order.
 # ---------------------------------------------------------------------------
@@ -77,6 +79,11 @@ def _init_module(m: nn.Module, scheme: str, g: torch.Generator):
                 nn.init.zeros_(m.bias)
     elif scheme == "const_emb":
         nn.init.normal_(m.initial_emb, std=1.0, generator=g)
+    elif scheme == "zeros":
+        nn.init.zeros_(m.weight)
+        nn.init.zeros_(m.bias)
+    elif scheme == "embed":
+        nn.init.normal_(m.weight, std=math.sqrt(1.0 / m.weight.shape[1]), generator=g)
     else:
         raise ValueError(f"unknown init scheme {scheme}")
 
@@ -84,12 +91,12 @@ def _init_module(m: nn.Module, scheme: str, g: torch.Generator):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """(Re)draw every tagged parameter of `model` from `generator`;
-    LayerNorms reset to ones/zeros."""
+    affine LayerNorms reset to ones/zeros."""
     for m in model.modules():
         scheme = getattr(m, "init_scheme", None)
         if scheme is not None:
             _init_module(m, scheme, generator)
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, nn.LayerNorm) and m.elementwise_affine:
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
     return model

@@ -73,7 +73,7 @@ def _kind(name: str, attention: str) -> str:
     conv_marks = ("conv", "fprop", "fft", "pointwise_mult_and_sum_complex", "nhwctonchw", "cudnn")
     if any(m in n for m in conv_marks):
         return "convolution (cuDNN)"
-    if "gemm" in n:
+    if "gemm" in n or "nvjet" in n:  # cuBLAS's GEMMs (nvjet: its Hopper kernels in CUDA 12.8)
         return "gemm (cuBLAS)"
     if "memcpy" in n or "memset" in n:
         return "memcpy / memset"

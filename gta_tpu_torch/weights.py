@@ -11,6 +11,11 @@ and FTL's top-level trans_coeff. Orientation: Dense kernels
 [in, out] -> Linear weights [out, in]; Conv kernels HWIO -> OIHW; the fused
 to_qkv column order q|k|v carries over unchanged. No so3 basis change is
 applied: the port's reps use the JAX package's basis as it is.
+
+The DiT (models/dit.py) names its parameters after the flax modules, so
+its paths map as they are: `block_{i}/attn/to_qkv/kernel` ->
+`block_{i}.attn.to_qkv.weight`, an Embed's `embedding` -> `weight`
+(`y_embed.table.weight`, [num_classes + 1, hidden] as it is).
 """
 
 from __future__ import annotations
@@ -55,8 +60,8 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
             return ".".join(out + [f"render_mlp.8.{leaf}"])
         if t == "ftl_trans_coeff":
             return "trans_coeff"
-        if i == n - 1 and t in ("kernel", "bias"):
-            return ".".join(out + ["weight" if t == "kernel" else "bias"])
+        if i == n - 1 and t in ("kernel", "bias", "embedding"):
+            return ".".join(out + ["bias" if t == "bias" else "weight"])
         out.append(t)
     return ".".join(out)
 

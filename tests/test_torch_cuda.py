@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from gta_tpu_torch.config import FDims, GTAArgs
+from gta_tpu_torch.config import AttnConfig, FDims, GTAArgs
 from gta_tpu_torch.ops import _cuda, flash_core as fc, gta_fused as tgf
 from gta_tpu_torch.ops.reps import decoder_reps, encoder_reps
 
@@ -716,6 +716,66 @@ def test_gta_fused_bf16_bwd_is_deterministic(rng, cuda_device, args, tq, tk):
         assert torch.equal(a, b), name
 
 
+# dit_gta's attention (runs/imagenet/DiT/dit_gta): 6 heads of 64 (triv 32,
+# so2 32 with 8 frequencies), self-attention over one view of 16 x 16 patch
+# tokens, rotor tables only (no per-view matrix), as models/dit.py builds them
+DIT_ARGS = GTAArgs(f_dims=FDims(triv=32, so2=32), so2=8)
+
+
+def _dit_reps(device, batch):
+    from gta_tpu_torch.models.dit import DiTConfig, grid_reps
+
+    return grid_reps(DiTConfig(attn=AttnConfig(method="gta", gta=DIT_ARGS)), batch, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("common", [0.0, 8.0], ids=["dit_gta", "dit_gta-common-component"])
+def test_gta_fused_bf16_rotor_only_one_view_error_against_fp64(cuda_device, common):
+    """The bf16 instances at dit_gta's tables (rotors only: mq, mk, mo
+    absent; one view of 256 tokens; a trivial span beside the rotors),
+    against fp64 on the same bf16 inputs: every output within 1.5x the bf16
+    emulation's relative L2 error, and no matrix cotangent."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    qB, kB, vB, g = (torch.randn((B, 256, H * C), generator=gen, device=cuda_device) for _ in range(4))
+    for x in (qB, kB, vB):
+        x += common * torch.randn((B, 1, H * C), generator=gen, device=cuda_device)
+    with torch.no_grad():
+        t = tgf.fused_tables(_dit_reps(cuda_device, B), DIT_ARGS, None)
+        assert t.mq is None and t.mk is None and t.mo is None and (t.nq, t.nk) == (1, 1)
+        errs, emu = _bf16_gta_errors(qB, kB, vB, t, H, SCALE, g)
+    assert sorted(errs) == ["dk", "dq", "dv", "out", "z"]
+    _assert_bf16_rule(errs, emu)
+
+
+@pytest.mark.cuda
+def test_dit_attention_launches_its_kernels(cuda_device):
+    """models/dit.GTASelfAttention on bf16 CUDA rows: dit_gta's layer
+    launches the bf16 fused GTA kernels once forward and once backward, the
+    stock layer the bf16 flash_core kernels, each matching its plain
+    version on the CPU within 1.5x the bf16 emulation's error from fp32."""
+    from gta_tpu_torch.models.dit import GTASelfAttention
+    from gta_tpu_torch.models.layers import set_compute_dtype
+
+    for attn, fwd, bwd in ((AttnConfig(method="gta", gta=DIT_ARGS), tgf.gta_fused_fwd, tgf.gta_fused_bwd),
+                           (AttnConfig(method=""), fc.flash_core_fwd, fc.flash_core_bwd)):
+        torch.manual_seed(0)
+        layer = set_compute_dtype(GTASelfAttention(H * C, H, attn), BF).to(cuda_device)
+        x = torch.randn((B, 256, H * C), device=cuda_device).to(BF).requires_grad_()
+        reps = _dit_reps(cuda_device, B) if attn.is_gta else None
+        before = (fwd.launches_bf16, bwd.launches_bf16)
+        out = layer(x, reps)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert (fwd.launches_bf16 - before[0], bwd.launches_bf16 - before[1]) == (1, 1)
+        cpu = set_compute_dtype(GTASelfAttention(H * C, H, attn), torch.float32)
+        cpu.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+        with torch.no_grad():
+            want = cpu(x.detach().float().cpu(), _dit_reps("cpu", B) if attn.is_gta else None)
+        err = (out.detach().float().cpu() - want).norm() / want.norm()
+        assert torch.isfinite(out).all() and err < 2e-2, err.item()
+
+
 # an output rounded to bf16 alone is up to 2^-9 off per element: the floor of
 # the edge shapes' rule, where the emulation can be exact (one key)
 BF16_ULP = 2.0**-8
@@ -784,8 +844,9 @@ def _bf16_flash_errors(q, k, v, g):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tq,tk,common", [(600, 600, 0.0), (2560, 600, 0.0), (2560, 600, 8.0)],
-                         ids=["self", "cross", "cross-common-component"])
+@pytest.mark.parametrize("tq,tk,common", [(600, 600, 0.0), (2560, 600, 0.0), (2560, 600, 8.0), (256, 256, 0.0),
+                                          (256, 256, 8.0)],
+                         ids=["self", "cross", "cross-common-component", "dit-256", "dit-256-common-component"])
 def test_flash_core_bf16_error_against_fp64(cuda_device, tq, tk, common):
     """The bf16 instances against fp64 on the same bf16 inputs, also with
     keys and values that share a component of 8x their spread: every
