@@ -168,6 +168,21 @@ Phases (any failure exits non-zero and prints no result line):
      which must report a finite PSNR; the gbt baseline (non-transform
      batches, torch-eager attention) trained one step with --evalnow and
      evaluated --ckpt best.
+  5b. The train runtime (runtime_phase), on the flagship at B=32: the
+     gradient of loss_and_grads at grad_accum 2 against grad_accum 1 from
+     the same weights and batch (relative L2 <= 1e-5; the fused GTA
+     launches doubled, asserted; the accumulated peak memory lower), warm
+     train_steps of both and of accum 1 in a one-rank NCCL group; the
+     train CLI on a config copy with print_every 1 under --validate-every
+     2 --profile 2 stopped by SIGTERM after step 1 (exit 0, `latest`, a
+     trace naming the fused GTA kernels), beside it `python -m
+     torch.distributed.run --nproc_per_node 1` of the train CLI (NCCL,
+     world size 1, its first loss that of the plain run) and of train_dit
+     on dit_gta, 2 steps; then, alone, the stopped run resumed under
+     --accum 2 --speed_test 4 (the saved it + 1, time.npy, metrics.jsonl
+     in plot_metrics' schema over both runs). NCCL refuses two ranks on
+     one card: two ranks run on the CPU only
+     (tests/test_torch_distributed.py).
   6. The host data plane and the dataset readers (disk_phase), on fixtures
      written into a temporary directory by the port's PNG encoder, every
      scanline filter row by row: CLEVR-TR (256 train scenes over 64
@@ -1755,6 +1770,239 @@ def cli_phase():
         raise AssertionError("a CLI wrote under runs/")
 
 
+RUNTIME_ACCUM = 2  # the runtime phase's --accum
+SPEED_TEST = 4  # --speed_test: the flagship's batch of 32 over 4, in 2 microbatches of 4
+ACCUM_TOL = 1e-5  # relative L2 of the accumulated gradient from the unaccumulated one
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_cli(args, log_path):
+    """Start `python -m <args>` from the repository root, its output into
+    `log_path`; returns the process (`finish_cli` waits for it)."""
+    out = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, text=True)
+    proc.log_path, proc.t0 = log_path, time.perf_counter()
+    out.close()
+    return proc
+
+
+def finish_cli(proc, label):
+    """Wait for a `start_cli` process (600 s at most); returns its output."""
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(proc.log_path) as f:
+        log = f.read()
+    print(f"{label}: exit {proc.returncode} in {time.perf_counter() - proc.t0:.1f} s", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label} failed:\n{log}")
+    return log
+
+
+def logged(out_dir):
+    """<out_dir>/metrics.jsonl, each line held to scripts/plot_metrics.py's
+    schema (kind, it, t, and loss / lr or the eval dict with psnr)."""
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    for d in lines:
+        need = {"train": {"kind", "it", "t", "loss", "lr"}, "eval": {"kind", "it", "t", "psnr", "mse"}}[d["kind"]]
+        if set(d) != need or not np.isfinite([d[k] for k in need - {"kind"}]).all():
+            raise AssertionError(f"metrics.jsonl line {d} is not in plot_metrics' schema")
+    return lines
+
+
+def runtime_phase(gta_cfg, paths):
+    """The train runtime on the flagship (fp32, B=32, full width):
+    (a) in process, dropout 0, the same weights and batch: loss_and_grads
+    at grad_accum 1 and RUNTIME_ACCUM (the whole gradient within ACCUM_TOL
+    relative L2, the fused GTA launches doubled, the accumulated peak
+    memory lower; launches under paths gta_accum{1,2}_grads), then a cold
+    and 3 warm train_steps of each, and at accum 1 three more in a
+    one-rank NCCL group (the gradient all_reduce); (b) the train CLI as subprocesses: --accum 2
+    --speed_test 4 (time.npy), a run of a config copy with print_every 1
+    under --validate-every 2 --profile 2 that gets SIGTERM once step 1 has
+    printed (exit 0, `latest` saved, a trace naming the fused GTA kernels)
+    and its resume (printing the saved it + 1; metrics.jsonl holds both
+    runs); (c) `python -m torch.distributed.run --nproc_per_node 1` of
+    the train CLI (NCCL, world size 1; its first loss equal to the plain
+    run's from the same seed) and of train_dit on dit_gta (2 steps).
+    Returns its numbers."""
+    import signal
+    import threading
+
+    import torch
+    import yaml
+
+    from gta_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    m = gta_cfg.model
+    cfg0 = dataclasses.replace(gta_cfg, model=dataclasses.replace(
+        m, encoder=dataclasses.replace(m.encoder, dropout=0.0), decoder=dataclasses.replace(m.decoder, dropout=0.0)))
+    batch = synthetic_batch(cfg0.data, "train", 0, EVAL_BATCH, cfg0.seed)
+    numbers, grads, weights = {}, {}, None
+    for accum in (1, RUNTIME_ACCUM):
+        cfg = dataclasses.replace(cfg0, training=dataclasses.replace(cfg0.training, grad_accum=accum))
+        trainer = Trainer(cfg)
+        if weights is None:
+            weights = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+        trainer.model.load_state_dict(weights)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        _, _, g = trainer.loss_and_grads(batch)
+        torch.cuda.synchronize()
+        paths[f"gta_accum{accum}_grads"] = launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = expected_launches(cfg, accum, accum, backward_steps=accum)
+        if launches != want:
+            raise AssertionError(f"accum {accum} loss_and_grads launches {launches}, expected {want}")
+        grads[accum] = torch.cat([x.reshape(-1) for x in g]).double().cpu()
+        step_ms = []
+        for _ in range(1 + TRAIN_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        numbers[f"accum{accum}"] = {"peak_mem_gb": peak_gb, "cold_step_ms": step_ms[0], "warm_step_ms": step_ms[1:],
+                                    "median_warm_step_ms": float(np.median(step_ms[1:])),
+                                    "loss": out["loss"].item()}
+        if accum == 1:  # the same steps in a one-rank NCCL group: the gradient all_reduce's cost
+            import torch.distributed as tdist
+
+            tdist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+            try:
+                nccl_ms = []  # a cold step (NCCL's communicator starts at the first all_reduce), then warm ones
+                for _ in range(1 + TRAIN_RUNS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = trainer.train_step(batch)
+                    torch.cuda.synchronize()
+                    nccl_ms.append((time.perf_counter() - t0) * 1e3)
+                if tdist.get_backend() != "nccl" or not isinstance(out["stop"], torch.Tensor):
+                    raise AssertionError("the NCCL group's step did not take the all_reduce")
+            finally:
+                tdist.destroy_process_group()
+            numbers["nccl_world1_step_ms"] = nccl_ms
+            numbers["nccl_world1_median_warm_step_ms"] = float(np.median(nccl_ms[1:]))
+            print(f"GTA runtime: train_step in a one-rank NCCL group ms(cold, warm)=[{', '.join(f'{x:.2f}' for x in nccl_ms)}] "
+                  f"beside the plain step's median {numbers['accum1']['median_warm_step_ms']:.2f}", flush=True)
+        print(f"GTA runtime accum {accum}: loss_and_grads B={EVAL_BATCH} launches gta_fused_fwd "
+              f"{launches['gta_fused_fwd']} / bwd {launches['gta_fused_bwd']} peak_mem_gb={peak_gb:.3f}; "
+              f"train_step ms(cold)={step_ms[0]:.2f} ms(warm)=[{', '.join(f'{x:.2f}' for x in step_ms[1:])}]",
+              flush=True)
+        del trainer, g, out
+        torch.cuda.empty_cache()
+    err = float(np.linalg.norm(grads[RUNTIME_ACCUM] - grads[1]) / np.linalg.norm(grads[1]))
+    numbers["accum_grad_rel_l2"] = err
+    print(f"GTA runtime: accum {RUNTIME_ACCUM} gradient vs accum 1, relative L2 {err:.3e} (limit {ACCUM_TOL})",
+          flush=True)
+    if not err <= ACCUM_TOL:
+        raise AssertionError(f"accumulated gradient {err} from the unaccumulated one > {ACCUM_TOL}")
+    if not numbers[f"accum{RUNTIME_ACCUM}"]["peak_mem_gb"] < numbers["accum1"]["peak_mem_gb"]:
+        raise AssertionError(f"accum {RUNTIME_ACCUM} peak memory is not below accum 1's: {numbers}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # three runs side by side on the card (none of them timed): the
+        # SIGTERM run and the two one-rank torchrun runs
+        with open(GTA_CONFIG) as f:
+            raw = yaml.safe_load(f)
+        raw["training"]["print_every"] = 1
+        copy = os.path.join(tmp, "config.yaml")
+        with open(copy, "w") as f:
+            yaml.safe_dump(raw, f)
+        run, dp, dit = (os.path.join(tmp, name) for name in ("run", "dp", "dit"))
+        torchrun = ["torch.distributed.run", "--nproc_per_node", "1", "--master_addr", "localhost", "--master_port"]
+        side = {label: start_cli(args, os.path.join(tmp, f"{key}.log")) for key, label, args in (
+            ("dp", "torchrun GTA train CLI (1 process)",
+             torchrun + [str(free_port()), "-m", "gta_tpu_torch.train", GTA_CONFIG, "--synthetic", "--outdir", dp,
+                         "--exit-after", "3", "--evalnow", "--max-eval", "8"]),
+            ("dit", "torchrun dit_gta train_dit (1 process)",
+             torchrun + [str(free_port()), "-m", "gta_tpu_torch.train_dit", DIT_GTA_CONFIG, "--outdir", dit,
+                         "--exit-after", "1"]))}
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "gta_tpu_torch.train", copy, "--synthetic", "--outdir", run,
+                                 "--exit-after", "1000", "--validate-every", "2", "--profile", "2", "--max-eval", "8"],
+                                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                env={**os.environ, "PYTHONUNBUFFERED": "1"})
+        watchdog = threading.Timer(600, proc.kill)
+        watchdog.start()
+        try:
+            lines = []
+            for line in proc.stdout:
+                lines.append(line)
+                if "it=1, loss=" in line:
+                    proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=600)
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log = "".join(lines)
+        print(f"GTA train CLI SIGTERM after it=1: exit {rc} in {time.perf_counter() - t0:.1f} s", flush=True)
+        logs = {label: finish_cli(p, label) for label, p in side.items()}
+        if rc != 0 or "Preemption checkpoint saved. Exiting." not in log:
+            raise AssertionError(f"SIGTERM run exited {rc}:\n{log}")
+        stopped = max(int(x) for x in re.findall(r"it=(\d+), loss=", log))
+        with open(os.path.join(run, "ckpts", "latest", "scalars.json")) as f:
+            if json.load(f)["it"] != stopped:
+                raise AssertionError(f"latest was saved at another it than the last step, {stopped}")
+        with open(os.path.join(run, "trace", "rank0.json")) as f:
+            kernels = {e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+        fused = sorted(k for k in kernels if "gta_rows" in k or "gta_bwd" in k)
+        print(f"  stopped after it={stopped}; trace: {len(kernels)} kernel names, fused GTA: {fused[:4]}", flush=True)
+        if not any("gta_rows" in k for k in fused) or not any("gta_bwd" in k for k in fused):
+            raise AssertionError(f"the profiler trace names no fused GTA forward / backward kernel: {sorted(kernels)}")
+
+        log, label = logs["torchrun GTA train CLI (1 process)"], "torchrun GTA train CLI"
+        first = logged(run)
+        ref = next(d["loss"] for d in first if d["kind"] == "train" and d["it"] == 0)
+        got = next(d["loss"] for d in logged(dp) if d["kind"] == "train" and d["it"] == 0)
+        numbers["torchrun_first_loss"], numbers["plain_first_loss"] = got, ref
+        said = next((line for line in log.splitlines() if line.startswith("Data parallel:")), None)
+        print(f"  {label}: {said}; first loss {got!r} vs the plain run's {ref!r}", flush=True)
+        if (said != "Data parallel: backend nccl, world size 1, rank 0" or "Iteration limit reached" not in log
+                or abs(got - ref) > 1e-6 * abs(ref)):
+            raise AssertionError(f"{label}: first loss {got} vs {ref}\n{log}")
+        log = logs["torchrun dit_gta train_dit (1 process)"]
+        with open(os.path.join(dit, "ckpts", "latest", "scalars.json")) as f:
+            saved = json.load(f)["it"]
+        if ("Data parallel: backend nccl, world size 1, rank 0" not in log or "it=0 loss=" not in log
+                or "Iteration limit reached" not in log or saved != 1):
+            raise AssertionError(f"torchrun train_dit (latest at it={saved}):\n{log}")
+
+        # the speed test, alone on the card, resumes the stopped run (the
+        # published config: print_every 100, no host sync between steps)
+        log = run_cli(["gta_tpu_torch.train", GTA_CONFIG, "--synthetic", "--outdir", run, "--accum",
+                       str(RUNTIME_ACCUM), "--speed_test", str(SPEED_TEST)],
+                      f"GTA train CLI --accum {RUNTIME_ACCUM} --speed_test {SPEED_TEST}, resumed")
+        numbers["speed_test_ms"] = float(np.load(os.path.join(run, "time.npy"))[0])
+        print(f"  chained mean step time (B={EVAL_BATCH // SPEED_TEST}, accum {RUNTIME_ACCUM}): "
+              f"{numbers['speed_test_ms']:.3f} ms", flush=True)
+        if (f"chained mean step time: {numbers['speed_test_ms']:.2f} ms" not in log
+                or f"Resumed from checkpoint at it={stopped + 1}" not in log):
+            raise AssertionError(f"the speed test did not resume at it={stopped + 1} and print its time:\n{log}")
+        written = [(d["kind"], d["it"]) for d in logged(run)]
+        if ([it for kind, it in written if kind == "train" and it <= stopped] != list(range(stopped + 1))
+                or ("eval", 2) not in written or not any(it > stopped for _, it in written)):
+            raise AssertionError(f"metrics.jsonl of the two runs: {written}")
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"runtime phase: {numbers['seconds']:.1f} s {json.dumps(numbers)}", flush=True)
+    return numbers
+
+
 RE10K_GTA_CONFIG = os.path.join(ROOT, "runs", "re10k", "GTA", "gta", "config.yaml")
 RE10K_SRT_CONFIG = os.path.join(ROOT, "runs", "re10k", "otherPEs", "srt", "config.yaml")
 DISK_H, DISK_W, DISK_VIEWS = 240, 320, 5  # the CLEVR-TR layout; RealEstate10K frames of the same size
@@ -2711,6 +2959,7 @@ def main() -> int:
     srt_grad = grads_phase(srt_cfg, "SRT")
     msn_grad = grads_phase(msn_cut, "msn_so3 (1 + 1 blocks)")
     cli_phase()
+    runtime = runtime_phase(gta_cfg, paths)
     t_disk = time.perf_counter()
     disk = disk_phase(gta_cfg, msn_gta, srt_cfg, paths)
     print(f"disk phase: {time.perf_counter() - t_disk:.1f} s", flush=True)
@@ -2752,6 +3001,7 @@ def main() -> int:
     print(f"msn gta bf16 train step B={MSN_BATCH}: {json.dumps(msn_gta_step)}", flush=True)
     print(f"evaluation per full-scale view: {json.dumps(eval_metrics)}", flush=True)
     print(f"disk: {json.dumps(disk)}", flush=True)
+    print(f"runtime: {json.dumps(runtime)}", flush=True)
     for label, step in (("msn_so3 bf16", msn_bf16_step), ("msn SRT bf16", msn_srt_step),
                         ("msn gta_t2 bf16", msn_t2_step)):
         card_err, emu_err, gap, own = card_vs_cpu[label.split(" bf16")[0]]

@@ -6,10 +6,16 @@ Layout under <out_dir>/ckpts/:
   best/     best-validation-metric model (model_best.pt, train.py:338)
 
 Each holds `state.pt`, the Trainer's state (model, optimizer, schedule,
-dropout generator, step) as one torch file, and `scalars.json` (epoch_it /
-it / t / loss_val_best, reference train.py:301-305). A save writes a
+seed, step) as one torch file, and `scalars.json` (epoch_it / it / t /
+loss_val_best / run_id, reference train.py:301-305). A save writes a
 temporary file and renames it, so a checkpoint is whole or absent. Only a
 save creates directories: restoring and `exists` leave the disk as it is.
+
+Under data parallel (parallel/dist.py) every rank calls `save`, only rank
+0 writes (the ranks hold the same state; gta_tpu/train/checkpoint.py:38
+writes scalars on process 0 only), and every rank waits at a barrier until
+the files are whole, so no rank restores a save still being written.
+Every rank restores the same files.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from gta_tpu_torch.parallel import dist as pdist
+
 
 class Checkpointer:
     def __init__(self, out_dir: str):
@@ -29,14 +37,17 @@ class Checkpointer:
         return os.path.join(self.root, name)
 
     def save(self, name: str, trainer, scalars: Optional[Dict[str, Any]] = None) -> None:
-        path = self._path(name)
-        os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, "state.pt.tmp")
-        torch.save(trainer.state_dict(), tmp)
-        os.replace(tmp, os.path.join(path, "state.pt"))
-        if scalars is not None:
-            with open(os.path.join(path, "scalars.json"), "w") as f:
-                json.dump(scalars, f)
+        """Write checkpoint `name` (rank 0; every rank waits for it)."""
+        if pdist.is_main():
+            path = self._path(name)
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, "state.pt.tmp")
+            torch.save(trainer.state_dict(), tmp)
+            os.replace(tmp, os.path.join(path, "state.pt"))
+            if scalars is not None:
+                with open(os.path.join(path, "scalars.json"), "w") as f:
+                    json.dump(scalars, f)
+        pdist.barrier()
 
     def restore(self, name: str, trainer) -> Dict[str, Any]:
         """Load checkpoint `name` into `trainer`; returns its scalars."""

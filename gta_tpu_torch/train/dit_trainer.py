@@ -5,11 +5,17 @@ Port of gta_tpu/train/dit_trainer.py: `DiTTrainer` owns the DiT on an
 explicit device (CUDA unless the caller asks for the CPU), its schedule
 tables, AdamW (or Adam) under warmup and exponential decay, and one
 generator on the device from which every training draw comes (timesteps,
-noise, the label dropout mask). `train_step` runs q_sample -> model ->
-hybrid loss -> backward through the attention kernels -> the optimizer
-step; `evaluate` draws per batch from a seeded generator, label dropout
-on, as the JAX trainer's `_eval_step_impl` does; `sample` runs CFG + DDIM
-and clips to [-1, 1].
+noise, the label dropout mask; step s on rank r draws from it seeded
+`parallel.dist.step_seed(seed, s, r)`). `train_step` runs q_sample ->
+model -> hybrid loss -> backward through the attention kernels -> the
+gradients averaged over ranks under data parallel -> the optimizer step;
+`evaluate` draws per batch from a seeded generator, label dropout on, as
+the JAX trainer's `_eval_step_impl` does, and stays per rank as JAX's
+does; `sample` runs CFG + DDIM and clips to [-1, 1].
+
+`training.grad_accum` has no effect on the DiT, as in the JAX package:
+gta_tpu/train/dit_trainer.py never reads it and train_dit.py has no
+--accum, so every step takes its whole batch at once.
 
 Precision, as the NVS Trainer: `training.mixed_prec` makes the model
 compute in bf16 (parameters, AdamW state, the loss and the diffusion
@@ -28,6 +34,7 @@ import yaml
 
 from gta_tpu_torch.config import TrainConfig, _parse_attn, _parse_training
 from gta_tpu_torch.models.dit import DiTConfig, build_dit
+from gta_tpu_torch.parallel import dist as pdist
 from gta_tpu_torch.train import diffusion
 from gta_tpu_torch.train.schedule import warmup_exp_decay
 from gta_tpu_torch.train.trainer import resolve_device
@@ -86,23 +93,23 @@ def load_dit_config(path: str) -> DiTRunConfig:
 class DiTTrainer:
     """Owns the DiT, its schedule tables, optimizer and LR schedule, and the
     train, evaluation and sampling entry points. `seed` (default cfg.seed)
-    draws the initial weights and seeds the training generator."""
+    draws the initial weights (rank 0's, broadcast, under data parallel)
+    and seeds the training draws (`pdist.step_seed`)."""
 
     def __init__(self, cfg: DiTRunConfig, device: Optional[str] = None, seed: Optional[int] = None):
         t = cfg.training
-        if t.grad_accum > 1:
-            raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP queue 1 item 9)")
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.cfg = cfg
         self.dtype = torch.bfloat16 if t.mixed_prec else torch.float32
-        seed = cfg.seed if seed is None else seed
+        self.seed = cfg.seed if seed is None else seed
         mcfg = cfg.model
-        self.model = build_dit(mcfg, self.dtype, torch.Generator().manual_seed(seed)).to(self.device)
+        self.model = build_dit(mcfg, self.dtype, torch.Generator().manual_seed(self.seed)).to(self.device)
+        pdist.broadcast_module(self.model)
         self.sch = diffusion.make_schedule(mcfg.timesteps, mcfg.beta_start, mcfg.beta_end).to(self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device)
         # optax adam / adamw (b1 0.9, b2 0.999, eps 1e-8); adamw decays every parameter
         if t.noadamW:
             self.optimizer = torch.optim.Adam(self.model.parameters(), lr=t.lr)
@@ -122,7 +129,7 @@ class DiTTrainer:
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "scheduler": self.scheduler.state_dict(),
-            "generator": self.generator.get_state(),
+            "seed": self.seed,
             "step": self.step,
         }
 
@@ -130,7 +137,7 @@ class DiTTrainer:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
-        self.generator.set_state(state["generator"])
+        self.seed = int(state["seed"])
         self.step = int(state["step"])
 
     # ------------------------------------------------------------------
@@ -158,22 +165,39 @@ class DiTTrainer:
 
         return diffusion.training_loss(self.sch, model_fn, images, t, noise, mcfg.learn_sigma, mcfg.vb_weight)
 
-    def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        """One optimizer step on a collated batch ({'image': [B, H, W, C],
-        'label': [B]}). Returns loss, mse, vb (learn_sigma), grad_norm (the
-        global L2 norm of the gradients before the update; these stay on
-        the device) and lr (the rate this step used)."""
+    def loss_and_grads(self, batch: Dict[str, np.ndarray]):
+        """(loss, metrics, grads) of this rank's batch at this step's draws
+        (the generator seeded `pdist.step_seed(seed, step)`), the gradients
+        left in each parameter's `.grad` (zeros where none reaches the
+        loss)."""
         images, labels = self._tensors(batch)
+        self.generator.manual_seed(pdist.step_seed(self.seed, self.step))
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss(images, labels, *self.draws(images, self.generator))
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.model.parameters()]
+        grads = []
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        """One optimizer step on a collated batch ({'image': [B, H, W, C],
+        'label': [B]}; this rank's shard under data parallel). Returns loss,
+        mse, vb (learn_sigma), grad_norm (the global L2 norm of the
+        gradients, averaged over ranks, before the update; these stay on
+        the device, averaged over ranks too) and lr (the rate this step
+        used)."""
+        _, metrics, grads = self.loss_and_grads(batch)
+        keys = sorted(metrics)
+        metrics = dict(zip(keys, pdist.average_(grads, [metrics[k] for k in keys])))
         grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         lr = self.scheduler.get_last_lr()[0]
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
-        return {**{k: v.detach() for k, v in metrics.items()}, "lr": lr, "grad_norm": grad_norm}
+        return {**metrics, "lr": lr, "grad_norm": grad_norm}
 
     # ------------------------------------------------------------------
     @torch.no_grad()

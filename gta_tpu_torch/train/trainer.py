@@ -6,6 +6,15 @@ MSE -> backward through the attention kernels -> AdamW) and evaluation and
 rendering (`eval_step`, `evaluate`, `render_image`, `render_rays`,
 `visualize`, always with dropout off).
 
+Gradient accumulation (`training.grad_accum`, gta_tpu/train/trainer.py:
+131-166): the batch is split into `grad_accum` equal microbatches by
+stride (row i to microbatch i mod accum), each microbatch's mean loss is
+backpropagated on its own, and the summed gradients are divided by accum;
+peak activation memory follows the microbatch. Data parallel
+(parallel/dist.py): each rank steps on its shard of the global batch, and
+`train_step` averages the gradients, the loss and the MSE over ranks in
+one all_reduce after the last microbatch, so its metrics are global means.
+
 Precision policy, from `training.mixed_prec` (the JAX trainer's
 `self.dtype`, gta_tpu/train/trainer.py:56): the model computes in bf16 when
 it is set and in fp32 otherwise (`Trainer.dtype`, models/layers.py).
@@ -19,7 +28,8 @@ fp32 accumulation in bf16.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +40,7 @@ from gta_tpu_torch.geometry.rays import camera_rays_from_extrinsic
 from gta_tpu_torch.models.context import SceneBatch
 from gta_tpu_torch.models.layers import init_weights, set_dropout_generator
 from gta_tpu_torch.models.srt import build_model
+from gta_tpu_torch.parallel import dist as pdist
 from gta_tpu_torch.train.schedule import warmup_exp_decay
 from gta_tpu_torch.utils.metrics import mse2psnr
 from gta_tpu_torch.utils.visualize import draw_visualization_grid
@@ -47,11 +58,29 @@ def resolve_device(device: Optional[str]) -> torch.device:
     return torch.device(device)
 
 
+def split_microbatches(batch: SceneBatch, accum: int) -> List[SceneBatch]:
+    """`batch` split into `accum` equal microbatches by stride: row i goes
+    to microbatch i mod accum, every field alike (JAX's
+    reshape((b // accum, accum) + ...).swapaxes(0, 1)); views of `batch`."""
+    b = batch.target_pixels.shape[0]
+    if b % accum:
+        raise ValueError(f"batch size {b} not divisible by grad_accum={accum}")
+    if accum == 1:
+        return [batch]
+    return [
+        SceneBatch(**{f.name: None if (x := getattr(batch, f.name)) is None else x[i::accum]
+                      for f in dataclasses.fields(batch)})
+        for i in range(accum)
+    ]
+
+
 class Trainer:
     """Owns the model, its optimizer and schedule, and the train, evaluation
     and rendering entry points. `seed` (default cfg.seed) draws the initial
-    weights and seeds the dropout generator. `dtype` is the compute dtype:
-    bf16 when `training.mixed_prec` is set, else fp32."""
+    weights (rank 0's, broadcast, under data parallel) and seeds the
+    dropout masks: step s on rank r draws them from a generator seeded
+    `pdist.step_seed(seed, s, r)`. `dtype` is the compute dtype: bf16 when
+    `training.mixed_prec` is set, else fp32."""
 
     def __init__(self, cfg: Config, device: Optional[str] = None, seed: Optional[int] = None):
         t = cfg.training
@@ -61,11 +90,12 @@ class Trainer:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.cfg = cfg
         self.dtype = torch.bfloat16 if t.mixed_prec else torch.float32
-        seed = cfg.seed if seed is None else seed
+        self.seed = cfg.seed if seed is None else seed
         self.model = build_model(cfg.model, dtype=self.dtype)
-        init_weights(self.model, torch.Generator().manual_seed(seed))
+        init_weights(self.model, torch.Generator().manual_seed(self.seed))
         self.model.to(self.device).eval()
-        self.dropout_generator = torch.Generator(device=self.device).manual_seed(seed)
+        pdist.broadcast_module(self.model)
+        self.dropout_generator = torch.Generator(device=self.device)
         set_dropout_generator(self.model, self.dropout_generator)
         # optax adam / adamw (b1 0.9, b2 0.999, eps 1e-8); adamw decays every
         # parameter, LayerNorms and biases included, as optax does
@@ -98,7 +128,7 @@ class Trainer:
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "scheduler": self.scheduler.state_dict(),
-            "dropout_generator": self.dropout_generator.get_state(),
+            "seed": self.seed,
             "step": self.step,
         }
 
@@ -106,7 +136,7 @@ class Trainer:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
-        self.dropout_generator.set_state(state["dropout_generator"])
+        self.seed = int(state["seed"])
         self.step = int(state["step"])
 
     # ------------------------------------------------------------------
@@ -122,38 +152,56 @@ class Trainer:
     def loss_and_grads(self, batch: SceneBatch):
         """(loss, per-item MSE, grads): the loss of `batch` in training mode
         and its gradient for every parameter (zeros where a parameter does
-        not reach the loss), left in each parameter's `.grad`."""
-        batch = batch.to(self.device)
+        not reach the loss), left in each parameter's `.grad`. Under
+        training.grad_accum the batch goes through the model in strided
+        microbatches (`split_microbatches`): the loss is the mean of theirs, the
+        gradient the sum of theirs over accum, and the per-item MSE comes
+        in microbatch order (JAX's mses.reshape(-1)). This rank's batch
+        alone: `train_step` averages over ranks."""
+        batch = batch.to(self.device)  # once: the microbatches are views of it
+        micro = split_microbatches(batch, self.cfg.training.grad_accum)
+        self.dropout_generator.manual_seed(pdist.step_seed(self.seed, self.step))
         self.model.train()
         try:
             self.optimizer.zero_grad(set_to_none=True)
-            loss, mse = self._loss_fn(batch)
-            loss.backward()
+            losses, mses = [], []
+            for mb in micro:
+                loss, mse = self._loss_fn(mb)
+                loss.backward()  # sums into .grad
+                losses.append(loss.detach())
+                mses.append(mse.detach())
         finally:
             self.model.eval()
         grads = []
         for p in self.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            elif len(micro) > 1:
+                p.grad /= len(micro)
             grads.append(p.grad)
-        return loss.detach(), mse.detach(), grads
+        return torch.mean(torch.stack(losses)), torch.cat(mses), grads
 
-    def train_step(self, batch: SceneBatch) -> Dict[str, Any]:
-        """One optimizer step on `batch`. Returns loss, mse (batch mean),
-        lr (the rate this step used) and grad_norm (global L2 norm of the
-        gradients before the update); loss, mse and grad_norm stay on the
-        device."""
-        if self.cfg.training.grad_accum > 1:
-            raise NotImplementedError(
-                "gradient accumulation is not ported yet (ROADMAP queue 1 item 9)"
-            )
+    def train_step(self, batch: SceneBatch, stop: bool = False) -> Dict[str, Any]:
+        """One optimizer step on `batch` (this rank's shard of the global
+        batch). Returns loss, mse (batch mean), lr (the rate this step
+        used), grad_norm (global L2 norm of the averaged gradients before
+        the update) and stop; loss, mse and grad_norm stay on the device.
+        `stop` is this rank's stop request: in a process group it rides in
+        the gradient all_reduce and comes back as a 0-dim bool tensor that
+        is true on every rank where any rank asked (no extra sync); without
+        one it comes back as given."""
         loss, mse, grads = self.loss_and_grads(batch)
+        mse = torch.mean(mse)
+        if pdist.initialized():
+            flag = torch.full((), float(stop), device=self.device)  # a fill, not a copy that waits on the stream
+            loss, mse, flag = pdist.average_(grads, [loss, mse, flag])
+            stop = flag > 0
         grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         lr = self.scheduler.get_last_lr()[0]
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
-        return {"loss": loss, "mse": torch.mean(mse), "lr": lr, "grad_norm": grad_norm}
+        return {"loss": loss, "mse": mse, "lr": lr, "grad_norm": grad_norm, "stop": stop}
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -166,8 +214,11 @@ class Trainer:
         return {"mse": mse, "psnr": mse2psnr(mse)}
 
     def evaluate(self, batches: Iterable[SceneBatch]) -> Dict[str, float]:
-        """Mean of eval_step metrics over an iterable of batches (single
-        device); prints the number of unique scenes seen."""
+        """Mean of eval_step metrics over an iterable of batches; prints the
+        number of unique scenes seen. Under data parallel each rank
+        evaluates its shard, the per-rank means are averaged over ranks in
+        sorted key order and the scene ids gathered
+        (gta_tpu/train/trainer.py:205-258)."""
         acc: Dict[str, list] = {}
         sceneids = []
         for batch in batches:
@@ -176,8 +227,10 @@ class Trainer:
             for k, v in self.eval_step(batch).items():
                 acc.setdefault(k, []).append(v.cpu().numpy())
         if sceneids:
-            print(f"Evaluated {len(np.unique(np.concatenate(sceneids)))} unique scenes.")
-        return {k: float(np.mean(np.concatenate(v))) for k, v in acc.items()}
+            ids = pdist.gather_ids(np.concatenate(sceneids))
+            print(f"Evaluated {len(np.unique(ids))} unique scenes.")
+        local = {k: float(np.mean(np.concatenate(v))) for k, v in acc.items()}
+        return pdist.mean_over_ranks(local, self.device)
 
     # ------------------------------------------------------------------
     def _to(self, x) -> torch.Tensor:

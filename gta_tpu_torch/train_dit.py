@@ -1,11 +1,11 @@
-"""Training entry point of the DiT family (the JAX package's train_dit.py,
-single device).
+"""Training entry point of the DiT family (the JAX package's train_dit.py).
 
 Usage:
     python -m gta_tpu_torch.train_dit <config.yaml> [datapath]
         [--seed S] [--outdir DIR] [--exit-after N] [--batch-size B]
         [--max-eval N] [--samplenow] [--sample-steps K] [--guidance G]
         [--device cuda|cpu]
+    python -m torch.distributed.run --nproc_per_node G -m gta_tpu_torch.train_dit <config.yaml> ...
 
 Without an ImageNet datapath (neither the config's `data.path` nor the
 positional one) it trains on the procedural class-conditional images
@@ -23,7 +23,16 @@ outdir resumes from the newest checkpoint and prints "Resumed from
 checkpoint at it=N". --exit-after N stops after step N and saves `latest`.
 The device defaults to CUDA and the run fails without it unless --device
 cpu is given. --device-data (procedural images made on the device) is not
-ported yet (ROADMAP queue 1 item 6).
+ported yet (ROADMAP queue 1 item 6). There is no --accum, and the config's
+`training.grad_accum` has no effect, as in the JAX package.
+
+Data parallel, as train_dit.py runs it: under torchrun every process
+trains on its shard of each global batch (the batch over the world size;
+the val batch a quarter of that) on `cuda:LOCAL_RANK` over NCCL (gloo with
+--device cpu), the gradients averaged once per step (parallel/dist.py);
+each rank draws its own timesteps, noise and label dropout. Rank 0 alone
+prints, writes metrics.jsonl and the sample grids and saves checkpoints;
+evaluation stays per rank, as in JAX.
 """
 
 from __future__ import annotations
@@ -56,10 +65,21 @@ def main(argv=None):
         raise NotImplementedError("--device-data (DeviceSyntheticImages, data/device_synth.py) is not ported yet "
                                   "(ROADMAP queue 1 item 6)")
 
+    from gta_tpu_torch.parallel import dist as pdist
+
+    device = pdist.init_from_env(args.device)
+    try:
+        _train(args, device)
+    finally:
+        pdist.destroy()
+
+
+def _train(args, device):
     import numpy as np
 
     from gta_tpu_torch.data.images import ImageNetTFDS, SyntheticImages, collate_images
     from gta_tpu_torch.data.loader import Loader
+    from gta_tpu_torch.parallel import dist as pdist
     from gta_tpu_torch.train.checkpoint import Checkpointer
     from gta_tpu_torch.train.dit_trainer import DiTTrainer, load_dit_config
     from gta_tpu_torch.utils.visualize import draw_visualization_grid
@@ -72,7 +92,13 @@ def main(argv=None):
     t_cfg, mcfg = cfg.training, cfg.model
     max_it = args.exit_after if args.exit_after is not None else t_cfg.max_it
     out_dir = args.outdir or os.path.dirname(args.config)
-    os.makedirs(out_dir, exist_ok=True)
+    is_main = pdist.is_main()
+    say = print if is_main else (lambda *a, **k: None)
+    if pdist.initialized():
+        say(pdist.describe(), flush=True)
+    if is_main:
+        os.makedirs(out_dir, exist_ok=True)
+    host_batch = t_cfg.batch_size // pdist.world()
 
     datapath = args.datapath or cfg.data.path
     if cfg.data.dataset == "imagenet" and datapath:
@@ -80,25 +106,27 @@ def main(argv=None):
         val_ds = ImageNetTFDS(mcfg.input_size, "val", datapath)
     else:
         if cfg.data.dataset == "imagenet":
-            print("No ImageNet datapath — falling back to procedural images.")
+            say("No ImageNet datapath — falling back to procedural images.")
         train_ds = SyntheticImages(mcfg.input_size, mcfg.num_classes, "train", cfg.data.num_images, cfg.seed)
         val_ds = SyntheticImages(mcfg.input_size, mcfg.num_classes, "val", args.max_eval, cfg.seed)
-    loader_kw = dict(num_workers=t_cfg.num_workers, collate_fn=collate_images)
-    train_loader = Loader(train_ds, t_cfg.batch_size, shuffle=True, seed=cfg.seed, **loader_kw)
-    val_loader = Loader(val_ds, max(1, t_cfg.batch_size // 4), shuffle=False, **loader_kw)
+    loader_kw = dict(num_workers=t_cfg.num_workers, collate_fn=collate_images, shard_index=pdist.rank(),
+                     shard_count=pdist.world())
+    train_loader = Loader(train_ds, host_batch, shuffle=True, seed=cfg.seed, **loader_kw)
+    val_loader = Loader(val_ds, max(1, host_batch // 4), shuffle=False, **loader_kw)
 
-    trainer = DiTTrainer(cfg, device=args.device)
+    trainer = DiTTrainer(cfg, device=device)
     ckpt = Checkpointer(out_dir)
-    print(f"DiT parameters: {trainer.param_count():,}; compute dtype {str(trainer.dtype).replace('torch.', '')}")
+    say(f"DiT parameters: {trainer.param_count():,}; compute dtype {str(trainer.dtype).replace('torch.', '')}")
     restored, _ = ckpt.try_restore_latest(trainer, max_it)
     if restored:
-        print(f"Resumed from checkpoint at it={trainer.step}")
+        say(f"Resumed from checkpoint at it={trainer.step}")
 
     metrics_path = os.path.join(out_dir, "metrics.jsonl")
 
     def log_metrics(kind, payload, it):
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps({"kind": kind, "it": it, **payload}) + "\n")
+        if is_main:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps({"kind": kind, "it": it, **payload}) + "\n")
 
     def sample_grid(it):
         n = min(8, mcfg.num_classes)
@@ -122,23 +150,24 @@ def main(argv=None):
             if t_cfg.backup_every > 0 and it > 0 and it % t_cfg.backup_every == 0:
                 ckpt.save(f"step_{it}", trainer, scalars_out)
             if samplenow or (t_cfg.visualize_every > 0 and it > 0 and it % t_cfg.visualize_every == 0):
-                sample_grid(it)
+                if is_main:
+                    sample_grid(it)
                 samplenow = False
             if t_cfg.validate_every > 0 and it > 0 and it % t_cfg.validate_every == 0:
                 eval_dict = trainer.evaluate(iter(val_loader), seed=cfg.seed)
-                print(f"it={it} eval:", eval_dict)
+                say(f"it={it} eval:", eval_dict)
                 log_metrics("eval", eval_dict, it)
 
             metrics = trainer.train_step(batch)
 
             if t_cfg.print_every > 0 and it % t_cfg.print_every == 0:
                 loss, mse = float(metrics["loss"]), float(metrics["mse"])
-                print(f"{out_dir} it={it} loss={loss:.4f} mse={mse:.4f}")
+                say(f"{out_dir} it={it} loss={loss:.4f} mse={mse:.4f}", flush=True)
                 log_metrics("train", {"loss": loss, "mse": mse}, it)
 
             if it >= max_it:
                 ckpt.save("latest", trainer, {"it": it})
-                print("Iteration limit reached. Exiting.")
+                say("Iteration limit reached. Exiting.")
                 return
 
 

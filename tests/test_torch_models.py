@@ -118,8 +118,8 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_evaluate.main([FLAGSHIP, "--synthetic", "--max-scenes", "1"])
     accum = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, grad_accum=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(accum, device="cpu").train_step(collate([SyntheticScenes(cfg.data, "train")[0]] * 2))
+    with pytest.raises(ValueError, match="not divisible by grad_accum=2"):
+        Trainer(accum, device="cpu").train_step(collate([SyntheticScenes(cfg.data, "train")[0]]))
 
 
 def test_plain_attention_layer_matches_jax_on_cpu_and_raises_off_cpu():

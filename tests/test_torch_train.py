@@ -167,9 +167,10 @@ def test_dropout_draws_from_the_trainer_generator_and_eval_is_deterministic():
 
 
 def test_grad_accum_raises():
+    """A batch that grad_accum does not divide raises, as JAX's does."""
     cfg = _train_cfg(load_config(FLAGSHIP), grad_accum=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        Trainer(cfg, device="cpu").train_step(collate(_items(cfg, (0, 1))))
+    with pytest.raises(ValueError, match="batch size 3 not divisible by grad_accum=2"):
+        Trainer(cfg, device="cpu").train_step(collate(_items(cfg, (0, 1, 2))))
 
 
 def test_checkpoint_round_trip_with_auto_resume_and_best(tmp_path):
