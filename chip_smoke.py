@@ -5,11 +5,12 @@ Usage, from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Twenty-seven configurations at full width and depth (but for msn_so3's
-fp32 paths, below), random weights from the config's seed, synthetic scenes
-of each dataset's shapes (the host renderer, the default) or procedural
-images (the DiT), and then (phase 6) batches the dataset readers make from
-files written here:
+Twenty-nine configurations under runs/ and the seven under experiments/
+at full width and depth (but for msn_so3's fp32 paths, below), random
+weights from the config's seed, synthetic scenes of each dataset's shapes
+(the host renderer, the default, or since phase 8 the device generator)
+or procedural images (the DiT), and then (phase 6) batches the dataset
+readers make from files written here:
   - GTA, the flagship (runs/clevrtr/GTA/gta): fused GTA attention in every
     layer (kernels gta_fused_fwd, gta_fused_bwd) at head width 64;
   - SRT, the baseline (runs/clevrtr/otherPEs/srt): plain softmax attention
@@ -224,10 +225,46 @@ Phases (any failure exits non-zero and prints no result line):
      steps, then resumed for a third, then `python -m
      gta_tpu_torch.scripts.eval_dit_samples --per-class 1` on the run;
      dit_base one step (the run's time).
-  7. One JSON line of kernel numbers, an entry per kernel instance (fp32
+  8. Device-made data (device_data_phase): data/device_synth.DeviceSynthetic
+     for the flagship (fp32, B=32), msn_so3 as published (bf16, B=64) and
+     re10k gta and srt as published (runs/re10k; bf16, B=32, 2 + 2 views of
+     120x160), data/images.DeviceSyntheticImages for dit_gta (B=256): each
+     generator's batch() under torch.cuda.set_sync_debug_mode("error"),
+     timed (CUDA events, median of 7 after 2 warm-ups) with its own peak
+     memory, and held against the same ids made on the CPU (sceneid,
+     target_coord and labels equal; cameras, rays and transforms within
+     1e-5; images within 1e-4 on 99.9 % of the pixels, the share beyond
+     printed); a cold and 3 warm train_steps on device batches (the
+     generator's time included) beside the same on a ready host-made batch
+     on the card, launch counts asserted for both; dit_gta's step fed by
+     Loader's threads beside them; re10k gta and srt's serving path
+     (serving_path_phase at B=32, a 240x320 view at chunk 16384) and one
+     re10k gta train step under torch.profiler, device ms by kernel name.
+     Then the seven experiments/ configs (the flagship in bf16 on three
+     schedules, msn_so3_40k, re10k_quality20k, dit_metric_base and _gta at
+     10 classes and B=128), a cold and a warm --device-data step each at
+     full width, launch counts asserted; and the CLIs: `python -m
+     gta_tpu_torch.train experiments/clevrtr_long150k/config.yaml
+     --device-data` for 2 steps, beside `python -m gta_tpu_torch.train_dit
+     experiments/dit_metric_gta/config.yaml --device-data --samplenow` and
+     a one-rank `python -m torch.distributed.run` of the train CLI, then the
+     first resumed for a third step, whose scene ids must be the
+     generator's batch 2 (an unbroken run's).
+  9. One JSON line of kernel numbers, an entry per kernel instance (fp32
      and bf16, launches by path, the attention core it runs and that core's
      ptxas registers and spills in its library), then the device JSON as
      the last line.
+
+Each phase prints its wall seconds ("phase seconds: <name> <s>", and all
+of them on a line before the kernels line). The time budget: half the
+1200 s limit is the aim. Measured on one NVIDIA H100 80GB HBM3 at 700 W
+before phase 8 was added (PERF.md, section 6): the subprocess CLIs, run
+one after another, took 146 s (phase 5), 84 s (the DiT CLIs) and 76 s
+(the disk phase's four), most of it process start; OTHER_METHODS' cold
+steps 7.9 s and the msn variants 3.3 s. So the CLIs run side by side
+(side_by_side: phase 5 as four chains, the DiT CLIs and the disk phase's
+train -> evaluate as two each); no check and no launch assertion was
+dropped, and no path's depth was cut.
 """
 
 from __future__ import annotations
@@ -282,6 +319,20 @@ VARIANT_BATCH = 16  # the four msn GTA variants' batch here (the run's time)
 RENDER_CHUNK = 16384  # the evaluation protocol's chunk
 RENDER_RUNS = 3  # timed full-frame renders, after one warm-up
 TRAIN_RUNS = 3  # timed warm train steps, after one cold step
+
+
+PHASE_SECONDS = {}  # wall seconds of each phase (summed where a name repeats), printed as they end
+
+
+def timed(name, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its wall seconds added to PHASE_SECONDS[name]
+    and printed."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    dt = time.perf_counter() - t0
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + dt
+    print(f"phase seconds: {name} {dt:.1f}", flush=True)
+    return out
 
 
 def time_ms(fn, runs=TIMED_RUNS, warmup=WARMUP) -> float:
@@ -1657,6 +1708,18 @@ def run_cli(args, label, env=None):
     return proc.stdout
 
 
+def side_by_side(*chains):
+    """Run the chains (functions of no argument; each runs its CLIs one
+    after another) in threads side by side: a CLI's time is mostly its
+    process start, and the card has room for all. Re-raises the first
+    chain's failure once all have ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(chains)) as pool:
+        futures = [pool.submit(chain) for chain in chains]
+    return [f.result() for f in futures]
+
+
 def runs_listing():
     """Every file under runs/ with its size and modification time."""
     listing = {}
@@ -1690,84 +1753,101 @@ def cli_phase():
     4; `python -m gta_tpu_torch.evaluate --ckpt best` on that run (LPIPS-VGG
     from a random-weight npz); the same evaluate on msn gta as published
     (bf16, no checkpoint: the random init); on CLEVR-TR gta_so3, 2 train
-    steps; the SRT baseline's evaluate, one full-scale scene."""
-    from gta_tpu_torch.config import load_config
+    steps; the SRT baseline's evaluate, one full-scale scene; gbt trained
+    with --evalnow and evaluated --ckpt best. Four chains of CLIs
+    (gta_chain, msn_chain, so3_srt_chain, gbt_chain) side by side."""
     from gta_tpu_torch.utils.lpips import random_params
-    from gta_tpu_torch.utils.visualize import GAP, read_png
 
     runs_before = runs_listing()
-    with tempfile.TemporaryDirectory() as out:
-        logs = []
-        for exit_after, extra in ((2, ["--evalnow", "--visnow", "--max-eval", "8"]), (4, [])):
-            log = run_cli(["gta_tpu_torch.train", GTA_CONFIG, "--synthetic", "--outdir", out,
-                           "--exit-after", str(exit_after), *extra], f"GTA train CLI --exit-after {exit_after} {extra}")
-            logs.append(log)
-            for line in log.splitlines():
-                if any(w in line for w in ("it=", "Resumed", "parameters", "limit", "best", "Visualizing")):
-                    print(f"  {line}", flush=True)
-            if "Iteration limit reached" not in log:
-                raise AssertionError(f"train CLI did not reach its limit:\n{log}")
-        if "Resumed" in logs[0] or "Resumed from checkpoint at it=3" not in logs[1]:
-            raise AssertionError("train CLI did not start fresh, then resume at it=3")
-        if "Visualizing..." not in logs[0] or "New best model" not in logs[0]:
-            raise AssertionError("train CLI --evalnow --visnow did not visualize and save the best model")
-        # min(6, batch, --max-eval 8) val scenes, the input columns and 6
-        # render columns at the training resolution (240x320 downsampled once)
-        cfg = load_config(GTA_CONFIG)
-        rows, cols = min(6, cfg.training.batch_size, 8), cfg.data.num_input_views + 6
-        h, w = cfg.data.height >> cfg.data.downsample, cfg.data.width >> cfg.data.downsample
-        grid, text = read_png(os.path.join(out, "renders-val.png"))
-        want = (rows * (h + GAP) - GAP, cols * (w + GAP) - GAP, 3)
-        print(f"  renders-val.png: {grid.shape} uint8, columns {text.get('Columns')!r}", flush=True)
-        if grid.shape != want or len(text.get("Columns", "").split(" | ")) != cols:
-            raise AssertionError(f"renders-val.png is {grid.shape} with {text}, expected {want} and {cols} columns")
-
-        lp = os.path.join(out, "lpips_vgg_random.npz")
+    with tempfile.TemporaryDirectory() as tmp:
+        lp = os.path.join(tmp, "lpips_vgg_random.npz")
         np.savez(lp, **random_params(np.random.RandomState(0)))
-        log = run_cli(["gta_tpu_torch.evaluate", GTA_CONFIG, "--synthetic", "--outdir", out, "--ckpt", "best",
-                       "--max-scenes", "1"], "GTA evaluate CLI --ckpt best", env={"LPIPS_WEIGHTS": lp})
-        if "Loaded checkpoint best" not in log:
-            raise AssertionError(f"GTA evaluate CLI did not restore best:\n{log}")
-        check_eval_result(log, "GTA evaluate CLI", out, "best", "float32")
-        with tempfile.TemporaryDirectory() as msn_out:
-            log = run_cli(["gta_tpu_torch.evaluate", MSN_GTA_CONFIG, "--synthetic", "--outdir", msn_out,
-                           "--max-scenes", "1"], "msn gta evaluate CLI (no checkpoint)", env={"LPIPS_WEIGHTS": lp})
-            if "WARNING: checkpoint 'best' not found" not in log:
-                raise AssertionError(f"msn gta evaluate CLI did not warn of the absent checkpoint:\n{log}")
-            check_eval_result(log, "msn gta evaluate CLI", msn_out, None, "bfloat16")
-    with tempfile.TemporaryDirectory() as out:
-        log = run_cli(["gta_tpu_torch.train", CLEVR_SO3_CONFIG, "--synthetic", "--outdir", out, "--exit-after", "1"],
-                      "CLEVR-TR gta_so3 train CLI --exit-after 1")
+        side_by_side(lambda: gta_chain(os.path.join(tmp, "gta"), lp), lambda: msn_chain(os.path.join(tmp, "msn"), lp),
+                     lambda: so3_srt_chain(os.path.join(tmp, "so3")), lambda: gbt_chain(os.path.join(tmp, "gbt"), lp))
+    if runs_listing() != runs_before:
+        raise AssertionError("a CLI wrote under runs/")
+
+
+def gta_chain(out, lp):
+    """The flagship's train CLI, 3 steps under --evalnow --visnow, resumed to
+    step 4, then evaluate --ckpt best (cli_phase)."""
+    from gta_tpu_torch.config import load_config
+    from gta_tpu_torch.utils.visualize import GAP, read_png
+
+    logs = []
+    for exit_after, extra in ((2, ["--evalnow", "--visnow", "--max-eval", "8"]), (4, [])):
+        log = run_cli(["gta_tpu_torch.train", GTA_CONFIG, "--synthetic", "--outdir", out,
+                       "--exit-after", str(exit_after), *extra], f"GTA train CLI --exit-after {exit_after} {extra}")
+        logs.append(log)
         for line in log.splitlines():
-            if "it=" in line or "parameters" in line:
+            if any(w in line for w in ("it=", "Resumed", "parameters", "limit", "best", "Visualizing")):
                 print(f"  {line}", flush=True)
-        if "Iteration limit reached" not in log or "it=0, loss=" not in log:
-            raise AssertionError(f"gta_so3 train CLI did not take its steps:\n{log}")
-        log = run_cli(["gta_tpu_torch.evaluate", SRT_CONFIG, "--synthetic", "--outdir", out, "--max-scenes", "1"],
-                      "SRT evaluate CLI")
+        if "Iteration limit reached" not in log:
+            raise AssertionError(f"train CLI did not reach its limit:\n{log}")
+    if "Resumed" in logs[0] or "Resumed from checkpoint at it=3" not in logs[1]:
+        raise AssertionError("train CLI did not start fresh, then resume at it=3")
+    if "Visualizing..." not in logs[0] or "New best model" not in logs[0]:
+        raise AssertionError("train CLI --evalnow --visnow did not visualize and save the best model")
+    # min(6, batch, --max-eval 8) val scenes, the input columns and 6
+    # render columns at the training resolution (240x320 downsampled once)
+    cfg = load_config(GTA_CONFIG)
+    rows, cols = min(6, cfg.training.batch_size, 8), cfg.data.num_input_views + 6
+    h, w = cfg.data.height >> cfg.data.downsample, cfg.data.width >> cfg.data.downsample
+    grid, text = read_png(os.path.join(out, "renders-val.png"))
+    want = (rows * (h + GAP) - GAP, cols * (w + GAP) - GAP, 3)
+    print(f"  renders-val.png: {grid.shape} uint8, columns {text.get('Columns')!r}", flush=True)
+    if grid.shape != want or len(text.get("Columns", "").split(" | ")) != cols:
+        raise AssertionError(f"renders-val.png is {grid.shape} with {text}, expected {want} and {cols} columns")
+    log = run_cli(["gta_tpu_torch.evaluate", GTA_CONFIG, "--synthetic", "--outdir", out, "--ckpt", "best",
+                   "--max-scenes", "1"], "GTA evaluate CLI --ckpt best", env={"LPIPS_WEIGHTS": lp})
+    if "Loaded checkpoint best" not in log:
+        raise AssertionError(f"GTA evaluate CLI did not restore best:\n{log}")
+    check_eval_result(log, "GTA evaluate CLI", out, "best", "float32")
+
+
+def msn_chain(out, lp):
+    """evaluate on msn gta as published (bf16), without a checkpoint."""
+    log = run_cli(["gta_tpu_torch.evaluate", MSN_GTA_CONFIG, "--synthetic", "--outdir", out, "--max-scenes", "1"],
+                  "msn gta evaluate CLI (no checkpoint)", env={"LPIPS_WEIGHTS": lp})
+    if "WARNING: checkpoint 'best' not found" not in log:
+        raise AssertionError(f"msn gta evaluate CLI did not warn of the absent checkpoint:\n{log}")
+    check_eval_result(log, "msn gta evaluate CLI", out, None, "bfloat16")
+
+
+def so3_srt_chain(out):
+    """CLEVR-TR gta_so3's train CLI for 2 steps, then the SRT baseline's
+    evaluate (random init) on one full-scale scene."""
+    log = run_cli(["gta_tpu_torch.train", CLEVR_SO3_CONFIG, "--synthetic", "--outdir", out, "--exit-after", "1"],
+                  "CLEVR-TR gta_so3 train CLI --exit-after 1")
+    for line in log.splitlines():
+        if "it=" in line or "parameters" in line:
+            print(f"  {line}", flush=True)
+    if "Iteration limit reached" not in log or "it=0, loss=" not in log:
+        raise AssertionError(f"gta_so3 train CLI did not take its steps:\n{log}")
+    log = run_cli(["gta_tpu_torch.evaluate", SRT_CONFIG, "--synthetic", "--outdir", out, "--max-scenes", "1"],
+                  "SRT evaluate CLI")
     result = json.loads(log.strip().splitlines()[-1])
     print(f"  {json.dumps(result)}", flush=True)
     if result["n_scenes"] != 1 or not result["device"].startswith("cuda") or not np.isfinite(result["psnr"]):
         raise AssertionError(f"SRT evaluate CLI: unexpected result {result}")
-    with tempfile.TemporaryDirectory() as out:
-        # a baseline of the other attention methods (torch eager, its
-        # Plücker bias) on non-transform batches: train, then evaluate best
-        log = run_cli(["gta_tpu_torch.train", GBT_CONFIG, "--synthetic", "--outdir", out, "--exit-after", "1",
-                       "--evalnow", "--max-eval", "8"], "gbt train CLI --exit-after 1 --evalnow")
-        for line in log.splitlines():
-            if any(w in line for w in ("it=", "parameters", "best")):
-                print(f"  {line}", flush=True)
-        if "Iteration limit reached" not in log or "New best model" not in log:
-            raise AssertionError(f"gbt train CLI did not take its steps and save the best model:\n{log}")
-        lp = os.path.join(out, "lpips_vgg_random.npz")
-        np.savez(lp, **random_params(np.random.RandomState(0)))
-        log = run_cli(["gta_tpu_torch.evaluate", GBT_CONFIG, "--synthetic", "--outdir", out, "--ckpt", "best",
-                       "--max-scenes", "1"], "gbt evaluate CLI --ckpt best", env={"LPIPS_WEIGHTS": lp})
-        if "Loaded checkpoint best" not in log:
-            raise AssertionError(f"gbt evaluate CLI did not restore best:\n{log}")
-        check_eval_result(log, "gbt evaluate CLI", out, "best", "float32")
-    if runs_listing() != runs_before:
-        raise AssertionError("a CLI wrote under runs/")
+
+
+def gbt_chain(out, lp):
+    """A baseline of the other attention methods (torch eager, its Plücker
+    bias) on non-transform batches: train with --evalnow, then evaluate
+    --ckpt best."""
+    log = run_cli(["gta_tpu_torch.train", GBT_CONFIG, "--synthetic", "--outdir", out, "--exit-after", "1",
+                   "--evalnow", "--max-eval", "8"], "gbt train CLI --exit-after 1 --evalnow")
+    for line in log.splitlines():
+        if any(w in line for w in ("it=", "parameters", "best")):
+            print(f"  {line}", flush=True)
+    if "Iteration limit reached" not in log or "New best model" not in log:
+        raise AssertionError(f"gbt train CLI did not take its steps and save the best model:\n{log}")
+    log = run_cli(["gta_tpu_torch.evaluate", GBT_CONFIG, "--synthetic", "--outdir", out, "--ckpt", "best",
+                   "--max-scenes", "1"], "gbt evaluate CLI --ckpt best", env={"LPIPS_WEIGHTS": lp})
+    if "Loaded checkpoint best" not in log:
+        raise AssertionError(f"gbt evaluate CLI did not restore best:\n{log}")
+    check_eval_result(log, "gbt evaluate CLI", out, "best", "float32")
 
 
 RUNTIME_ACCUM = 2  # the runtime phase's --accum
@@ -1784,10 +1864,12 @@ def free_port() -> int:
 
 
 def start_cli(args, log_path):
-    """Start `python -m <args>` from the repository root, its output into
-    `log_path`; returns the process (`finish_cli` waits for it)."""
+    """Start `python -m <args>` (`python -c <code> ...` where args[0] is
+    "-c") from the repository root, its output into `log_path`; returns the
+    process (`finish_cli` waits for it)."""
     out = open(log_path, "w")
-    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen([sys.executable, *(args if args[0] == "-c" else ["-m", *args])], cwd=ROOT, stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
     proc.log_path, proc.t0 = log_path, time.perf_counter()
     out.close()
     return proc
@@ -2443,11 +2525,7 @@ def disk_phase(gta_cfg, msn_gta, srt_cfg, paths):
                                          synthetic_batch(msn_gta.data, "train", 0, MSN_DISK_BATCH, msn_gta.seed),
                                          paths)
 
-        for config, data_dir, label, train_args, dtype in (
-                (GTA_CONFIG, clevr_dir, "CLEVR-TR gta", ["--exit-after", "2", "--batch-size", "8",
-                                                         "--max-eval", "2"], "float32"),
-                (RE10K_GTA_CONFIG, re10k_dir, "re10k gta", ["--exit-after", "1", "--batch-size", "1",
-                                                            "--max-eval", "1"], "bfloat16")):
+        def datapath_chain(config, data_dir, label, train_args, dtype):
             run = os.path.join(tmp, label.replace(" ", "_"))
             log = run_cli(["gta_tpu_torch.train", config, data_dir, "--outdir", run, "--evalnow", *train_args],
                           f"{label} train CLI on the datapath")
@@ -2467,6 +2545,13 @@ def disk_phase(gta_cfg, msn_gta, srt_cfg, paths):
                 raise AssertionError(f"{label} evaluate CLI: not '{line}' from best:\n{log}")
             print(f"  {line}", flush=True)
             check_disk_eval(json.loads(log.strip().splitlines()[-1]), f"{label} evaluate CLI", dtype)
+
+        # the two train -> evaluate chains side by side
+        side_by_side(
+            lambda: datapath_chain(GTA_CONFIG, clevr_dir, "CLEVR-TR gta",
+                                   ["--exit-after", "2", "--batch-size", "8", "--max-eval", "2"], "float32"),
+            lambda: datapath_chain(RE10K_GTA_CONFIG, re10k_dir, "re10k gta",
+                                   ["--exit-after", "1", "--batch-size", "1", "--max-eval", "1"], "bfloat16"))
 
         re10k_srt = load_config(RE10K_SRT_CONFIG)
         for cfg, config, data_dir, label, shape in (
@@ -2519,15 +2604,21 @@ def dit_kernel_phase(cfg, label, device):
                              geometry=(m.heads, m.hidden_size // m.heads, given))
 
 
-def check_dit_launches(label, cfg, forwards, backwards):
-    """The launch counts since the last reset: `forwards` and `backwards` of
-    the instance the DiT config's attention launches (the fused GTA kernels
-    for method 'gta', flash_core for ''; bf16 under mixed_prec), none of any
-    other. Returns them."""
+def dit_launches(cfg, forwards, backwards):
+    """`forwards` and `backwards` launches of the instance the DiT config's
+    attention launches (the fused GTA kernels for method 'gta', flash_core
+    for ''; bf16 under mixed_prec), none of any other."""
     kernel = "gta_fused" if cfg.model.attn.is_gta else "flash_core"
     suffix = "_bf16" if cfg.training.mixed_prec else ""
-    launches, want = launch_counts(), {name: 0 for name in launch_counts()}
+    want = dict.fromkeys(launch_counts(), 0)
     want[f"{kernel}_fwd{suffix}"], want[f"{kernel}_bwd{suffix}"] = forwards, backwards
+    return want
+
+
+def check_dit_launches(label, cfg, forwards, backwards):
+    """The launch counts since the last reset against dit_launches. Returns
+    them."""
+    launches, want = launch_counts(), dit_launches(cfg, forwards, backwards)
     print(f"{label}: launches {launches}, expected {want}", flush=True)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
@@ -2719,6 +2810,344 @@ def dit_cli_phase(path, label, steps=2, resume=True, evaluate=True, sample_steps
           f"eval_loss_mean={result['eval_loss_mean']}", flush=True)
 
 
+# Device-made data (data/device_synth.py, DeviceSyntheticImages): the
+# configs the JAX package's --device-data runs trained, at published shapes
+EXPERIMENTS = ("clevrtr_decay20k", "clevrtr_decay50k", "clevrtr_long150k", "msn_so3_40k", "re10k_quality20k",
+               "dit_metric_base", "dit_metric_gta")
+DEVICE_CPU_TOL = 1e-5  # camera positions and transforms, card against CPU
+DEVICE_CPU_PIXEL_TOL = 1e-4  # images, card against CPU ...
+DEVICE_CPU_PIXEL_SHARE = 0.999  # ... on at least this share of the pixels (silhouettes may flip)
+DEVICE_STEP_RUNS = 3  # warm steps timed, after one cold step
+PROFILE_TOP = 12  # kernels listed by device time in the profiled step
+SCENE_ID_SHIM = (  # the train CLI with every DeviceSynthetic.batch call's scene ids printed
+    "import runpy, sys; from gta_tpu_torch.data.device_synth import DeviceSynthetic as D; f = D.batch\n"
+    "def batch(self, *a, **k):\n"
+    "    b = f(self, *a, **k); print('scene ids', self.mode, a[0], b.sceneid.tolist(), flush=True); return b\n"
+    "D.batch = batch; sys.argv = ['gta_tpu_torch.train', *sys.argv[1:]]\n"
+    "runpy.run_module('gta_tpu_torch.train', run_name='__main__', alter_sys=True)")
+
+
+def as_synthetic(path):
+    """A config with dataset `synthetic` and its data shapes as published
+    (the train CLI's --synthetic makes the same input views; `downsample`
+    kept, so a full-scale view is the dataset's native size)."""
+    from gta_tpu_torch.config import load_config
+
+    cfg = load_config(path)
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
+
+
+def sync_checked(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): any host sync
+    inside raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def card_against_cpu(label, got, want, exact, close, pixels):
+    """A batch made on the card against the same ids made on the CPU:
+    `exact` fields equal, `close` within DEVICE_CPU_TOL, `pixels` within
+    DEVICE_CPU_PIXEL_TOL on DEVICE_CPU_PIXEL_SHARE of their pixels.
+    Returns {field: max |d|} and the share of pixels beyond the tolerance."""
+    import torch
+
+    errs, flips = {}, {}
+    for name in exact:
+        if not torch.equal(got[name].cpu(), want[name]):
+            raise AssertionError(f"{label}: {name} differs between the card and the CPU")
+    for name in close + pixels:
+        d = (got[name].cpu() - want[name]).abs()
+        errs[name] = float(d.max())
+        if name in pixels:  # a pixel is beyond where any of its channels is
+            flips[name] = float((d.amax(-1) > DEVICE_CPU_PIXEL_TOL).float().mean())
+            if flips[name] > 1 - DEVICE_CPU_PIXEL_SHARE:
+                raise AssertionError(f"{label}: {name} beyond {DEVICE_CPU_PIXEL_TOL} on {flips[name]:.2e} of pixels")
+        elif errs[name] > DEVICE_CPU_TOL:
+            raise AssertionError(f"{label}: {name} card vs CPU {errs[name]:.3e} > {DEVICE_CPU_TOL}")
+    return errs, flips
+
+
+def generator_check(label, make, batch_size, fields):
+    """One generator (make(device) -> it; it.batch(step, B) -> fields) on
+    the card: batch() under the sync check, its CUDA-event ms (median of
+    TIMED_RUNS after WARMUP) and its own peak memory, and the same ids made
+    on the CPU held against the card's (card_against_cpu; `fields` =
+    (exact, close, pixels)). Returns the generator and its numbers."""
+    import torch
+
+    gen, cpu = make("cuda"), make("cpu")
+    got = sync_checked(lambda: gen.batch(1, batch_size))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: gen.batch(1, batch_size))
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    t0 = time.perf_counter()
+    want = cpu.batch(1, batch_size)
+    cpu_s = time.perf_counter() - t0
+    view = (lambda b: b) if isinstance(got, dict) else (lambda b: {f.name: getattr(b, f.name)
+                                                                   for f in dataclasses.fields(b)})
+    errs, flips = card_against_cpu(label, view(got), view(want), *fields)
+    print(f"{label} generator: batch B={batch_size} ms={ms:.4f} (CUDA events, median of {TIMED_RUNS}) own peak "
+          f"{peak_gb:.3f} GB, no host sync; CPU {cpu_s:.2f} s; card vs CPU max|d| {json.dumps(errs)}, share beyond "
+          f"{DEVICE_CPU_PIXEL_TOL} {json.dumps(flips)}", flush=True)
+    return gen, {"batch": batch_size, "gen_ms": ms, "gen_peak_gb": peak_gb, "cpu_s": cpu_s, "card_vs_cpu": errs,
+                 "pixels_beyond_tol": flips}
+
+
+def timed_steps(step, batches):
+    """Host ms of step(batches[i]) each, CUDA-synchronised (the first cold)."""
+    import torch
+
+    out = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(b)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def step_numbers(ms):
+    return {"cold_ms": ms[0], "warm_ms": ms[1:], "median_warm_ms": float(np.median(ms[1:]))}
+
+
+def device_steps(label, trainer, gen, batch_size, ready, want, first=2):
+    """train_step on device batches (batch `first + i` made as each step
+    starts, its time included: what --device-data does) and on a ready
+    batch already on the card, a cold and DEVICE_STEP_RUNS warm each, the
+    launch counts of each run asserted equal to `want`. Returns
+    ({"device": launches, "ready": launches}, numbers)."""
+    import torch
+
+    runs, launches = {}, {}
+    for kind, make in (("device", lambda i: gen.batch(first + i, batch_size)), ("ready", lambda i: ready)):
+        reset_launch_counts()
+        losses = []
+        ms = timed_steps(lambda i: losses.append(float(trainer.train_step(make(i))["loss"])),
+                         range(1 + DEVICE_STEP_RUNS))
+        launches[kind] = launch_counts()
+        if launches[kind] != want or not np.isfinite(losses).all():
+            raise AssertionError(f"{label} {kind} steps: launches {launches[kind]}, expected {want}; losses {losses}")
+        runs[kind] = step_numbers(ms)
+    print(f"{label} train_step B={batch_size}: device batches {json.dumps(runs['device'])}; ready batch on the card "
+          f"{json.dumps(runs['ready'])}; launches {launches['device']} each", flush=True)
+    return launches, runs
+
+
+def nvs_device_data(label, cfg, paths, key):
+    """An NVS config with --device-data's batches: the generator
+    (generator_check), then device_steps beside the host-made batch."""
+    from gta_tpu_torch.data.device_synth import DeviceSynthetic
+    from gta_tpu_torch.train.trainer import Trainer
+
+    transform = cfg.data.return_transform
+    fields = (("sceneid", "target_coord") if transform else ("sceneid",),
+              ("input_camera_pos", "target_camera_pos", "input_transforms", "transform", "input_rays", "target_rays")
+              + (("target_transforms",) if transform else ()), ("input_images", "target_pixels"))
+    B = cfg.training.batch_size
+    gen, numbers = generator_check(label, lambda device: DeviceSynthetic(cfg.data, "train", cfg.seed,
+                                                                         device=device), B, fields)
+    trainer = Trainer(cfg)  # default device: cuda
+    ready = synthetic_batch(cfg.data, "train", 0, B, cfg.seed).to("cuda")
+    launches, numbers["steps"] = device_steps(label, trainer, gen, B, ready, expected_launches(
+        cfg, 1 + DEVICE_STEP_RUNS, 1 + DEVICE_STEP_RUNS, backward_steps=1 + DEVICE_STEP_RUNS))
+    paths[f"{key}_device_train"], paths[f"{key}_ready_train"] = launches["device"], launches["ready"]
+    return trainer, gen, numbers
+
+
+def profile_step(label, trainer, batch):
+    """One train_step under torch.profiler: the device ms of each CUDA
+    kernel (and copy) by name, the PROFILE_TOP largest printed, and their
+    sum."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.device_time_total / 1e3) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+                      and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")),
+                     key=lambda r: -r[1])
+    if not kernels:
+        raise AssertionError(f"{label}: torch.profiler recorded no device time (CUPTI)")
+    total = sum(ms for _, ms in kernels)
+    print(f"{label} profiled train_step: device ms {total:.3f} over {len(kernels)} kernel names; largest: "
+          + "; ".join(f"{name[:90]} {ms:.3f}" for name, ms in kernels[:PROFILE_TOP]), flush=True)
+    return {"device_ms": total, "top": kernels[:PROFILE_TOP]}
+
+
+def experiment_steps(name, paths):
+    """An experiments/ config in process as `--device-data` trains it, at
+    full width and its batch: a cold and a warm train step on device
+    batches 0 and 1, the launch counts asserted. Returns its numbers."""
+    import torch
+
+    from gta_tpu_torch.data.device_synth import DeviceSynthetic
+    from gta_tpu_torch.data.images import DeviceSyntheticImages
+    from gta_tpu_torch.train.dit_trainer import DiTTrainer, load_dit_config
+    from gta_tpu_torch.train.trainer import Trainer
+
+    path = os.path.join(ROOT, "experiments", name, "config.yaml")
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    if name.startswith("dit_"):
+        cfg = load_dit_config(path)
+        m = cfg.model
+        trainer = DiTTrainer(cfg)
+        gen = DeviceSyntheticImages(m.input_size, m.num_classes, "train", cfg.data.num_images, cfg.seed,
+                                    device=trainer.device)
+        ms = timed_steps(lambda i: trainer.train_step(gen.batch(i, cfg.training.batch_size)), range(2))
+        launches = check_dit_launches(f"experiments/{name}", cfg, 2 * m.depth, 2 * m.depth)
+    else:
+        cfg = as_synthetic(path)
+        trainer = Trainer(cfg)
+        gen = DeviceSynthetic(cfg.data, "train", cfg.seed, device=trainer.device)
+        ms = timed_steps(lambda i: trainer.train_step(gen.batch(i, cfg.training.batch_size)), range(2))
+        launches, want = launch_counts(), expected_launches(cfg, 2, 2, backward_steps=2)
+        if launches != want:
+            raise AssertionError(f"experiments/{name}: launches {launches}, expected {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in trainer.model.parameters())
+    if not finite:
+        raise AssertionError(f"experiments/{name}: gradients not finite")
+    print(f"experiments/{name} --device-data: B={cfg.training.batch_size} "
+          f"{'bf16' if cfg.training.mixed_prec else 'fp32'} train_step ms cold {ms[0]:.2f} warm {ms[1]:.2f} "
+          f"peak_mem_gb={peak_gb:.2f}; launches {launches}", flush=True)
+    paths[f"exp_{name}_train"] = launches
+    del trainer
+    torch.cuda.empty_cache()
+    return {"batch": cfg.training.batch_size, "cold_ms": ms[0], "warm_ms": ms[1], "peak_mem_gb": peak_gb}
+
+
+def scene_ids(log):
+    """{(mode, step): ids} of a SCENE_ID_SHIM run's output."""
+    out = {}
+    for line in log.splitlines():
+        if line.startswith("scene ids "):
+            mode, step, ids = line[len("scene ids "):].split(" ", 2)
+            out[(mode, int(step))] = json.loads(ids)
+    return out
+
+
+def device_data_cli(paths):
+    """The CLIs with --device-data as subprocesses, each into a temporary
+    directory: experiments/clevrtr_long150k for 2 steps (through
+    SCENE_ID_SHIM, which prints each batch's scene ids), beside
+    train_dit on experiments/dit_metric_gta for 2 steps with --samplenow and
+    a one-rank `python -m torch.distributed.run` of the train CLI (NCCL);
+    then the first run resumed for a third step, whose scene ids must be
+    the generator's batch 2: an unbroken run's."""
+    from gta_tpu_torch.data.device_synth import DeviceSynthetic
+
+    long_cfg = os.path.join(ROOT, "experiments", "clevrtr_long150k", "config.yaml")
+    dit_cfg = os.path.join(ROOT, "experiments", "dit_metric_gta", "config.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "long")
+        shim = ["-c", SCENE_ID_SHIM, long_cfg, "--device-data", "--outdir", run_dir, "--exit-after"]
+        procs = {label: start_cli(args, os.path.join(tmp, f"{key}.log")) for key, label, args in (
+            ("long", "train --device-data (2 steps)", shim + ["1"]),
+            ("dit", "train_dit --device-data", ["gta_tpu_torch.train_dit", dit_cfg, "--device-data", "--outdir",
+                                                os.path.join(tmp, "dit"), "--exit-after", "1", "--samplenow"]),
+            ("ddp", "torchrun train --device-data", [
+                "torch.distributed.run", "--nproc_per_node", "1", "--master_addr", "localhost", "--master_port",
+                str(free_port()), "-m", "gta_tpu_torch.train", long_cfg, "--device-data", "--outdir",
+                os.path.join(tmp, "ddp"), "--exit-after", "1"]))}
+        logs = {label: finish_cli(proc, label) for label, proc in procs.items()}
+        resumed = finish_cli(start_cli(shim + ["2"], os.path.join(tmp, "resume.log")), "train --device-data resumed")
+    cfg = as_synthetic(long_cfg)
+    gen = DeviceSynthetic(cfg.data, "train", cfg.seed, device="cuda")
+    first, again = scene_ids(logs["train --device-data (2 steps)"]), scene_ids(resumed)
+    want = {("train", s): gen.ids(s, cfg.training.batch_size).tolist() for s in range(3)}
+    checks = {
+        "first run's steps are batches 0 and 1": all(first.get(("train", s)) == want[("train", s)] for s in (0, 1)),
+        "resumed step is batch 2": again.get(("train", 2)) == want[("train", 2)] and ("train", 1) not in again,
+        "resumed": "Resumed from checkpoint at it=2" in resumed,
+        "on-device generation": all("Loading training set (synthetic, on-device generation)..." in log
+                                    for log in (logs["train --device-data (2 steps)"], resumed,
+                                                logs["torchrun train --device-data"])),
+        "dit": all(s in logs["train_dit --device-data"] for s in ("Procedural images, on-device generation.",
+                                                                   "Sample grid written: samples_0.png",
+                                                                   "Iteration limit reached")),
+        "nccl": "Data parallel: backend nccl, world size 1, rank 0" in logs["torchrun train --device-data"],
+    }
+    print(f"device-data CLIs: {json.dumps(checks)}; resumed step's scene ids {again.get(('train', 2))}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"device-data CLIs: {checks}\n" + "\n".join(list(logs.values()) + [resumed]))
+    return checks
+
+
+def device_data_phase(gta_cfg, paths, dit_gta, card):
+    """Device-made data (data/device_synth.DeviceSynthetic and
+    data/images.DeviceSyntheticImages) on the card, at published shapes:
+    the flagship (fp32, B=32), msn_so3 (bf16, B=64), re10k gta and srt
+    (bf16, B=32; 2 + 2 views of 120x160) and dit_gta (B=256). Each
+    generator under the sync check, timed, with its peak memory, and held
+    against the CPU's batch of the same ids; warm train steps on device
+    batches beside a ready host-made batch on the card, launch counts
+    asserted; for dit_gta the loader-fed step too. re10k gta and srt also
+    serve (serving_path_phase: eval_step at B=32, a 240x320 view at chunk
+    16384), and one re10k gta step is profiled. Then the seven
+    experiments/ configs (experiment_steps) and the CLIs
+    (device_data_cli). Returns the numbers, the card's name and power
+    limit (`card`, as nvidia-smi gives them) among them."""
+    import torch
+
+    from gta_tpu_torch.data.images import DeviceSyntheticImages, SyntheticImages, collate_images
+    from gta_tpu_torch.data.loader import Loader
+    from gta_tpu_torch.train.dit_trainer import DiTTrainer
+
+    out = {"card": card}
+    print(f"device data phase on {card}", flush=True)
+    configs = (("flagship fp32", gta_cfg, "gta"), ("msn_so3 bf16", as_synthetic(MSN_SO3_CONFIG), "msn_so3_bf16"),
+               ("re10k gta bf16", as_synthetic(RE10K_GTA_CONFIG), "re10k_gta_bf16"),
+               ("re10k srt bf16", as_synthetic(RE10K_SRT_CONFIG), "re10k_srt_bf16"))
+    for label, cfg, key in configs:
+        trainer, gen, out[key] = nvs_device_data(label, cfg, paths, key)
+        if key == "re10k_gta_bf16":
+            out[key]["profile"] = profile_step(label, trainer, gen.batch(9, cfg.training.batch_size))
+        del trainer, gen
+        torch.cuda.empty_cache()
+        if key.startswith("re10k"):
+            paths[f"{key}_serving"], frame = serving_path_phase(cfg, label, cfg.training.batch_size)
+            out[key]["render_ms"] = frame[2]
+
+    m = dit_gta.model
+    B = dit_gta.training.batch_size
+    gen, out["dit_gta"] = generator_check(
+        "dit_gta", lambda device: DeviceSyntheticImages(m.input_size, m.num_classes, "train", dit_gta.data.num_images,
+                                                        dit_gta.seed, device=device),
+        B, (("label",), (), ("image",)))
+    trainer = DiTTrainer(dit_gta)
+    ds = SyntheticImages(m.input_size, m.num_classes, "train", dit_gta.data.num_images, dit_gta.seed)
+    ready = {k: torch.as_tensor(v).cuda() for k, v in collate_images([ds[i] for i in range(B)]).items()}
+    steps = 1 + DEVICE_STEP_RUNS
+    launches, out["dit_gta"]["steps"] = device_steps("dit_gta", trainer, gen, B, ready,
+                                                     dit_launches(dit_gta, m.depth * steps, m.depth * steps))
+    paths["dit_gta_device_train"], paths["dit_gta_ready_train"] = launches["device"], launches["ready"]
+    batches = iter(Loader(ds, B, shuffle=True, seed=dit_gta.seed, num_workers=dit_gta.training.num_workers,
+                          collate_fn=collate_images))
+    fed = timed_steps(lambda i: trainer.train_step(next(batches)), range(steps))
+    batches.close()
+    out["dit_gta"]["steps"]["loader_fed"] = step_numbers(fed)
+    print(f"dit_gta train_step B={B} fed by Loader({dit_gta.training.num_workers} threads), next(loader) included: "
+          f"{json.dumps(out['dit_gta']['steps']['loader_fed'])}", flush=True)
+    del trainer, gen
+    torch.cuda.empty_cache()
+
+    out["experiments"] = {name: experiment_steps(name, paths) for name in EXPERIMENTS}
+    out["cli"] = device_data_cli(paths)
+    return out
+
+
 def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None):
     """One kernel instance's line in the kernels JSON: numbers at its main
     shape, launches by path, every shape's numbers, the attention core it
@@ -2883,86 +3312,95 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_kernels = time.perf_counter()
     calls = gta_calls(gta_cfg, device)
-    shapes = kernel_phase(gta_cfg, calls, device)
-    train_fwd, train_bwd = train_kernel_phase(gta_cfg, calls, device)
+    shapes = timed("kernels gta fp32", kernel_phase, gta_cfg, calls, device)
+    train_fwd, train_bwd = timed("kernels gta fp32", train_kernel_phase, gta_cfg, calls, device)
     calls = gta_calls(msn_cfg, device, MSN_BATCH, prefix="msn_")
-    msn_shapes = kernel_phase(msn_cfg, calls, device)
-    msn_train_fwd, msn_train_bwd = train_kernel_phase(msn_cfg, calls, device)
+    msn_shapes = timed("kernels msn_so3 fp32", kernel_phase, msn_cfg, calls, device)
+    msn_train_fwd, msn_train_bwd = timed("kernels msn_so3 fp32", train_kernel_phase, msn_cfg, calls, device)
     del calls
-    branch_fwd, branch_bwd = branch_phase(device)
-    gta_edge_fwd, gta_edge_bwd = gta_edge_phase(device)
-    msn_edge_fwd, msn_edge_bwd = gta_edge_phase(device, [
+    branch_fwd, branch_bwd = timed("kernels edges", branch_phase, device)
+    gta_edge_fwd, gta_edge_bwd = timed("kernels edges", gta_edge_phase, device)
+    msn_edge_fwd, msn_edge_bwd = timed("kernels edges", gta_edge_phase, device, [
         msn_cfg.model.decoder.attn.gta, GTAArgs(f_dims=FDims(triv=96))], heads=msn_cfg.model.decoder.heads)
-    flash_fwd, flash_bwd = flash_kernel_phase(srt_cfg, device)
-    edge_fwd, edge_bwd = flash_edge_phase(device)
-    gta_bf16_fwd, gta_bf16_bwd = bf16_kernel_phase(msn_bf16, "msn_so3", device)
-    clevr_bf16_fwd, clevr_bf16_bwd = bf16_kernel_phase(
+    flash_fwd, flash_bwd = timed("kernels flash fp32", flash_kernel_phase, srt_cfg, device)
+    edge_fwd, edge_bwd = timed("kernels edges", flash_edge_phase, device)
+    gta_bf16_fwd, gta_bf16_bwd = timed("kernels bf16", bf16_kernel_phase, msn_bf16, "msn_so3", device)
+    clevr_bf16_fwd, clevr_bf16_bwd = timed("kernels bf16", bf16_kernel_phase,
         synthetic(GTA_CONFIG, mixed_prec=True), "CLEVR-TR gta --bf16", device, EVAL_BATCH, "clevr_bf16_",
         ("clevr_bf16_decoder_eval_b32", "clevr_bf16_decoder_train_b32"))
-    flash_bf16_fwd, flash_bf16_bwd = bf16_kernel_phase(msn_srt, "msn SRT", device)
+    flash_bf16_fwd, flash_bf16_bwd = timed("kernels bf16", bf16_kernel_phase, msn_srt, "msn SRT", device)
     # flash_core at head width 96, at msn gta_t2's shapes (its attention
     # after the sliced transforms): fp32 (mixed_prec overridden) and bf16
     t2_cfg, msn_t2 = synthetic(T2_CONFIG), synthetic(MSN_T2_CONFIG)
     assert msn_t2.training.mixed_prec and not t2_cfg.training.mixed_prec
-    flash96_fwd, flash96_bwd = flash_kernel_phase(synthetic(MSN_T2_CONFIG, mixed_prec=False), device, MSN_BATCH,
-                                                  prefix="msn_t2_")
-    flash96_bf16_fwd, flash96_bf16_bwd = bf16_kernel_phase(msn_t2, "msn gta_t2", device, prefix="msn_t2_", flash=True)
+    flash96_fwd, flash96_bwd = timed("kernels flash fp32", flash_kernel_phase, synthetic(MSN_T2_CONFIG,
+                                     mixed_prec=False), device, MSN_BATCH, prefix="msn_t2_")
+    flash96_bf16_fwd, flash96_bf16_bwd = timed("kernels bf16", bf16_kernel_phase, msn_t2, "msn gta_t2", device,
+                                               prefix="msn_t2_", flash=True)
+    print(f"phase seconds: kernels (all) {time.perf_counter() - t_kernels:.1f}", flush=True)
 
     serving = {
-        "gta": serving_path_phase(gta_cfg, "GTA"),
-        "srt": serving_path_phase(srt_cfg, "SRT"),
-        "msn_so3": serving_path_phase(msn_cut, "msn_so3 (1 + 1 blocks)", MSN_BATCH),
-        "clevr_so3": serving_path_phase(so3_cfg, "CLEVR-TR gta_so3"),
-        "msn_so3_bf16": serving_path_phase(msn_bf16, "msn_so3 bf16", MSN_BATCH),
-        "msn_srt_bf16": serving_path_phase(msn_srt, "msn SRT bf16", MSN_BATCH),
-        "msn_gta_bf16": serving_path_phase(msn_gta, "msn gta bf16", MSN_BATCH),
-        "clevr_t2": serving_path_phase(t2_cfg, "CLEVR-TR gta_t2"),
-        "msn_t2_bf16": serving_path_phase(msn_t2, "msn gta_t2 bf16", MSN_BATCH),
+        "gta": timed("serving", serving_path_phase, gta_cfg, "GTA"),
+        "srt": timed("serving", serving_path_phase, srt_cfg, "SRT"),
+        "msn_so3": timed("serving", serving_path_phase, msn_cut, "msn_so3 (1 + 1 blocks)", MSN_BATCH),
+        "clevr_so3": timed("serving", serving_path_phase, so3_cfg, "CLEVR-TR gta_so3"),
+        "msn_so3_bf16": timed("serving", serving_path_phase, msn_bf16, "msn_so3 bf16", MSN_BATCH),
+        "msn_srt_bf16": timed("serving", serving_path_phase, msn_srt, "msn SRT bf16", MSN_BATCH),
+        "msn_gta_bf16": timed("serving", serving_path_phase, msn_gta, "msn gta bf16", MSN_BATCH),
+        "clevr_t2": timed("serving", serving_path_phase, t2_cfg, "CLEVR-TR gta_t2"),
+        "msn_t2_bf16": timed("serving", serving_path_phase, msn_t2, "msn gta_t2 bf16", MSN_BATCH),
     }
     paths = {}
     for key, (launches, _) in serving.items():
         paths[f"{key}_serving"], paths[f"{key}_train"] = launches, None
-    eval_metrics = metrics_phase({"GTA": serving["gta"][1], "msn gta bf16": serving["msn_gta_bf16"][1]})
-    paths["gta_train"], gta_step = train_path_phase(gta_cfg, "GTA")
-    paths["srt_train"], srt_step = train_path_phase(srt_cfg, "SRT")
-    paths["msn_so3_train"], msn_step = train_path_phase(msn_cut, "msn_so3 (1 + 1 blocks)", MSN_BATCH, distinct=2)
-    paths["clevr_so3_train"], so3_step = train_path_phase(so3_cfg, "CLEVR-TR gta_so3", distinct=2)
-    paths["msn_so3_bf16_train"], msn_bf16_step = train_path_phase(msn_bf16, "msn_so3 bf16", MSN_BATCH, distinct=2)
-    paths["msn_srt_bf16_train"], msn_srt_step = train_path_phase(msn_srt, "msn SRT bf16", MSN_BATCH, distinct=2)
-    paths["msn_gta_bf16_train"], msn_gta_step = train_path_phase(msn_gta, "msn gta bf16", MSN_BATCH, distinct=2)
-    paths["clevr_t2_train"], t2_step = train_path_phase(t2_cfg, "CLEVR-TR gta_t2", distinct=2)
-    paths["msn_t2_bf16_train"], msn_t2_step = train_path_phase(msn_t2, "msn gta_t2 bf16", MSN_BATCH, distinct=2)
+    eval_metrics = timed("metrics", metrics_phase, {"GTA": serving["gta"][1],
+                                                    "msn gta bf16": serving["msn_gta_bf16"][1]})
+    paths["gta_train"], gta_step = timed("train", train_path_phase, gta_cfg, "GTA")
+    paths["srt_train"], srt_step = timed("train", train_path_phase, srt_cfg, "SRT")
+    paths["msn_so3_train"], msn_step = timed("train", train_path_phase, msn_cut, "msn_so3 (1 + 1 blocks)", MSN_BATCH,
+                                             distinct=2)
+    paths["clevr_so3_train"], so3_step = timed("train", train_path_phase, so3_cfg, "CLEVR-TR gta_so3", distinct=2)
+    paths["msn_so3_bf16_train"], msn_bf16_step = timed("train", train_path_phase, msn_bf16, "msn_so3 bf16",
+                                                       MSN_BATCH, distinct=2)
+    paths["msn_srt_bf16_train"], msn_srt_step = timed("train", train_path_phase, msn_srt, "msn SRT bf16", MSN_BATCH,
+                                                      distinct=2)
+    paths["msn_gta_bf16_train"], msn_gta_step = timed("train", train_path_phase, msn_gta, "msn gta bf16", MSN_BATCH,
+                                                      distinct=2)
+    paths["clevr_t2_train"], t2_step = timed("train", train_path_phase, t2_cfg, "CLEVR-TR gta_t2", distinct=2)
+    paths["msn_t2_bf16_train"], msn_t2_step = timed("train", train_path_phase, msn_t2, "msn gta_t2 bf16", MSN_BATCH,
+                                                    distinct=2)
     for name, cfg in variants.items():
-        paths[f"msn_{name}_bf16_serving"], paths[f"msn_{name}_bf16_train"], _ = variant_phase(cfg, f"msn {name} bf16")
+        paths[f"msn_{name}_bf16_serving"], paths[f"msn_{name}_bf16_train"], _ = timed(
+            "msn variants", variant_phase, cfg, f"msn {name} bf16")
     other = {}
     for rel in OTHER_METHODS:
         cfg = synthetic(os.path.join(ROOT, "runs", *rel.split("/"), "config.yaml"))
         key = rel.split("/", 1)[0] + "_" + rel.rsplit("/", 1)[1]
-        paths[f"{key}_serving"], paths[f"{key}_train"], other[rel] = variant_phase(cfg, rel)
-    card_vs_cpu = {label: bf16_card_vs_cpu_phase(cfg, label) for cfg, label in
+        paths[f"{key}_serving"], paths[f"{key}_train"], other[rel] = timed("other methods", variant_phase, cfg, rel)
+    card_vs_cpu = {label: timed("bf16 card vs cpu", bf16_card_vs_cpu_phase, cfg, label) for cfg, label in
                    ((msn_bf16, "msn_so3"), (msn_srt, "msn SRT"), (msn_t2, "msn gta_t2"))}
     t_dit = time.perf_counter()
     dit_cfgs = {"dit_gta": load_dit_config(DIT_GTA_CONFIG), "dit_base": load_dit_config(DIT_BASE_CONFIG)}
     assert all(c.training.mixed_prec and c.training.batch_size == DIT_BATCH for c in dit_cfgs.values())
-    dit_kernels = {key: dit_kernel_phase(cfg, key, device) for key, cfg in dit_cfgs.items()}
+    dit_kernels = {key: timed("dit kernels", dit_kernel_phase, cfg, key, device) for key, cfg in dit_cfgs.items()}
     dit_steps, dit_vs_cpu = {}, {}
     for key, cfg in dit_cfgs.items():
-        launches, dit_steps[key] = dit_path_phase(cfg, key)
+        launches, dit_steps[key] = timed("dit paths", dit_path_phase, cfg, key)
         for path, counts in launches.items():
             paths[f"{key}_{path}"] = counts
-        dit_vs_cpu[key] = dit_card_vs_cpu_phase(cfg, key)
-    dit_cli_phase(DIT_GTA_CONFIG, "dit_gta")
-    dit_cli_phase(DIT_BASE_CONFIG, "dit_base", steps=1, resume=False, evaluate=False, sample_steps=2)
+        dit_vs_cpu[key] = timed("dit card vs cpu", dit_card_vs_cpu_phase, cfg, key)
+    timed("dit cli", side_by_side, lambda: dit_cli_phase(DIT_GTA_CONFIG, "dit_gta"),
+          lambda: dit_cli_phase(DIT_BASE_CONFIG, "dit_base", steps=1, resume=False, evaluate=False, sample_steps=2))
     print(f"DiT phases: {time.perf_counter() - t_dit:.1f} s", flush=True)
-    gta_grad = grads_phase(gta_cfg, "GTA")
-    srt_grad = grads_phase(srt_cfg, "SRT")
-    msn_grad = grads_phase(msn_cut, "msn_so3 (1 + 1 blocks)")
-    cli_phase()
-    runtime = runtime_phase(gta_cfg, paths)
-    t_disk = time.perf_counter()
-    disk = disk_phase(gta_cfg, msn_gta, srt_cfg, paths)
-    print(f"disk phase: {time.perf_counter() - t_disk:.1f} s", flush=True)
+    gta_grad = timed("grads", grads_phase, gta_cfg, "GTA")
+    srt_grad = timed("grads", grads_phase, srt_cfg, "SRT")
+    msn_grad = timed("grads", grads_phase, msn_cut, "msn_so3 (1 + 1 blocks)")
+    timed("cli", cli_phase)
+    runtime = timed("runtime", runtime_phase, gta_cfg, paths)
+    disk = timed("disk", disk_phase, gta_cfg, msn_gta, srt_cfg, paths)
+    device_data = timed("device data", device_data_phase, gta_cfg, paths, dit_cfgs["dit_gta"], smi)
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
@@ -3002,6 +3440,7 @@ def main() -> int:
     print(f"evaluation per full-scale view: {json.dumps(eval_metrics)}", flush=True)
     print(f"disk: {json.dumps(disk)}", flush=True)
     print(f"runtime: {json.dumps(runtime)}", flush=True)
+    print(f"device data: {json.dumps(device_data)}", flush=True)
     for label, step in (("msn_so3 bf16", msn_bf16_step), ("msn SRT bf16", msn_srt_step),
                         ("msn gta_t2 bf16", msn_t2_step)):
         card_err, emu_err, gap, own = card_vs_cpu[label.split(" bf16")[0]]
@@ -3013,6 +3452,7 @@ def main() -> int:
         print(f"{key} bf16 train step B={DIT_BATCH}: {json.dumps(step)}; B=2 outputs from the CPU's fp32: card "
               f"{card_err:.3e}, emulated TPU rounding {emu_err:.3e}; card vs CPU bf16 {gap:.3e} (CPU bf16 vs fp32 "
               f"{own:.3e})", flush=True)
+    print(f"phase seconds (all): {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -4,7 +4,7 @@ Usage:
     python -m gta_tpu_torch.train <config.yaml> [datapath] [--synthetic]
         [--outdir DIR] [--exit-after N] [--evalnow] [--visnow] [--max-eval N]
         [--test] [--full-scale] [--seed S] [--batch-size B] [--bf16]
-        [--accum K] [--validate-every N] [--print-model] [--debug-nans]
+        [--accum K] [--validate-every N] [--print-model] [--debug-nans] [--device-data]
         [--speed_test N] [--profile N] [--wandb] [--rtpt INITIALS]
         [--device cuda|cpu]
     python -m torch.distributed.run --nproc_per_node G -m gta_tpu_torch.train <config.yaml> ...
@@ -51,10 +51,20 @@ with --device cpu); the gradients are averaged once per optimizer step
 (parallel/dist.py). Rank 0 alone prints progress, writes metrics.jsonl,
 checkpoints and renders and logs to wandb; a stop signal on any rank stops
 every rank after the same step. --n-model, --n-seq and --zero are accepted
-and raise above their defaults (ROADMAP queue 1 item 9c); --device-data
-raises (item 6). The device defaults to CUDA and the run fails without it
-unless --device cpu is given. The config's `training.mixed_prec` picks the
-compute dtype (bf16 or fp32; parameters stay fp32); --bf16 forces bf16.
+and raise above their defaults (ROADMAP queue 1 item 9c).
+
+--device-data makes the synthetic scenes on the device
+(data/device_synth.DeviceSynthetic), as train.py does: only where the
+dataset is `synthetic` after the --synthetic rewrite (otherwise the flag
+is ignored). Step `it` trains on batch `it` of the generator (this rank's
+shard), so a resumed run feeds the scenes an unbroken one would; an epoch
+is 10000 // global batch steps; evaluation runs over max(1, --max-eval
+(default 256) // (batch // 8)) fixed val batches made once, and the
+visualisation on val batch 0 of min(6, batch) scenes. The device
+defaults to CUDA and the run fails without it unless --device cpu is
+given; the generator makes its scenes on the run's device. The config's
+`training.mixed_prec` picks the compute dtype (bf16 or fp32; parameters
+stay fp32); --bf16 forces bf16.
 The loaders read with the config's `training.num_workers` threads (2 for
 the render batch), prefetching 2 batches.
 """
@@ -87,7 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--print-model", action="store_true", help="print every state_dict key and its shape")
     parser.add_argument("--synthetic", action="store_true", help="use synthetic scenes")
     parser.add_argument("--device-data", action="store_true",
-                        help="synthetic scenes made on the device (not ported yet: ROADMAP queue 1 item 6)")
+                        help="make the synthetic scenes on the device (zero per-step host work and copies)")
     parser.add_argument("--batch-size", type=int, default=None, help="override global batch size")
     parser.add_argument("--speed_test", type=int, default=0,
                         help="time 100 train steps (batch divided by this value), chained between two host "
@@ -122,9 +132,6 @@ def main(argv=None):
         if on:
             raise NotImplementedError(f"{flag} (the JAX package's tensor / sequence / ZeRO-1 parallelism) is not "
                                       "ported yet (ROADMAP queue 1 item 9c)")
-    if args.device_data:
-        raise NotImplementedError("--device-data (DeviceSynthetic, data/device_synth.py) is not ported yet "
-                                  "(ROADMAP queue 1 item 6)")
 
     from gta_tpu_torch.parallel import dist as pdist
 
@@ -196,18 +203,31 @@ def _train(args, device):
     sel_metric = t_cfg.model_selection_metric
 
     eval_split = "test" if args.test else "val"
-    say(f"Loading training set ({cfg.data.dataset})...")
-    train_ds = get_dataset("train", cfg.data, seed=cfg.seed)
-    eval_ds = get_dataset(eval_split, cfg.data, full_scale=args.full_scale, max_len=args.max_eval)
-    shard = dict(shard_index=pdist.rank(), shard_count=pdist.world(), num_workers=t_cfg.num_workers)
-    train_loader = Loader(train_ds, host_batch, shuffle=True, seed=cfg.seed, **shard)
-    val_loader = Loader(eval_ds, max(1, host_batch // 8), shuffle=False, **shard)
-    # --max-eval can cut the eval split below the vis batch size, and a
-    # loader that drops its last partial batch would then yield none
-    vis_n = max(1, min(6, host_batch, len(eval_ds)))
+    trainer = Trainer(cfg, device=device)
+    use_device_data = args.device_data and cfg.data.dataset == "synthetic"
+    if use_device_data:
+        from gta_tpu_torch.data.device_synth import DeviceSynthetic
+
+        say("Loading training set (synthetic, on-device generation)...")
+        dev_train = DeviceSynthetic(cfg.data, "train", seed=cfg.seed, device=trainer.device)
+        dev_val = DeviceSynthetic(cfg.data, eval_split, seed=cfg.seed, full_scale=args.full_scale,
+                                  device=trainer.device)
+        train_ds = eval_ds = None
+        val_batches = dev_val.val_batches(args.max_eval or 256, max(1, host_batch // 8))
+        steps_per_epoch = 10000 // global_batch or 1
+        vis_n = min(6, host_batch) or 1
+    else:
+        say(f"Loading training set ({cfg.data.dataset})...")
+        train_ds = get_dataset("train", cfg.data, seed=cfg.seed)
+        eval_ds = get_dataset(eval_split, cfg.data, full_scale=args.full_scale, max_len=args.max_eval)
+        shard = dict(shard_index=pdist.rank(), shard_count=pdist.world(), num_workers=t_cfg.num_workers)
+        train_loader = Loader(train_ds, host_batch, shuffle=True, seed=cfg.seed, **shard)
+        val_loader = Loader(eval_ds, max(1, host_batch // 8), shuffle=False, **shard)
+        # --max-eval can cut the eval split below the vis batch size, and a
+        # loader that drops its last partial batch would then yield none
+        vis_n = max(1, min(6, host_batch, len(eval_ds)))
     data_vis = None
 
-    trainer = Trainer(cfg, device=device)
     ckpt = Checkpointer(out_dir)
     counts = trainer.param_counts()
     say(
@@ -296,13 +316,22 @@ def _train(args, device):
                                      f"grad_norm {float(metrics['grad_norm'])}")
         return metrics
 
+    def train_epoch():
+        """One epoch of batches: the loader's, or the device generator's
+        batch `it` (read as each step starts: a resume continues the ids)."""
+        if not use_device_data:
+            train_loader.set_epoch(epoch_it)
+            yield from train_loader
+            return
+        for _ in range(steps_per_epoch):
+            yield dev_train.batch(it + 1, host_batch, pdist.rank(), pdist.world())
+
     t_resumed = time_elapsed
     session_start = time.perf_counter()
     try:
         while True:
             epoch_it += 1
-            train_loader.set_epoch(epoch_it)
-            for batch in train_loader:
+            for batch in train_epoch():
                 it += 1
                 time_elapsed = t_resumed + time.perf_counter() - session_start
                 scalars_out = {
@@ -323,14 +352,15 @@ def _train(args, device):
                 if visnow or (it > 0 and t_cfg.visualize_every > 0 and it % t_cfg.visualize_every == 0):
                     if is_main:
                         if data_vis is None:
-                            data_vis = next(iter(Loader(eval_ds, vis_n, shuffle=True, num_workers=2)))
+                            data_vis = (dev_val.batch(0, vis_n) if use_device_data
+                                        else next(iter(Loader(eval_ds, vis_n, shuffle=True, num_workers=2))))
                         print("Visualizing...")
                         trainer.visualize(data_vis, os.path.join(out_dir, "renders-val"))
                     visnow = False
 
                 if evalnow or (it > 0 and t_cfg.validate_every > 0 and it % t_cfg.validate_every == 0):
                     say("Evaluating...")
-                    eval_dict = trainer.evaluate(iter(val_loader))
+                    eval_dict = trainer.evaluate(iter(val_batches) if use_device_data else iter(val_loader))
                     say("Evaluation results:", eval_dict)
                     log_metrics("eval", eval_dict)
                     if wandb_run is not None:

@@ -141,10 +141,14 @@ class DiTTrainer:
         self.step = int(state["step"])
 
     # ------------------------------------------------------------------
-    def _tensors(self, batch: Dict[str, np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
-        images = torch.as_tensor(np.asarray(batch["image"]), dtype=torch.float32).to(self.device)
-        labels = torch.as_tensor(np.asarray(batch["label"]), dtype=torch.long).to(self.device)
-        return images, labels
+    def _tensors(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The batch's images and labels on the device: host arrays are
+        copied there, tensors already on it are used as they are."""
+        def put(x, dtype):
+            x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+            return x.to(self.device, dtype)
+
+        return put(batch["image"], torch.float32), put(batch["label"], torch.long)
 
     def draws(self, images: torch.Tensor, generator: torch.Generator):
         """(t, noise, drop) for a batch: timesteps uniform in [0, T), unit

@@ -3,8 +3,8 @@
 Usage:
     python -m gta_tpu_torch.train_dit <config.yaml> [datapath]
         [--seed S] [--outdir DIR] [--exit-after N] [--batch-size B]
-        [--max-eval N] [--samplenow] [--sample-steps K] [--guidance G]
-        [--device cuda|cpu]
+        [--max-eval N] [--samplenow] [--device-data] [--sample-steps K]
+        [--guidance G] [--device cuda|cpu]
     python -m torch.distributed.run --nproc_per_node G -m gta_tpu_torch.train_dit <config.yaml> ...
 
 Without an ImageNet datapath (neither the config's `data.path` nor the
@@ -22,9 +22,14 @@ num_classes) labels to <outdir>/samples_<it>.png. A rerun with the same
 outdir resumes from the newest checkpoint and prints "Resumed from
 checkpoint at it=N". --exit-after N stops after step N and saves `latest`.
 The device defaults to CUDA and the run fails without it unless --device
-cpu is given. --device-data (procedural images made on the device) is not
-ported yet (ROADMAP queue 1 item 6). There is no --accum, and the config's
-`training.grad_accum` has no effect, as in the JAX package.
+cpu is given. --device-data, without an ImageNet datapath, makes the
+procedural images on the device instead
+(data/images.DeviceSyntheticImages), as train_dit.py does: step `it`
+trains on batch `it` of the generator (this rank's shard; an epoch is
+max(1, num_images // batch) steps), and evaluation runs over max(1,
+--max-eval // (batch // 4)) fixed val batches made once. There is no
+--accum, and the config's `training.grad_accum` has no effect, as in the
+JAX package.
 
 Data parallel, as train_dit.py runs it: under torchrun every process
 trains on its shard of each global batch (the batch over the world size;
@@ -54,16 +59,13 @@ def main(argv=None):
     parser.add_argument("--max-eval", type=int, default=64)
     parser.add_argument("--samplenow", action="store_true")
     parser.add_argument("--device-data", action="store_true",
-                        help="procedural images made on the device (not ported yet)")
+                        help="generate procedural images on device (zero per-step H2D)")
     parser.add_argument("--sample-steps", type=int, default=50)
     parser.add_argument("--guidance", type=float, default=4.0)
     parser.add_argument("--device", type=str, default=None, help="default: cuda")
     args = parser.parse_args(argv)
     if not os.path.exists(args.config):
         parser.error(f"config file not found: {args.config}")
-    if args.device_data:
-        raise NotImplementedError("--device-data (DeviceSyntheticImages, data/device_synth.py) is not ported yet "
-                                  "(ROADMAP queue 1 item 6)")
 
     from gta_tpu_torch.parallel import dist as pdist
 
@@ -77,7 +79,7 @@ def main(argv=None):
 def _train(args, device):
     import numpy as np
 
-    from gta_tpu_torch.data.images import ImageNetTFDS, SyntheticImages, collate_images
+    from gta_tpu_torch.data.images import DeviceSyntheticImages, ImageNetTFDS, SyntheticImages, collate_images
     from gta_tpu_torch.data.loader import Loader
     from gta_tpu_torch.parallel import dist as pdist
     from gta_tpu_torch.train.checkpoint import Checkpointer
@@ -100,21 +102,30 @@ def _train(args, device):
         os.makedirs(out_dir, exist_ok=True)
     host_batch = t_cfg.batch_size // pdist.world()
 
-    datapath = args.datapath or cfg.data.path
-    if cfg.data.dataset == "imagenet" and datapath:
-        train_ds = ImageNetTFDS(mcfg.input_size, "train", datapath)
-        val_ds = ImageNetTFDS(mcfg.input_size, "val", datapath)
-    else:
-        if cfg.data.dataset == "imagenet":
-            say("No ImageNet datapath — falling back to procedural images.")
-        train_ds = SyntheticImages(mcfg.input_size, mcfg.num_classes, "train", cfg.data.num_images, cfg.seed)
-        val_ds = SyntheticImages(mcfg.input_size, mcfg.num_classes, "val", args.max_eval, cfg.seed)
-    loader_kw = dict(num_workers=t_cfg.num_workers, collate_fn=collate_images, shard_index=pdist.rank(),
-                     shard_count=pdist.world())
-    train_loader = Loader(train_ds, host_batch, shuffle=True, seed=cfg.seed, **loader_kw)
-    val_loader = Loader(val_ds, max(1, host_batch // 4), shuffle=False, **loader_kw)
-
     trainer = DiTTrainer(cfg, device=device)
+    datapath = args.datapath or cfg.data.path
+    use_device_data = args.device_data and not datapath
+    if use_device_data:
+        say("Procedural images, on-device generation.")
+        dev_train = DeviceSyntheticImages(mcfg.input_size, mcfg.num_classes, "train", cfg.data.num_images,
+                                          cfg.seed, device=trainer.device)
+        dev_val = DeviceSyntheticImages(mcfg.input_size, mcfg.num_classes, "val", args.max_eval, cfg.seed,
+                                        device=trainer.device)
+        val_batches = dev_val.val_batches(args.max_eval, max(1, host_batch // 4))
+    else:
+        if cfg.data.dataset == "imagenet" and datapath:
+            train_ds = ImageNetTFDS(mcfg.input_size, "train", datapath)
+            val_ds = ImageNetTFDS(mcfg.input_size, "val", datapath)
+        else:
+            if cfg.data.dataset == "imagenet":
+                say("No ImageNet datapath — falling back to procedural images.")
+            train_ds = SyntheticImages(mcfg.input_size, mcfg.num_classes, "train", cfg.data.num_images, cfg.seed)
+            val_ds = SyntheticImages(mcfg.input_size, mcfg.num_classes, "val", args.max_eval, cfg.seed)
+        loader_kw = dict(num_workers=t_cfg.num_workers, collate_fn=collate_images, shard_index=pdist.rank(),
+                         shard_count=pdist.world())
+        train_loader = Loader(train_ds, host_batch, shuffle=True, seed=cfg.seed, **loader_kw)
+        val_loader = Loader(val_ds, max(1, host_batch // 4), shuffle=False, **loader_kw)
+
     ckpt = Checkpointer(out_dir)
     say(f"DiT parameters: {trainer.param_count():,}; compute dtype {str(trainer.dtype).replace('torch.', '')}")
     restored, _ = ckpt.try_restore_latest(trainer, max_it)
@@ -139,10 +150,18 @@ def _train(args, device):
     it = trainer.step - 1
     epoch = -1
     samplenow = args.samplenow
+
+    def train_epoch():
+        if not use_device_data:
+            train_loader.set_epoch(epoch)
+            yield from train_loader
+            return
+        for _ in range(max(1, cfg.data.num_images // t_cfg.batch_size)):
+            yield dev_train.batch(it + 1, host_batch, pdist.rank(), pdist.world())
+
     while True:
         epoch += 1
-        train_loader.set_epoch(epoch)
-        for batch in train_loader:
+        for batch in train_epoch():
             it += 1
             scalars_out = {"it": it}
             if t_cfg.checkpoint_every > 0 and it > 0 and it % t_cfg.checkpoint_every == 0:
@@ -154,7 +173,8 @@ def _train(args, device):
                     sample_grid(it)
                 samplenow = False
             if t_cfg.validate_every > 0 and it > 0 and it % t_cfg.validate_every == 0:
-                eval_dict = trainer.evaluate(iter(val_loader), seed=cfg.seed)
+                eval_dict = trainer.evaluate(iter(val_batches) if use_device_data else iter(val_loader),
+                                             seed=cfg.seed)
                 say(f"it={it} eval:", eval_dict)
                 log_metrics("eval", eval_dict, it)
 

@@ -1,12 +1,12 @@
-"""Every config under runs/ (33) in the port, on the CPU (the port's side
-of tests/test_all_configs.py):
+"""Every config under runs/ (33) and experiments/ (7) in the port, on the
+CPU (the port's side of tests/test_all_configs.py):
 
   * the 31 NVS configs build and run one eval_step at the shrunk width of
     the parity tests (2 heads of its head width, one block each side,
     small images), with finite PSNR; the two DiT configs build at a test
     width (2 heads of their head width 64, one block, 8x8 images, batch 2;
     bf16 as published) and take one train_step and a 2-step CFG + DDIM
-    sample, with finite values;
+    sample of labels 0 and num_classes - 1, with finite values;
   * its weights carry across: every parameter of the JAX model at that
     width maps by `weights.flax_path_to_torch_key` to exactly one port
     parameter of the same shape, with none left over on either side (the
@@ -40,6 +40,11 @@ ALL = sorted(glob.glob("runs/*/*/*/config.yaml"))
 CONFIGS = [p for p in ALL if "/DiT/" not in p]
 DIT_CONFIGS = [p for p in ALL if "/DiT/" in p]
 IDS = [p[len("runs/"):-len("/config.yaml")] for p in ALL]
+# the JAX package's experiment configs: the flagship in bf16 on other
+# schedules, msn_so3 on synthetic scenes, re10k gta, and two 10-class DiTs
+EXPERIMENTS = sorted(glob.glob("experiments/*/config.yaml"))
+EXPERIMENT_DITS = [p for p in EXPERIMENTS if "/dit_" in p]
+EXPERIMENT_IDS = [p[:-len("/config.yaml")] for p in EXPERIMENTS]
 
 
 def test_every_config_but_dit_is_covered():
@@ -50,6 +55,10 @@ def test_every_config_but_dit_is_covered():
 def test_every_config_is_covered():
     assert DIT_CONFIGS == ["runs/imagenet/DiT/dit_base/config.yaml", "runs/imagenet/DiT/dit_gta/config.yaml"]
     assert sorted(CONFIGS + DIT_CONFIGS) == ALL and len(ALL) == 33
+    assert EXPERIMENT_IDS == ["experiments/clevrtr_decay20k", "experiments/clevrtr_decay50k",
+                              "experiments/clevrtr_long150k", "experiments/dit_metric_base",
+                              "experiments/dit_metric_gta", "experiments/msn_so3_40k",
+                              "experiments/re10k_quality20k"]
 
 
 def shrink_dit(cfg):
@@ -81,13 +90,13 @@ def _dit_serves(path):
     ds = SyntheticImages(8, cfg.model.num_classes, "train", 4)
     metrics = trainer.train_step(collate_images([ds[i] for i in range(2)]))
     assert all(torch.isfinite(metrics[k]) for k in ("loss", "mse", "vb", "grad_norm"))
-    samples = trainer.sample(np.array([0, 999]), seed=0, steps=2)
+    samples = trainer.sample(np.array([0, cfg.model.num_classes - 1]), seed=0, steps=2)
     assert samples.shape == (2, 8, 8, 3) and np.isfinite(samples).all()
 
 
-@pytest.mark.parametrize("path", ALL, ids=IDS)
+@pytest.mark.parametrize("path", ALL + EXPERIMENTS, ids=IDS + EXPERIMENT_IDS)
 def test_config_builds_and_serves(path):
-    if path in DIT_CONFIGS:
+    if path in DIT_CONFIGS + EXPERIMENT_DITS:
         return _dit_serves(path)
     from gta_tpu_torch.train.trainer import Trainer
 
@@ -98,9 +107,9 @@ def test_config_builds_and_serves(path):
     assert psnr.shape == (2,) and torch.isfinite(psnr).all()
 
 
-@pytest.mark.parametrize("path", ALL, ids=IDS)
+@pytest.mark.parametrize("path", ALL + EXPERIMENTS, ids=IDS + EXPERIMENT_IDS)
 def test_jax_params_map_one_to_one(path):
-    if path in DIT_CONFIGS:
+    if path in DIT_CONFIGS + EXPERIMENT_DITS:
         cfg, jcfg = shrink_dit(load_dit_config(path)), shrink_dit(j_load_dit_config(path))
         x, t, y = jnp.zeros((2, 8, 8, 3)), jnp.zeros((2,), jnp.int32), jnp.zeros((2,), jnp.int32)
         shapes = jax.eval_shape(lambda: j_build_dit(jcfg.model).init(jax.random.PRNGKey(0), x, t, y))["params"]

@@ -469,8 +469,8 @@ def test_dit_entry_points_need_cuda_or_explicit_cpu(tmp_path, monkeypatch):
         DiTTrainer(load_dit_config(str(path)))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main([str(path), "--outdir", str(tmp_path / "run"), "--exit-after", "0"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        cli.main([str(path), "--device-data", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main([str(path), "--outdir", str(tmp_path / "run"), "--exit-after", "0", "--device-data"])
 
 
 @pytest.mark.parametrize("method", ["gta", ""], ids=["gta", "base"])

@@ -61,8 +61,7 @@ def test_accum_below_one_is_a_parser_error(cfg, capsys):
     assert e.value.code == 2 and "--accum must be >= 1, got 0" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag, item", [(["--n-model", "2"], "9c"), (["--n-seq", "2"], "9c"), (["--zero"], "9c"),
-                                        (["--device-data"], "6")])
+@pytest.mark.parametrize("flag, item", [(["--n-model", "2"], "9c"), (["--n-seq", "2"], "9c"), (["--zero"], "9c")])
 def test_unported_parallelism_and_device_data_raise(cfg, tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=rf"{flag[0]} .*\(ROADMAP queue 1 item {item}\)"):
         _run(cfg, tmp_path / "run", *flag)
