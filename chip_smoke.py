@@ -168,7 +168,22 @@ Phases (any failure exits non-zero and prints no result line):
      `python -m gta_tpu_torch.evaluate <SRT> --synthetic --max-scenes 1`,
      which must report a finite PSNR; the gbt baseline (non-transform
      batches, torch-eager attention) trained one step with --evalnow and
-     evaluated --ckpt best.
+     evaluated --ckpt best; the SRT baseline's reference model.pt (one
+     train step of a B=2 batch here, exported with its AdamW moments)
+     through `python -m gta_tpu_torch.scripts.import_reference_checkpoint`,
+     then the train CLI, which must resume at it=1 and train at B=32
+     through flash_core to step 2 (after msn gta's evaluate, in its chain).
+  5a. Reference checkpoints (ref_ckpt_phase), the flagship (fp32, B=32)
+     and msn_so3 as published (bf16, B=64; the so3 sign map at head width
+     96): two train steps, saved; the port's export to a reference
+     model.pt, weights only (the order template) and then with the AdamW
+     moments; the import into a new run directory; a fresh trainer
+     restored from it equal to the saved one bit for bit (weights,
+     moments, AdamW steps, hyperparameter groups, scheduler state, LR,
+     step); then one more step in each on the same batch (cuDNN's
+     deterministic algorithms on): bit-equal losses and weights, the fused
+     GTA launches of two steps asserted; export and import seconds
+     printed.
   5b. The train runtime (runtime_phase), on the flagship at B=32: the
      gradient of loss_and_grads at grad_accum 2 against grad_accum 1 from
      the same weights and batch (relative L2 <= 1e-5; the fused GTA
@@ -1754,15 +1769,27 @@ def cli_phase():
     from a random-weight npz); the same evaluate on msn gta as published
     (bf16, no checkpoint: the random init); on CLEVR-TR gta_so3, 2 train
     steps; the SRT baseline's evaluate, one full-scale scene; gbt trained
-    with --evalnow and evaluated --ckpt best. Four chains of CLIs
-    (gta_chain, msn_chain, so3_srt_chain, gbt_chain) side by side."""
+    with --evalnow and evaluated --ckpt best; the SRT baseline's reference
+    model.pt (srt_reference_file) imported and resumed (srt_ref_chain).
+    Four chains of CLIs (gta_chain, msn_chain then srt_ref_chain,
+    so3_srt_chain, gbt_chain) side by side: a fifth, with the other three
+    trainings, filled the card's memory."""
+    import torch
+
     from gta_tpu_torch.utils.lpips import random_params
 
     runs_before = runs_listing()
     with tempfile.TemporaryDirectory() as tmp:
         lp = os.path.join(tmp, "lpips_vgg_random.npz")
         np.savez(lp, **random_params(np.random.RandomState(0)))
-        side_by_side(lambda: gta_chain(os.path.join(tmp, "gta"), lp), lambda: msn_chain(os.path.join(tmp, "msn"), lp),
+        srt_ref = srt_reference_file(os.path.join(tmp, "srt_ref"))
+        torch.cuda.empty_cache()  # the card's memory to the CLIs, which train side by side
+
+        def msn_then_srt_ref():
+            msn_chain(os.path.join(tmp, "msn"), lp)
+            srt_ref_chain(srt_ref, os.path.join(tmp, "srt_ref", "run"))
+
+        side_by_side(lambda: gta_chain(os.path.join(tmp, "gta"), lp), msn_then_srt_ref,
                      lambda: so3_srt_chain(os.path.join(tmp, "so3")), lambda: gbt_chain(os.path.join(tmp, "gbt"), lp))
     if runs_listing() != runs_before:
         raise AssertionError("a CLI wrote under runs/")
@@ -1848,6 +1875,45 @@ def gbt_chain(out, lp):
     if "Loaded checkpoint best" not in log:
         raise AssertionError(f"gbt evaluate CLI did not restore best:\n{log}")
     check_eval_result(log, "gbt evaluate CLI", out, "best", "float32")
+
+
+def srt_reference_file(out):
+    """A reference model.pt of the SRT baseline at full width, in `out`:
+    one train step of a B=2 batch (the AdamW moments), saved, then the
+    port's export with the moments by a weights-only template. Returns
+    its path."""
+    from gta_tpu_torch.train.checkpoint import Checkpointer
+    from gta_tpu_torch.train.trainer import Trainer
+    from gta_tpu_torch.utils import ref_import
+
+    cfg = as_synthetic(SRT_CONFIG)
+    trainer = Trainer(cfg)
+    trainer.train_step(synthetic_batch(cfg.data, "train", 0, 2, cfg.seed))
+    made, template, model_pt = (os.path.join(out, n) for n in ("made", "template.pt", "model.pt"))
+    Checkpointer(made).save("latest", trainer, {"epoch_it": 0, "it": trainer.step, "t": 0.5})
+    ref_import.export_reference_checkpoint(SRT_CONFIG, made, template)
+    ref_import.export_reference_checkpoint(SRT_CONFIG, made, model_pt, optimizer_order_from=template)
+    return model_pt
+
+
+def srt_ref_chain(model_pt, run):
+    """The SRT baseline's reference model.pt (srt_reference_file) through
+    `python -m gta_tpu_torch.scripts.import_reference_checkpoint` into
+    `run`, then the train CLI on it, which must resume at the file's it=1
+    and train through flash_core at B=32 to step 2 (cli_phase). The
+    export runs in process here and in ref_ckpt_phase."""
+    logs = [run_cli(["gta_tpu_torch.scripts.import_reference_checkpoint", SRT_CONFIG, model_pt, run],
+                    "SRT import_reference_checkpoint CLI"),
+            run_cli(["gta_tpu_torch.train", SRT_CONFIG, "--synthetic", "--outdir", run, "--exit-after", "2"],
+                    "SRT train CLI on the imported run --exit-after 2")]
+    for log in logs:
+        for line in log.splitlines():
+            if any(w in line for w in ("Imported", "Resumed", "limit")):
+                print(f"  {line}", flush=True)
+    if (f"Imported {model_pt} -> {run}/ckpts/latest (it=1, params: encoder " not in logs[0]
+            or "Resumed from checkpoint at it=1" not in logs[1] or "Iteration limit reached" not in logs[1]):
+        raise AssertionError("SRT reference checkpoint CLIs: the import and the resume at it=1 not both seen:\n"
+                             + "\n".join(logs))
 
 
 RUNTIME_ACCUM = 2  # the runtime phase's --accum
@@ -3148,6 +3214,118 @@ def device_data_phase(gta_cfg, paths, dit_gta, card):
     return out
 
 
+def state_mismatches(a, b):
+    """Names of what differs between two trainers' states, bit for bit:
+    weights, AdamW moments and steps (by parameter name), the optimizer's
+    hyperparameter groups (lr included), the scheduler's state and the
+    step."""
+    import torch
+
+    bad = []
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    if list(pa) != list(pb):
+        return ["parameter names"]
+    for name in pa:
+        if not torch.equal(pa[name], pb[name]):
+            bad.append(name)
+        sa, sb = a.optimizer.state[pa[name]], b.optimizer.state[pb[name]]
+        if sorted(sa) != sorted(sb) or any(
+                not (x.dtype == y.dtype and x.device == y.device and torch.equal(x, y))
+                for x, y in ((sa[k], sb[k]) for k in sa)):
+            bad.append(f"{name} (AdamW state)")
+    ga, gb = (o.state_dict()["param_groups"] for o in (a.optimizer, b.optimizer))
+    if ga != gb:
+        bad.append("optimizer param_groups")
+    if a.scheduler.state_dict() != b.scheduler.state_dict() or a.scheduler.get_last_lr() != b.scheduler.get_last_lr():
+        bad.append("scheduler")
+    if (a.step, a.seed) != (b.step, b.seed):
+        bad.append("step / seed")
+    return bad
+
+
+def ref_round_trip(path, label, key, paths):
+    """One config (its YAML as published, full width) through the reference
+    format on the card: a trainer takes two train steps and is saved; the
+    port's export writes a weights-only reference model.pt (the order
+    template), then one with the AdamW moments by that template; the
+    import makes a new run directory of it; a fresh trainer restores that
+    and must equal the saved one bit for bit (state_mismatches). Then one
+    more step in each on the same batch (cuDNN's deterministic algorithms
+    on for the two): bit-equal losses and weights, its attention kernel's
+    launches (expected_launches: two steps) under paths
+    `ref_<key>_train`. Returns its numbers."""
+    import torch
+
+    from gta_tpu_torch.train.checkpoint import Checkpointer
+    from gta_tpu_torch.train.trainer import Trainer
+    from gta_tpu_torch.utils import ref_import
+
+    cfg = as_synthetic(path)
+    B = cfg.training.batch_size
+    batches = [synthetic_batch(cfg.data, "train", n * B, (n + 1) * B, cfg.seed) for n in range(2)]  # train_path_phase's
+    saved = Trainer(cfg)
+    for batch in batches:
+        saved.train_step(batch)
+    out = {"batch": B}
+    with tempfile.TemporaryDirectory() as tmp:
+        run, imported = os.path.join(tmp, "run"), os.path.join(tmp, "imported")
+        template, model_pt = os.path.join(tmp, "template.pt"), os.path.join(tmp, "model.pt")
+        Checkpointer(run).save("latest", saved, {"epoch_it": 0, "it": saved.step, "t": 1.5, "run_id": "chip"})
+        t0 = time.perf_counter()
+        ref_import.export_reference_checkpoint(path, run, template)
+        t1 = time.perf_counter()
+        ref_import.export_reference_checkpoint(path, run, model_pt, optimizer_order_from=template)
+        t2 = time.perf_counter()
+        scalars, _ = ref_import.import_reference_checkpoint(path, model_pt, imported)
+        t3 = time.perf_counter()
+        out.update(export_weights_s=t1 - t0, export_s=t2 - t1, import_s=t3 - t2,
+                   file_mb=os.path.getsize(model_pt) / 1e6)
+        restored = Trainer(cfg)
+        Checkpointer(imported).restore("latest", restored)
+    flips = len(ref_import.so3_sign_map(cfg))
+    bad = state_mismatches(saved, restored)
+    print(f"{label} reference round trip: export (weights only) {out['export_weights_s']:.2f} s, export with "
+          f"moments {out['export_s']:.2f} s ({out['file_mb']:.1f} MB), import {out['import_s']:.2f} s; "
+          f"{flips} so3-signed weights; scalars {scalars}; mismatches {bad}", flush=True)
+    if bad or scalars["it"] != saved.step:
+        raise AssertionError(f"{label}: the imported trainer differs from the saved one: {bad}, {scalars}")
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launch_counts()
+        ma, mb = saved.train_step(batches[0]), restored.train_step(batches[0])
+        torch.cuda.synchronize()
+        paths[f"ref_{key}_train"] = launches = launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want = expected_launches(cfg, 2, 2, backward_steps=2)
+    la, lb = ma["loss"].item(), mb["loss"].item()
+    bad = state_mismatches(saved, restored)
+    print(f"{label} resumed step: losses {la!r} / {lb!r}, lr {ma['lr']!r} / {mb['lr']!r}, mismatches {bad}, "
+          f"launches {launches}", flush=True)
+    if la != lb or ma["lr"] != mb["lr"] or bad or not np.isfinite(la):
+        raise AssertionError(f"{label}: the resumed steps differ: {la} vs {lb}, {bad}")
+    if launches != want:
+        raise AssertionError(f"{label} resumed steps launches {launches}, expected {want}")
+    return out
+
+
+def ref_ckpt_phase(paths):
+    """Reference checkpoints across frameworks (gta_tpu_torch/utils/
+    ref_import.py) on the card: ref_round_trip for the flagship (fp32,
+    B=32) and msn_so3 as published (bf16, B=64; so3 signs at head width
+    96). The CLIs' resume through flash_core runs in cli_phase
+    (srt_ref_chain). Returns the numbers."""
+    import torch
+
+    out = {}
+    for path, label, key in ((GTA_CONFIG, "flagship fp32", "gta"), (MSN_SO3_CONFIG, "msn_so3 bf16", "msn_so3_bf16")):
+        out[key] = ref_round_trip(path, label, key, paths)
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None):
     """One kernel instance's line in the kernels JSON: numbers at its main
     shape, launches by path, every shape's numbers, the attention core it
@@ -3398,6 +3576,7 @@ def main() -> int:
     srt_grad = timed("grads", grads_phase, srt_cfg, "SRT")
     msn_grad = timed("grads", grads_phase, msn_cut, "msn_so3 (1 + 1 blocks)")
     timed("cli", cli_phase)
+    ref_ckpt = timed("ref_ckpt", ref_ckpt_phase, paths)
     runtime = timed("runtime", runtime_phase, gta_cfg, paths)
     disk = timed("disk", disk_phase, gta_cfg, msn_gta, srt_cfg, paths)
     device_data = timed("device data", device_data_phase, gta_cfg, paths, dit_cfgs["dit_gta"], smi)
@@ -3441,6 +3620,7 @@ def main() -> int:
     print(f"disk: {json.dumps(disk)}", flush=True)
     print(f"runtime: {json.dumps(runtime)}", flush=True)
     print(f"device data: {json.dumps(device_data)}", flush=True)
+    print(f"reference checkpoints: {json.dumps(ref_ckpt)}", flush=True)
     for label, step in (("msn_so3 bf16", msn_bf16_step), ("msn SRT bf16", msn_srt_step),
                         ("msn gta_t2 bf16", msn_t2_step)):
         card_err, emu_err, gap, own = card_vs_cpu[label.split(" bf16")[0]]

@@ -1,11 +1,14 @@
 """The CPU-side logic of the port's card scripts: chip_smoke.py's names for
 the kernels in nvcc's build report, the delta emulation of
 gta_tpu_torch/scripts/probe_delta_from_o.py against flash_core's plain
-backward, and time_kernels.py's digest and config choice."""
+backward, and time_kernels.py's digest and config choice; the reference
+checkpoint CLIs (import -> a resumed train CLI step -> export) with
+--device cpu, and their refusal without CUDA."""
 
 import numpy as np
 import pytest
 import torch
+import yaml
 
 import chip_smoke
 from gta_tpu_torch.ops import flash_core as fc
@@ -95,3 +98,101 @@ def test_time_kernels_rejects_an_unknown_config():
 
     with pytest.raises(SystemExit, match="msn_gta"):
         pick_configs(["msn_srt", "msn_gta"])
+
+
+FLAGSHIP = "runs/clevrtr/GTA/gta/config.yaml"
+
+
+def tiny_flagship_yaml(out):
+    """The flagship YAML at 32x48 frames, 2 heads of 64, one attention block
+    a side, batch 2, printing every step."""
+    with open(FLAGSHIP) as f:
+        raw = yaml.safe_load(f)
+    raw["data"]["num_points"] = 48
+    raw["data"]["kwargs"].update(height=32, width=48, downsample=0)
+    args = raw["model"]["args"]
+    args["encoder_kwargs"].update(dim=64, attdim=128, heads=2, num_att_blocks=1)
+    args["decoder_kwargs"].update(z_dim=128, heads=2, rmlp_dim=64, num_att_blocks=1)
+    raw["training"].update(batch_size=2, print_every=1, lr_warmup=2, validate_every=0, visualize_every=0)
+    with open(out, "w") as f:
+        yaml.safe_dump(raw, f)
+    return str(out)
+
+
+def reference_file_of(model, path, it=7, step=7, seed=0):
+    """A reference-format model.pt holding `model`'s encoder and decoder
+    weights as they are, random AdamW moments (exp_avg_sq positive) at
+    `step` for every parameter in the module order, and the scalars;
+    returns the dict written."""
+    rng = np.random.RandomState(seed)
+    modules = {m: {k: v.detach().clone() for k, v in getattr(model, m).state_dict().items()}
+               for m in ("encoder", "decoder")}
+    tensors = [v for m in modules.values() for v in m.values()]
+    state = {i: {"step": torch.tensor(float(step)),
+                 "exp_avg": torch.from_numpy(rng.normal(scale=1e-3, size=v.shape).astype(np.float32)),
+                 "exp_avg_sq": torch.from_numpy((rng.normal(scale=1e-3, size=v.shape) ** 2).astype(np.float32))}
+             for i, v in enumerate(tensors)}
+    group = dict(torch.optim.AdamW([torch.nn.Parameter(torch.zeros(1))]).state_dict()["param_groups"][0],
+                 params=list(range(len(tensors))))
+    out = {**modules, "optimizer": {"state": state, "param_groups": [group]}, "epoch_it": 2, "it": it, "t": 12.5,
+           "loss_val_best": 31.25, "run_id": "r3test"}
+    torch.save(out, path)
+    return out
+
+
+def test_reference_checkpoint_clis_import_resume_and_export(tmp_path, capsys):
+    """import CLI -> one step of the train CLI, resumed at the file's it ->
+    export CLI with the file as order template: the weights the train step
+    left, the moments at step 8, the scalars of the resumed run."""
+    from gta_tpu_torch.config import load_config
+    from gta_tpu_torch.scripts import export_reference_checkpoint as export_cli
+    from gta_tpu_torch.scripts import import_reference_checkpoint as import_cli
+    from gta_tpu_torch.train import __main__ as t_train
+    from gta_tpu_torch.train.checkpoint import Checkpointer
+    from gta_tpu_torch.train.trainer import Trainer
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yml = tiny_flagship_yaml(tmp_path / "config.yaml")
+        pt, run, out_pt = (str(tmp_path / n) for n in ("model.pt", "run", "exported.pt"))
+        written = reference_file_of(Trainer(load_config(yml), device="cpu", seed=3).model, pt)
+        import_cli.main([yml, pt, run, "--device", "cpu"])
+        log = capsys.readouterr().out
+        assert f"Imported {pt} -> {run}/ckpts/latest (it=7, params: encoder " in log
+        t_train.main([yml, "--synthetic", "--outdir", run, "--device", "cpu", "--exit-after", "7"])
+        log = capsys.readouterr().out
+        assert "Resumed from checkpoint at it=7" in log and "it=7, loss=" in log and "Iteration limit reached" in log
+        export_cli.main([yml, run, out_pt, "--optimizer-order-from", pt, "--device", "cpu"])
+        assert f"Exported {run}/ckpts/latest -> {out_pt} (it=7)" in capsys.readouterr().out
+    finally:
+        torch.set_num_threads(threads)
+
+    got = torch.load(out_pt, weights_only=True)
+    trainer = Trainer(load_config(yml), device="cpu")
+    Checkpointer(run).restore("latest", trainer)
+    assert trainer.step == 8
+    for m in ("encoder", "decoder"):
+        assert list(got[m]) == list(written[m])
+        for k, v in getattr(trainer.model, m).state_dict().items():
+            assert torch.equal(got[m][k], v), k  # no so3 channels: the weights as they are
+    state = got["optimizer"]["state"]
+    assert sorted(state) == sorted(written["optimizer"]["state"])
+    assert all(float(s["step"]) == 8 for s in state.values())
+    assert not any(torch.equal(s["exp_avg"], written["optimizer"]["state"][i]["exp_avg"]) for i, s in state.items())
+    # the resumed run opened a new epoch of its loader, as train.py does
+    assert {k: got[k] for k in ("epoch_it", "it", "loss_val_best", "run_id")} == {
+        "epoch_it": 3, "it": 7, "loss_val_best": 31.25, "run_id": "r3test"}
+
+
+@pytest.mark.parametrize("script", ["import", "export"])
+def test_reference_checkpoint_clis_raise_without_cuda(script, tmp_path, monkeypatch):
+    """Without a card, both scripts raise unless --device cpu is given; they
+    raise before reading anything."""
+    from gta_tpu_torch.scripts import export_reference_checkpoint as export_cli
+    from gta_tpu_torch.scripts import import_reference_checkpoint as import_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = import_cli.main if script == "import" else export_cli.main
+    with pytest.raises(RuntimeError, match="CUDA is not available; pass device='cpu'"):
+        main([FLAGSHIP, str(tmp_path / "absent.pt"), str(tmp_path / "out")])
