@@ -129,7 +129,8 @@ Phases (any failure exits non-zero and prints no result line):
      count asserted (its attention kernel's forward, in the config's compute
      dtype: 5 per encode, 2 per decode chunk; every other instance: none;
      the kernel of each side by `side_kernel`)
-     and peak memory printed; then a B=2 forward on the card against the
+     and peak memory printed; then a B=2 forward (the bf16 configs at one
+     attention block a side) on the card against the
      same weights on the CPU (plain versions), atol 1e-4 (fp32 configs), or
      for the bf16 configs: the card's bf16 pixels no further (relative L2)
      from the CPU's fp32 ones than 1.5x the CPU's bf16 pixels with the TPU
@@ -194,10 +195,11 @@ Phases (any failure exits non-zero and prints no result line):
      trace naming the fused GTA kernels), beside it `python -m
      torch.distributed.run --nproc_per_node 1` of the train CLI (NCCL,
      world size 1, its first loss that of the plain run) and of train_dit
-     on dit_gta, 2 steps; then, alone, the stopped run resumed under
-     --accum 2 --speed_test 4 (the saved it + 1, time.npy, metrics.jsonl
-     in plot_metrics' schema over both runs). NCCL refuses two ranks on
-     one card: two ranks run on the CPU only
+     on dit_gta, 2 steps; then, started as the SIGTERM run ends (its
+     timed steps after the torchrun runs' ends), the stopped run resumed
+     under --accum 2 --speed_test 4 (the saved it + 1, time.npy,
+     metrics.jsonl in plot_metrics' schema over both runs). NCCL refuses
+     two ranks on one card: two ranks run in gloo (phase 4c) and on the CPU
      (tests/test_torch_distributed.py).
   6. The host data plane and the dataset readers (disk_phase), on fixtures
      written into a temporary directory by the port's PNG encoder, every
@@ -262,9 +264,23 @@ Phases (any failure exits non-zero and prints no result line):
      gta_tpu_torch.train experiments/clevrtr_long150k/config.yaml
      --device-data` for 2 steps, beside `python -m gta_tpu_torch.train_dit
      experiments/dit_metric_gta/config.yaml --device-data --samplenow` and
-     a one-rank `python -m torch.distributed.run` of the train CLI, then the
-     first resumed for a third step, whose scene ids must be the
-     generator's batch 2 (an unbroken run's).
+     a one-rank `python -m torch.distributed.run` of the train CLI, and the
+     first resumed for a third step as soon as it ends, whose scene ids
+     must be the generator's batch 2 (an unbroken run's).
+  4c. The JAX package's other parallelism (parallel_phase), two ranks of
+     one gloo group on the card (NCCL refuses two ranks on one card): the
+     flagship (fp32, B=32, dropout 0) under --n-model 2 (3 heads a rank),
+     --n-seq 2 (one view a rank, GTA's keys ringed) and ZeRO-1 over two
+     data ranks, msn_so3 as published (bf16, B=64) under --n-model 2, at
+     full width and depth; each mode's first step against the one-process
+     step from the same weights on the same batch (fp32: weights within
+     1e-5 relative L2, the gradient's error against an fp64 step no more
+     than 1e-5 above the one-process step's, each trans_coeff within 1e-4
+     of its terms; msn_so3: its gradient from fp32 within 1.5x the
+     one-process bf16 step's), the kernels' launches per rank asserted
+     (7 + 7 fused GTA under TP and ZeRO-1, none under the ring), the warm
+     step beside the one-process step's. It runs beside the DiT CLIs, the
+     gradient checks (phase 4's grads_phase) in this process meanwhile.
   9. One JSON line of kernel numbers, an entry per kernel instance (fp32
      and bf16, launches by path, the attention core it runs and that core's
      ptxas registers and spills in its library), then the device JSON as
@@ -279,7 +295,12 @@ one after another, took 146 s (phase 5), 84 s (the DiT CLIs) and 76 s
 steps 7.9 s and the msn variants 3.3 s. So the CLIs run side by side
 (side_by_side: phase 5 as four chains, the DiT CLIs and the disk phase's
 train -> evaluate as two each); no check and no launch assertion was
-dropped, and no path's depth was cut.
+dropped, and no path's depth was cut. To make room for phase 4c:
+the bf16 card-vs-CPU forwards run at one attention block a side (on one
+H100 80GB HBM3 at 700 W, 36.5 s -> 19.6 s), the gradient checks (19.4
+s there) run while the DiT CLIs and phase 4c's ranks do, and the runtime
+and device-data phases start each resumed CLI as the run it resumes
+ends.
 """
 
 from __future__ import annotations
@@ -1043,6 +1064,14 @@ def bf16_bounds(flops, n_bytes):
     return {"bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def one_block(cfg):
+    """`cfg` at one attention block a side (its widths as they are)."""
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, encoder=dataclasses.replace(m.encoder, num_att_blocks=1),
+        decoder=dataclasses.replace(m.decoder, num_att_blocks=1)))
+
+
 def bf16_card_vs_cpu_phase(cfg, label):
     """A published bf16 config's B=2 forward on the card against the same
     weights on the CPU. The kernels round like the TPU kernel (bf16 P, dS
@@ -1053,13 +1082,16 @@ def bf16_card_vs_cpu_phase(cfg, label):
     relative L2 gap at most BF16_RULE x the gap of the CPU's bf16 pixels
     with the TPU's rounding in the attention (the plain versions with
     mxu_dtype=bf16) — the kernel rule, end to end. The card-vs-CPU-bf16 and
-    CPU bf16-vs-fp32 gaps are printed beside it. Returns (card vs CPU fp32,
-    emulated CPU bf16 vs CPU fp32, card vs CPU bf16, CPU bf16 vs fp32)."""
+    CPU bf16-vs-fp32 gaps are printed beside it. The model runs at one
+    attention block a side (`one_block`: the CPU's three forwards at full
+    depth took 11-16 s a config). Returns (card vs CPU fp32, emulated CPU
+    bf16 vs CPU fp32, card vs CPU bf16, CPU bf16 vs fp32)."""
     import torch
 
     from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
     from gta_tpu_torch.train.trainer import Trainer
 
+    cfg = one_block(cfg)
     card = Trainer(cfg)
     weights = {k: v.cpu() for k, v in card.model.state_dict().items()}
     fp32 = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, mixed_prec=False))
@@ -1723,16 +1755,24 @@ def run_cli(args, label, env=None):
     return proc.stdout
 
 
-def side_by_side(*chains):
+def side_by_side(*chains, meanwhile=None):
     """Run the chains (functions of no argument; each runs its CLIs one
     after another) in threads side by side: a CLI's time is mostly its
-    process start, and the card has room for all. Re-raises the first
-    chain's failure once all have ended."""
+    process start, and the card has room for all. `meanwhile` (a function
+    of no argument) runs in this thread while they do. Re-raises the first
+    failure once all have ended; returns the chains' results (and
+    meanwhile's, where given)."""
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(chains)) as pool:
         futures = [pool.submit(chain) for chain in chains]
-    return [f.result() for f in futures]
+        try:
+            here = meanwhile() if meanwhile is not None else None
+        finally:
+            results = [f.exception() or f.result() for f in futures]
+    for f in futures:
+        f.result()
+    return results if meanwhile is None else (results, here)
 
 
 def runs_listing():
@@ -1929,13 +1969,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_cli(args, log_path):
+def start_cli(args, log_path, env=None):
     """Start `python -m <args>` (`python -c <code> ...` where args[0] is
-    "-c") from the repository root, its output into `log_path`; returns the
-    process (`finish_cli` waits for it)."""
+    "-c") from the repository root, with `env` added to the environment,
+    its output into `log_path`; returns the process (`finish_cli` waits for
+    it)."""
     out = open(log_path, "w")
     proc = subprocess.Popen([sys.executable, *(args if args[0] == "-c" else ["-m", *args])], cwd=ROOT, stdout=out,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True, env={**os.environ, **(env or {})})
     proc.log_path, proc.t0 = log_path, time.perf_counter()
     out.close()
     return proc
@@ -2100,7 +2141,6 @@ def runtime_phase(gta_cfg, paths):
                 proc.wait()
         log = "".join(lines)
         print(f"GTA train CLI SIGTERM after it=1: exit {rc} in {time.perf_counter() - t0:.1f} s", flush=True)
-        logs = {label: finish_cli(p, label) for label, p in side.items()}
         if rc != 0 or "Preemption checkpoint saved. Exiting." not in log:
             raise AssertionError(f"SIGTERM run exited {rc}:\n{log}")
         stopped = max(int(x) for x in re.findall(r"it=(\d+), loss=", log))
@@ -2113,10 +2153,20 @@ def runtime_phase(gta_cfg, paths):
         print(f"  stopped after it={stopped}; trace: {len(kernels)} kernel names, fused GTA: {fused[:4]}", flush=True)
         if not any("gta_rows" in k for k in fused) or not any("gta_bwd" in k for k in fused):
             raise AssertionError(f"the profiler trace names no fused GTA forward / backward kernel: {sorted(kernels)}")
+        first = logged(run)  # before the resumed run appends to it
+        ref = next(d["loss"] for d in first if d["kind"] == "train" and d["it"] == 0)
+
+        # the speed test resumes the stopped run (the published config:
+        # print_every 100, no host sync between steps), started as the
+        # SIGTERM run ends: the one-rank torchrun runs end within ~8 s of it,
+        # before its process start (~8 s) and cold steps are over, so its
+        # chained window has the card alone
+        speed_label = f"GTA train CLI --accum {RUNTIME_ACCUM} --speed_test {SPEED_TEST}, resumed"
+        speed = start_cli(["gta_tpu_torch.train", GTA_CONFIG, "--synthetic", "--outdir", run, "--accum",
+                           str(RUNTIME_ACCUM), "--speed_test", str(SPEED_TEST)], os.path.join(tmp, "speed.log"))
+        logs = {label: finish_cli(p, label) for label, p in side.items()}
 
         log, label = logs["torchrun GTA train CLI (1 process)"], "torchrun GTA train CLI"
-        first = logged(run)
-        ref = next(d["loss"] for d in first if d["kind"] == "train" and d["it"] == 0)
         got = next(d["loss"] for d in logged(dp) if d["kind"] == "train" and d["it"] == 0)
         numbers["torchrun_first_loss"], numbers["plain_first_loss"] = got, ref
         said = next((line for line in log.splitlines() if line.startswith("Data parallel:")), None)
@@ -2131,11 +2181,7 @@ def runtime_phase(gta_cfg, paths):
                 or "Iteration limit reached" not in log or saved != 1):
             raise AssertionError(f"torchrun train_dit (latest at it={saved}):\n{log}")
 
-        # the speed test, alone on the card, resumes the stopped run (the
-        # published config: print_every 100, no host sync between steps)
-        log = run_cli(["gta_tpu_torch.train", GTA_CONFIG, "--synthetic", "--outdir", run, "--accum",
-                       str(RUNTIME_ACCUM), "--speed_test", str(SPEED_TEST)],
-                      f"GTA train CLI --accum {RUNTIME_ACCUM} --speed_test {SPEED_TEST}, resumed")
+        log = finish_cli(speed, speed_label)
         numbers["speed_test_ms"] = float(np.load(os.path.join(run, "time.npy"))[0])
         print(f"  chained mean step time (B={EVAL_BATCH // SPEED_TEST}, accum {RUNTIME_ACCUM}): "
               f"{numbers['speed_test_ms']:.3f} ms", flush=True)
@@ -3110,8 +3156,8 @@ def device_data_cli(paths):
     SCENE_ID_SHIM, which prints each batch's scene ids), beside
     train_dit on experiments/dit_metric_gta for 2 steps with --samplenow and
     a one-rank `python -m torch.distributed.run` of the train CLI (NCCL);
-    then the first run resumed for a third step, whose scene ids must be
-    the generator's batch 2: an unbroken run's."""
+    the first run resumed for a third step as soon as it ends, whose scene
+    ids must be the generator's batch 2: an unbroken run's."""
     from gta_tpu_torch.data.device_synth import DeviceSynthetic
 
     long_cfg = os.path.join(ROOT, "experiments", "clevrtr_long150k", "config.yaml")
@@ -3127,8 +3173,12 @@ def device_data_cli(paths):
                 "torch.distributed.run", "--nproc_per_node", "1", "--master_addr", "localhost", "--master_port",
                 str(free_port()), "-m", "gta_tpu_torch.train", long_cfg, "--device-data", "--outdir",
                 os.path.join(tmp, "ddp"), "--exit-after", "1"]))}
-        logs = {label: finish_cli(proc, label) for label, proc in procs.items()}
-        resumed = finish_cli(start_cli(shim + ["2"], os.path.join(tmp, "resume.log")), "train --device-data resumed")
+        # the resumed run starts as the first one ends, beside the others' ends
+        first_label = "train --device-data (2 steps)"
+        logs = {first_label: finish_cli(procs.pop(first_label), first_label)}
+        resume = start_cli(shim + ["2"], os.path.join(tmp, "resume.log"))
+        logs.update({label: finish_cli(proc, label) for label, proc in procs.items()})
+        resumed = finish_cli(resume, "train --device-data resumed")
     cfg = as_synthetic(long_cfg)
     gen = DeviceSynthetic(cfg.data, "train", cfg.seed, device="cuda")
     first, again = scene_ids(logs["train --device-data (2 steps)"]), scene_ids(resumed)
@@ -3326,6 +3376,282 @@ def ref_ckpt_phase(paths):
     return out
 
 
+PARALLEL_WORLD = 2  # parallel_phase's ranks, both on the card (gloo)
+PARALLEL_WARM = 1  # timed warm steps of each mode and one-process step, after the compared cold one
+PARALLEL_TOL = 1e-5  # fp32: the gradient's excess error over one process's (trans_coeff aside), the weights
+MSN_FP32_ACCUM = 4  # msn_so3's fp32 reference gradient in microbatches (its one-process fp32 step needs 50 GB)
+FP64_ACCUM = 4  # the flagship's fp64 reference step in microbatches (the plain attention holds its scores)
+
+
+def parallel_modes():
+    """parallel_phase's modes: name -> (config path, mixed_prec, n_model,
+    n_seq, zero), at full width and depth, their configs' batches, dropout
+    0 (two data ranks draw their own masks, and the fp64 and msn_so3 fp32
+    references run in microbatches, which draw others; tests/
+    test_torch_parallel.py holds TP and the ring with dropout), in the
+    order they run (msn_so3's largest last)."""
+    return {
+        "gta_tp2": (GTA_CONFIG, False, 2, 1, False),
+        "gta_ring2": (GTA_CONFIG, False, 1, 2, False),
+        "gta_zero2": (GTA_CONFIG, False, 1, 1, True),
+        "msn_so3_bf16_tp2": (MSN_SO3_CONFIG, True, 2, 1, False),
+    }
+
+
+def parallel_config(path, mixed_prec=None, **training):
+    """A published config on synthetic scenes, dropout 0, lr_warmup 0 (the
+    first step moves the weights), `training` over its training
+    settings."""
+    from gta_tpu_torch.config import load_config
+
+    cfg = load_config(path)
+    if mixed_prec is not None:
+        training["mixed_prec"] = mixed_prec
+    m = cfg.model
+    m = dataclasses.replace(m, encoder=dataclasses.replace(m.encoder, dropout=0.0),
+                            decoder=dataclasses.replace(m.decoder, dropout=0.0))
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"), model=m,
+                               training=dataclasses.replace(cfg.training, lr_warmup=0, **training))
+
+
+def fp64_grads(trainer, batch):
+    """The gradient of `trainer`'s step on `batch` in float64, by name on the
+    CPU (the plain attention, fp64 tables: grads_phase's fp64 step), and
+    each trans_coeff's terms' absolute sums (grads_phase's conditioning)."""
+    import torch
+
+    from gta_tpu_torch.models import decoder, encoder
+    from gta_tpu_torch.models.layers import Attention
+
+    sums, current = {}, {}
+    handles = [m.register_forward_pre_hook(lambda mod, a, name=name: current.update(name=name))
+               for name, m in trainer.model.named_modules() if isinstance(m, Attention) and m.trans_coeff is not None]
+
+    def terms():
+        name = f"{current['name']}.trans_coeff"
+        return lambda x: sums.__setitem__(name, sums.get(name, 0.0) + x)
+
+    restore = swap_entries(functools.partial(plain_gta_attention, terms=terms), plain_flash_attention)
+    posenc = encoder.ray_posenc
+    encoder.ray_posenc = decoder.ray_posenc = lambda pos, rays, *a: posenc(pos.float(), rays.float(), *a).to(pos.dtype)
+    trainer.model.double()
+    batch64 = dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name).double() for f in dataclasses.fields(batch)
+        if getattr(batch, f.name) is not None and getattr(batch, f.name).is_floating_point()})
+    try:
+        trainer.loss_and_grads(batch64)
+    finally:
+        restore()
+        encoder.ray_posenc = decoder.ray_posenc = posenc
+        for h in handles:
+            h.remove()
+    return {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()}, sums
+
+
+def parallel_steps(trainer, batch, runs):
+    """`runs` train steps on `batch` (synchronised, wall ms each); the
+    first's gradients (by name, the model ranks' blocks gathered, on the
+    CPU), the whole weights after it, its loss and launch counts."""
+    import torch
+
+    from gta_tpu_torch.parallel import tp
+
+    ms, first = [], None
+    reset_launch_counts()
+    for n in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if n == 0:
+            launches = launch_counts()
+            grads = {}
+            for name, p in trainer.model.named_parameters():
+                g = p.grad
+                if name in trainer.tp_specs:
+                    g = tp.gather_tensor(g, trainer.tp_specs[name], trainer.mesh.model)
+                grads[name] = g.detach().float().cpu().clone()
+            first = {"loss": m["loss"].item(), "grads": grads, "launches": launches,
+                     "weights": {k: v.detach().float().cpu().clone() for k, v in trainer.model_state_dict().items()}}
+    first["ms"] = ms
+    return first
+
+
+def parallel_worker(rank, port, out_dir) -> int:
+    """One of parallel_phase's two ranks (`python3 -c "import chip_smoke;
+    chip_smoke.parallel_worker(RANK, PORT, OUT)"` from the root): every
+    mode in a gloo group on the card (one cold step compared, PARALLEL_WARM
+    timed), then, with the group gone, the one-process references (rank 0
+    the flagship's, and its fp64 gradient in FP64_ACCUM microbatches with
+    the trans_coeff terms; rank 1 msn_so3's: bf16, and fp32 in
+    MSN_FP32_ACCUM microbatches); saves <out>/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(PARALLEL_WORLD),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    from gta_tpu_torch.parallel import dist as pdist
+    from gta_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def batch_of(cfg):
+        return synthetic_batch(cfg.data, "train", 0, cfg.training.batch_size, cfg.seed).to("cuda")
+
+    def done(what):
+        print(f"rank {rank}: {what} at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    out = {"refs": {}, "modes": {}}
+    pdist.init_from_env(None, "gloo")
+    out["describe"] = pdist.describe()
+    done("group joined")
+    for mode, (path, mixed_prec, n_model, n_seq, zero) in parallel_modes().items():
+        cfg = parallel_config(path, mixed_prec)
+        mesh = pdist.init_mesh(n_model, n_seq)
+        trainer = Trainer(cfg, zero=zero, mesh=mesh)
+        batch = batch_of(cfg)
+        d, D, b = mesh.data.index, mesh.data.size, cfg.training.batch_size
+        batch = type(batch)(**{f.name: None if (x := getattr(batch, f.name)) is None else x[d * b // D:(d + 1) * b // D]
+                               for f in dataclasses.fields(batch)})
+        torch.cuda.reset_peak_memory_stats()
+        out["modes"][mode] = parallel_steps(trainer, batch, 1 + PARALLEL_WARM)
+        out["modes"][mode]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del trainer
+        torch.cuda.empty_cache()
+        done(mode)
+    pdist.destroy()
+    refs = ({"gta": (GTA_CONFIG, False, 1)} if rank == 0 else
+            {"msn_so3_bf16": (MSN_SO3_CONFIG, True, 1), "msn_so3_fp32": (MSN_SO3_CONFIG, False, MSN_FP32_ACCUM)})
+    for key, (path, mixed_prec, accum) in refs.items():
+        cfg = parallel_config(path, mixed_prec, grad_accum=accum)
+        trainer = Trainer(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        out["refs"][key] = parallel_steps(trainer, batch_of(cfg), 1 + (PARALLEL_WARM if accum == 1 else 0))
+        out["refs"][key]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del trainer
+        torch.cuda.empty_cache()
+        done(f"one-process {key}")
+    if rank == 0:
+        cfg = parallel_config(GTA_CONFIG, grad_accum=FP64_ACCUM)
+        trainer = Trainer(cfg)
+        out["refs"]["gta_fp64"] = dict(zip(("grads", "terms"), fp64_grads(trainer, batch_of(cfg))))
+        del trainer
+        torch.cuda.empty_cache()
+        done("one-process gta in fp64")
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    done("saved")
+    return 0
+
+
+def memory_line() -> str:
+    """This process's allocated and reserved card memory."""
+    import torch
+
+    return (f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+            "reserved")
+
+
+def flat(tensors, names=None):
+    """A name-keyed dict of tensors as one flat tensor, in name order
+    (`names` only, where given)."""
+    import torch
+
+    return torch.cat([tensors[n].reshape(-1) for n in sorted(names if names is not None else tensors)])
+
+
+def parallel_phase(paths):
+    """The port's other parallelism on the card, two ranks in one gloo group
+    (NCCL refuses two ranks on one card: "Duplicate GPU detected"): the
+    flagship (fp32, B=32, 6 heads of 64) under --n-model 2 (3 heads a
+    rank), --n-seq 2 (one view a rank) and ZeRO-1 over 2 data ranks (B=16 a
+    rank), msn_so3 as published (bf16, B=64, 8 heads of 96) under --n-model
+    2, each at full width and depth, lr_warmup 0, dropout 0
+    (parallel_modes). Each mode's first step against the one-process step
+    on the same batch from the same weights. fp32: the updated weights'
+    relative L2 at most PARALLEL_TOL; the gradient (every tensor but the
+    trans_coeff scalars) no further from the fp64 step than the
+    one-process step is, by more than PARALLEL_TOL (relative L2: the conv
+    stem's weight gradients are sums that cancel, which move 3-4e-5 of
+    their norms between two fp32 orders of summation; ROADMAP queue 3);
+    each trans_coeff within TC_TOL x the sum of its terms' absolute values
+    of the fp64 step's (grads_phase's rules). msn_so3, the bf16 rule: its
+    gradient's relative L2 from the one-process fp32 gradient
+    (MSN_FP32_ACCUM microbatches) at most BF16_RULE x the one-process bf16
+    step's. Per rank, the kernels' launches of that step are asserted (the
+    fused GTA kernels 7 + 7 under tensor parallel and ZeRO-1, none under
+    the ring, whose fold is plain torch) and added to `paths`; the backend
+    and each mode's warm step time beside the one-process step's are
+    printed. The ranks allocate in expandable segments (they share the card
+    with the DiT CLIs)."""
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        procs = [start_cli(["-c", f"import sys, chip_smoke; sys.exit(chip_smoke.parallel_worker({r}, {port}, {tmp!r}))"],
+                           os.path.join(tmp, f"rank{r}.log"), env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+                 for r in range(PARALLEL_WORLD)]
+        logs = [finish_cli(p, f"parallel rank {r}") for r, p in enumerate(procs)]
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(PARALLEL_WORLD)]
+    for r, log in enumerate(logs):
+        print("\n".join(f"  {line}" for line in log.splitlines() if line.startswith(f"rank {r}:")), flush=True)
+    print(f"parallel: {ranks[0]['describe']}", flush=True)
+    refs = {**ranks[0]["refs"], **ranks[1]["refs"]}
+    fp64 = refs["gta_fp64"]
+    summary, failed = {}, []
+    for mode, (path, mixed_prec, n_model, n_seq, zero) in parallel_modes().items():
+        cfg = parallel_config(path, mixed_prec)
+        got = ranks[0]["modes"][mode]
+        ref = refs["msn_so3_bf16" if mixed_prec else "gta"]
+        tcs = [n for n in ref["grads"] if n.endswith("trans_coeff")]
+        rest = [n for n in ref["grads"] if n not in tcs]
+        grad_dist = rel_l2(flat(got["grads"], rest), flat(ref["grads"], rest))
+        weight_err = rel_l2(flat(got["weights"]), flat(ref["weights"]))
+        worst = sorted(((rel_l2(got["grads"][n], ref["grads"][n]), n) for n in rest), reverse=True)[:3]
+        want = expected_launches(cfg, 1, 1, backward_steps=1)
+        if n_seq > 1:
+            want = dict.fromkeys(want, 0)
+        launches = [ranks[r]["modes"][mode]["launches"] for r in range(PARALLEL_WORLD)]
+        for r in range(PARALLEL_WORLD):
+            paths[f"{mode}_train_rank{r}"] = launches[r]
+        warm, ref_warm = float(np.median(got["ms"][1:])), float(np.median(ref["ms"][1:]))
+        line = (f"parallel {mode} (model {n_model}, seq {n_seq}, zero {zero}): loss {got['loss']:.6f} (one process "
+                f"{ref['loss']:.6f}); gradient from one process's, relative L2, trans_coeff aside, {grad_dist:.3e} "
+                f"(worst {', '.join(f'{n} {e:.2e}' for e, n in worst)}); weights {weight_err:.3e}; warm step "
+                f"{warm:.1f} ms beside one process's {ref_warm:.1f} ms (cold {got['ms'][0]:.1f}); peak "
+                f"{got['peak_gb']:.2f} GB a rank (one process {ref['peak_gb']:.2f})")
+        if mixed_prec:
+            fp32 = flat(refs["msn_so3_fp32"]["grads"])
+            tp_err, own = rel_l2(flat(got["grads"]), fp32), rel_l2(flat(ref["grads"]), fp32)
+            line += f"; whole gradient from fp32: {tp_err:.3e}, one-process bf16 {own:.3e} (rule: at most {BF16_RULE}x)"
+            ok, excess = tp_err <= BF16_RULE * own, None
+        else:
+            exact = flat(fp64["grads"], rest)
+            err, own = rel_l2(flat(got["grads"], rest).double(), exact), rel_l2(flat(ref["grads"], rest).double(), exact)
+            excess = err - own
+            tc_worst = max((abs(got["grads"][n].double() - fp64["grads"][n]).item() / fp64["terms"][n], n) for n in tcs)
+            line += (f"; from fp64 {err:.3e}, one process {own:.3e}: excess {excess:.3e} (rule {PARALLEL_TOL}); "
+                     f"trans_coeff from fp64 over the sum of its terms at most {tc_worst[0]:.3e} ({tc_worst[1]}; rule "
+                     f"{TC_TOL})")
+            ok = excess <= PARALLEL_TOL and weight_err <= PARALLEL_TOL and tc_worst[0] <= TC_TOL
+        print(line, flush=True)
+        print(f"parallel {mode}: launches per rank {launches}, expected {want}", flush=True)
+        if any(counts != want for counts in launches):
+            failed.append(f"{mode}: launches {launches}, expected {want}")
+        if not ok:
+            failed.append(line)
+        summary[mode] = {"warm_ms": warm, "one_process_warm_ms": ref_warm, "cold_ms": got["ms"][0],
+                         "grad_rel_l2_from_one_process": grad_dist, "grad_excess_over_one_process_from_fp64": excess,
+                         "weights_rel_l2": weight_err, "peak_gb": got["peak_gb"]}
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    if failed:
+        raise AssertionError("parallel phase outside its bounds:\n" + "\n".join(failed))
+    return summary
+
+
 def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None):
     """One kernel instance's line in the kernels JSON: numbers at its main
     shape, launches by path, every shape's numbers, the attention core it
@@ -3482,10 +3808,7 @@ def main() -> int:
     msn_cfg = synthetic(MSN_SO3_CONFIG, mixed_prec=False)
     # its serving, train and gradient paths at one attention block a side
     # (the run's time budget; its kernel phases keep the full shapes)
-    m = msn_cfg.model
-    msn_cut = dataclasses.replace(msn_cfg, model=dataclasses.replace(
-        m, encoder=dataclasses.replace(m.encoder, num_att_blocks=1),
-        decoder=dataclasses.replace(m.decoder, num_att_blocks=1)))
+    msn_cut = one_block(msn_cfg)
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3518,6 +3841,13 @@ def main() -> int:
     flash96_bf16_fwd, flash96_bf16_bwd = timed("kernels bf16", bf16_kernel_phase, msn_t2, "msn gta_t2", device,
                                                prefix="msn_t2_", flash=True)
     print(f"phase seconds: kernels (all) {time.perf_counter() - t_kernels:.1f}", flush=True)
+    # the rest of the script allocates in expandable segments, so that
+    # empty_cache hands a phase's unused pages back to the card: otherwise
+    # this process held 24 GB reserved of 2 GB allocated by the DiT CLIs,
+    # and dit_gta's resumed CLI ran out beside parallel_phase's two ranks.
+    # Not the kernel phases, which they slowed by ~13 s.
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
 
     serving = {
         "gta": timed("serving", serving_path_phase, gta_cfg, "GTA"),
@@ -3569,12 +3899,24 @@ def main() -> int:
         for path, counts in launches.items():
             paths[f"{key}_{path}"] = counts
         dit_vs_cpu[key] = timed("dit card vs cpu", dit_card_vs_cpu_phase, cfg, key)
-    timed("dit cli", side_by_side, lambda: dit_cli_phase(DIT_GTA_CONFIG, "dit_gta"),
-          lambda: dit_cli_phase(DIT_BASE_CONFIG, "dit_base", steps=1, resume=False, evaluate=False, sample_steps=2))
+    # the DiT CLIs and the parallel phase's two ranks (subprocesses) side by
+    # side, the gradient checks in this process meanwhile; its unused pages
+    # go back to the card before and after them (msn_so3's two TP ranks,
+    # ~20 GB each, overlap dit_gta's resumed CLI)
+    def grads_meanwhile():
+        out = [timed("grads", grads_phase, c, label) for c, label in
+               ((gta_cfg, "GTA"), (srt_cfg, "SRT"), (msn_cut, "msn_so3 (1 + 1 blocks)"))]
+        torch.cuda.empty_cache()
+        print(f"this process after the gradient checks: {memory_line()}", flush=True)
+        return out
+
+    torch.cuda.empty_cache()
+    print(f"this process before the DiT CLIs and the parallel phase: {memory_line()}", flush=True)
+    (_, _, parallel), (gta_grad, srt_grad, msn_grad) = timed(
+        "dit cli + parallel", side_by_side, lambda: dit_cli_phase(DIT_GTA_CONFIG, "dit_gta"),
+        lambda: dit_cli_phase(DIT_BASE_CONFIG, "dit_base", steps=1, resume=False, evaluate=False, sample_steps=2),
+        lambda: parallel_phase(paths), meanwhile=grads_meanwhile)
     print(f"DiT phases: {time.perf_counter() - t_dit:.1f} s", flush=True)
-    gta_grad = timed("grads", grads_phase, gta_cfg, "GTA")
-    srt_grad = timed("grads", grads_phase, srt_cfg, "SRT")
-    msn_grad = timed("grads", grads_phase, msn_cut, "msn_so3 (1 + 1 blocks)")
     timed("cli", cli_phase)
     ref_ckpt = timed("ref_ckpt", ref_ckpt_phase, paths)
     runtime = timed("runtime", runtime_phase, gta_cfg, paths)
@@ -3621,6 +3963,7 @@ def main() -> int:
     print(f"runtime: {json.dumps(runtime)}", flush=True)
     print(f"device data: {json.dumps(device_data)}", flush=True)
     print(f"reference checkpoints: {json.dumps(ref_ckpt)}", flush=True)
+    print(f"parallel (two gloo ranks on the card; {smi}): {json.dumps(parallel)}", flush=True)
     for label, step in (("msn_so3 bf16", msn_bf16_step), ("msn SRT bf16", msn_srt_step),
                         ("msn gta_t2 bf16", msn_t2_step)):
         card_err, emu_err, gap, own = card_vs_cpu[label.split(" bf16")[0]]

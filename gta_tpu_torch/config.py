@@ -86,8 +86,10 @@ class GTAArgs:
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
     """Attention-method configuration (reference attn_args block): the
-    JAX package's fields less its runtime switches (flash, fused, ring),
-    which the port replaces by one rule (`flash_eligible`, models/layers.py)."""
+    JAX package's fields less two of its runtime switches (flash, fused),
+    which the port replaces by one rule (`flash_eligible`, models/layers.py).
+    `ring` (set by `with_ring_attention`) routes GTA round the seq axis's
+    ring when it has more than one rank (parallel/ring.py)."""
 
     method: str = "gta"  # '', 'gta', 'ape', 'mln', 'repast', 'gbt', 'frustum_posemb', 'invatt_directsum'
     gta: GTAArgs = GTAArgs()
@@ -108,6 +110,8 @@ class AttnConfig:
     # rpe (learned-rep "invatt_directsum")
     rpe: bool = False
     rpe_so2: int = 0
+    # sequence-parallel ring attention over the seq axis (parallel/ring.py)
+    ring: bool = False
 
     @property
     def is_gta(self) -> bool:
@@ -401,3 +405,21 @@ def load_config(path: str) -> Config:
     with open(path, "r") as f:
         raw = yaml.safe_load(f)
     return config_from_dict(raw)
+
+
+def with_ring_attention(cfg: Config) -> Config:
+    """Route GTA attention round the seq axis's ring (parallel/ring.py) in
+    encoder and decoder (gta_tpu/config.py:283): the production GTA variant
+    only (a static softmax, no rpe, no euclid_sim, no elementwise_mul), and
+    no module that returns its attention map, which the ring's online
+    softmax never forms."""
+
+    def upd(mod_cfg):
+        attn = mod_cfg.attn
+        if (attn.is_gta and attn.softmax == "standard" and not attn.rpe and not attn.gta.euclid_sim
+                and not attn.gta.elementwise_mul and not getattr(mod_cfg, "return_last_attmap", False)):
+            return dataclasses.replace(mod_cfg, attn=dataclasses.replace(attn, ring=True))
+        return mod_cfg
+
+    model = dataclasses.replace(cfg.model, encoder=upd(cfg.model.encoder), decoder=upd(cfg.model.decoder))
+    return dataclasses.replace(cfg, model=model)

@@ -24,7 +24,7 @@ in its own dtype.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +38,8 @@ from gta_tpu_torch.ops.flash import flash_attention
 from gta_tpu_torch.ops.flash_core import merge_heads, split_heads
 from gta_tpu_torch.ops.gta import gta_attention, vecrep_attention
 from gta_tpu_torch.ops.gta_pallas import fused_gta_attention
+from gta_tpu_torch.parallel.ring import ring_gta_attention
+from gta_tpu_torch.parallel.tp import column_parallel, copy_in, row_parallel
 
 # ---------------------------------------------------------------------------
 # Initialization schemes (reference layers.py:14-49), drawn from a
@@ -168,20 +170,33 @@ class Dropout(nn.Module):
     1 - p, scale kept values by 1 / (1 - p)) whose masks are drawn from an
     explicit torch.Generator, never from torch's global RNG. The Trainer
     owns that generator and hands it to every Dropout of its model
-    (`set_dropout_generator`). Identity in eval mode and at p = 0."""
+    (`set_dropout_generator`). Identity in eval mode and at p = 0.
+
+    `shards` ((dim, index, count), ...) marks an input that is block
+    `index` of `count` along `dim` of the whole activation (a model rank's
+    hidden units, a seq rank's tokens: parallel/tp.py, parallel/ring.py):
+    the mask of the whole activation is drawn and the block kept, so the
+    generator moves as in one process and the masks are one process's."""
 
     def __init__(self, p: float = 0.0):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None
+        self.shards: Tuple[Tuple[int, int, int], ...] = ()
 
     def forward(self, x):
         if not self.training or self.p == 0:
             return x
         if self.generator is None:
             raise RuntimeError("Dropout in training mode needs a generator (set_dropout_generator)")
+        shape = list(x.shape)
+        for dim, _, count in self.shards:
+            shape[dim] *= count
         # the mask is drawn in fp32 whatever x's dtype
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        keep = torch.rand(shape, generator=self.generator, device=x.device) >= self.p
+        for dim, index, _ in self.shards:
+            n = x.shape[dim]
+            keep = keep.narrow(dim, index * n, n)
         return x * keep / (1.0 - self.p)
 
 
@@ -194,7 +209,8 @@ def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> None:
 
 class FeedForward(nn.Module):
     """Linear-GELU-Linear with ViT init (reference layers.py:157-169);
-    GELU is the exact erf form."""
+    GELU is the exact erf form. Under tensor parallel (`tp`, the model
+    axis: parallel/tp.py) the rank holds a block of the hidden units."""
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
@@ -205,9 +221,14 @@ class FeedForward(nn.Module):
             tagged(Linear(hidden_dim, dim), "vit"),
             Dropout(dropout),
         )
+        self.tp = None
 
     def forward(self, x):
-        return self.net(x)
+        if self.tp is None:
+            return self.net(x)
+        up, act, drop, down, drop_out = self.net
+        h = drop(act(column_parallel(up, x, self.tp, up.compute_dtype)))
+        return drop_out(row_parallel(down, h, self.tp, down.compute_dtype))
 
 
 class _Attend(nn.Module):
@@ -308,33 +329,60 @@ class Attention(nn.Module):
             self.to_out = nn.Identity()
         else:
             self.to_out = nn.Sequential(lin(inner, dim, True), Dropout(dropout))
+        self.tp = None  # the model axis, under tensor parallel (parallel/tp.shard_model)
+        self.seq = None  # the seq axis, where the layer rings (parallel/ring.shard_model)
 
     def _tau(self):
         return 1.0 if self.attend is None else to_compute(self.attend.tau, self.compute_dtype)
 
-    def forward(self, x, z=None, ctx: Optional[AttnContext] = None):
-        method = self.attn.method
-        if method == "repast":
-            return self.to_out(self._repast(x, z, ctx))
-        if method == "ape":
-            x, z = self._ape(x, z, ctx)
-        elif method == "mln":
-            x, z = self._mln(x, z, ctx)
-        if z is None:
-            q, k, v = self.to_qkv(x).chunk(3, dim=-1)
-        else:
-            q = self.to_q(x)
-            k, v = self.to_kv(z).chunk(2, dim=-1)
-        tau = self._tau()
+    def route(self) -> str:
+        """How the layer attends: 'gta' (the GTA kernels: a static tau and
+        neither euclid_sim nor elementwise_mul), 'flash' (flash_core: a
+        `flash_eligible` other method), 'repast', or 'eager' (torch eager
+        with its attention map, as JAX computes it with XLA)."""
+        if self.attn.method == "repast":
+            return "repast"
         static = self.attend is None and not self.attn.rpe
         gta = self.attn.gta
         if self.attn.is_gta and static and not gta.euclid_sim and not gta.elementwise_mul:
+            return "gta"
+        return "flash" if static and self.attn.flash_eligible else "eager"
+
+    def _project(self, linear, x):
+        """An input projection: this model rank's block of heads under
+        tensor parallel (parallel/tp.py), all of them otherwise."""
+        return linear(x) if self.tp is None else column_parallel(linear, x, self.tp, linear.compute_dtype)
+
+    def forward(self, x, z=None, ctx: Optional[AttnContext] = None):
+        route = self.route()
+        if route == "repast":
+            return self.to_out(self._repast(x, z, ctx))
+        if self.attn.method == "ape":
+            x, z = self._ape(x, z, ctx)
+        elif self.attn.method == "mln":
+            x, z = self._mln(x, z, ctx)
+        if z is None:
+            q, k, v = self._project(self.to_qkv, x).chunk(3, dim=-1)
+        else:
+            q = self._project(self.to_q, x)
+            k, v = self._project(self.to_kv, z).chunk(2, dim=-1)
+        if route == "gta":
+            gta = self.attn.gta
             tc = None if self.trans_coeff is None else to_compute(self.trans_coeff, self.compute_dtype)
-            out = fused_gta_attention(q, k, v, self.heads, ctx.geom, gta, tc, self.scale)
-        elif static and self.attn.flash_eligible:
+            if self.tp is not None:  # used inside the rank's heads: its gradient sums over the model axis
+                tc = copy_in(tc, self.tp)
+            if self.seq is not None:
+                q, k, v = (split_heads(t, self.heads) for t in (q, k, v))
+                out = merge_heads(ring_gta_attention(q, k, v, ctx.geom, gta, tc, self.scale, self.seq, z is None))
+            else:
+                out = fused_gta_attention(q, k, v, self.heads, ctx.geom, gta, tc, self.scale)
+        elif route == "flash":
             out = flash_attention(q, k, v, self.heads, self.scale)
         else:
-            out = merge_heads(self._eager(*(split_heads(t, self.heads) for t in (q, k, v)), ctx, tau))
+            out = merge_heads(self._eager(*(split_heads(t, self.heads) for t in (q, k, v)), ctx, self._tau()))
+        if self.tp is not None:
+            linear, dropout = self.to_out
+            return dropout(row_parallel(linear, out, self.tp, linear.compute_dtype))
         return self.to_out(out)
 
     def _eager(self, q, k, v, ctx, tau):

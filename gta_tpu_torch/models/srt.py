@@ -22,24 +22,33 @@ from gta_tpu_torch.models.context import AttnContext, SceneBatch
 from gta_tpu_torch.models.decoder import SRTDecoder, build_decoder_context
 from gta_tpu_torch.models.encoder import SRTEncoder, build_encoder_context
 from gta_tpu_torch.models.layers import set_compute_dtype
+from gta_tpu_torch.parallel.ring import local_views
 
 
 class SRT(nn.Module):
-    """Encoder-decoder novel-view-synthesis model."""
+    """Encoder-decoder novel-view-synthesis model. Where it rings (`seq`,
+    the seq axis: parallel/ring.py) `encode` runs on this seq rank's input
+    views and returns their part of z, and `decode` builds its key-side
+    tables from those views; both take the whole batch."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         self.encoder = SRTEncoder(cfg.encoder)
         self.decoder = SRTDecoder(cfg.decoder)
+        self.seq = None
 
     def encode(self, batch: SceneBatch) -> Tuple[torch.Tensor, AttnContext]:
+        if self.seq is not None:
+            batch = local_views(batch, self.seq)
         ctx = build_encoder_context(self.cfg.encoder, batch)
         return self.encoder(batch.input_images, batch.input_camera_pos, batch.input_rays, ctx), ctx
 
     def decode(
         self, z: torch.Tensor, batch: SceneBatch, enc_ctx: Optional[AttnContext] = None
     ) -> Tuple[torch.Tensor, dict]:
+        if self.seq is not None:
+            batch = local_views(batch, self.seq)
         ctx = build_decoder_context(self.cfg.decoder, batch, enc_ctx)
         x, rays = batch.target_camera_pos, batch.target_rays
         if x.ndim == 4:  # [B, Nt, P, 3] -> [B, Nt*P, 3] (models_nvs.py:81-86)

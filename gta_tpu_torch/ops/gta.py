@@ -32,6 +32,7 @@ from gta_tpu_torch.geometry.so2 import apply_rotor, apply_rotor_inv
 from gta_tpu_torch.ops.reps import GeomReps
 
 AttnFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+_SAME = object()  # gta_transform_qkv's default key-side trans_coeff: the query side's
 
 
 def _fw_rotors(rotors, fd, dtype):
@@ -221,8 +222,10 @@ def _apply_so2(rotors, x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     return fn(cos[:, None], sin[:, None], x.reshape(B, H, T, C // 2, 2)).reshape(B, H, T, C)
 
 
-def _transform_sliced(q, k, v, reps: GeomReps, args: GTAArgs, trans_coeff):
+def _transform_sliced(q, k, v, reps: GeomReps, args: GTAArgs, trans_coeff, trans_coeff_k=_SAME):
     """The sliced form of `gta_transform_qkv` (gta_tpu/ops/gta.py:404-449)."""
+    if trans_coeff_k is _SAME:
+        trans_coeff_k = trans_coeff
     nq, nk = _view_counts(reps)
     vt = args.v_transform
     qs, ks, vs = [], [], []
@@ -230,7 +233,8 @@ def _transform_sliced(q, k, v, reps: GeomReps, args: GTAArgs, trans_coeff):
         q_s, k_s, v_s = q[..., st:ed], k[..., st:ed], v[..., st:ed]
         if name == "se3":
             msk = scale_mask(trans_coeff if trans_coeff is not None else 1.0, q.dtype, q.device)
-            c_q, c_k, inv_c_q = reps.se3_q * msk, reps.se3_k * msk, reps.se3_q_inv * msk
+            msk_k = scale_mask(trans_coeff_k if trans_coeff_k is not None else 1.0, q.dtype, q.device)
+            c_q, c_k, inv_c_q = reps.se3_q * msk, reps.se3_k * msk_k, reps.se3_q_inv * msk
             if args.euclid_sim:
                 q_s, k_s = _apply_euclid(c_q, q_s, nq), _apply_euclid(c_k, k_s, nk)
                 v_s = _apply_euclid(c_k, v_s, nk) if vt else v_s
@@ -282,15 +286,19 @@ def _cat(parts):
     return torch.cat([p.to(dt) for p in parts], -1)
 
 
-def gta_transform_qkv(q, k, v, reps: GeomReps, args: GTAArgs, trans_coeff):
+def gta_transform_qkv(q, k, v, reps: GeomReps, args: GTAArgs, trans_coeff, trans_coeff_k=_SAME):
     """Apply group reps to (q, k, v) [B, H, T, C]: the block-diagonal form
-    where it applies, else the sliced one."""
+    where it applies, else the sliced one. `trans_coeff_k`, where given,
+    scales the key side's SE(3) tables in place of `trans_coeff` (the same
+    value, whose gradient the ring sums apart: parallel/ring.py)."""
+    if trans_coeff_k is _SAME:
+        trans_coeff_k = trans_coeff
     if not _blockdiag_ok(reps, args):
-        return _transform_sliced(q, k, v, reps, args, trans_coeff)
+        return _transform_sliced(q, k, v, reps, args, trans_coeff, trans_coeff_k)
     fd = args.f_dims
     nq, nk = _view_counts(reps)
     Mq = _blockdiag_mat(reps, args, trans_coeff, "q", q.dtype)
-    Mk = _blockdiag_mat(reps, args, trans_coeff, "k", k.dtype)
+    Mk = _blockdiag_mat(reps, args, trans_coeff_k, "k", k.dtype)
     qt = _apply_blockdiag(Mq, q, nq) if Mq is not None else q
     kt = _apply_blockdiag(Mk, k, nk) if Mk is not None else k
     vt = v

@@ -6,7 +6,7 @@ Usage:
         [--test] [--full-scale] [--seed S] [--batch-size B] [--bf16]
         [--accum K] [--validate-every N] [--print-model] [--debug-nans] [--device-data]
         [--speed_test N] [--profile N] [--wandb] [--rtpt INITIALS]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--n-model N] [--n-seq S] [--zero] [--dist-backend nccl|gloo]
     python -m torch.distributed.run --nproc_per_node G -m gta_tpu_torch.train <config.yaml> ...
 
 Trains on the config's dataset (`data.dataset`: clevrtr, msn, re10k or
@@ -44,20 +44,31 @@ every state_dict key with its shape. --wandb and --rtpt run when their
 packages import, and otherwise say "... unavailable (...); continuing
 without"; the wandb run id is kept in the checkpoints' scalars.
 
-Data parallel: under torchrun (`python -m torch.distributed.run`) every
-process trains on its shard of each global batch (--batch-size / the
-config's batch over the world size) on `cuda:LOCAL_RANK` over NCCL (gloo
-with --device cpu); the gradients are averaged once per optimizer step
-(parallel/dist.py). Rank 0 alone prints progress, writes metrics.jsonl,
-checkpoints and renders and logs to wandb; a stop signal on any rank stops
-every rank after the same step. --n-model, --n-seq and --zero are accepted
-and raise above their defaults (ROADMAP queue 1 item 9c).
+Parallel training: under torchrun (`python -m torch.distributed.run`)
+the world's W ranks form a D x S x N mesh (W = D x S x N; parallel/dist.py),
+each rank on `cuda:LOCAL_RANK` over NCCL (gloo with --device cpu, or on
+CUDA with --dist-backend gloo, which lets two ranks share one card; the
+run prints its backend). Each of the D data ranks trains on its shard of
+each global batch (--batch-size / the config's batch over D), and the
+gradients are averaged over the data ranks once per optimizer step.
+--n-model N splits every attention layer's heads and every FeedForward's
+hidden units over N model ranks (parallel/tp.py; N must divide them all,
+and every attention layer must run through the GTA or flash_core kernels).
+--n-seq S splits the input views over S seq ranks and rings GTA's keys
+between them (parallel/ring.py; S must divide the views, and both modules
+must be the production GTA variant). --zero shards the AdamW moments over
+the data ranks (parallel/zero.py). All three compose with --accum, and the
+run stops at start where a layout does not fit the config. Checkpoints
+are whole whatever the layout: one written under --n-model 2 --zero
+resumes in one process and the other way round. Rank 0 alone prints
+progress, writes metrics.jsonl, checkpoints and renders and logs to wandb;
+a stop signal on any rank stops every rank after the same step.
 
 --device-data makes the synthetic scenes on the device
 (data/device_synth.DeviceSynthetic), as train.py does: only where the
 dataset is `synthetic` after the --synthetic rewrite (otherwise the flag
-is ignored). Step `it` trains on batch `it` of the generator (this rank's
-shard), so a resumed run feeds the scenes an unbroken one would; an epoch
+is ignored). Step `it` trains on batch `it` of the generator (this data
+rank's shard), so a resumed run feeds the scenes an unbroken one would; an epoch
 is 10000 // global batch steps; evaluation runs over max(1, --max-eval
 (default 256) // (batch // 8)) fixed val batches made once, and the
 visualisation on val batch 0 of min(6, batch) scenes. The device
@@ -102,9 +113,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--speed_test", type=int, default=0,
                         help="time 100 train steps (batch divided by this value), chained between two host "
                              "syncs -> mean ms in time.npy")
-    parser.add_argument("--n-model", type=int, default=1, help="tensor parallel (ROADMAP queue 1 item 9c)")
-    parser.add_argument("--n-seq", type=int, default=1, help="sequence parallel (ROADMAP queue 1 item 9c)")
-    parser.add_argument("--zero", action="store_true", help="ZeRO-1 (ROADMAP queue 1 item 9c)")
+    parser.add_argument("--n-model", type=int, default=1,
+                        help="tensor parallel: attention heads and FFN units over this many model ranks")
+    parser.add_argument("--n-seq", type=int, default=1,
+                        help="sequence parallel: input views over this many seq ranks, GTA's keys ringed")
+    parser.add_argument("--zero", action="store_true", help="ZeRO-1: the AdamW moments sharded over the data ranks")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                        help="process group backend (default: nccl on CUDA, gloo on the CPU)")
     parser.add_argument("--profile", type=int, default=0,
                         help="capture a torch.profiler trace of this many steps into <outdir>/trace")
     parser.add_argument("--wandb", action="store_true", help="log to Weights & Biases")
@@ -128,24 +143,36 @@ def main(argv=None):
         parser.error(f"config file not found: {args.config}")
     if args.accum is not None and args.accum < 1:
         parser.error(f"--accum must be >= 1, got {args.accum}")
-    for flag, on in (("--n-model", args.n_model > 1), ("--n-seq", args.n_seq > 1), ("--zero", args.zero)):
-        if on:
-            raise NotImplementedError(f"{flag} (the JAX package's tensor / sequence / ZeRO-1 parallelism) is not "
-                                      "ported yet (ROADMAP queue 1 item 9c)")
-
+    if args.n_model < 1 or args.n_seq < 1:
+        parser.error(f"--n-model and --n-seq must be >= 1, got {args.n_model} and {args.n_seq}")
+    from gta_tpu_torch.config import load_config
     from gta_tpu_torch.parallel import dist as pdist
+    from gta_tpu_torch.parallel import ring, tp
 
-    device = pdist.init_from_env(args.device)
+    try:
+        cfg = load_config(args.config)
+        if args.n_model > 1:
+            tp.check_divides(cfg.model, args.n_model)
+        if args.n_seq > 1:
+            ring.check_ring(cfg.model, cfg.data.num_input_views, args.n_seq)
+    except ValueError as e:
+        parser.error(str(e))
+
+    device = pdist.init_from_env(args.device, args.dist_backend)
     previous = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
     try:
-        _train(args, device)
+        try:
+            mesh = pdist.init_mesh(args.n_model, args.n_seq)
+        except ValueError as e:
+            parser.error(str(e))
+        _train(args, device, mesh)
     finally:
         for s, handler in previous.items():
             signal.signal(s, handler)
         pdist.destroy()
 
 
-def _train(args, device):
+def _train(args, device, mesh):
     import torch
 
     from gta_tpu_torch.config import load_config
@@ -159,6 +186,8 @@ def _train(args, device):
     say = print if is_main else (lambda *a, **k: None)
     if pdist.initialized():
         say(pdist.describe(), flush=True)
+    if mesh.seq.size > 1 or mesh.model.size > 1 or args.zero:
+        say(f"{mesh.describe()}; ZeRO-1 {'on' if args.zero and mesh.data.size > 1 else 'off'}", flush=True)
 
     cfg = load_config(args.config)
     if args.datapath:
@@ -198,12 +227,12 @@ def _train(args, device):
     global_batch = t_cfg.batch_size
     if args.speed_test:
         global_batch = max(1, global_batch // args.speed_test)
-    host_batch = global_batch // pdist.world()
+    host_batch = global_batch // mesh.data.size
     sel_sign = 1 if t_cfg.model_selection_mode == "maximize" else -1
     sel_metric = t_cfg.model_selection_metric
 
     eval_split = "test" if args.test else "val"
-    trainer = Trainer(cfg, device=device)
+    trainer = Trainer(cfg, device=device, zero=args.zero, mesh=mesh)
     use_device_data = args.device_data and cfg.data.dataset == "synthetic"
     if use_device_data:
         from gta_tpu_torch.data.device_synth import DeviceSynthetic
@@ -220,7 +249,7 @@ def _train(args, device):
         say(f"Loading training set ({cfg.data.dataset})...")
         train_ds = get_dataset("train", cfg.data, seed=cfg.seed)
         eval_ds = get_dataset(eval_split, cfg.data, full_scale=args.full_scale, max_len=args.max_eval)
-        shard = dict(shard_index=pdist.rank(), shard_count=pdist.world(), num_workers=t_cfg.num_workers)
+        shard = dict(shard_index=mesh.data.index, shard_count=mesh.data.size, num_workers=t_cfg.num_workers)
         train_loader = Loader(train_ds, host_batch, shuffle=True, seed=cfg.seed, **shard)
         val_loader = Loader(eval_ds, max(1, host_batch // 8), shuffle=False, **shard)
         # --max-eval can cut the eval split below the vis batch size, and a
@@ -236,7 +265,7 @@ def _train(args, device):
         f"{str(trainer.dtype).replace('torch.', '')}"
     )
     if args.print_model:
-        for key, value in trainer.model.state_dict().items():
+        for key, value in trainer.model_state_dict().items():
             say(key, tuple(value.shape))
     restored, scalars = ckpt.try_restore_latest(trainer, max_it)
     if restored:
@@ -324,7 +353,7 @@ def _train(args, device):
             yield from train_loader
             return
         for _ in range(steps_per_epoch):
-            yield dev_train.batch(it + 1, host_batch, pdist.rank(), pdist.world())
+            yield dev_train.batch(it + 1, host_batch, mesh.data.index, mesh.data.size)
 
     t_resumed = time_elapsed
     session_start = time.perf_counter()
@@ -350,7 +379,7 @@ def _train(args, device):
                     say("Backup checkpoint saved.")
 
                 if visnow or (it > 0 and t_cfg.visualize_every > 0 and it % t_cfg.visualize_every == 0):
-                    if is_main:
+                    if mesh.data.index == 0:  # rank 0 writes; the ranks of its data rank render with it
                         if data_vis is None:
                             data_vis = (dev_val.batch(0, vis_n) if use_device_data
                                         else next(iter(Loader(eval_ds, vis_n, shuffle=True, num_workers=2))))

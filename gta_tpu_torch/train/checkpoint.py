@@ -11,11 +11,14 @@ loss_val_best / run_id, reference train.py:301-305). A save writes a
 temporary file and renames it, so a checkpoint is whole or absent. Only a
 save creates directories: restoring and `exists` leave the disk as it is.
 
-Under data parallel (parallel/dist.py) every rank calls `save`, only rank
-0 writes (the ranks hold the same state; gta_tpu/train/checkpoint.py:38
-writes scalars on process 0 only), and every rank waits at a barrier until
-the files are whole, so no rank restores a save still being written.
-Every rank restores the same files.
+In a process group (parallel/dist.py) every rank calls `save`, which
+gathers the whole state (`Trainer.state_dict`: the model ranks' blocks and
+the data ranks' AdamW moments under tensor parallel and ZeRO-1, so a
+checkpoint is what one process saves, whatever the layout); only rank 0
+writes (gta_tpu/train/checkpoint.py:38 writes scalars on process 0 only),
+and every rank waits at a barrier until the files are whole, so no rank
+restores a save still being written. Every rank restores the same files
+and keeps its part of them.
 """
 
 from __future__ import annotations
@@ -37,12 +40,14 @@ class Checkpointer:
         return os.path.join(self.root, name)
 
     def save(self, name: str, trainer, scalars: Optional[Dict[str, Any]] = None) -> None:
-        """Write checkpoint `name` (rank 0; every rank waits for it)."""
+        """Write checkpoint `name` (rank 0; every rank gathers the state
+        with it and waits for the files)."""
+        state = trainer.state_dict()
         if pdist.is_main():
             path = self._path(name)
             os.makedirs(path, exist_ok=True)
             tmp = os.path.join(path, "state.pt.tmp")
-            torch.save(trainer.state_dict(), tmp)
+            torch.save(state, tmp)
             os.replace(tmp, os.path.join(path, "state.pt"))
             if scalars is not None:
                 with open(os.path.join(path, "scalars.json"), "w") as f:

@@ -10,10 +10,19 @@ Gradient accumulation (`training.grad_accum`, gta_tpu/train/trainer.py:
 131-166): the batch is split into `grad_accum` equal microbatches by
 stride (row i to microbatch i mod accum), each microbatch's mean loss is
 backpropagated on its own, and the summed gradients are divided by accum;
-peak activation memory follows the microbatch. Data parallel
-(parallel/dist.py): each rank steps on its shard of the global batch, and
-`train_step` averages the gradients, the loss and the MSE over ranks in
-one all_reduce after the last microbatch, so its metrics are global means.
+peak activation memory follows the microbatch. The process mesh
+(parallel/dist.py: data x seq x model ranks): each data rank steps on its
+shard of the global batch, and `train_step` averages the gradients, the
+loss and the MSE over the data axis in one all_reduce after the last
+microbatch, so its metrics are global means. The model ranks hold blocks
+of the heads and FFN units (parallel/tp.py), the seq ranks blocks of the
+input views (parallel/ring.py): `loss_and_grads` sums the gradients that
+are partial over the seq ranks before it returns, so each rank holds its
+data shard's whole gradient of the parameters it holds. With `zero`, the
+AdamW moments shard over the data axis (parallel/zero.py). Checkpoints
+stay whole: `state_dict` gathers the model ranks' blocks and the data
+ranks' moments into what one process saves, and `load_state_dict` keeps
+this rank's part of such a state, whatever layout wrote it.
 
 Precision policy, from `training.mixed_prec` (the JAX trainer's
 `self.dtype`, gta_tpu/train/trainer.py:56): the model computes in bf16 when
@@ -34,13 +43,15 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from gta_tpu_torch.config import Config
+from gta_tpu_torch.config import Config, with_ring_attention
 from gta_tpu_torch.geometry.coords import make_2dcoord
 from gta_tpu_torch.geometry.rays import camera_rays_from_extrinsic
 from gta_tpu_torch.models.context import SceneBatch
 from gta_tpu_torch.models.layers import init_weights, set_dropout_generator
 from gta_tpu_torch.models.srt import build_model
 from gta_tpu_torch.parallel import dist as pdist
+from gta_tpu_torch.parallel import ring, tp
+from gta_tpu_torch.parallel.zero import ZeroOptimizer
 from gta_tpu_torch.train.schedule import warmup_exp_decay
 from gta_tpu_torch.utils.metrics import mse2psnr
 from gta_tpu_torch.utils.visualize import draw_visualization_grid
@@ -77,17 +88,26 @@ def split_microbatches(batch: SceneBatch, accum: int) -> List[SceneBatch]:
 class Trainer:
     """Owns the model, its optimizer and schedule, and the train, evaluation
     and rendering entry points. `seed` (default cfg.seed) draws the initial
-    weights (rank 0's, broadcast, under data parallel) and seeds the
-    dropout masks: step s on rank r draws them from a generator seeded
+    weights (rank 0's, broadcast, in a process group) and seeds the
+    dropout masks: step s on data rank r draws them from a generator seeded
     `pdist.step_seed(seed, s, r)`. `dtype` is the compute dtype: bf16 when
-    `training.mixed_prec` is set, else fp32."""
+    `training.mixed_prec` is set, else fp32. `mesh` is the layout
+    (`pdist.init_mesh`; default the whole world as the data axis); `zero`
+    shards the optimizer's moments over its data axis (ZeRO-1)."""
 
-    def __init__(self, cfg: Config, device: Optional[str] = None, seed: Optional[int] = None):
+    def __init__(self, cfg: Config, device: Optional[str] = None, seed: Optional[int] = None, zero: bool = False,
+                 mesh: Optional[pdist.Mesh] = None):
         t = cfg.training
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        self.mesh = mesh = mesh or pdist.world_mesh()
+        if mesh.seq.size > 1:
+            ring.check_ring(cfg.model, cfg.data.num_input_views, mesh.seq.size)
+            cfg = with_ring_attention(cfg)
+        if mesh.model.size > 1:
+            tp.check_divides(cfg.model, mesh.model.size)
         self.cfg = cfg
         self.dtype = torch.bfloat16 if t.mixed_prec else torch.float32
         self.seed = cfg.seed if seed is None else seed
@@ -95,46 +115,86 @@ class Trainer:
         init_weights(self.model, torch.Generator().manual_seed(self.seed))
         self.model.to(self.device).eval()
         pdist.broadcast_module(self.model)
+        self._counts = {name: sum(p.numel() for p in module.parameters())
+                        for name, module in (("encoder", self.model.encoder), ("decoder", self.model.decoder),
+                                             ("total", self.model))}
+        # the model axis's split parameters, and those whose gradients are
+        # partial over the seq axis
+        self.tp_specs = tp.shard_model(self.model, mesh.model) if mesh.model.size > 1 else {}
+        self.seq_partial = ring.shard_model(self.model, mesh.seq) if mesh.seq.size > 1 else []
+        self.names = [name for name, _ in self.model.named_parameters()]
         self.dropout_generator = torch.Generator(device=self.device)
         set_dropout_generator(self.model, self.dropout_generator)
+
         # optax adam / adamw (b1 0.9, b2 0.999, eps 1e-8); adamw decays every
         # parameter, LayerNorms and biases included, as optax does
-        if t.noadamW:
-            self.optimizer = torch.optim.Adam(self.model.parameters(), lr=t.lr)
+        def make_optimizer(params):
+            if t.noadamW:
+                return torch.optim.Adam(params, lr=t.lr)
+            return torch.optim.AdamW(params, lr=t.lr, weight_decay=t.weight_decay)
+
+        self.zero = zero and mesh.data.size > 1
+        if self.zero:
+            self.optimizer = ZeroOptimizer(list(self.model.parameters()), make_optimizer, mesh.data)
         else:
-            self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=t.lr, weight_decay=t.weight_decay)
+            self.optimizer = make_optimizer(self.model.parameters())
         self.schedule = warmup_exp_decay(t.lr, t.lr_warmup, t.decay_it, t.decay_rate)
         # stepped after each optimizer step: step k uses schedule(k), so the
         # first step under warmup has lr 0 (optax reads the count before
         # incrementing it)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
-            self.optimizer, lambda it: self.schedule(it) / t.lr
+            self.optimizer.local if self.zero else self.optimizer, lambda it: self.schedule(it) / t.lr
         )
         self.step = 0
 
     def param_counts(self) -> Dict[str, int]:
-        def count(module):
-            return sum(p.numel() for p in module.parameters())
-
-        return {
-            "encoder": count(self.model.encoder),
-            "decoder": count(self.model.decoder),
-            "total": count(self.model),
-        }
+        """The whole model's parameter counts, whatever the layout."""
+        return dict(self._counts)
 
     # ------------------------------------------------------------------
+    def _split(self, sd: Dict[str, Any], fn, optimizer: bool = False) -> Dict[str, Any]:
+        """`sd` (a model state_dict, or an optimizer's) with fn(tensor,
+        spec) applied to every tensor of the model axis's split parameters:
+        the weights, or their AdamW moments."""
+        if not self.tp_specs:
+            return sd
+        if not optimizer:
+            return {k: fn(v, self.tp_specs[k]) if k in self.tp_specs else v for k, v in sd.items()}
+        state = dict(sd["state"])
+        for i, name in enumerate(self.names):
+            if name in self.tp_specs and i in state:
+                state[i] = {k: fn(v, self.tp_specs[name]) if k in ("exp_avg", "exp_avg_sq") else v
+                            for k, v in state[i].items()}
+        return dict(sd, state=state)
+
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The whole model's state_dict: the model ranks' blocks gathered
+        (collective under tensor parallel)."""
+        return self._split(self.model.state_dict(), lambda t, spec: tp.gather_tensor(t, spec, self.mesh.model))
+
     def state_dict(self) -> Dict[str, Any]:
+        """What one process saves, whatever the layout (collective: every
+        rank calls it): the model ranks' blocks and the data ranks' AdamW
+        moments gathered."""
+        opt = self.optimizer.full_state_dict() if self.zero else self.optimizer.state_dict()
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": self.model_state_dict(),
+            "optimizer": self._split(opt, lambda t, spec: tp.gather_tensor(t, spec, self.mesh.model), optimizer=True),
             "scheduler": self.scheduler.state_dict(),
             "seed": self.seed,
             "step": self.step,
         }
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        """Load a whole state (`state_dict`'s), keeping this rank's part."""
+        m = self.mesh.model
+        cut = lambda t, spec: tp.shard_tensor(t, spec, m.index, m.size)  # noqa: E731
+        self.model.load_state_dict(self._split(state["model"], cut))
+        opt = self._split(state["optimizer"], cut, optimizer=True)
+        if self.zero:
+            self.optimizer.load_full_state_dict(opt)
+        else:
+            self.optimizer.load_state_dict(opt)
         self.scheduler.load_state_dict(state["scheduler"])
         self.seed = int(state["seed"])
         self.step = int(state["step"])
@@ -156,11 +216,13 @@ class Trainer:
         training.grad_accum the batch goes through the model in strided
         microbatches (`split_microbatches`): the loss is the mean of theirs, the
         gradient the sum of theirs over accum, and the per-item MSE comes
-        in microbatch order (JAX's mses.reshape(-1)). This rank's batch
-        alone: `train_step` averages over ranks."""
+        in microbatch order (JAX's mses.reshape(-1)). This data rank's batch
+        alone (`train_step` averages over the data axis); the gradients
+        that are partial over the seq ranks are summed, and a model rank
+        holds its blocks' gradients."""
         batch = batch.to(self.device)  # once: the microbatches are views of it
         micro = split_microbatches(batch, self.cfg.training.grad_accum)
-        self.dropout_generator.manual_seed(pdist.step_seed(self.seed, self.step))
+        self.dropout_generator.manual_seed(pdist.step_seed(self.seed, self.step, self.mesh.data.index))
         self.model.train()
         try:
             self.optimizer.zero_grad(set_to_none=True)
@@ -179,6 +241,9 @@ class Trainer:
             elif len(micro) > 1:
                 p.grad /= len(micro)
             grads.append(p.grad)
+        if self.seq_partial:
+            params = dict(self.model.named_parameters())
+            pdist.reduce_tensors_([params[n].grad for n in self.seq_partial], self.mesh.seq)
         return torch.mean(torch.stack(losses)), torch.cat(mses), grads
 
     def train_step(self, batch: SceneBatch, stop: bool = False) -> Dict[str, Any]:
@@ -194,9 +259,14 @@ class Trainer:
         mse = torch.mean(mse)
         if pdist.initialized():
             flag = torch.full((), float(stop), device=self.device)  # a fill, not a copy that waits on the stream
-            loss, mse, flag = pdist.average_(grads, [loss, mse, flag])
+            loss, mse, flag = pdist.average_(grads, [loss, mse, flag], self.mesh.data)
+            if self.mesh.data.size < pdist.world():  # a stop on any rank stops every rank
+                pdist.all_reduce_(flag, pdist.world_axis())
             stop = flag > 0
-        grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        if self.tp_specs:
+            grad_norm = torch.sqrt(tp.sharded_norm_sq(list(zip(self.names, grads)), self.tp_specs, self.mesh.model))
+        else:
+            grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         lr = self.scheduler.get_last_lr()[0]
         self.optimizer.step()
         self.scheduler.step()
@@ -215,10 +285,10 @@ class Trainer:
 
     def evaluate(self, batches: Iterable[SceneBatch]) -> Dict[str, float]:
         """Mean of eval_step metrics over an iterable of batches; prints the
-        number of unique scenes seen. Under data parallel each rank
-        evaluates its shard, the per-rank means are averaged over ranks in
-        sorted key order and the scene ids gathered
-        (gta_tpu/train/trainer.py:205-258)."""
+        number of unique scenes seen. Each data rank evaluates its shard,
+        the per-rank means are averaged over the data axis in sorted key
+        order and the scene ids gathered (gta_tpu/train/trainer.py:205-258);
+        the seq and model ranks of a data rank evaluate its shard with it."""
         acc: Dict[str, list] = {}
         sceneids = []
         for batch in batches:
@@ -227,10 +297,10 @@ class Trainer:
             for k, v in self.eval_step(batch).items():
                 acc.setdefault(k, []).append(v.cpu().numpy())
         if sceneids:
-            ids = pdist.gather_ids(np.concatenate(sceneids))
+            ids = pdist.gather_ids(np.concatenate(sceneids), self.mesh.data)
             print(f"Evaluated {len(np.unique(ids))} unique scenes.")
         local = {k: float(np.mean(np.concatenate(v))) for k, v in acc.items()}
-        return pdist.mean_over_ranks(local, self.device)
+        return pdist.mean_over_ranks(local, self.device, self.mesh.data)
 
     # ------------------------------------------------------------------
     def _to(self, x) -> torch.Tensor:
@@ -362,7 +432,8 @@ class Trainer:
 
     def visualize(self, batch: SceneBatch, out_path: str, num_angles: int = 6) -> None:
         """Render `num_angles` novel views rotated about the world z-axis into
-        an image grid at <out_path>.png (reference trainer.py:184-295).
+        an image grid at <out_path>.png (reference trainer.py:184-295;
+        written by rank 0: the ranks of its data rank render with it).
         Rotation is conjugated into the canonical frame:
         T_rel = E_canon R_z(theta) E_canon^-1 (R_z alone without one)."""
         B, N, H, W = batch.input_rays.shape[:4]
@@ -385,4 +456,5 @@ class Trainer:
                 rel = np.broadcast_to(Rz, (B, 4, 4))
             img = self.render_image(batch, H, W, target_transform=rel.astype(np.float32))
             columns.append((f"render {(i * 360) // num_angles}°", img))
-        draw_visualization_grid(columns, out_path)
+        if pdist.is_main():
+            draw_visualization_grid(columns, out_path)

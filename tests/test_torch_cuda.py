@@ -11,6 +11,8 @@ on a GPU machine that has no flax:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -1221,3 +1223,125 @@ def test_world_size_one_nccl_average_is_the_local_gradient(cuda_device):
         assert all(torch.equal(a, b) for a, b in zip(g, want)) and loss.item() == 0.5 and flag.item() > 0
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallel and the ring on the card: two ranks of this file run as a
+# script (`_parallel_worker`), gloo on one card or NCCL on two
+# ---------------------------------------------------------------------------
+
+PARALLEL_CASES = {"tp": (2, 1), "ring": (1, 2)}  # name -> (n_model, n_seq)
+PARALLEL_B = 4
+
+
+def _shrunk_flagship():
+    """The flagship at the CPU tests' width (tests/test_torch_parallel.py):
+    2 heads of 64, one attention block a side, 32x48 inputs, 48 target
+    rays, dropout 0, lr_warmup 0."""
+    import dataclasses
+
+    cfg = _flagship(lr_warmup=0)
+    m = cfg.model
+    enc = dataclasses.replace(m.encoder, dim=64, attdim=128, heads=2, num_att_blocks=1)
+    dec = dataclasses.replace(m.decoder, z_dim=128, heads=2, rmlp_dim=64, num_att_blocks=1)
+    data = dataclasses.replace(cfg.data, height=32, width=48, downsample=0, num_points=48)
+    return dataclasses.replace(cfg, data=data, model=dataclasses.replace(m, encoder=enc, decoder=dec))
+
+
+def _shrunk_batch(cfg):
+    from gta_tpu_torch.data.synthetic import SyntheticScenes, collate
+
+    ds = SyntheticScenes(cfg.data, "train")
+    return collate([ds[i] for i in range(PARALLEL_B)])
+
+
+def _parallel_worker(backend, out_dir):
+    """One rank: a train step of the shrunk flagship in fp32 on the card
+    under each of PARALLEL_CASES, the gradients gathered whole (rank 0
+    saves them)."""
+    from gta_tpu_torch.parallel import dist as pdist, tp
+    from gta_tpu_torch.train.trainer import Trainer
+
+    device = pdist.init_from_env(None, backend)
+    out = {"backend": pdist.backend(), "device": device}
+    for name, (n_model, n_seq) in PARALLEL_CASES.items():
+        mesh = pdist.init_mesh(n_model, n_seq)
+        cfg = _shrunk_flagship()
+        trainer = Trainer(cfg, device=device, mesh=mesh)
+        trainer.train_step(_shrunk_batch(cfg))
+        out[name] = {n: (tp.gather_tensor(p.grad, trainer.tp_specs[n], trainer.mesh.model)
+                         if n in trainer.tp_specs else p.grad).double().cpu()
+                     for n, p in trainer.model.named_parameters()}
+    if pdist.rank() == 0:
+        torch.save(out, f"{out_dir}/rank0.pt")
+    pdist.destroy()
+
+
+@pytest.fixture(scope="module", params=["gloo", "nccl"])
+def parallel_ranks(request, tmp_path_factory):
+    """What rank 0 of two saved under `backend`: gloo with both ranks on
+    cuda:0, NCCL on cuda:0 and cuda:1 (NCCL refuses two ranks on one
+    card)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    backend = request.param
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL refuses two ranks on one card: the NCCL case needs two cards")
+    out = tmp_path_factory.mktemp(f"parallel_{backend}")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]),
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": "2"}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "parallel", backend, str(out)], cwd=root,
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{logs[r]}"
+    return torch.load(f"{out}/rank0.pt", weights_only=False)
+
+
+@pytest.fixture(scope="module")
+def one_card_step():
+    """The one-process card step's gradients, by name."""
+    from gta_tpu_torch.train.trainer import Trainer
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    cfg = _shrunk_flagship()
+    trainer = Trainer(cfg, device="cuda")
+    trainer.train_step(_shrunk_batch(cfg))
+    return {n: p.grad.double().cpu() for n, p in trainer.model.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PARALLEL_CASES))
+def test_two_ranks_take_the_one_process_card_step(parallel_ranks, one_card_step, case):
+    """--n-model 2 (the fused GTA kernels on each rank's head) and --n-seq 2
+    (the ring's plain fp32 fold, one view a rank) on the shrunk flagship in
+    fp32, two ranks: every parameter's gradient, by name, within 1e-5
+    relative L2 of the one-process card step's."""
+    got = parallel_ranks[case]
+    assert got.keys() == one_card_step.keys()
+    errs = {n: (torch.linalg.vector_norm(got[n] - g) / max(torch.linalg.vector_norm(g).item(), 1e-30)).item()
+            for n, g in one_card_step.items()}
+    worst = sorted(errs, key=errs.get, reverse=True)[:4]
+    assert all(e <= 1e-5 for e in errs.values()), (parallel_ranks["backend"], [(n, errs[n]) for n in worst])
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["parallel"]:
+    _parallel_worker(sys.argv[2], sys.argv[3])
