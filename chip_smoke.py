@@ -281,10 +281,37 @@ Phases (any failure exits non-zero and prints no result line):
      (7 + 7 fused GTA under TP and ZeRO-1, none under the ring), the warm
      step beside the one-process step's. It runs beside the DiT CLIs, the
      gradient checks (phase 4's grads_phase) in this process meanwhile.
+  4d. Every head width from 32 to 128 and the model options no published
+     config reaches (slice 20). In phase 2, width_phase: the kernels'
+     instances at head widths 32 and 128 (NEW_WIDTHS), fp32 and bf16, both
+     kernels of each pair, at DiT-XL/2's train shape (B=256, 256 tokens,
+     hidden 1152 in 1152 / C heads) and CLEVR-TR's decoder train shape
+     (B=32, hidden 384), against plain and fp64 as the other instances,
+     with ms, SDPA's ms and the bound; padding_phase, what the copies of a
+     width between two instances cost (C = 72 in the instance of 96 at
+     DiT-XL/2's shapes). After the other methods, option_phase (B=16, one
+     cold eval_step and train_step each, launch counts asserted by
+     instance width): the SRT baseline with its decoder's dim_head at 32
+     and 128, the flagship at head width 32 and 128 on both sides
+     (at_width), each fp32 and bf16, so every new instance runs on a
+     path; the flagship with planar and with camera_planar embeddings in
+     encoder and decoder; the SRT baseline with a one-head decoder that
+     returns its last attention map (launching no kernel in the decoder),
+     the last three also card against CPU at B=2 (pixels, and the masks
+     summing to 1). After the DiT family, both DiT configs at DiT-XL/2's
+     width (dit_xl: hidden 1152, 16 heads of 72, which run in the
+     instances of 96, depth cut from 28 to 4): dit_kernel_phase at its
+     shapes, dit_xl_path_phase (one train_step at B=256, evaluate on a val
+     batch of 64, a 2-step DDIM sample of 8 labels under CFG, launches
+     asserted) and dit_card_vs_cpu_grads_phase (B=2 loss and whole
+     gradient at depth 1 within 1.5x the emulated TPU rounding's gap from
+     the CPU's fp32).
   9. One JSON line of kernel numbers, an entry per kernel instance (fp32
-     and bf16, launches by path, the attention core it runs and that core's
-     ptxas registers and spills in its library), then the device JSON as
-     the last line.
+     and bf16; the instances at head widths 64 and 96 one entry a kernel
+     and dtype, those at 32 and 128 one each, `<kernel>[_bf16]_c<C>`;
+     launches by path, the attention core it runs and that core's ptxas
+     registers and spills in its libraries), then the device JSON as the
+     last line.
 
 Each phase prints its wall seconds ("phase seconds: <name> <s>", and all
 of them on a line before the kernels line). The time budget: half the
@@ -644,18 +671,22 @@ def gta_edge_phase(device, mixes=None, heads=6):
     return worst_fwd, worst_bwd
 
 
-def train_kernel_phase(cfg, calls, device):
+def train_kernel_phase(cfg, calls, device, geometry=None):
     """Both kernels at a GTA config's train shapes: the forward with its
     training residuals, and the backward, each against its plain version;
-    returns ({shape: fwd numbers}, {shape: bwd numbers})."""
+    returns ({shape: fwd numbers}, {shape: bwd numbers}). `geometry`
+    (heads, head width) in place of the config's encoder's (cfg None: the
+    width phase's calls)."""
     import torch
     import torch.nn.functional as F
 
     from gta_tpu_torch.ops import gta_fused as tgf
     from gta_tpu_torch.ops.gta import gta_transform_qkv
 
-    enc_cfg = cfg.model.encoder
-    H, C = enc_cfg.heads, enc_cfg.attdim // enc_cfg.heads
+    if geometry is None:
+        H, C = cfg.model.encoder.heads, cfg.model.encoder.attdim // cfg.model.encoder.heads
+    else:
+        H, C = geometry
     scale = C**-0.5
     tc = torch.tensor([0.01], device=device)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -763,24 +794,28 @@ def fp64_check(label, got, plain32, ref, names):
     return errs
 
 
-def flash_kernel_phase(cfg, device, batch=EVAL_BATCH, prefix=""):
+def flash_kernel_phase(cfg, device, batch=EVAL_BATCH, prefix="", geometry=None):
     """flash_core forward and backward (fp32 instances) against their plain
     versions at the shapes of a config's attention (`srt_shapes`: the
     encoder's heads and head width; the SRT baseline's, or msn gta_t2's
     after its sliced transforms), and against fp64 at each shape cut to
     B=2 (`fp64_check`); returns ({shape: fwd numbers}, {shape: bwd
-    numbers})."""
+    numbers}). `geometry` (heads, head width, {shape: (B, Tq, Tk)}) in
+    place of the config's (cfg None: the width phase's shapes)."""
     import torch
     import torch.nn.functional as F
 
     from gta_tpu_torch.ops import flash_core as fc
 
-    enc = cfg.model.encoder
-    H, C = enc.heads, enc.attdim // enc.heads
+    if geometry is None:
+        enc = cfg.model.encoder
+        H, C, shapes = enc.heads, enc.attdim // enc.heads, srt_shapes(cfg, batch)
+    else:
+        H, C, shapes = geometry
     scale = C**-0.5
     gen = torch.Generator(device=device).manual_seed(2)
     fwd, bwd = {}, {}
-    for name, (B, Tq, Tk) in srt_shapes(cfg, batch).items():
+    for name, (B, Tq, Tk) in shapes.items():
         name = prefix + name
         train = "_train_" in name
         q, k, v, g = (torch.randn((B, T, H * C), generator=gen, device=device) for T in (Tq, Tk, Tk, Tq))
@@ -1122,24 +1157,47 @@ def bf16_card_vs_cpu_phase(cfg, label):
 
 def kernel_wrappers():
     """Every kernel's wrapper, by kernel name; each counts the launches of
-    its fp32 instance (`launches`) and of its bf16 one (`launches_bf16`)."""
+    its fp32 instances (`launches`, `launches_by_width`) and of its bf16
+    ones (`launches_bf16`, `launches_bf16_by_width`)."""
     from gta_tpu_torch.ops import _cuda, flash_core, gta_fused
 
     return {name: getattr(flash_core if name.startswith("flash") else gta_fused, name) for name in _cuda.KERNELS}
 
 
+# the head widths whose instances the kernels line names by their width
+# (`<kernel>[_bf16]_c<C>`); the instances at 64 and 96, the earlier slices',
+# keep one entry a kernel and dtype
+NEW_WIDTHS = (32, 128)
+
+
+def instance_name(kernel, bf16, width):
+    """A kernel instance's name in the launch counts and the kernels line."""
+    return kernel + ("_bf16" if bf16 else "") + (f"_c{width}" if width in NEW_WIDTHS else "")
+
+
 def launch_counts():
-    """{instance: launches}: `<kernel>` for the fp32 instance, `<kernel>_bf16`
-    for the bf16 one."""
+    """{instance: launches}: `<kernel>` for the fp32 instances at head widths
+    64 and 96, `<kernel>_bf16` for the bf16 ones, `<kernel>[_bf16]_c32` and
+    `_c128` for those at 32 and 128."""
     counts = {}
     for name, fn in kernel_wrappers().items():
-        counts[name], counts[f"{name}_bf16"] = fn.launches, fn.launches_bf16
+        for bf16, by_width in ((False, fn.launches_by_width), (True, fn.launches_bf16_by_width)):
+            for width, n in by_width.items():
+                key = instance_name(name, bf16, width)
+                counts[key] = counts.get(key, 0) + n
     return counts
 
 
+def nonzero(counts):
+    """The instances of a launch-count dict that launched (for the log)."""
+    return {k: n for k, n in counts.items() if n}
+
+
 def reset_launch_counts():
+    from gta_tpu_torch.ops import _cuda
+
     for fn in kernel_wrappers().values():
-        fn.launches = fn.launches_bf16 = 0
+        _cuda.launch_counters(fn)
 
 
 def side_kernel(attn):
@@ -1166,19 +1224,24 @@ def side_kernel(attn):
 def expected_launches(cfg, encodes, decodes, backward_steps=0, target_views=1):
     """Launch counts of a run of `encodes` encoder and `decodes` decoder
     passes, `backward_steps` of them with a backward: each attention layer
-    launches its side's kernel (side_kernel) in the config's compute dtype
-    (bf16 under mixed_prec) once forward and once backward, and FTL's
-    decoder once per target view (`target_views`); every other instance
-    stays at 0."""
+    launches its side's kernel (side_kernel; none on a side that returns
+    its last attention map, which attends eagerly) in the config's compute
+    dtype (bf16 under mixed_prec), in the instance of its head width, once
+    forward and once backward, and FTL's decoder once per target view
+    (`target_views`); every other instance stays at 0."""
+    from gta_tpu_torch.ops import _cuda
+
     want = dict.fromkeys(launch_counts(), 0)
-    suffix = "_bf16" if cfg.training.mixed_prec else ""
-    for side, n in ((cfg.model.encoder, encodes), (cfg.model.decoder, decodes)):
-        kernel = side_kernel(side.attn)
+    bf16 = cfg.training.mixed_prec
+    enc, dec = cfg.model.encoder, cfg.model.decoder
+    for side, n, C in ((enc, encodes, enc.attdim // enc.heads), (dec, decodes, dec.head_dim)):
+        kernel = None if getattr(side, "return_last_attmap", False) else side_kernel(side.attn)
         if kernel is None:
             continue
-        per_pass = side.num_att_blocks * (target_views if cfg.model.ftl and side is cfg.model.decoder else 1)
-        want[f"{kernel}_fwd{suffix}"] += n * per_pass
-        want[f"{kernel}_bwd{suffix}"] += backward_steps * per_pass
+        width = _cuda.kernel_head_dim(kernel, C)
+        per_pass = side.num_att_blocks * (target_views if cfg.model.ftl and side is dec else 1)
+        want[instance_name(f"{kernel}_fwd", bf16, width)] += n * per_pass
+        want[instance_name(f"{kernel}_bwd", bf16, width)] += backward_steps * per_pass
     return want
 
 
@@ -1242,7 +1305,7 @@ def serving_path_phase(cfg, label, batch_size=EVAL_BATCH):
     print(f"{label} serving: {'render_image' if transform_mode else 'render_rays'} {Hf}x{Wf} chunk={chunk} "
           f"psnr={render_psnr:.4f} ms(median of {RENDER_RUNS} after 1 warm-up)={median_ms:.2f} "
           f"[{', '.join(f'{x:.2f}' for x in render_ms)}] rays/s={n_rays / (median_ms / 1e3):.0f}", flush=True)
-    print(f"{label} serving: launches {launches}, expected {want} (5 per encode, 2 per decode chunk; "
+    print(f"{label} serving: launches {nonzero(launches)}, expected {nonzero(want)} (5 per encode, 2 per decode chunk; "
           "a launch counts one call of the C entry point, however many kernels it runs)", flush=True)
     if launches != want:
         raise AssertionError(f"{label} serving path launches {launches}, expected {want}")
@@ -1300,7 +1363,7 @@ def train_path_phase(cfg, label, batch_size=EVAL_BATCH, distinct=1 + TRAIN_RUNS)
           f"ms(warm)=[{', '.join(f'{x:.2f}' for x in step_ms[1:])}] median_warm_ms={warm:.2f} "
           f"rays/s={rays / (warm / 1e3):.0f} peak_mem_gb={peak_gb:.2f}", flush=True)
     want = expected_launches(cfg, len(batches), len(batches), backward_steps=len(batches))
-    print(f"{label} train: launches {launches}, expected {want}", flush=True)
+    print(f"{label} train: launches {nonzero(launches)}, expected {nonzero(want)}", flush=True)
     if launches != want:
         raise AssertionError(f"{label} train path launches {launches}, expected {want}")
     if not (np.isfinite(losses).all() and finite_grads):
@@ -1342,7 +1405,7 @@ def variant_phase(cfg, label, batch_size=VARIANT_BATCH):
     kernels = {k: n for k, n in {**serving, **launches}.items() if n}
     print(f"{label}: B={batch_size} eval_step psnr={psnr:.4f} ms(cold)={eval_ms:.2f} peak_mem_gb={eval_gb:.2f}; "
           f"train_step loss={loss:.6f} grad_norm={m['grad_norm'].item():.6f} ms(cold)={train_ms:.2f} "
-          f"peak_mem_gb={train_gb:.2f}; launches serving {serving}, train {launches}"
+          f"peak_mem_gb={train_gb:.2f}; launches serving {nonzero(serving)}, train {nonzero(launches)}"
           + ("" if kernels else " (no kernel: the JAX package computes this attention with XLA)"), flush=True)
     nt = val.target_transforms.shape[1] if val.target_transforms is not None else 1
     for path, got, want in (("serving", serving, expected_launches(cfg, 1, 1, target_views=nt)),
@@ -2695,7 +2758,7 @@ DIT_GUIDANCE = 4.0
 DIT_LOADER_STEPS = 4  # warm steps fed by the loader's 4 worker threads
 
 
-def dit_kernel_phase(cfg, label, device):
+def dit_kernel_phase(cfg, label, device, prefix=""):
     """The DiT config's bf16 kernel instances at its shapes: self-attention
     over one view of 16 x 16 patch tokens, 6 heads of 64, at the train
     batch (forward with residuals, backward) and at the sampler's CFG batch
@@ -2707,7 +2770,7 @@ def dit_kernel_phase(cfg, label, device):
 
     m = cfg.model
     T, sample_b = m.num_patches, 2 * DIT_SAMPLE_LABELS
-    names = {f"dit_train_b{DIT_BATCH}": DIT_BATCH, f"dit_sample_b{sample_b}": sample_b}
+    names = {f"{prefix}dit_train_b{DIT_BATCH}": DIT_BATCH, f"{prefix}dit_sample_b{sample_b}": sample_b}
     if m.attn.is_gta:
         given = {n: (m.attn.gta, grid_reps(m, b, device), b, T, T) for n, b in names.items()}
     else:
@@ -2719,11 +2782,16 @@ def dit_kernel_phase(cfg, label, device):
 def dit_launches(cfg, forwards, backwards):
     """`forwards` and `backwards` launches of the instance the DiT config's
     attention launches (the fused GTA kernels for method 'gta', flash_core
-    for ''; bf16 under mixed_prec), none of any other."""
+    for ''; bf16 under mixed_prec; the instance of its head width), none of
+    any other."""
+    from gta_tpu_torch.ops import _cuda
+
     kernel = "gta_fused" if cfg.model.attn.is_gta else "flash_core"
-    suffix = "_bf16" if cfg.training.mixed_prec else ""
+    m, bf16 = cfg.model, cfg.training.mixed_prec
+    width = _cuda.kernel_head_dim(kernel, m.hidden_size // m.heads)
     want = dict.fromkeys(launch_counts(), 0)
-    want[f"{kernel}_fwd{suffix}"], want[f"{kernel}_bwd{suffix}"] = forwards, backwards
+    want[instance_name(f"{kernel}_fwd", bf16, width)] = forwards
+    want[instance_name(f"{kernel}_bwd", bf16, width)] = backwards
     return want
 
 
@@ -2731,7 +2799,7 @@ def check_dit_launches(label, cfg, forwards, backwards):
     """The launch counts since the last reset against dit_launches. Returns
     them."""
     launches, want = launch_counts(), dit_launches(cfg, forwards, backwards)
-    print(f"{label}: launches {launches}, expected {want}", flush=True)
+    print(f"{label}: launches {nonzero(launches)}, expected {nonzero(want)}", flush=True)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     return launches
@@ -3652,19 +3720,346 @@ def parallel_phase(paths):
     return summary
 
 
-def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None):
+# ---------------------------------------------------------------------------
+# Every head width from 32 to 128, and the model options no published config
+# reaches
+# ---------------------------------------------------------------------------
+
+# DiT-XL/2's width (Peebles & Xie 2023: hidden 1152, 16 heads of 72), its
+# depth cut from 28 to 4 (the run's time)
+DIT_XL = dict(hidden_size=1152, heads=16, depth=4)
+DIT_XL_SAMPLE_STEPS = 2  # DDIM steps of its sample (CFG batch 2 x DIT_SAMPLE_LABELS)
+OPTION_BATCH = 16  # the width and option configs' batch (one cold eval_step and train_step each)
+
+
+def gta_mix(C, dit=False):
+    """(f_dims, so2 frequencies) of the flagship's GTA split at head width C
+    (SE(3) and SO(2) halves, a quarter of the SO(2) channels as
+    frequencies), or of dit_gta's (a trivial half beside the SO(2) one)."""
+    from gta_tpu_torch.config import FDims
+
+    half = C // 2 // 4 * 4
+    return (FDims(triv=half, so2=C - half) if dit else FDims(se3=half, so2=C - half)), (C - half) // 4
+
+
+def at_width(cfg, C, **training):
+    """A GTA NVS config (the flagship) at head width C on both sides: its
+    widths kept, width / C heads, f_dims scaled (gta_mix); `training`
+    fields replaced."""
+    m = cfg.model
+    fd, so2 = gta_mix(C)
+
+    def side(s, width):
+        attn = dataclasses.replace(s.attn, gta=dataclasses.replace(s.attn.gta, f_dims=fd, so2=so2))
+        return dataclasses.replace(s, heads=width // C, attn=attn)
+
+    model = dataclasses.replace(m, encoder=side(m.encoder, m.encoder.attdim), decoder=side(m.decoder, m.decoder.z_dim))
+    return dataclasses.replace(cfg, model=model, training=dataclasses.replace(cfg.training, **training))
+
+
+def dit_xl(cfg):
+    """A DiT config at DiT-XL/2's width (DIT_XL); dit_gta's f_dims scaled to
+    its head width of 72 (gta_mix: triv 36, so2 36 with 9 frequencies, the
+    published half-and-half split)."""
+    m = cfg.model
+    attn = m.attn
+    if attn.is_gta:
+        fd, so2 = gta_mix(DIT_XL["hidden_size"] // DIT_XL["heads"], dit=True)
+        attn = dataclasses.replace(attn, gta=dataclasses.replace(attn.gta, f_dims=fd, so2=so2))
+    return dataclasses.replace(cfg, model=dataclasses.replace(m, attn=attn, **DIT_XL))
+
+
+def merged(*pairs):
+    """({shape: fwd numbers}, {shape: bwd numbers}) of several phases."""
+    fwd, bwd = {}, {}
+    for f, b in pairs:
+        fwd.update(f)
+        bwd.update(b)
+    return fwd, bwd
+
+
+def width_phase(gta_cfg, srt_cfg, device):
+    """The kernel instances at head widths 32 and 128 (NEW_WIDTHS), fp32 and
+    bf16, both kernels of each pair, at two shapes: DiT-XL/2's train shape
+    (hidden 1152 in 1152 / C heads; one view of 16 x 16 patch tokens, batch
+    256; the fused GTA kernels with dit_gta's rotor-only tables at width C)
+    and CLEVR-TR's decoder train shape (batch 32; hidden 384 in 384 / C
+    heads: the flagship's geometry at width C, `at_width`, for the fused
+    GTA kernels, the SRT baseline's shape for flash_core). Each against its
+    plain version and, cut to B=2, fp64 (fp32: train_kernel_phase and
+    flash_kernel_phase; bf16: bf16_kernel_phase), with its ms, the plain
+    version's, SDPA's and the bound. Returns {forward instance:
+    ({shape: fwd numbers}, {shape: bwd numbers})}."""
+    from gta_tpu_torch.config import AttnConfig, GTAArgs
+    from gta_tpu_torch.models.dit import DiTConfig, grid_reps
+
+    out = {}
+    dit_T = 256
+    srt_B, srt_Tq, srt_Tk = srt_shapes(srt_cfg)[f"decoder_train_b{EVAL_BATCH}"]
+    for C in NEW_WIDTHS:
+        nvs, dit = f"c{C}_decoder_train_b{EVAL_BATCH}", f"c{C}_dit_xl_train_b{DIT_BATCH}"
+        h_nvs, h_dit = gta_cfg.model.decoder.z_dim // C, DIT_XL["hidden_size"] // C
+        calls = gta_calls(at_width(gta_cfg, C), device, EVAL_BATCH, prefix=f"c{C}_")
+        fd, so2 = gta_mix(C, dit=True)
+        dit_cfg = DiTConfig(hidden_size=DIT_XL["hidden_size"], heads=h_dit,
+                            attn=AttnConfig(method="gta", gta=GTAArgs(f_dims=fd, so2=so2)))
+        assert dit_cfg.num_patches == dit_T
+        gta_nvs = {nvs: calls[nvs]}
+        gta_dit = {dit: (dit_cfg.attn.gta, grid_reps(dit_cfg, DIT_BATCH, device), DIT_BATCH, dit_T, dit_T)}
+        flash_nvs, flash_dit = {nvs: (srt_B, srt_Tq, srt_Tk)}, {dit: (DIT_BATCH, dit_T, dit_T)}
+        out[instance_name("gta_fused_fwd", False, C)] = merged(
+            train_kernel_phase(None, gta_nvs, device, geometry=(h_nvs, C)),
+            train_kernel_phase(None, gta_dit, device, geometry=(h_dit, C)))
+        out[instance_name("flash_core_fwd", False, C)] = merged(
+            flash_kernel_phase(None, device, geometry=(h_nvs, C, flash_nvs)),
+            flash_kernel_phase(None, device, geometry=(h_dit, C, flash_dit)))
+        out[instance_name("gta_fused_fwd", True, C)] = merged(
+            bf16_kernel_phase(None, f"C={C} CLEVR-TR", device, prefix="", geometry=(h_nvs, C, gta_nvs)),
+            bf16_kernel_phase(None, f"C={C} DiT-XL/2", device, prefix="", geometry=(h_dit, C, gta_dit)))
+        out[instance_name("flash_core_fwd", True, C)] = merged(
+            bf16_kernel_phase(None, f"C={C} CLEVR-TR", device, prefix="", flash=True, geometry=(h_nvs, C, flash_nvs)),
+            bf16_kernel_phase(None, f"C={C} DiT-XL/2", device, prefix="", flash=True, geometry=(h_dit, C, flash_dit)))
+    return out
+
+
+def padding_phase(device):
+    """The copies a head width between the instances costs (ops/_cuda.py
+    pad_heads / unpad_heads): at DiT-XL/2's shapes (B=256, 256 tokens, 16
+    heads of 72 in the instance of 96, bf16) q, k and v padded for the
+    forward, its output cut back; the backward pads g too and cuts dq, dk,
+    dv. Returns {forward_ms, backward_ms}."""
+    import torch
+
+    from gta_tpu_torch.ops import _cuda
+
+    H, C = DIT_XL["heads"], DIT_XL["hidden_size"] // DIT_XL["heads"]
+    width = _cuda.kernel_head_dim("padding", C)
+    gen = torch.Generator(device=device).manual_seed(21)
+    x = [torch.randn((DIT_BATCH, 256, H * C), generator=gen, device=device).to(torch.bfloat16) for _ in range(4)]
+    wide = [_cuda.pad_heads(t, H, width) for t in x]
+
+    def fwd():
+        for t in x[:3]:
+            _cuda.pad_heads(t, H, width)
+        _cuda.unpad_heads(wide[0], H, C)
+
+    def bwd():
+        for t in x:
+            _cuda.pad_heads(t, H, width)
+        for t in wide[:3]:
+            _cuda.unpad_heads(t, H, C)
+
+    numbers = {"forward_ms": time_ms(fwd), "backward_ms": time_ms(bwd), "C": C, "instance": width}
+    print(f"padding copies at DiT-XL/2's shapes (B={DIT_BATCH}, T=256, H={H}, C={C} in the C={width} instance, "
+          f"bf16): forward (pad q, k, v; cut out) {numbers['forward_ms']:.4f} ms, backward (pad q, k, v, g; cut "
+          f"dq, dk, dv) {numbers['backward_ms']:.4f} ms", flush=True)
+    return numbers
+
+
+def dit_xl_path_phase(cfg, label):
+    """A DiT config at DiT-XL/2's width (dit_xl: 16 heads of 72, which run in
+    the instances of 96, padded) through its entry points: one train_step
+    at B=256 on procedural images, evaluate on one val batch of
+    DIT_VAL_BATCH, and a DIT_XL_SAMPLE_STEPS-step DDIM sample of
+    DIT_SAMPLE_LABELS labels under CFG (batch 16); each path's launch
+    counts asserted (dit_launches). Returns ({path: launches}, numbers)."""
+    import torch
+
+    from gta_tpu_torch.data.images import SyntheticImages, collate_images
+    from gta_tpu_torch.train.dit_trainer import DiTTrainer
+
+    m, depth = cfg.model, cfg.model.depth
+    trainer = DiTTrainer(cfg)  # default device: cuda
+    ds = SyntheticImages(m.input_size, m.num_classes, "train", DIT_BATCH, cfg.seed)
+    batch = collate_images([ds[i] for i in range(DIT_BATCH)])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    paths = {"train": check_dit_launches(f"{label} train (1 step)", cfg, depth, depth)}
+    losses = [out[k].item() for k in ("loss", "mse", "vb")]
+    if not (np.isfinite(losses).all() and all(bool(torch.isfinite(p.grad).all()) for p in trainer.model.parameters())):
+        raise AssertionError(f"{label} train: losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    val = SyntheticImages(m.input_size, m.num_classes, "val", DIT_VAL_BATCH, cfg.seed)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = trainer.evaluate([collate_images([val[i] for i in range(DIT_VAL_BATCH)])], seed=cfg.seed)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    paths["evaluate"] = check_dit_launches(f"{label} evaluate", cfg, depth, 0)
+    if sorted(ev) != ["loss", "mse", "vb"] or not np.isfinite(list(ev.values())).all():
+        raise AssertionError(f"{label} evaluate: {ev}")
+    labels = np.arange(DIT_SAMPLE_LABELS) % m.num_classes
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imgs = trainer.sample(labels, seed=0, steps=DIT_XL_SAMPLE_STEPS, guidance=DIT_GUIDANCE)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    paths["sample"] = check_dit_launches(f"{label} sample", cfg, depth * DIT_XL_SAMPLE_STEPS, 0)
+    if imgs.shape != (DIT_SAMPLE_LABELS, m.input_size, m.input_size, m.in_channels) or not (
+            np.isfinite(imgs).all() and imgs.min() >= -1.0 and imgs.max() <= 1.0):
+        raise AssertionError(f"{label} sample: shape {imgs.shape}, range {imgs.min()}..{imgs.max()}")
+    numbers = {"batch": DIT_BATCH, "train_ms": train_ms, "peak_mem_gb": peak_gb, "losses": losses,
+               "evaluate_ms": eval_ms, "sample_ms": sample_ms}
+    print(f"{label} (hidden {m.hidden_size}, {m.heads} heads of {m.hidden_size // m.heads}, depth {depth}): "
+          f"train_step B={DIT_BATCH} (loss, mse, vb)={losses} ms(cold)={train_ms:.2f} peak_mem_gb={peak_gb:.2f}; "
+          f"evaluate B={DIT_VAL_BATCH} {json.dumps(ev)} in {eval_ms:.2f} ms; sample {DIT_SAMPLE_LABELS} labels x "
+          f"{DIT_XL_SAMPLE_STEPS} DDIM steps (CFG batch {2 * DIT_SAMPLE_LABELS}) in {sample_ms:.2f} ms", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return paths, numbers
+
+
+def card_vs_cpu_pixels(cfg, label):
+    """An fp32 NVS config's B=2 forward on the card against the same weights
+    on the CPU (the plain versions): pixels within TOL, and with
+    return_last_attmap the masks too, summing to 1 over the keys. Returns
+    (max|d pixels|, max|d masks| or None)."""
+    import torch
+
+    from gta_tpu_torch.train.trainer import Trainer
+
+    card, cpu = Trainer(cfg), Trainer(cfg, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    small = synthetic_batch(cfg.data, "val", 0, 2)
+    with torch.no_grad():
+        px, aux = card.model(small.to(card.device))
+        want_px, want_aux = cpu.model(small)
+    err = (px.cpu() - want_px).abs().max().item()
+    mask_err = None
+    if cfg.model.decoder.return_last_attmap:
+        masks = aux["masks"].cpu()
+        mask_err = (masks - want_aux["masks"]).abs().max().item()
+        sums = (masks.sum(-1) - 1).abs().max().item()
+        print(f"{label}: B=2 masks {tuple(masks.shape)} card vs cpu max|d|={mask_err:.3e}, max|sum - 1|={sums:.3e}",
+              flush=True)
+        if not (mask_err <= TOL and sums <= 1e-5):
+            raise AssertionError(f"{label}: masks differ from the CPU's by {mask_err} or sum to 1 within {sums}")
+    print(f"{label}: B=2 forward cuda vs cpu max|d pixels|={err:.3e}", flush=True)
+    if not err <= TOL:
+        raise AssertionError(f"{label}: card vs CPU pixels differ by {err} > {TOL}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return err, mask_err
+
+
+def dit_card_vs_cpu_grads_phase(cfg, label):
+    """A DiT config's B=2 loss and whole gradient on the card (bf16) against
+    the same weights on the CPU, as dit_card_vs_cpu_phase holds its output:
+    every parameter redrawn nonzero; loss = mean(out * w) for a fixed w; the
+    card's gradient (every parameter's, concatenated) at most BF16_RULE x
+    as far (relative L2) from the CPU's fp32 one as the CPU's bf16 gradient
+    with the TPU's rounding in the attention. The model runs at depth 1
+    (its width as it is), as bf16_card_vs_cpu_phase cuts the NVS configs
+    to one block a side: the CPU's three passes at depth 4 took 8-13 s a
+    config. Returns (card, emulation) relative L2 gaps of the gradient and
+    of the loss."""
+    import torch
+
+    from gta_tpu_torch.data.images import SyntheticImages, collate_images
+    from gta_tpu_torch.train.dit_trainer import DiTTrainer
+
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, depth=1))
+
+    gen = torch.Generator().manual_seed(0)
+    cpu32 = DiTTrainer(dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, mixed_prec=False)),
+                       device="cpu")
+    with torch.no_grad():
+        for name, p in cpu32.model.named_parameters():
+            std = 0.1 if name.endswith("bias") else p[0].numel() ** -0.5
+            p.copy_(torch.randn(p.shape, generator=gen) * std)
+    weights = cpu32.model.state_dict()
+    card, cpu16 = DiTTrainer(cfg), DiTTrainer(cfg, device="cpu")
+    for t in (card, cpu16):
+        t.model.load_state_dict(weights)
+    m = cfg.model
+    val = SyntheticImages(m.input_size, m.num_classes, "val", 2, cfg.seed)
+    x = torch.from_numpy(collate_images([val[0], val[1]])["image"])
+    t_, y = torch.tensor([10, 700]), torch.tensor([3, m.num_classes - 1])
+    w = torch.randn((2, m.input_size, m.input_size, m.out_channels), generator=gen)
+
+    def loss_and_grad(trainer):
+        dev = next(trainer.model.parameters()).device
+        trainer.model.zero_grad(set_to_none=True)
+        loss = (trainer.model(x.to(dev), t_.to(dev), y.to(dev)).float() * w.to(dev)).mean()
+        loss.backward()
+        return loss.item(), torch.cat([p.grad.float().flatten().cpu() for p in trainer.model.parameters()])
+
+    card_loss, card_g = loss_and_grad(card)
+    loss32, g32 = loss_and_grad(cpu32)
+    restore = swap_entries(functools.partial(plain_gta_attention, mxu_dtype=torch.bfloat16),
+                           functools.partial(plain_flash_attention, mxu_dtype=torch.bfloat16))
+    try:
+        emu_loss, emu_g = loss_and_grad(cpu16)
+    finally:
+        restore()
+    card_err, emu_err = rel_l2(card_g, g32), rel_l2(emu_g, g32)
+    print(f"{label} bf16: B=2 loss card {card_loss:.6e} / CPU fp32 {loss32:.6e} / CPU bf16 with the TPU's rounding "
+          f"{emu_loss:.6e}; whole gradient ({card_g.numel()} values) relative L2 from the CPU's fp32: card "
+          f"{card_err:.3e}, emulation {emu_err:.3e} (rule: at most {BF16_RULE}x)", flush=True)
+    if not (np.isfinite(card_loss) and torch.isfinite(card_g).all() and card_err <= BF16_RULE * emu_err):
+        raise AssertionError(f"{label} bf16: card gradient {card_err} from fp32, above {BF16_RULE} x the emulated "
+                             f"TPU rounding's {emu_err}")
+    return card_err, emu_err, abs(card_loss - loss32) / abs(loss32), abs(emu_loss - loss32) / abs(loss32)
+
+
+def option_configs(gta_cfg, srt_cfg):
+    """{key: (config, label)} of this slice's paths beyond the published
+    configs: the SRT baseline with its decoder's dim_head at 32 and 128 and
+    the flagship at head width 32 and 128 on both sides (at_width), fp32
+    and bf16 (the new instances); the flagship with planar and with
+    camera_planar embeddings in encoder and decoder; the SRT baseline with
+    a one-head decoder that returns its last attention map."""
+    def emb(cfg, e):
+        m = cfg.model
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            m, encoder=dataclasses.replace(m.encoder, emb=e), decoder=dataclasses.replace(m.decoder, emb=e)))
+
+    def decoder(cfg, mixed_prec=False, **kw):
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, decoder=dataclasses.replace(
+            cfg.model.decoder, **kw)), training=dataclasses.replace(cfg.training, mixed_prec=mixed_prec))
+
+    out = {}
+    for C in NEW_WIDTHS:
+        for bf16 in (False, True):
+            tag = "_bf16" if bf16 else ""
+            dtype = "bf16" if bf16 else "fp32"
+            out[f"srt_c{C}{tag}"] = (decoder(srt_cfg, bf16, dim_head=C), f"SRT decoder dim_head {C} {dtype}")
+            out[f"gta_c{C}{tag}"] = (at_width(gta_cfg, C, mixed_prec=bf16), f"GTA at head width {C} {dtype}")
+    out["gta_planar"] = (emb(gta_cfg, "planar"), "GTA emb planar")
+    out["gta_camera_planar"] = (emb(gta_cfg, "camera_planar"), "GTA emb camera_planar")
+    out["srt_attmap"] = (decoder(srt_cfg, heads=1, return_last_attmap=True), "SRT return_last_attmap (1 head)")
+    return out
+
+
+def option_phase(cfg, label, key):
+    """One config of option_configs: variant_phase at OPTION_BATCH (launch
+    counts asserted: none in a decoder that returns its map), then, for the
+    embeddings and the map, card against CPU at B=2 (card_vs_cpu_pixels).
+    Returns (serving launches, train launches, numbers)."""
+    serving, train, numbers = variant_phase(cfg, label, OPTION_BATCH)
+    if key in ("gta_planar", "gta_camera_planar", "srt_attmap"):
+        numbers["card_vs_cpu_pixels"], numbers["card_vs_cpu_masks"] = card_vs_cpu_pixels(cfg, label)
+    return serving, train, numbers
+
+
+def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None, widths=(64, 96)):
     """One kernel instance's line in the kernels JSON: numbers at its main
     shape, launches by path, every shape's numbers, the attention core it
     runs (`core`: attn_sm90.cuh for the bf16 instances, attn_core.cuh for
     the fp32 ones) and that core's kernels' ptxas registers and spills in
-    the instance's library (`core_registers`, from this run's build; empty
-    where the library was built before the run). fp32
-    instances carry `bound_tc_ms` beside `bound_ms` (fp32 CUDA-core peak);
-    bf16 instances' `bound_ms` is at the dense bf16 peak."""
+    the instance's libraries (the source's at each of `widths`;
+    `core_registers`, from this run's build; empty where a library was built
+    before the run). fp32 instances carry `bound_tc_ms` beside `bound_ms`
+    (fp32 CUDA-core peak); bf16 instances' `bound_ms` is at the dense bf16
+    peak."""
     from gta_tpu_torch.ops import _cuda
 
     library = source or name
-    bf16 = name.endswith("_bf16")
+    bf16 = "_bf16" in name
     core = "attn_sm90.cuh" if bf16 else "attn_core.cuh"
     mark = "sm90::attn_sm90_" if bf16 else "attn::attn_"
     entry = {
@@ -3672,7 +4067,10 @@ def kernel_entry(name, replaces, launches, main, shapes, worst_edge, source=None
         "route": "cuda",
         "source": f"gta_tpu_torch/csrc/{library}.cu",
         "core": f"gta_tpu_torch/csrc/{core}",
-        "core_registers": [line for line in ptxas_report(_cuda.BUILD_LOGS.get(library, "")) if line.startswith(mark)],
+        "widths": list(widths),
+        "core_registers": [f"C={w} {line}" for w in widths
+                           for line in ptxas_report(_cuda.BUILD_LOGS.get(_cuda.library(library, w), ""))
+                           if line.startswith(mark)],
         "replaces": replaces,
         "launches": sum(launches.values()),
         "launches_by_path": launches,
@@ -3785,7 +4183,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
     t_start = t0 = time.perf_counter()
     _cuda.build()
-    print(f"built kernels {list(_cuda.KERNELS)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"built kernels {list(_cuda.KERNELS)} at head widths {list(_cuda.KERNEL_HEAD_DIMS)} "
+          f"({len(_cuda.instances())} libraries) in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _cuda.BUILD_LOGS.items():
         for line in ptxas_report(log):
             print(f"nvcc {name}: {line}", flush=True)
@@ -3840,6 +4239,10 @@ def main() -> int:
                                      mixed_prec=False), device, MSN_BATCH, prefix="msn_t2_")
     flash96_bf16_fwd, flash96_bf16_bwd = timed("kernels bf16", bf16_kernel_phase, msn_t2, "msn gta_t2", device,
                                                prefix="msn_t2_", flash=True)
+    # the instances at head widths 32 and 128, and what a width between
+    # two instances costs in padding copies
+    widths = timed("kernels widths", width_phase, gta_cfg, srt_cfg, device)
+    padding = timed("kernels widths", padding_phase, device)
     print(f"phase seconds: kernels (all) {time.perf_counter() - t_kernels:.1f}", flush=True)
     # the rest of the script allocates in expandable segments, so that
     # empty_cache hands a phase's unused pages back to the card: otherwise
@@ -3887,6 +4290,12 @@ def main() -> int:
         cfg = synthetic(os.path.join(ROOT, "runs", *rel.split("/"), "config.yaml"))
         key = rel.split("/", 1)[0] + "_" + rel.rsplit("/", 1)[1]
         paths[f"{key}_serving"], paths[f"{key}_train"], other[rel] = timed("other methods", variant_phase, cfg, rel)
+    # the new head widths' paths (SRT's decoder at dim_head 32 and 128, the
+    # flagship at head width 32 and 128; fp32 and bf16), the embeddings and
+    # the attention map no published config reaches
+    options = {}
+    for key, (cfg, label) in option_configs(gta_cfg, srt_cfg).items():
+        paths[f"{key}_serving"], paths[f"{key}_train"], options[key] = timed("options", option_phase, cfg, label, key)
     card_vs_cpu = {label: timed("bf16 card vs cpu", bf16_card_vs_cpu_phase, cfg, label) for cfg, label in
                    ((msn_bf16, "msn_so3"), (msn_srt, "msn SRT"), (msn_t2, "msn gta_t2"))}
     t_dit = time.perf_counter()
@@ -3899,6 +4308,15 @@ def main() -> int:
         for path, counts in launches.items():
             paths[f"{key}_{path}"] = counts
         dit_vs_cpu[key] = timed("dit card vs cpu", dit_card_vs_cpu_phase, cfg, key)
+    # DiT-XL/2's width (16 heads of 72: the instances of 96, padded), depth 4
+    dit_xl_steps, dit_xl_grads = {}, {}
+    for key, cfg in dit_cfgs.items():
+        key, cfg = f"{key}_xl", dit_xl(cfg)
+        dit_kernels[key] = timed("dit-xl kernels", dit_kernel_phase, cfg, key, device, prefix="dit_xl_")
+        launches, dit_xl_steps[key] = timed("dit-xl paths", dit_xl_path_phase, cfg, key)
+        for path, counts in launches.items():
+            paths[f"{key}_{path}"] = counts
+        dit_xl_grads[key] = timed("dit-xl card vs cpu", dit_card_vs_cpu_grads_phase, cfg, key)
     # the DiT CLIs and the parallel phase's two ranks (subprocesses) side by
     # side, the gradient checks in this process meanwhile; its unused pages
     # go back to the card before and after them (msn_so3's two TP ranks,
@@ -3937,18 +4355,31 @@ def main() -> int:
         kernel_entry("flash_core_bwd", "gta_tpu/ops/flash_core.py:86", by_path("flash_core_bwd"),
                      "decoder_train_b32", {**flash_bwd, **flash96_bwd}, edge_bwd),
         kernel_entry("gta_fused_fwd_bf16", "gta_tpu/ops/gta_fused.py:209", by_path("gta_fused_fwd_bf16"),
-                     "msn_decoder_eval_b64", {**gta_bf16_fwd, **clevr_bf16_fwd, **dit_kernels["dit_gta"][0]}, 0.0,
-                     source="gta_fused_fwd"),
+                     "msn_decoder_eval_b64", {**gta_bf16_fwd, **clevr_bf16_fwd, **dit_kernels["dit_gta"][0],
+                                              **dit_kernels["dit_gta_xl"][0]}, 0.0, source="gta_fused_fwd"),
         kernel_entry("gta_fused_bwd_bf16", "gta_tpu/ops/gta_fused.py:235", by_path("gta_fused_bwd_bf16"),
-                     "msn_decoder_train_b64", {**gta_bf16_bwd, **clevr_bf16_bwd, **dit_kernels["dit_gta"][1]}, 0.0,
-                     source="gta_fused_bwd"),
+                     "msn_decoder_train_b64", {**gta_bf16_bwd, **clevr_bf16_bwd, **dit_kernels["dit_gta"][1],
+                                               **dit_kernels["dit_gta_xl"][1]}, 0.0, source="gta_fused_bwd"),
         kernel_entry("flash_core_fwd_bf16", "gta_tpu/ops/flash_core.py:73", by_path("flash_core_fwd_bf16"),
-                     "msn_decoder_eval_b64", {**flash_bf16_fwd, **flash96_bf16_fwd, **dit_kernels["dit_base"][0]}, 0.0,
-                     source="flash_core_fwd"),
+                     "msn_decoder_eval_b64", {**flash_bf16_fwd, **flash96_bf16_fwd, **dit_kernels["dit_base"][0],
+                                              **dit_kernels["dit_base_xl"][0]}, 0.0, source="flash_core_fwd"),
         kernel_entry("flash_core_bwd_bf16", "gta_tpu/ops/flash_core.py:86", by_path("flash_core_bwd_bf16"),
-                     "msn_decoder_train_b64", {**flash_bf16_bwd, **flash96_bf16_bwd, **dit_kernels["dit_base"][1]},
-                     0.0, source="flash_core_bwd"),
+                     "msn_decoder_train_b64", {**flash_bf16_bwd, **flash96_bf16_bwd, **dit_kernels["dit_base"][1],
+                                               **dit_kernels["dit_base_xl"][1]}, 0.0, source="flash_core_bwd"),
     ]
+    # the instances at head widths 32 and 128 (width_phase): the fp32 ones'
+    # main shape CLEVR-TR's decoder train shape, the bf16 ones' DiT-XL/2's
+    for C in NEW_WIDTHS:
+        for kernel, replaces in (("gta_fused", "gta_tpu/ops/gta_fused.py:"),
+                                 ("flash_core", "gta_tpu/ops/flash_core.py:")):
+            for bf16 in (False, True):
+                fwd, bwd = widths[instance_name(f"{kernel}_fwd", bf16, C)]
+                main = f"c{C}_dit_xl_train_b{DIT_BATCH}" if bf16 else f"c{C}_decoder_train_b{EVAL_BATCH}"
+                for part, numbers, line in (("fwd", fwd, {"gta_fused": 209, "flash_core": 73}),
+                                            ("bwd", bwd, {"gta_fused": 235, "flash_core": 86})):
+                    name = instance_name(f"{kernel}_{part}", bf16, C)
+                    kernels.append(kernel_entry(name, f"{replaces}{line[kernel]}", by_path(name), main, numbers, 0.0,
+                                                source=f"{kernel}_{part}", widths=(C,)))
     for label, step, batch, grad in (("GTA", gta_step, EVAL_BATCH, gta_grad), ("SRT", srt_step, EVAL_BATCH, srt_grad),
                                      ("msn_so3 (1 + 1 blocks)", msn_step, MSN_BATCH, msn_grad)):
         print(f"{label} train step B={batch}: {json.dumps(step)}; B=2 grads against fp64: the whole gradient's "
@@ -3975,6 +4406,14 @@ def main() -> int:
         print(f"{key} bf16 train step B={DIT_BATCH}: {json.dumps(step)}; B=2 outputs from the CPU's fp32: card "
               f"{card_err:.3e}, emulated TPU rounding {emu_err:.3e}; card vs CPU bf16 {gap:.3e} (CPU bf16 vs fp32 "
               f"{own:.3e})", flush=True)
+    print(f"head widths: padding copies {json.dumps(padding)}; SRT / GTA at head widths {NEW_WIDTHS}, planar, "
+          f"camera_planar, return_last_attmap (B={OPTION_BATCH}, cold eval_step and train_step): "
+          f"{json.dumps(options)}", flush=True)
+    for key, step in dit_xl_steps.items():
+        card_err, emu_err, loss_gap, emu_loss_gap = dit_xl_grads[key]
+        print(f"{key} (DiT-XL/2's width, depth {DIT_XL['depth']}) bf16: {json.dumps(step)}; B=2 gradient (depth 1) "
+              f"from the CPU's fp32: card {card_err:.3e}, emulated TPU rounding {emu_err:.3e}; loss card "
+              f"{loss_gap:.3e}, emulation {emu_loss_gap:.3e}", flush=True)
     print(f"phase seconds (all): {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

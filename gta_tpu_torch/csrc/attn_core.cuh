@@ -9,7 +9,9 @@
 // csrc/attn_sm90.cuh.) It is the attention core of the TPU kernels
 // gta_tpu/ops/gta_fused.py:209 `_fwd_kernel` and :235 `_bwd_kernel`, and
 // the whole of gta_tpu/ops/flash_core.py:73 `_fwd_kernel` and :86
-// `_bwd_kernel`. Per (batch b, head h), head width C = 64 or 96:
+// `_bwd_kernel`. Per (batch b, head h), head width C = 32, 64, 96 or 128
+// (one library per width; other multiples of 8 in [32, 128] run in the
+// next width up, zero-padded by the wrappers):
 //
 //   forward   o   = softmax(q k^T * scale) v   (online over K tiles)
 //             lse = log(sum_k exp(q k^T * scale))   (natural log; optional)
@@ -49,8 +51,8 @@
 //    dv += P^T do, dk += dS^T q; 64-query tiles, 2 blocks per SM) writes dk
 //    and dv. At C = 96 one key pass would hold 96 accumulator floats a
 //    thread for dk and dv, 48 for a tile product's partial sum and 64 for
-//    S^T and dP^T: past the 255 registers of a thread. So C = 96 runs two
-//    key passes over 32-query tiles: one writes dv (S^T, P^T do), the other
+//    S^T and dP^T: past the 255 registers of a thread. So C = 96 and 128
+//    run two key passes over 32-query tiles: one writes dv (S^T, P^T do), the other
 //    dk (S^T, dP^T, dS^T q). No row is written by two blocks: no atomics,
 //    every sum in a fixed order, bit-identical reruns. Both passes
 //    recompute P from lse.
@@ -125,15 +127,16 @@ constexpr int THREADS = 32 * WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // blocks per SM of the forward and the query pass (their launch bounds):
-// 3 at C = 64; at C = 96 shared memory (102 KB a block at fp32) and
-// registers allow 2
+// 3 up to C = 64; at C = 96 shared memory (102 KB a block at fp32) and
+// registers allow 2 (at C = 128, 133 KB a block: one fits, the bound keeps
+// the 255 registers a thread of the two)
 template <int C>
 __host__ __device__ constexpr int min_blocks() {
   return C > 64 ? 2 : 3;
 }
 
 // queries per shared-memory tile in the key pass, and whether it splits into
-// a dv pass and a dk pass (C = 96: registers, see above)
+// a dv pass and a dk pass (C = 96 and 128: registers, see above)
 template <int C>
 __host__ __device__ constexpr int bn_k() {
   return C > 64 ? 32 : 64;

@@ -10,7 +10,9 @@
 // gta_tpu/ops/gta_fused.py:209 `_fwd_kernel` and :235 `_bwd_kernel`, and
 // the whole of gta_tpu/ops/flash_core.py:73 `_fwd_kernel` and :86
 // `_bwd_kernel`, with mxu = bfloat16. Per (batch b, head h), head width
-// C = 64 or 96:
+// C = 32, 64, 96 or 128 (one library per width, -DHEAD_DIM; the wrappers
+// run every multiple of 8 in [32, 128] in the smallest width at or above
+// it, the columns past C zero):
 //
 //   forward   z   = c_v + softmax(q k^T * scale) v      (online over K tiles)
 //             lse = log(sum_k exp(q k^T * scale))       (natural log; optional)
@@ -62,10 +64,12 @@
 //  * An instance's tiling is a `Cfg`: the head width and KT (64 or 128
 //    rows of a streamed tile in the forward and the query pass; the key
 //    pass streams 64). The fused GTA kernels take 64, flash_core's entries
-//    128 (PERF.md has each choice's time).
+//    128 up to C = 64 (PERF.md has each choice's time) and 64 above it,
+//    where a ring of four 128-row tiles does not fit a block's shared
+//    memory (Cfg's static_assert).
 //  * Tiles sit in shared memory as 32-column TMA boxes, [rows][32] bf16
 //    with the 64-byte swizzle (a 192-byte row at C = 96 is wider than the
-//    128-byte swizzle span; C = 64 and 96 are both whole boxes); a 128-row
+//    128-byte swizzle span; every width is whole boxes); a 128-row
 //    tile is two 64-row boxes a column, one after the other (the swizzle
 //    follows the address). The wgmma descriptors name that swizzle:
 //    K-major, a k16 step is 32 bytes into a box's rows; MN-major, the
@@ -93,14 +97,17 @@
 //    dq = dS k multiplies by the keys' common component: 116x the TPU
 //    rounding's error in dq where keys share one of 8x their spread,
 //    scripts/probe_delta_from_o.py.)
-//    The key pass is one pass for dk and dv at C = 64 and 96: its 64 key
+//    The key pass is one pass for dk and dv up to C = 96: its 64 key
 //    rows a warpgroup hold C fp32 accumulators a thread for dk and dv, 64
 //    for S^T and dP^T and 32 registers of P^T and dS^T fragments for each
 //    of two tiles in flight, within the 240 registers setmaxnreg gives a
 //    consumer thread (at the launch's 168 the joint pass spilled at C = 96;
 //    pipelined, it spilled at 232), so there is no dv/dk split (which
-//    recomputed S^T twice). 9 products where the function has 5 (the
-//    sweep's 2 and both passes' S).
+//    recomputed S^T twice) below C = 128. At C = 128 dk's and dv's
+//    accumulators alone take 128 registers, so a dv pass (S^T, P^T do)
+//    and a dk pass (S^T, dP^T, dS^T q) each hold one (`split_key_pass`).
+//    9 products where the function has 5 (the sweep's 2 and both passes'
+//    S; 10 at C = 128).
 // ptxas registers and spills of every instance: chip_smoke.py's build
 // report (PERF.md's kernel table).
 
@@ -111,6 +118,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attn_core.cuh"  // Layout, offset, store2, bf16mma::pack
 
@@ -285,6 +294,20 @@ struct Mma<64> {
 };
 
 template <>
+struct Mma<32> {  // the P.V-like products at C = 32
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
 struct Mma<96> {  // the P.V-like products at C = 96
   static __device__ __forceinline__ void rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db, int scale_d) {
     asm volatile(
@@ -305,7 +328,7 @@ struct Mma<96> {  // the P.V-like products at C = 96
 };
 
 template <>
-struct Mma<128> {  // the S-like products over 128-row tiles
+struct Mma<128> {  // the S-like products over 128-row tiles, and the P.V-like ones at C = 128
   // d (+)= A B, A and B K-major in shared memory
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
@@ -327,6 +350,25 @@ struct Mma<128> {  // the S-like products over 128-row tiles
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
           "+f"(d[63])
         : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // d (+)= A B, A in registers (bf16 pairs), B MN-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+        "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+        "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
 
@@ -859,17 +901,52 @@ attn_sm90_bwd_q(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
 // ---------------------------------------------------------------------------
 // Key pass. grid (ceil(Tk / 128), H, B). m0, m1: k, v (own rows); m2, m3: q,
 // do, in tiles of G::KT = BN queries. Reads lse and delta [B, H, Tq];
-// writes dk and dv (Out) through `dkl`.
+// writes dk and dv (Out) through `dkl` (PART attn::KV_BOTH), or dv alone
+// (KV_DV: S^T, P^T do) or dk alone (KV_DK: S^T, dP^T, dS^T q).
 // ---------------------------------------------------------------------------
-template <class G, class Out>
+
+// whether an instance's key pass splits into a dv pass and a dk pass: at
+// C = 128 one pass would hold 2 x 64 accumulator floats a thread for dk and
+// dv, 64 for S^T and dP^T and 64 registers of fragments for two tiles in
+// flight, past the 240 a consumer thread has
+template <int C>
+__host__ __device__ constexpr bool split_key_pass() {
+  return C > 96;
+}
+
+// P^T = exp(S^T * scale - lse[q]) in st for the queries q0 + 8j + 2t (+1)
+// of a tile (the dv pass's half of transposed_grads); queries past Tq get 0
+template <bool MASK, int N>
+__device__ __forceinline__ void transposed_probs(float (&st)[N], const float* __restrict__ lse, int q0, int Tq,
+                                                 float scale, int t) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int q = q0 + 8 * j + 2 * t + c;
+      const bool ok = !MASK || q < Tq;
+      const float L = ok ? __ldg(lse + q) : 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int e = 4 * j + 2 * r + c;
+        st[e] = ok ? exp2f((st[e] * scale - L) * LOG2E) : 0.f;
+      }
+    }
+  }
+}
+
+template <class G, class Out, int PART>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_sm90_bwd_kv(const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
                  const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo, int hf,
                  const float* __restrict__ lse, const float* __restrict__ delta, Out* __restrict__ dk,
                  Out* __restrict__ dv, int H, int Tq, int Tk, Layout dkl, float scale) {
   constexpr int C = G::C;
+  constexpr bool DV = PART != attn::KV_DK, DK = PART != attn::KV_DV;
+  constexpr int NF = DV && DK ? 2 : 1;  // fragment sets a tile: P^T (dv), dS^T (dk)
   static_assert(G::KT == BN, "the key pass streams 64-query tiles");
-  using Frags = uint32_t[2][BN / 16][4];
+  using SAcc = std::conditional_t<DK, STwo<BN>, SOne<BN>>;
+  using Frags = uint32_t[NF][BN / 16][4];
   extern __shared__ __align__(16) uint8_t sm90_smem[];
   uint8_t* sm = block_setup<G>(sm90_smem);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + G::BARS);
@@ -890,37 +967,51 @@ attn_sm90_bwd_kv(const __grid_constant__ CUtensorMap mk, const __grid_constant__
   mbar_wait(&bars[2 * STAGES], 0);
 
   float dka[C / 2], dva[C / 2];
-  zero(dka);
-  zero(dva);
+  if constexpr (DK) zero(dka);
+  if constexpr (DV) zero(dva);
   turns.start();
-  pipeline<G, 2, STwo<BN>, true>(
+  pipeline<G, NF, SAcc, true>(
       bars, 0, ntiles,
-      [&](STwo<BN>& a, int stg) {  // S^T = kt qt^T and dP^T = vt do^T
+      [&](auto& a, int stg) {  // S^T = kt qt^T (and dP^T = vt do^T)
         s_product<C>(a.s, ks, ring + 2 * stg * G::TILE);
-        s_product<C>(a.d, vs, ring + (2 * stg + 1) * G::TILE);
+        if constexpr (DK) s_product<C>(a.d, vs, ring + (2 * stg + 1) * G::TILE);
       },
       [&](int stg, Frags& fr) {  // dv += P^T do, dk += dS^T qt
-        pv_product<C, BN>(dva, fr[0], ring + (2 * stg + 1) * G::TILE);
-        pv_product<C, BN>(dka, fr[1], ring + 2 * stg * G::TILE);
+        if constexpr (DV) pv_product<C, BN>(dva, fr[0], ring + (2 * stg + 1) * G::TILE);
+        if constexpr (DK) pv_product<C, BN>(dka, fr[NF - 1], ring + 2 * stg * G::TILE);
       },
-      [&](STwo<BN>& a, int i, Frags& fr) {
+      [&](auto& a, int i, Frags& fr) {
         fence_regs(a.s);
-        fence_regs(a.d);
-        if ((i + 1) * BN > Tq) {
-          transposed_grads<true>(a.s, a.d, lse + hrow, delta + hrow, i * BN, Tq, scale, p.t);
+        const bool mask = (i + 1) * BN > Tq;
+        if constexpr (DK) {
+          fence_regs(a.d);
+          if (mask) {
+            transposed_grads<true>(a.s, a.d, lse + hrow, delta + hrow, i * BN, Tq, scale, p.t);
+          } else {
+            transposed_grads<false>(a.s, a.d, lse + hrow, delta + hrow, i * BN, Tq, scale, p.t);
+          }
+          if constexpr (DV) to_frags(fr[0], a.s);
+          to_frags(fr[NF - 1], a.d);
         } else {
-          transposed_grads<false>(a.s, a.d, lse + hrow, delta + hrow, i * BN, Tq, scale, p.t);
+          if (mask) {
+            transposed_probs<true>(a.s, lse + hrow, i * BN, Tq, scale, p.t);
+          } else {
+            transposed_probs<false>(a.s, lse + hrow, i * BN, Tq, scale, p.t);
+          }
+          to_frags(fr[0], a.s);
         }
-        to_frags(fr[0], a.s);
-        to_frags(fr[1], a.d);
       },
       [](int) {}, p.lane, turns);
   turns.finish();
-  fence_regs(dva);
-  fence_regs(dka);
   const int row0 = k0 + ROWS * p.wg + 16 * p.warp + p.g;
-  store_rows<C>(dk, dkl, b, h, row0, Tk, dka, p.t);
-  store_rows<C>(dv, dkl, b, h, row0, Tk, dva, p.t);
+  if constexpr (DK) {
+    fence_regs(dka);
+    store_rows<C>(dk, dkl, b, h, row0, Tk, dka, p.t);
+  }
+  if constexpr (DV) {
+    fence_regs(dva);
+    store_rows<C>(dv, dkl, b, h, row0, Tk, dva, p.t);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1004,8 +1095,20 @@ cudaError_t run_fwd(const bf16* q, const bf16* k, const bf16* v, const float* cv
   return cudaGetLastError();
 }
 
+// one key pass writing PART (dk and dv through dkl) over the maps of k, v, q
+// and do
+template <class GK, class Out, int PART>
+cudaError_t run_kv(const Maps& km, const float* lse, const float* delta, Out* dk, Out* dv, int B, int H, int Tq,
+                   int Tk, Layout dkl, float scale, cudaStream_t stream) {
+  cudaError_t err = allow_smem(attn_sm90_bwd_kv<GK, Out, PART>, GK::BYTES);
+  if (err != cudaSuccess) return err;
+  attn_sm90_bwd_kv<GK, Out, PART><<<dim3((Tk + NC * ROWS - 1) / (NC * ROWS), H, B), THREADS, GK::BYTES, stream>>>(
+      km.m[0], km.m[1], km.m[2], km.m[3], km.hf, lse, delta, dk, dv, H, Tq, Tk, dkl, scale);
+  return cudaGetLastError();
+}
+
 // the query pass (dq through dql, delta), then the key pass (dk, dv through
-// dkl, in 64-query tiles), over bf16 (q, k, v) and the cotangent do of z;
+// dkl, in 64-query tiles; a dv pass and a dk pass at C = 128), over bf16 (q, k, v) and the cotangent do of z;
 // the gradients in Out (fp32 or bf16)
 template <class G, class Out>
 cudaError_t run_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse, float* delta,
@@ -1017,13 +1120,16 @@ cudaError_t run_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dou
   if (err == cudaSuccess) err = make_maps(km, {k, v, q, dout}, {kl, vl, ql, dol}, {Tk, Tk, Tq, Tq}, H, B, G::C);
   if (err != cudaSuccess) return err;
   if ((err = allow_smem(attn_sm90_bwd_q<G, Out>, G::BYTES))) return err;
-  if ((err = allow_smem(attn_sm90_bwd_kv<GK, Out>, GK::BYTES))) return err;
   attn_sm90_bwd_q<G, Out><<<dim3((Tq + NC * ROWS - 1) / (NC * ROWS), H, B), THREADS, G::BYTES, stream>>>(
       qm.m[0], qm.m[1], qm.m[2], qm.m[3], qm.hf, lse, delta, dq, H, Tq, Tk, dql, scale);
   if ((err = cudaGetLastError())) return err;
-  attn_sm90_bwd_kv<GK, Out><<<dim3((Tk + NC * ROWS - 1) / (NC * ROWS), H, B), THREADS, GK::BYTES, stream>>>(
-      km.m[0], km.m[1], km.m[2], km.m[3], km.hf, lse, delta, dk, dv, H, Tq, Tk, dkl, scale);
-  return cudaGetLastError();
+  if constexpr (split_key_pass<G::C>()) {
+    err = run_kv<GK, Out, attn::KV_DV>(km, lse, delta, dk, dv, B, H, Tq, Tk, dkl, scale, stream);
+    if (err != cudaSuccess) return err;
+    return run_kv<GK, Out, attn::KV_DK>(km, lse, delta, dk, dv, B, H, Tq, Tk, dkl, scale, stream);
+  } else {
+    return run_kv<GK, Out, attn::KV_BOTH>(km, lse, delta, dk, dv, B, H, Tq, Tk, dkl, scale, stream);
+  }
 }
 
 }  // namespace sm90

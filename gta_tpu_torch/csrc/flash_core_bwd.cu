@@ -49,10 +49,15 @@
 // TPU kernel's `.astype(q.dtype)`), or fp32 with `grads_fp32` (GTA's sliced
 // path, whose rows are fp32 on the TPU: gta_tpu/ops/flash_core.py:168-174);
 // no scratch, no conversion launch.
-// Its tiling, `G` below: 128-key K/V tiles in the query pass (the key pass
-// streams 64 queries; PERF.md has the times of both).
+// Its tiling, `Tiling` below: 128-key K/V tiles in the query pass up to
+// C = 64, 64 at C = 96 and 128 (the key pass streams 64 queries; PERF.md
+// has the times of both); at C = 128 the key pass is a dv pass and a dk
+// pass (attn_sm90.cuh).
 // Not yet: wgmma and TMA for fp32; 5 products in place of 7 (fp32) or 9
 // (bf16: the sweep and both passes' S).
+//
+// One library per head width C = HEAD_DIM (32, 64, 96 or 128), as
+// csrc/flash_core_fwd.cu.
 //
 // Interface: plain C, bound from Python with ctypes. `flash_core_bwd`:
 // every pointer a contiguous fp32 device array (delta and centres
@@ -60,7 +65,7 @@
 // k, v, g bf16; dq, dk, dv bf16 (fp32 when `grads_fp32` is nonzero); lse
 // and the scratch delta fp32. Returns the
 // cudaError_t of the launches (0 = success): cudaErrorInvalidValue for a
-// head width other than 64 and 96, an empty side, or B or H above the grid's
+// head width other than HEAD_DIM, an empty side, or B or H above the grid's
 // 65535.
 
 #include <cuda_runtime.h>
@@ -68,7 +73,11 @@
 #include "attn_core.cuh"
 #include "attn_sm90.cuh"
 
-template <int CC>
+#ifndef HEAD_DIM
+#error "build with -DHEAD_DIM=<head width>: one library per width (gta_tpu_torch/ops/_cuda.py)"
+#endif
+constexpr int CC = HEAD_DIM;
+
 static cudaError_t bwd_fp32(const float* q, const float* k, const float* v, const float* g, const float* o,
                             const float* lse, float* delta, float* centres, float* dq, float* dk, float* dv, int B,
                             int H, int Tq, int Tk, float scale, cudaStream_t stream) {
@@ -82,19 +91,20 @@ static cudaError_t bwd_fp32(const float* q, const float* k, const float* v, cons
                            tok_q, tok_k, scale, stream);
 }
 
-// G: the query pass's tiling, 128-key tiles at C = 64; 64 at C = 96 (as
-// the forward's, csrc/flash_core_fwd.cu)
-template <class G, class Out>
+// the query pass's tiling, as the forward's (csrc/flash_core_fwd.cu)
+using Tiling = sm90::Cfg<CC, (CC <= 64 ? 128 : 64)>;
+
+template <class Out>
 static cudaError_t bwd_bf16(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v, const attn::bf16* g,
                             const float* lse, float* delta, Out* dq, Out* dk, Out* dv, int B,
                             int H, int Tq, int Tk, float scale, cudaStream_t stream) {
-  const attn::Layout tok_q = attn::tokens(Tq, H, G::C), tok_k = attn::tokens(Tk, H, G::C);
-  return sm90::run_bwd<G>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Tq, Tk, tok_q, tok_k, tok_k, tok_q, tok_q, tok_k,
-                          scale, stream);
+  const attn::Layout tok_q = attn::tokens(Tq, H, CC), tok_k = attn::tokens(Tk, H, CC);
+  return sm90::run_bwd<Tiling>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Tq, Tk, tok_q, tok_k, tok_k, tok_q, tok_q,
+                               tok_k, scale, stream);
 }
 
 static bool bad_call(int B, int H, int Tq, int Tk, int C) {
-  return (C != 64 && C != 96) || B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535;
+  return C != CC || B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535;
 }
 
 // q, k, v: the forward's inputs; g: the cotangent of its output o; lse: its
@@ -106,17 +116,15 @@ extern "C" int flash_core_bwd(const float* q, const float* k, const float* v, co
                               float scale, void* stream_ptr) {
   if (bad_call(B, H, Tq, Tk, C) || !centres) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  return (int)(C == 64 ? bwd_fp32<64>(q, k, v, g, o, lse, delta, centres, dq, dk, dv, B, H, Tq, Tk, scale, stream)
-                       : bwd_fp32<96>(q, k, v, g, o, lse, delta, centres, dq, dk, dv, B, H, Tq, Tk, scale, stream));
+  return (int)bwd_fp32(q, k, v, g, o, lse, delta, centres, dq, dk, dv, B, H, Tq, Tk, scale, stream);
 }
 
 template <class Out>
 static cudaError_t bwd_bf16_c(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v, const attn::bf16* g,
                               const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H, int Tq,
-                              int Tk, int C, float scale, cudaStream_t stream) {
-  Out *dq_ = static_cast<Out*>(dq), *dk_ = static_cast<Out*>(dk), *dv_ = static_cast<Out*>(dv);
-  return C == 64 ? bwd_bf16<sm90::Cfg<64, 128>>(q, k, v, g, lse, delta, dq_, dk_, dv_, B, H, Tq, Tk, scale, stream)
-                 : bwd_bf16<sm90::Cfg<96, 64>>(q, k, v, g, lse, delta, dq_, dk_, dv_, B, H, Tq, Tk, scale, stream);
+                              int Tk, float scale, cudaStream_t stream) {
+  return bwd_bf16<Out>(q, k, v, g, lse, delta, static_cast<Out*>(dq), static_cast<Out*>(dk), static_cast<Out*>(dv), B,
+                       H, Tq, Tk, scale, stream);
 }
 
 // the same in bf16, without o (delta comes from the query pass's products)
@@ -126,8 +134,8 @@ extern "C" int flash_core_bwd_bf16(const attn::bf16* q, const attn::bf16* k, con
                                    void* stream_ptr) {
   if (bad_call(B, H, Tq, Tk, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  return (int)(grads_fp32 ? bwd_bf16_c<float>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Tq, Tk, C, scale, stream)
-                          : bwd_bf16_c<attn::bf16>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Tq, Tk, C, scale, stream));
+  return (int)(grads_fp32 ? bwd_bf16_c<float>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Tq, Tk, scale, stream)
+                          : bwd_bf16_c<attn::bf16>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Tq, Tk, scale, stream));
 }
 
 extern "C" const char* flash_core_bwd_error_string(int code) {

@@ -43,16 +43,22 @@
 // `out_fp32`, in fp32 (GTA's sliced path: the TPU kernel there takes the
 // transforms' fp32 rows, rounds only its product operands and writes its
 // output in their fp32, gta_tpu/ops/gta_pallas.py:72), lse in fp32.
-// Its tiling, `G` below: 128-key K/V tiles at C = 64 (an m64n128k16 score
-// product, half the softmax rescales of 64; PERF.md has the times of
-// both), 64-key tiles at C = 96 (the fused GTA kernels' C = 96 tiling).
+// Its tiling, `G` below: 128-key K/V tiles at C = 32 and 64 (an
+// m64n128k16 score product, half the softmax rescales of 64; PERF.md has
+// the times of both), 64-key tiles at C = 96 and 128 (the fused GTA
+// kernels' tiling).
 // Not yet: wgmma and TMA for fp32 (attn_core.cuh).
+//
+// One library per head width C = HEAD_DIM (32, 64, 96 or 128: -DHEAD_DIM,
+// ops/_cuda.py builds all four side by side); every multiple of 8 in
+// [32, 128] runs in the smallest width at or above it, its columns past C
+// zero-padded by the wrapper (ops/flash_core.py).
 //
 // Interface: plain C, bound from Python with ctypes. `flash_core_fwd`:
 // every pointer a contiguous fp32 device array, centres a [2, B, H, C]
 // scratch; `flash_core_fwd_bf16`: q, k, v bf16, out bf16 (fp32 when
 // `out_fp32` is nonzero), lse fp32. lse may be null. Returns the cudaError_t of the launches
-// (0 = success): cudaErrorInvalidValue for a head width other than 64 and 96,
+// (0 = success): cudaErrorInvalidValue for a head width other than HEAD_DIM,
 // an empty side, or B or H above the grid's 65535.
 
 #include <cuda_runtime.h>
@@ -60,7 +66,11 @@
 #include "attn_core.cuh"
 #include "attn_sm90.cuh"
 
-template <int CC>
+#ifndef HEAD_DIM
+#error "build with -DHEAD_DIM=<head width>: one library per width (gta_tpu_torch/ops/_cuda.py)"
+#endif
+constexpr int CC = HEAD_DIM;
+
 static cudaError_t fwd_fp32(const float* q, const float* k, const float* v, float* out, float* lse, float* centres,
                             int B, int H, int Tq, int Tk, float scale, cudaStream_t stream) {
   const attn::Layout tok_q = attn::tokens(Tq, H, CC), tok_k = attn::tokens(Tk, H, CC);
@@ -70,23 +80,24 @@ static cudaError_t fwd_fp32(const float* q, const float* k, const float* v, floa
   return attn::run_fwd<CC>(q, k, v, centres, out, lse, B, H, Tq, Tk, tok_q, tok_k, tok_k, tok_q, scale, stream);
 }
 
-// G: the bf16 instance's tiling, 128-key tiles at C = 64; 64 at C = 96,
-// where a ring of four 128-row K/V tiles would not fit a block's shared
-// memory (Cfg's static_assert)
-template <class G>
+// the bf16 instance's tiling: 128-key tiles up to C = 64; 64 at C = 96 and
+// 128, where a ring of four 128-row K/V tiles would not fit a block's
+// shared memory (Cfg's static_assert)
+using Tiling = sm90::Cfg<CC, (CC <= 64 ? 128 : 64)>;
+
 static cudaError_t fwd_bf16(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v, void* out, bool out_fp32,
                             float* lse, int B, int H, int Tq, int Tk, float scale, cudaStream_t stream) {
-  const attn::Layout tok_q = attn::tokens(Tq, H, G::C), tok_k = attn::tokens(Tk, H, G::C);
+  const attn::Layout tok_q = attn::tokens(Tq, H, CC), tok_k = attn::tokens(Tk, H, CC);
   if (out_fp32) {
-    return sm90::run_fwd<G>(q, k, v, nullptr, static_cast<float*>(out), lse, B, H, Tq, Tk, tok_q, tok_k, tok_k,
+    return sm90::run_fwd<Tiling>(q, k, v, nullptr, static_cast<float*>(out), lse, B, H, Tq, Tk, tok_q, tok_k, tok_k,
                             tok_q, scale, stream);
   }
-  return sm90::run_fwd<G>(q, k, v, nullptr, static_cast<attn::bf16*>(out), lse, B, H, Tq, Tk, tok_q, tok_k, tok_k,
+  return sm90::run_fwd<Tiling>(q, k, v, nullptr, static_cast<attn::bf16*>(out), lse, B, H, Tq, Tk, tok_q, tok_k, tok_k,
                           tok_q, scale, stream);
 }
 
 static bool bad_call(int B, int H, int Tq, int Tk, int C) {
-  return (C != 64 && C != 96) || B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535;
+  return C != CC || B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535;
 }
 
 extern "C" int flash_core_fwd(const float* q, const float* k, const float* v, float* out,
@@ -94,8 +105,7 @@ extern "C" int flash_core_fwd(const float* q, const float* k, const float* v, fl
                               void* stream_ptr) {
   if (bad_call(B, H, Tq, Tk, C) || !centres) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  return (int)(C == 64 ? fwd_fp32<64>(q, k, v, out, lse, centres, B, H, Tq, Tk, scale, stream)
-                       : fwd_fp32<96>(q, k, v, out, lse, centres, B, H, Tq, Tk, scale, stream));
+  return (int)fwd_fp32(q, k, v, out, lse, centres, B, H, Tq, Tk, scale, stream);
 }
 
 extern "C" int flash_core_fwd_bf16(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v, void* out,
@@ -103,8 +113,7 @@ extern "C" int flash_core_fwd_bf16(const attn::bf16* q, const attn::bf16* k, con
                                    void* stream_ptr) {
   if (bad_call(B, H, Tq, Tk, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  return (int)(C == 64 ? fwd_bf16<sm90::Cfg<64, 128>>(q, k, v, out, out_fp32, lse, B, H, Tq, Tk, scale, stream)
-                       : fwd_bf16<sm90::Cfg<96, 64>>(q, k, v, out, out_fp32, lse, B, H, Tq, Tk, scale, stream));
+  return (int)fwd_bf16(q, k, v, out, out_fp32, lse, B, H, Tq, Tk, scale, stream);
 }
 
 extern "C" const char* flash_core_fwd_error_string(int code) {

@@ -32,7 +32,7 @@
 // tensor cores (3xTF32) or 67 TFLOP/s on the CUDA cores.
 //
 // What the design does about it (each launch of the C entry point runs up
-// to thirteen kernels on the stream, fourteen at C = 96):
+// to thirteen kernels on the stream, fourteen at C = 96 and 128):
 //  * The attention core's two passes (csrc/attn_core.cuh, shared with
 //    flash_core): every product 3xTF32 m16n8k8 mma.sync, split by who owns
 //    each output row. The Pallas kernel sums dk, dv and dMk into one output
@@ -61,10 +61,11 @@
 //    the bf16 q, k, v, z beside the fp32 chain rows, rounded to bf16 as the
 //    TPU kernel rounds them, with fp32 sums (`gta_bwd_dm_bf16_kernel`). The
 //    core takes delta from its own products, so z is read for dMo alone.
-// Instances: head width C = 64 (CLEVR-TR) and C = 96 (msn), dispatched on
-// the C argument; at C = 96 the fp32 core runs two key passes
-// (attn_core.cuh) and the dM reduction 6 warps a block. Registers and
-// spills of every kernel: PERF.md.
+// Instances: one library per head width C = HEAD_DIM (32, 64: CLEVR-TR,
+// 96: msn, 128), as csrc/gta_fused_fwd.cu; at C = 96 and 128 the fp32 core
+// runs two key passes (attn_core.cuh), at C = 128 the bf16 core too
+// (attn_sm90.cuh); the dM reduction runs C / 16 warps a block. Registers
+// and spills of every kernel: PERF.md.
 // Not yet, fp32: wgmma and TMA, 5 products in place of 7 (attn_core.cuh).
 //
 // Interface: plain C, bound from Python with ctypes. `gta_fused_bwd`: every
@@ -80,6 +81,10 @@
 #include "attn_sm90.cuh"
 #include "gta_rows.cuh"
 #include "tf32x3.cuh"
+
+#ifndef HEAD_DIM
+#error "build with -DHEAD_DIM=<head width>: one library per width (gta_tpu_torch/ops/_cuda.py)"
+#endif
 
 namespace {
 
@@ -527,17 +532,12 @@ extern "C" int gta_fused_bwd(const float* q, const float* k, const float* v, con
                              float* dv, float* dmq, float* dmk, float* dmo, int B, int H, int Tq,
                              int Tk, int C, int nq, int nk, int splits_q, int splits_k, int flags,
                              float scale, void* stream_ptr) {
-  if (C == 64) {
-    return fused_bwd<64>(q, k, v, mq, mk, mo, cq, sq, ck, sk, g, z, lse, qt, kt, vt, do_s, delta,
-                         dzq, dz, dzk, dzv, part, centres, dq, dk, dv, dmq, dmk, dmo, B, H, Tq, Tk,
-                         nq, nk, splits_q, splits_k, flags, scale, stream_ptr);
+  if (C == HEAD_DIM) {
+    return fused_bwd<HEAD_DIM>(q, k, v, mq, mk, mo, cq, sq, ck, sk, g, z, lse, qt, kt, vt, do_s, delta,
+                               dzq, dz, dzk, dzv, part, centres, dq, dk, dv, dmq, dmk, dmo, B, H, Tq, Tk,
+                               nq, nk, splits_q, splits_k, flags, scale, stream_ptr);
   }
-  if (C == 96) {
-    return fused_bwd<96>(q, k, v, mq, mk, mo, cq, sq, ck, sk, g, z, lse, qt, kt, vt, do_s, delta,
-                         dzq, dz, dzk, dzv, part, centres, dq, dk, dv, dmq, dmk, dmo, B, H, Tq, Tk,
-                         nq, nk, splits_q, splits_k, flags, scale, stream_ptr);
-  }
-  return (int)cudaErrorInvalidValue;  // no instance of this head width
+  return (int)cudaErrorInvalidValue;  // the library of another head width
 }
 
 extern "C" int gta_fused_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mq,
@@ -550,17 +550,12 @@ extern "C" int gta_fused_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, c
                                   float* dmo, int B, int H, int Tq, int Tk, int C, int nq, int nk,
                                   int splits_q, int splits_k, int flags, float scale,
                                   void* stream_ptr) {
-  if (C == 64) {
-    return fused_bwd_bf16<64>(q, k, v, mq, mk, mo, cq, sq, ck, sk, g, z, lse, qt, kt, vt, do_s, delta,
-                              dzq, dz, dzk, dzv, dq32, dk32, dv32, part, dq, dk, dv, dmq, dmk, dmo, B,
-                              H, Tq, Tk, nq, nk, splits_q, splits_k, flags, scale, stream_ptr);
+  if (C == HEAD_DIM) {
+    return fused_bwd_bf16<HEAD_DIM>(q, k, v, mq, mk, mo, cq, sq, ck, sk, g, z, lse, qt, kt, vt, do_s, delta,
+                                    dzq, dz, dzk, dzv, dq32, dk32, dv32, part, dq, dk, dv, dmq, dmk, dmo, B,
+                                    H, Tq, Tk, nq, nk, splits_q, splits_k, flags, scale, stream_ptr);
   }
-  if (C == 96) {
-    return fused_bwd_bf16<96>(q, k, v, mq, mk, mo, cq, sq, ck, sk, g, z, lse, qt, kt, vt, do_s, delta,
-                              dzq, dz, dzk, dzv, dq32, dk32, dv32, part, dq, dk, dv, dmq, dmk, dmo, B,
-                              H, Tq, Tk, nq, nk, splits_q, splits_k, flags, scale, stream_ptr);
-  }
-  return (int)cudaErrorInvalidValue;  // no instance of this head width
+  return (int)cudaErrorInvalidValue;  // the library of another head width
 }
 
 extern "C" const char* gta_fused_bwd_error_string(int code) {

@@ -49,10 +49,13 @@
 //    occupancy, not by their stores; PERF.md.)
 //  * The output transform (z @ Mo, inverse rotors) is a row launch after
 //    the core, in place on `out` when z is not kept.
-// Instances: head width C = 64 (CLEVR-TR) and C = 96 (msn), dispatched on
-// the C argument; the fp32 core runs 3 blocks of 128 threads per SM at
-// C = 64, 2 at C = 96, the bf16 core one block of 288. Registers and spills
-// of every kernel: PERF.md.
+// Instances: one library per head width C = HEAD_DIM (32, 64: CLEVR-TR,
+// 96: msn, 128; -DHEAD_DIM, ops/_cuda.py builds the four side by side);
+// every multiple of 8 in [32, 128] runs in the smallest width at or above
+// it, zero-padded by the wrapper (the tables with zero blocks; ops/
+// gta_fused.py). The fp32 core runs 3 blocks of 128 threads per SM up to
+// C = 64, 2 at C = 96, 1 at C = 128, the bf16 core one block of 288.
+// Registers and spills of every kernel: PERF.md.
 // Not yet, fp32: wgmma and TMA for the core (attn_core.cuh); K/V split once
 // per block.
 //
@@ -76,6 +79,10 @@
 #include "attn_core.cuh"
 #include "attn_sm90.cuh"
 #include "gta_rows.cuh"
+
+#ifndef HEAD_DIM
+#error "build with -DHEAD_DIM=<head width>: one library per width (gta_tpu_torch/ops/_cuda.py)"
+#endif
 
 namespace {
 
@@ -215,15 +222,11 @@ extern "C" int gta_fused_fwd(const float* q, const float* k, const float* v, con
                              float* centres, float* out, float* z, float* lse, int B, int H, int Tq,
                              int Tk, int C, int nq, int nk, int flags, float scale,
                              void* stream_ptr) {
-  if (C == 64) {
-    return fused_fwd<64>(q, k, v, mq, mk, mo, cq, sq, ck, sk, qt, kt, vt, centres, out, z, lse, B, H,
-                         Tq, Tk, nq, nk, flags, scale, stream_ptr);
+  if (C == HEAD_DIM) {
+    return fused_fwd<HEAD_DIM>(q, k, v, mq, mk, mo, cq, sq, ck, sk, qt, kt, vt, centres, out, z, lse, B, H,
+                               Tq, Tk, nq, nk, flags, scale, stream_ptr);
   }
-  if (C == 96) {
-    return fused_fwd<96>(q, k, v, mq, mk, mo, cq, sq, ck, sk, qt, kt, vt, centres, out, z, lse, B, H,
-                         Tq, Tk, nq, nk, flags, scale, stream_ptr);
-  }
-  return (int)cudaErrorInvalidValue;  // no instance of this head width
+  return (int)cudaErrorInvalidValue;  // the library of another head width
 }
 
 extern "C" int gta_fused_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mq,
@@ -232,15 +235,11 @@ extern "C" int gta_fused_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, c
                                   float* kt32, bf16* kt, bf16* vt, float* centres, bf16* out,
                                   bf16* z, float* lse, int B, int H, int Tq, int Tk, int C, int nq,
                                   int nk, int flags, float scale, void* stream_ptr) {
-  if (C == 64) {
-    return fused_fwd_bf16<64>(q, k, v, mq, mk, mo, cq, sq, ck, sk, qt, kt32, kt, vt, centres, out, z,
-                              lse, B, H, Tq, Tk, nq, nk, flags, scale, stream_ptr);
+  if (C == HEAD_DIM) {
+    return fused_fwd_bf16<HEAD_DIM>(q, k, v, mq, mk, mo, cq, sq, ck, sk, qt, kt32, kt, vt, centres, out, z,
+                                    lse, B, H, Tq, Tk, nq, nk, flags, scale, stream_ptr);
   }
-  if (C == 96) {
-    return fused_fwd_bf16<96>(q, k, v, mq, mk, mo, cq, sq, ck, sk, qt, kt32, kt, vt, centres, out, z,
-                              lse, B, H, Tq, Tk, nq, nk, flags, scale, stream_ptr);
-  }
-  return (int)cudaErrorInvalidValue;  // no instance of this head width
+  return (int)cudaErrorInvalidValue;  // the library of another head width
 }
 
 extern "C" const char* gta_fused_error_string(int code) {

@@ -1,13 +1,18 @@
 """Ray-conditioned cross-attention decoder (reference decoder.py).
 
-RayPredictor: query embeddings (a learned constant, or each ray's
-camera-position and direction encoding through the input MLP, or
-frustum_posemb's frustum-point MLP) cross-attend into the scene latent
+RayPredictor: query embeddings (a learned constant, or through the input
+MLP each ray's camera-position and direction encoding ('ray'), its target
+pixel's 2D coordinate encoding ('planar', 180 channels) or that and the
+target view's camera, the top three rows of its transform ('camera_planar',
+180 + 12), or frustum_posemb's frustum-point MLP) cross-attend into the scene latent
 through a depth-`num_att_blocks` transformer; a 4-hidden-layer render MLP
 maps the result to sigmoid RGB. Geometry context comes from the pure
 function `build_decoder_context`, which reuses the encoder's key tables.
 repast takes each query ray in every key view's frame and averages the
-per-view results; gbt's queries are the rays' Plücker coordinates.
+per-view results; gbt's queries are the rays' Plücker coordinates. With
+return_last_attmap (heads = 1), the decoder also returns the last block's
+attention map over the scene latent as `masks` [B, Tq, Tk] (a soft
+segmentation, gta_tpu/models/decoder.py:209-211).
 """
 
 from __future__ import annotations
@@ -74,20 +79,19 @@ class RayPredictor(nn.Module):
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
         self.frustum = cfg.attn.method == "frustum_posemb"  # queries come from SRTDecoder
-        if cfg.emb not in ("const", "ray") and not self.frustum:
-            raise NotImplementedError(
-                f"decoder emb {cfg.emb!r} is not ported yet (ROADMAP queue 1 item 7: planar, camera_planar)"
-            )
-        if cfg.return_last_attmap:
-            raise NotImplementedError("return_last_attmap is not ported yet (ROADMAP queue 1 item 7)")
+        if cfg.emb not in ("const", "ray", "planar", "camera_planar") and not self.frustum:
+            raise ValueError(f"unknown decoder emb {cfg.emb!r}")
         self.cfg = cfg
         if cfg.emb == "const" and not self.frustum:
             self.initial_emb = nn.Parameter(torch.zeros(cfg.dim))
             tagged(self, "const_emb")
         elif not self.frustum:
-            # OSRT input MLP (decoder.py:70-77) over ray_posenc's 180 channels
+            # OSRT input MLP (decoder.py:70-77) over the query embedding:
+            # ray_posenc's or the 2D coordinates' 180 channels, + 12 camera
+            # entries for camera_planar
+            width = 192 if cfg.emb == "camera_planar" else 180
             self.input_mlp = nn.Sequential(
-                tagged(Linear(180, 360), "srt"), nn.ReLU(), tagged(Linear(360, cfg.dim), "srt")
+                tagged(Linear(width, 360), "srt"), nn.ReLU(), tagged(Linear(360, cfg.dim), "srt")
             )
         self.transformer = Transformer(
             dim=cfg.dim,
@@ -98,20 +102,32 @@ class RayPredictor(nn.Module):
             dropout=cfg.dropout,
             kv_dim=cfg.z_dim,
             attn=cfg.attn,
+            return_last_attmap=cfg.return_last_attmap,
         )
 
     def forward(self, z: torch.Tensor, x: torch.Tensor, rays: torch.Tensor, ctx: AttnContext,
                 queries: Optional[torch.Tensor] = None) -> torch.Tensor:
         """z [B, K, z_dim], query camera positions x and ray directions rays
-        [B, T, 3] (repast: [B, T, Nk, 3]) -> [B, T, dim] ([B, T, Nk, dim]);
+        [B, T, 3] (repast: [B, T, Nk, 3]) -> [B, T, dim] ([B, T, Nk, dim]),
+        with return_last_attmap (out, the last block's attention map);
         `queries` given (frustum_posemb) skip the embedding."""
+        cfg = self.cfg
+        B, T = rays.shape[:2]
         if queries is not None:
             pass
-        elif self.cfg.emb == "const":
+        elif cfg.emb == "const":
             emb = to_compute(self.initial_emb, self.compute_dtype)
-            queries = emb.expand(z.shape[0], rays.shape[1], self.cfg.dim)
+            queries = emb.expand(z.shape[0], rays.shape[1], cfg.dim)
         else:
-            emb = ray_posenc(x, rays, 15, self.cfg.pos_start_octave, 15)
+            if cfg.emb == "ray":
+                emb = ray_posenc(x, rays, 15, cfg.pos_start_octave, 15)
+            else:  # the target pixels' coordinates (+ their view's camera)
+                coord = ctx.target_coord  # [B, Nt, P, 2]
+                emb = posenc_2d_coord(180, coord, (cfg.scale_h, cfg.scale_w))
+                if cfg.emb == "camera_planar":
+                    cam = ctx.target_transforms[:, :, :3].reshape(B, -1, 1, 12)
+                    emb = torch.cat([emb, cam.expand(*coord.shape[:3], 12)], -1)
+                emb = emb.reshape(B, T, -1)
             queries = self.input_mlp(to_compute(emb, self.compute_dtype))
         return self.transformer(queries, z, ctx)
 
@@ -141,8 +157,9 @@ class SRTDecoder(nn.Module):
     def forward(
         self, z: torch.Tensor, x: torch.Tensor, rays: torch.Tensor, ctx: AttnContext
     ) -> Tuple[torch.Tensor, dict]:
-        """z [B, K, z_dim], x and rays [B, T, 3] -> pixels [B, T, 3] (fp32
-        whatever the compute dtype, gta_tpu/models/decoder.py:223)."""
+        """z [B, K, z_dim], x and rays [B, T, 3] -> (pixels [B, T, 3] (fp32
+        whatever the compute dtype, gta_tpu/models/decoder.py:223), aux: with
+        return_last_attmap, `masks` [B, T, K])."""
         method = self.cfg.attn.method
         queries = None
         if method == "repast":
@@ -160,8 +177,12 @@ class SRTDecoder(nn.Module):
                                     self.compute_dtype)
             queries = emb.reshape(emb.shape[0], -1, self.cfg.dim)
         out = self.allocation_transformer(z, x, rays, ctx, queries)
+        aux = {}
+        if self.cfg.return_last_attmap:
+            out, attmap = out
+            aux["masks"] = attmap[:, 0]  # heads = 1 (the reference asserts it)
         if method == "repast":
             out = out.mean(2)  # over the key views
         h = self.render_mlp(out)
         pixels = torch.sigmoid(h) if self.cfg.sigmoid else h
-        return pixels.float(), {}
+        return pixels.float(), aux

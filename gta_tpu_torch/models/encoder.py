@@ -2,7 +2,11 @@
 
 Images are NHWC at the API (the JAX package's layout); the conv stem runs
 NCHW inside. With emb 'ray', each pixel's camera-position and ray-direction
-encoding (180 channels) is concatenated to its RGB before the stem. The
+encoding (180 channels) is concatenated to its RGB before the stem; with
+'planar', the fixed 2D grid encoding of its pixel position (180 channels);
+with 'camera_planar', the stem's output gains a linear map of the grid
+encoding at its own resolution and one of each view's camera (the top
+three rows of its input transform, 12 numbers). The
 stem downsamples by 2**num_conv_blocks; patch tokens from all views are
 concatenated and run through a depth-`num_att_blocks` self-attention
 transformer. Geometry context comes from the pure function
@@ -12,6 +16,7 @@ embeddings to the patch tokens after the stem.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -32,6 +37,14 @@ def downsample_grid(x: torch.Tensor, num_steps: int) -> torch.Tensor:
         return x
     stride = 2**num_steps
     return x[..., stride // 2 :: stride, stride // 2 :: stride, :]
+
+
+def _grid_emb(height: int, width: int, like: torch.Tensor) -> torch.Tensor:
+    """posenc_2d_grid(180, height, width) channel-last [1, height, width,
+    180], on `like`'s device in its dtype (the JAX package's
+    `jnp.asarray(..., self.dtype)`)."""
+    pe = np.ascontiguousarray(np.transpose(posenc_2d_grid(180, height, width), (1, 2, 0)))
+    return torch.from_numpy(pe).to(device=like.device, dtype=like.dtype)[None]
 
 
 class SRTConvBlock(nn.Module):
@@ -135,13 +148,12 @@ class SRTEncoder(nn.Module):
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        if cfg.emb not in (None, "ray"):
-            raise NotImplementedError(
-                f"encoder emb {cfg.emb!r} is not ported yet (ROADMAP queue 1 item 7: planar, camera_planar)"
-            )
+        if cfg.emb not in (None, "ray", "planar", "camera_planar"):
+            raise ValueError(f"unknown encoder emb {cfg.emb!r}")
         self.cfg = cfg
         self.ray_emb = cfg.emb == "ray" and cfg.attn.method != "repast"  # repast poses its keys itself
-        idim = 3 + (180 if self.ray_emb else 0)  # RGB (+ ray_posenc's 15/15 octaves)
+        # RGB (+ ray_posenc's 15/15 octaves, or the 180-channel grid encoding)
+        idim = 3 + (180 if self.ray_emb or cfg.emb == "planar" else 0)
         blocks = [SRTConvBlock(idim, cfg.dim // 8, cfg.dim // 4)]
         cur = cfg.dim // 4
         for _ in range(1, cfg.num_conv_blocks):
@@ -149,7 +161,10 @@ class SRTEncoder(nn.Module):
             cur *= 2
         self.conv_blocks = nn.ModuleList(blocks)
         self.per_patch_linear = tagged(Conv2d(cur, cfg.attdim, 1), "jax")
-        if cfg.attn.method == "gbt":
+        if cfg.emb == "camera_planar":  # before any method's embedding, as JAX's branches run
+            self.lin_planar = tagged(Linear(180, cfg.attdim), "jax")
+            self.lin_camera = tagged(Linear(12, cfg.attdim), "jax")
+        elif cfg.attn.method == "gbt":
             self.lin_ray = tagged(Linear(180, cfg.attdim), "jax")  # over plucker_posenc's 6 x 15 x 2
         elif cfg.attn.method == "frustum_posemb":
             self.frustum_phi = frustum_phi(cfg.attn, cfg.attdim)
@@ -175,13 +190,21 @@ class SRTEncoder(nn.Module):
             pos = camera_pos.reshape(B * N, 1, 1, 3).expand(B * N, H, W, 3)
             emb = ray_posenc(pos, rays.reshape(B * N, H, W, 3), 15, self.cfg.pos_start_octave, 15)
             x = torch.cat([x, emb.to(x.dtype)], -1)
+        elif self.cfg.emb == "planar":
+            x = torch.cat([x, _grid_emb(H, W, x).expand(B * N, H, W, 180)], -1)
         x = x.permute(0, 3, 1, 2)
         for block in self.conv_blocks:
             x = block(x)
         x = self.per_patch_linear(x)  # [B*N, attdim, Ha, Wa]
+        Ha, Wa = x.shape[2:]
         x = x.permute(0, 2, 3, 1).reshape(B, -1, self.cfg.attdim)  # tokens (view, row, column)
         method = self.cfg.attn.method
-        if method == "gbt":
+        if self.cfg.emb == "camera_planar":
+            d = self.compute_dtype
+            planar = self.lin_planar(to_compute(_grid_emb(Ha, Wa, x), d)).reshape(1, 1, Ha * Wa, -1)
+            camera = self.lin_camera(to_compute(ctx.input_transforms[..., :3, :].reshape(B, N, 1, 12), d))
+            x = (x.reshape(B, N, Ha * Wa, -1) + planar + camera).reshape(B, -1, self.cfg.attdim)
+        elif method == "gbt":
             x = x + self.lin_ray(to_compute(ctx.gbt_ray_emb, self.compute_dtype))
         elif method == "frustum_posemb":
             emb = frustum_embedding(self.frustum_phi, self.cfg.attn, ctx.input_coord, ctx.input_transforms,

@@ -264,8 +264,12 @@ class Attention(nn.Module):
     attention (ops/flash, the flash_core kernels); everything else (an
     adjustable tau, euclid, elementwise_mul, gbt, repast, rpe) in torch
     eager with its attention map (ops/attention), as JAX computes those
-    with XLA. q, k and v come out of the projections in the compute dtype;
-    trans_coeff and tau are cast to it, as JAX's `.astype(self.dtype)` does.
+    with XLA. A layer of a Transformer that returns its last attention map
+    (`keep_map`, the decoder's return_last_attmap) attends eagerly whatever
+    its method, as JAX keeps such a module off flash, the fused kernels and
+    the ring (gta_tpu/config.py:271,299). q, k and v come out of the
+    projections in the compute dtype; trans_coeff and tau are cast to it, as
+    JAX's `.astype(self.dtype)` does.
     """
 
     compute_dtype = torch.float32
@@ -285,6 +289,7 @@ class Attention(nn.Module):
             raise ValueError(f"unknown attention method {method!r}")
         self.heads = heads
         self.attn = attn
+        self.keep_map = False  # set by a Transformer that returns its last attention map
         self.scale = dim_head**-0.5
         inner = dim_head * heads
         kvd = dim if kv_dim is None else kv_dim
@@ -339,10 +344,11 @@ class Attention(nn.Module):
         """How the layer attends: 'gta' (the GTA kernels: a static tau and
         neither euclid_sim nor elementwise_mul), 'flash' (flash_core: a
         `flash_eligible` other method), 'repast', or 'eager' (torch eager
-        with its attention map, as JAX computes it with XLA)."""
+        with its attention map, as JAX computes it with XLA; every method
+        but repast under `keep_map`)."""
         if self.attn.method == "repast":
             return "repast"
-        static = self.attend is None and not self.attn.rpe
+        static = self.attend is None and not self.attn.rpe and not self.keep_map
         gta = self.attn.gta
         if self.attn.is_gta and static and not gta.euclid_sim and not gta.elementwise_mul:
             return "gta"
@@ -353,10 +359,15 @@ class Attention(nn.Module):
         tensor parallel (parallel/tp.py), all of them otherwise."""
         return linear(x) if self.tp is None else column_parallel(linear, x, self.tp, linear.compute_dtype)
 
-    def forward(self, x, z=None, ctx: Optional[AttnContext] = None):
+    def forward(self, x, z=None, ctx: Optional[AttnContext] = None, return_attmap: bool = False):
+        """The layer's output; with `return_attmap` (the eager and repast
+        routes), (output, attention probabilities [B, H, Tq, Tk])."""
         route = self.route()
         if route == "repast":
-            return self.to_out(self._repast(x, z, ctx))
+            out, attmap = self._repast(x, z, ctx)
+            return (self.to_out(out), attmap) if return_attmap else self.to_out(out)
+        if return_attmap and route != "eager":
+            raise ValueError(f"the {route!r} route keeps no attention map")
         if self.attn.method == "ape":
             x, z = self._ape(x, z, ctx)
         elif self.attn.method == "mln":
@@ -379,14 +390,18 @@ class Attention(nn.Module):
         elif route == "flash":
             out = flash_attention(q, k, v, self.heads, self.scale)
         else:
-            out = merge_heads(self._eager(*(split_heads(t, self.heads) for t in (q, k, v)), ctx, self._tau()))
+            out, attmap = self._eager(*(split_heads(t, self.heads) for t in (q, k, v)), ctx, self._tau())
+            out = merge_heads(out)
         if self.tp is not None:
             linear, dropout = self.to_out
-            return dropout(row_parallel(linear, out, self.tp, linear.compute_dtype))
-        return self.to_out(out)
+            out = dropout(row_parallel(linear, out, self.tp, linear.compute_dtype))
+        else:
+            out = self.to_out(out)
+        return (out, attmap) if return_attmap else out
 
     def _eager(self, q, k, v, ctx, tau):
-        """The methods JAX computes with XLA, over heads-first [B, H, T, C]."""
+        """The methods JAX computes with XLA, over heads-first [B, H, T, C]:
+        (output, attention probabilities)."""
         if self.attn.rpe:
             q, k, v = (
                 torch.cat([t, to_compute(b, self.compute_dtype).to(t.dtype)[None, :, None].expand(
@@ -397,18 +412,18 @@ class Attention(nn.Module):
             bias = None
             if self.attn.method == "gbt":
                 bias = -((self.geo_weights**2) * ctx.plucker_dist)[:, None]
-            return dot_product_attention(q, k, v, self.scale, tau, bias)[0]
+            return dot_product_attention(q, k, v, self.scale, tau, bias)
         gta = self.attn.gta
         if gta.elementwise_mul:
             geom = ctx.geom
             vec_q, vec_k, vec_q_inv = (self.rep_to_vec(to_compute(f, self.compute_dtype))
                                        for f in (geom.flat_q, geom.flat_k, geom.flat_q_inv))
             fn = lambda q, k, v: dot_product_attention(q, k, v, self.scale, tau)  # noqa: E731
-            return vecrep_attention(q, k, v, fn, vec_q, vec_k, vec_q_inv)[0]
+            return vecrep_attention(q, k, v, fn, vec_q, vec_k, vec_q_inv)
         tc = None if self.trans_coeff is None else to_compute(self.trans_coeff, self.compute_dtype)
         attend = euclid_attention if gta.euclid_sim else dot_product_attention
         fn = lambda q, k, v: attend(q, k, v, self.scale, tau)  # noqa: E731
-        return gta_attention(q, k, v, fn, ctx.geom, gta, tc)[0]
+        return gta_attention(q, k, v, fn, ctx.geom, gta, tc)
 
     @staticmethod
     def _camera_emb(coord_emb: torch.Tensor, transforms: torch.Tensor) -> torch.Tensor:
@@ -444,8 +459,8 @@ class Attention(nn.Module):
         """Relative-pose attention (reference layers.py:294-346): queries
         augmented per key view with the rays re-expressed in each key view's
         frame; scores of a query against view n's keys use its view-n
-        augmentation. Returns [B, Tq, inner] ([B, Tq, Nk, inner] where the
-        queries come augmented, as in the decoder)."""
+        augmentation. Returns ([B, Tq, inner] ([B, Tq, Nk, inner] where the
+        queries come augmented, as in the decoder), the probabilities)."""
         q = x
         q_is_aug = q.ndim == 4
         if q_is_aug:
@@ -470,7 +485,7 @@ class Attention(nn.Module):
         out = merge_heads(torch.einsum("bhqk,bhkc->bhqc", attn, v))
         if q_is_aug:
             out = out[:, :, None].expand(B, Tq, Nk, out.shape[-1])
-        return out
+        return out, attn
 
 
 class PreNorm(nn.Module):
@@ -489,7 +504,11 @@ class Transformer(nn.Module):
     """Pre-LN stack: x += attn(LN(x), z); x += ff(LN(x)).
 
     z (cross-attention memory) is intentionally *not* normalized, matching
-    reference layers.py:146-154/475-488.
+    reference layers.py:146-154/475-488. With `return_last_attmap`, forward
+    returns (x, the last block's attention probabilities [B, H, Tq, Tk]),
+    and every block attends eagerly (`Attention.keep_map`), as JAX keeps
+    such a module off its kernels and the ring (gta_tpu/models/layers.py
+    `Transformer`, gta_tpu/config.py:271,299).
     """
 
     def __init__(
@@ -502,8 +521,10 @@ class Transformer(nn.Module):
         dropout: float = 0.0,
         kv_dim: Optional[int] = None,
         attn: AttnConfig = AttnConfig(),
+        return_last_attmap: bool = False,
     ):
         super().__init__()
+        self.return_last_attmap = return_last_attmap
         self.layers = nn.ModuleList(
             nn.ModuleList(
                 [
@@ -514,8 +535,16 @@ class Transformer(nn.Module):
             for _ in range(depth)
         )
 
+        for attn, _ in self.layers:
+            attn.fn.keep_map = return_last_attmap
+
     def forward(self, x, z=None, ctx: Optional[AttnContext] = None):
-        for attn, ff in self.layers:
-            x = x + attn(x, z=z, ctx=ctx)
+        attmap = None
+        for i, (attn, ff) in enumerate(self.layers):
+            if self.return_last_attmap and i == len(self.layers) - 1:
+                out, attmap = attn(x, z=z, ctx=ctx, return_attmap=True)
+            else:
+                out = attn(x, z=z, ctx=ctx)
+            x = x + out
             x = x + ff(x)
-        return x
+        return (x, attmap) if self.return_last_attmap else x

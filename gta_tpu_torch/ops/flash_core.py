@@ -9,11 +9,15 @@ Dispatch, with no fallbacks: a CPU tensor takes the plain PyTorch versions
 (`flash_core_fwd_plain`, `flash_core_bwd_plain`); a CUDA tensor launches the
 hand-written kernels (csrc/flash_core_fwd.cu, csrc/flash_core_bwd.cu, thin
 entries to the attention cores the fused GTA kernels share: fp32
-csrc/attn_core.cuh, bf16 csrc/attn_sm90.cuh) or raises. With grad enabled and an operand that
-requires it, the call goes through `FlashCore`, whose backward is the
-backward kernel. Unlike the Pallas kernel (whole K/V of a head in VMEM,
-Tk <= 2048), the forward tiles K with an online softmax, so every key
-length takes the same kernel.
+csrc/attn_core.cuh, bf16 csrc/attn_sm90.cuh) or raises. The kernels have
+instances at head widths 32, 64, 96 and 128; any other multiple of 8 in
+[32, 128] runs in the next one up, its operands zero-padded per head
+(zero columns add nothing to a score and give zero output columns) and the
+results cut back to C (ops/_cuda.py `kernel_head_dim`); other widths
+raise. With grad enabled and an operand that requires it, the call goes
+through `FlashCore`, whose backward is the backward kernel. Unlike the
+Pallas kernel (whole K/V of a head in VMEM, Tk <= 2048), the forward tiles
+K with an online softmax, so every key length takes the same kernel.
 
 Precision, by the operands' dtype (the JAX package's rules: the output
 and dq, dk, dv in the inputs' dtype, gta_tpu/ops/flash_core.py:83,
@@ -46,8 +50,6 @@ from typing import Optional, Tuple
 import torch
 
 from gta_tpu_torch.ops import _cuda
-
-KERNEL_HEAD_DIMS = (64, 96)  # the head widths the CUDA kernels are compiled for
 
 
 def work_dtype(x: torch.Tensor) -> torch.dtype:
@@ -138,17 +140,14 @@ def _ptr(x: torch.Tensor):
 def _check_kernel_call(name, q, k, v, heads: int, same=(), f32=()):
     """Validate a kernel launch's operands: q, k, v and `same` contiguous in
     one dtype that an instance covers, `f32` (log-sum-exp) contiguous fp32,
-    all on q's CUDA device. Returns (B, Tq, Tk, C)."""
+    all on q's CUDA device. Returns (B, Tq, Tk, C, width): width the head
+    width of the instance that runs C."""
     if q.device.type != "cuda":
         raise NotImplementedError(f"no flash_core kernel for device {q.device}")
     B, Tq, D = q.shape
     Tk = k.shape[1]
     C = D // heads
-    if C not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels are built for head dims {KERNEL_HEAD_DIMS}, got {C} "
-            "(ROADMAP queue 1 item 3d: other head widths)"
-        )
+    width = _cuda.kernel_head_dim(name, C)
     bad = ValueError(f"{name} operands must be contiguous fp32 (or bf16 beside an fp32 lse) on one CUDA device")
     for x in (q, k, v, *same):
         if x.device != q.device or x.dtype != q.dtype or not x.is_contiguous():
@@ -159,12 +158,13 @@ def _check_kernel_call(name, q, k, v, heads: int, same=(), f32=()):
             raise bad
     if k.shape != (B, Tk, D) or v.shape != (B, Tk, D) or D != heads * C:
         raise ValueError(f"bad operand shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    return B, Tq, Tk, C
+    return B, Tq, Tk, C, width
 
 
-def _bind(name: str, bf16: bool, n_ptrs: int, n_ints: int):
-    """(entry, error string) of library `name`: its fp32 or bf16 entry."""
-    lib = _cuda.load(name)
+def _bind(name: str, bf16: bool, width: int, n_ptrs: int, n_ints: int):
+    """(entry, error string) of kernel `name`'s library at head width
+    `width`: its fp32 or bf16 entry."""
+    lib = _cuda.load(name, width)
     fn = getattr(lib, f"{name}_bf16" if bf16 else name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -199,24 +199,26 @@ def flash_core_fwd(
     `out_dtype`: the operands' dtype by default, or fp32 from bf16 operands.
     With `residuals`, returns (out, lse), lse [B, H, Tq] being each row's
     log-sum-exp for the backward. `flash_core_fwd.launches` (fp32) and
-    `flash_core_fwd.launches_bf16` count launches of the C entry points.
+    `flash_core_fwd.launches_bf16` count launches of the C entry points
+    (`launches_by_width`, `launches_bf16_by_width` by instance width).
     """
     out_dtype = _out_dtype(q, out_dtype)
     if q.device.type == "cpu":
         return flash_core_fwd_plain(q, k, v, heads, scale, lse=residuals, out_dtype=out_dtype)
-    B, Tq, Tk, C = _check_kernel_call("flash_core_fwd", q, k, v, heads)
+    B, Tq, Tk, C, width = _check_kernel_call("flash_core_fwd", q, k, v, heads)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         raise RuntimeError(
             "flash_core_fwd's output carries no autograd graph: differentiate through "
             "flash_core (FlashCore)"
         )
     bf16 = q.dtype == torch.bfloat16
+    q, k, v = (_cuda.pad_heads(x, heads, width) for x in (q, k, v))
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((B, heads, Tq), dtype=torch.float32, device=q.device) if residuals else None
     # fp32: the core's centres (the value rows' mean, c_v) as scratch
-    centres = [] if bf16 else [torch.empty((2, B, heads, C), dtype=torch.float32, device=q.device)]
-    ints = (B, heads, Tq, Tk, C) + ((int(out_dtype == torch.float32),) if bf16 else ())
-    fn, err_str = _bind("flash_core_fwd", bf16, 5 + len(centres), len(ints))
+    centres = [] if bf16 else [torch.empty((2, B, heads, width), dtype=torch.float32, device=q.device)]
+    ints = (B, heads, Tq, Tk, width) + ((int(out_dtype == torch.float32),) if bf16 else ())
+    fn, err_str = _bind("flash_core_fwd", bf16, width, 5 + len(centres), len(ints))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(
@@ -225,15 +227,12 @@ def flash_core_fwd(
         )
     if err != 0:
         raise RuntimeError(f"flash_core_fwd launch failed: {err_str(err).decode()}")
-    if bf16:
-        flash_core_fwd.launches_bf16 += 1
-    else:
-        flash_core_fwd.launches += 1
+    _cuda.count_launch(flash_core_fwd, bf16, width)
+    out = _cuda.unpad_heads(out, heads, C)
     return (out, lse) if residuals else out
 
 
-flash_core_fwd.launches = 0
-flash_core_fwd.launches_bf16 = 0
+_cuda.launch_counters(flash_core_fwd)
 
 
 def flash_core_bwd(
@@ -266,37 +265,35 @@ def flash_core_bwd(
         return flash_core_bwd_plain(q, k, v, heads, scale, g, out_dtype=out_dtype)
     if lse is None:
         raise ValueError("flash_core_bwd needs the forward kernel's log-sum-exp")
-    B, Tq, Tk, C = _check_kernel_call("flash_core_bwd", q, k, v, heads, (g,), (lse,))
+    B, Tq, Tk, C, width = _check_kernel_call("flash_core_bwd", q, k, v, heads, (g,), (lse,))
     if g.shape != q.shape or out.shape != q.shape or lse.shape != (B, heads, Tq):
         raise ValueError("flash_core_bwd: g, out must be [B, Tq, H*C] and lse [B, H, Tq]")
     bf16 = q.dtype == torch.bfloat16
     dev = q.device
+    q, k, v, g = (_cuda.pad_heads(x, heads, width) for x in (q, k, v, g))
     delta = torch.empty((B, heads, Tq), dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty(x.shape, dtype=out_dtype, device=dev) for x in (q, k, v))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if bf16:
         args = [q, k, v, g, lse, delta, dq, dk, dv]
-        ints = (B, heads, Tq, Tk, C, int(out_dtype == torch.float32))
+        ints = (B, heads, Tq, Tk, width, int(out_dtype == torch.float32))
     else:  # with the forward's output, and the core's centres (the means of the key and value rows) as scratch
         if out.dtype != q.dtype or out.device != dev or not out.is_contiguous():
             raise ValueError("flash_core_bwd: out must be the fp32 forward's contiguous output")
-        centres = torch.empty((2, B, heads, C), dtype=torch.float32, device=dev)
+        out = _cuda.pad_heads(out, heads, width)
+        centres = torch.empty((2, B, heads, width), dtype=torch.float32, device=dev)
         args = [q, k, v, g, out, lse, delta, centres, dq, dk, dv]
-        ints = (B, heads, Tq, Tk, C)
-    fn, err_str = _bind("flash_core_bwd", bf16, len(args), len(ints))
+        ints = (B, heads, Tq, Tk, width)
+    fn, err_str = _bind("flash_core_bwd", bf16, width, len(args), len(ints))
     with torch.cuda.device(dev):
         err = fn(*(_ptr(x) for x in args), *ints, float(scale), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"flash_core_bwd launch failed: {err_str(err).decode()}")
-    if bf16:
-        flash_core_bwd.launches_bf16 += 1
-    else:
-        flash_core_bwd.launches += 1
-    return dq, dk, dv
+    _cuda.count_launch(flash_core_bwd, bf16, width)
+    return tuple(_cuda.unpad_heads(d, heads, C) for d in (dq, dk, dv))
 
 
-flash_core_bwd.launches = 0
-flash_core_bwd.launches_bf16 = 0
+_cuda.launch_counters(flash_core_bwd)
 
 
 class FlashCore(torch.autograd.Function):

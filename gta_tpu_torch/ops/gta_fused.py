@@ -14,7 +14,12 @@ rep applies before the store.
 Dispatch, with no fallbacks: a CPU tensor takes the plain PyTorch versions
 (`gta_fused_fwd_plain`, `gta_fused_bwd_plain`); a CUDA tensor launches the
 hand-written kernels (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu, built
-for head widths 64 and 96, an fp32 and a bf16 instance each) or raises.
+for head widths 32, 64, 96 and 128, an fp32 and a bf16 instance each) or
+raises. Any other multiple of 8 in [32, 128] runs in the next width up
+(ops/_cuda.py `kernel_head_dim`): q, k, v (and the cotangent) zero-padded
+per head, the per-view matrices padded with zero blocks and the rotor
+tables with zeros, so the padded columns stay zero through every transform
+and add nothing to a score; the results are cut back to C.
 With grad enabled and an operand that requires it, the call goes
 through `GTAFusedAttention`, whose backward is the backward kernel; rotor
 tables get no cotangent, and autograd carries the matrix cotangents back
@@ -50,6 +55,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from gta_tpu_torch.config import GTAArgs
 from gta_tpu_torch.ops import _cuda
@@ -57,7 +63,6 @@ from gta_tpu_torch.ops.flash_core import work_dtype
 from gta_tpu_torch.ops.gta import _blockdiag_mat, _blockdiag_ok, _fw_rotors, _view_counts
 from gta_tpu_torch.ops.reps import GeomReps
 
-KERNEL_HEAD_DIMS = (64, 96)  # the head widths the CUDA kernels are compiled for
 _DM_ROWS = 32  # rows per staging step of the backward's dM reduction (csrc/gta_fused_bwd.cu)
 
 # flag bits of the C interfaces (csrc/gta_fused_fwd.cu, csrc/gta_fused_bwd.cu)
@@ -331,21 +336,30 @@ def _flags(t: FusedTables) -> int:
     )
 
 
+def _pad_tables(t: FusedTables, C: int, width: int) -> FusedTables:
+    """t at the instance width: each matrix [B, N, C, C] with zero blocks
+    past C, each rotor table [B, T, C] with zero columns (t itself where C
+    == width)."""
+    if C == width:
+        return t
+    pad = lambda x, p: None if x is None else F.pad(x, p).contiguous()  # noqa: E731
+    mats = (pad(m, (0, width - C, 0, width - C)) for m in (t.mq, t.mk, t.mo))
+    rots = (pad(r, (0, width - C)) for r in (t.cq, t.sq, t.ck, t.sk))
+    return FusedTables(*mats, *rots, t.nq, t.nk, t.v_transform)
+
+
 def _check_kernel_call(name, qB, kB, vB, t: FusedTables, heads: int, same=(), f32=()):
     """Validate a kernel launch's operands: q, k, v and `same` (cotangent,
     residuals) contiguous in one dtype that an instance covers, the tables
     and `f32` (log-sum-exp) contiguous fp32, all on q's CUDA device.
-    Returns (B, Tq, Tk, D, C)."""
+    Returns (B, Tq, Tk, D, C, width): width the head width of the instance
+    that runs C."""
     if qB.device.type != "cuda":
         raise NotImplementedError(f"no fused GTA kernel for device {qB.device}")
     B, Tq, D = qB.shape
     Tk = kB.shape[1]
     C = D // heads
-    if C not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is built for head dims {KERNEL_HEAD_DIMS}, got {C} "
-            "(ROADMAP queue 1 item 3d: other head widths)"
-        )
+    width = _cuda.kernel_head_dim(name, C)
     bad = ValueError(f"{name} operands must be contiguous fp32 (or bf16 beside fp32 tables) on one CUDA device")
     for x in [qB, kB, vB, *same]:
         if x.device != qB.device or x.dtype != qB.dtype or not x.is_contiguous():
@@ -358,7 +372,7 @@ def _check_kernel_call(name, qB, kB, vB, t: FusedTables, heads: int, same=(), f3
         raise ValueError(f"bad operand shapes q {tuple(qB.shape)} k {tuple(kB.shape)} v {tuple(vB.shape)}")
     if Tq % t.nq or Tk % t.nk:
         raise ValueError(f"token counts ({Tq}, {Tk}) do not divide into views ({t.nq}, {t.nk})")
-    return B, Tq, Tk, D, C
+    return B, Tq, Tk, D, C, width
 
 
 def _bind(lib, fn_name: str, n_ptrs: int, n_ints: int, err_name: str):
@@ -371,15 +385,15 @@ def _bind(lib, fn_name: str, n_ptrs: int, n_ints: int, err_name: str):
     return fn, err
 
 
-def _bind_fwd(bf16: bool):
-    lib = _cuda.load("gta_fused_fwd")
+def _bind_fwd(bf16: bool, width: int):
+    lib = _cuda.load("gta_fused_fwd", width)
     if bf16:
         return _bind(lib, "gta_fused_fwd_bf16", 18, 8, "gta_fused_error_string")
     return _bind(lib, "gta_fused_fwd", 17, 8, "gta_fused_error_string")
 
 
-def _bind_bwd(bf16: bool):
-    lib = _cuda.load("gta_fused_bwd")
+def _bind_bwd(bf16: bool, width: int):
+    lib = _cuda.load("gta_fused_bwd", width)
     if bf16:
         return _bind(lib, "gta_fused_bwd_bf16", 32, 10, "gta_fused_bwd_error_string")
     return _bind(lib, "gta_fused_bwd", 30, 10, "gta_fused_bwd_error_string")
@@ -395,7 +409,9 @@ class Residuals:
     scaled scores, and its transformed Q/K/V scratch qt [B, H, Tq, C],
     kt/vt [B, H, Tk, C] (fp32: None where that side has no transform; bf16:
     kt and vt always, minus their means, and lse about kt minus its mean);
-    the plain version recomputes them and leaves them None.
+    the plain version recomputes them and leaves them None. The scratch
+    is at the width of the instance that ran (the call's C zero-padded to
+    it, ops/_cuda.py `kernel_head_dim`); z at the call's own.
     """
 
     z: torch.Tensor
@@ -424,20 +440,24 @@ def gta_fused_fwd(
     has one), the means of the key and value rows (the core's centres; bf16
     then writes the transformed rows centred), the tensor-core main kernel
     and the output transform (with v_transform), so the card sees up to six
-    kernel launches per count (nine in bf16).
+    kernel launches per count (nine in bf16). `launches_by_width` and
+    `launches_bf16_by_width` count them by instance width.
     """
     if qB.device.type == "cpu":
         if residuals:
             out, z = gta_fused_fwd_plain(qB, kB, vB, t, heads, scale, store_z=True)
             return out, Residuals(z)
         return gta_fused_fwd_plain(qB, kB, vB, t, heads, scale)
-    B, Tq, Tk, D, C = _check_kernel_call("gta_fused_fwd", qB, kB, vB, t, heads)
+    B, Tq, Tk, D, C0, C = _check_kernel_call("gta_fused_fwd", qB, kB, vB, t, heads)
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in [qB, kB, vB] + _tables(t)):
         raise RuntimeError(
             "gta_fused_fwd's output carries no autograd graph: differentiate through "
             "fused_gta_attention_tokens (GTAFusedAttention)"
         )
     dev, bf16 = qB.device, qB.dtype == torch.bfloat16
+    # from here on at the instance's width C (C0 the call's own)
+    qB, kB, vB = (_cuda.pad_heads(x, heads, C) for x in (qB, kB, vB))
+    t = _pad_tables(t, C0, C)
     q_transform = t.mq is not None or t.cq is not None
     kv_transform = t.mk is not None or t.ck is not None
 
@@ -452,7 +472,7 @@ def gta_fused_fwd(
     out = torch.empty_like(qB)
     z = torch.empty_like(qB) if residuals and t.v_transform else None
     lse = torch.empty((B, heads, Tq), dtype=torch.float32, device=dev) if residuals else None
-    fn, err_str = _bind_fwd(bf16)
+    fn, err_str = _bind_fwd(bf16, C)
     scratch = [qt, kt32, kt, vt] if bf16 else [qt, kt, vt]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -463,17 +483,14 @@ def gta_fused_fwd(
         )
     if err != 0:
         raise RuntimeError(f"gta_fused_fwd launch failed: {err_str(err).decode()}")
-    if bf16:
-        gta_fused_fwd.launches_bf16 += 1
-    else:
-        gta_fused_fwd.launches += 1
+    _cuda.count_launch(gta_fused_fwd, bf16, C)
+    out = _cuda.unpad_heads(out, heads, C0)
     if residuals:
-        return out, Residuals(out if z is None else z, lse, kt, vt, qt)
+        return out, Residuals(out if z is None else _cuda.unpad_heads(z, heads, C0), lse, kt, vt, qt)
     return out
 
 
-gta_fused_fwd.launches = 0
-gta_fused_fwd.launches_bf16 = 0
+_cuda.launch_counters(gta_fused_fwd)
 
 
 def _dm_splits(dev: torch.device, B: int, n: int, rows_per_view: int) -> int:
@@ -518,9 +535,13 @@ def gta_fused_bwd(
     ):
         raise ValueError("gta_fused_bwd needs the forward kernel's residuals (lse, qt, kt, vt)")
     same = [g, res.z] + [x for x in (res.qt, res.kt, res.vt) if x is not None]
-    B, Tq, Tk, D, C = _check_kernel_call("gta_fused_bwd", qB, kB, vB, t, heads, same, [res.lse])
+    B, Tq, Tk, D, C0, C = _check_kernel_call("gta_fused_bwd", qB, kB, vB, t, heads, same, [res.lse])
     if g.shape != qB.shape or res.z.shape != qB.shape or res.lse.shape != (B, heads, Tq):
         raise ValueError("gta_fused_bwd: g, z must be [B, Tq, H*C] and lse [B, H, Tq]")
+    # from here on at the instance's width C (C0 the call's own), as the
+    # forward's scratch residuals are
+    qB, kB, vB, g, z = (_cuda.pad_heads(x, heads, C) for x in (qB, kB, vB, g, res.z))
+    t, D = _pad_tables(t, C0, C), heads * C
     dev = qB.device
 
     def empty(shape, cond=True, dtype=torch.float32):
@@ -543,11 +564,11 @@ def gta_fused_bwd(
     dq, dk, dv = torch.empty_like(qB), torch.empty_like(kB), torch.empty_like(vB)
     dmq, dmk = (None if M is None else torch.empty_like(M) for M in (t.mq, t.mk))
     dmo = torch.empty_like(t.mo) if has_mo else None
-    fn, err_str = _bind_bwd(bf16)
+    fn, err_str = _bind_bwd(bf16, C)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
-            _ptr(qB), _ptr(kB), _ptr(vB), *(_ptr(x) for x in _tables(t)), _ptr(g), _ptr(res.z),
+            _ptr(qB), _ptr(kB), _ptr(vB), *(_ptr(x) for x in _tables(t)), _ptr(g), _ptr(z),
             _ptr(res.lse), _ptr(res.qt), _ptr(res.kt), _ptr(res.vt), _ptr(do_s), _ptr(delta),
             _ptr(dzq), _ptr(dz), _ptr(dzk), _ptr(dzv), *(_ptr(x) for x in grads32),
             _ptr(part), *(_ptr(x) for x in centres), _ptr(dq), _ptr(dk),
@@ -556,17 +577,15 @@ def gta_fused_bwd(
         )
     if err != 0:
         raise RuntimeError(f"gta_fused_bwd launch failed: {err_str(err).decode()}")
-    if bf16:
-        gta_fused_bwd.launches_bf16 += 1
-    else:
-        gta_fused_bwd.launches += 1
+    _cuda.count_launch(gta_fused_bwd, bf16, C)
+    rows = lambda x: None if x is None else _cuda.unpad_heads(x, heads, C0)  # noqa: E731
+    mat = lambda x: None if x is None else x[..., :C0, :C0].contiguous() if C0 != C else x  # noqa: E731
     if keep is not None:
-        keep.update(dz=dz, dzq=dzq, dzk=dzk, dzv=dzv)
-    return dq, dk, dv, dmq, dmk, dmo
+        keep.update(dz=rows(dz), dzq=rows(dzq), dzk=rows(dzk), dzv=rows(dzv))
+    return rows(dq), rows(dk), rows(dv), mat(dmq), mat(dmk), mat(dmo)
 
 
-gta_fused_bwd.launches = 0
-gta_fused_bwd.launches_bf16 = 0
+_cuda.launch_counters(gta_fused_bwd)
 
 
 @dataclasses.dataclass(frozen=True)

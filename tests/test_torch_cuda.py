@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions
 and fp64: the fused GTA forward and backward, and flash_core forward and
 backward, each in its fp32 instance and its bf16 one, at head widths 64 and
-96 (the bf16 instances held to 1.5x the error of the TPU kernel's rounding,
+96 and at every width from 32 to 128 (`test_*_at_every_head_width`: the
+instances at 32 and 128, and 40, 72, 80 zero-padded to the next one up;
+the bf16 instances held to 1.5x the error of the TPU kernel's rounding,
 the plain version with mxu_dtype=bf16).
 
 A CUDA kernel has no CPU mode, so every test here is marked `cuda` and skips
@@ -277,16 +279,15 @@ def test_gta_fused_fwd_raises_instead_of_falling_back(rng, cuda_device):
     fwd, bwd = tgf.gta_fused_fwd.launches, tgf.gta_fused_bwd.launches
     _fused(q, k, v, reps, args, tc).sum().backward()
     assert (tgf.gta_fused_fwd.launches - fwd, tgf.gta_fused_bwd.launches - bwd) == (1, 1)
-    narrow = GTAArgs(f_dims=FDims(se3=16, so2=16), so2=4)
-    reps32, _, (q32, k32, v32) = _inputs(rng, narrow, cuda_device)
+    narrow = GTAArgs(f_dims=FDims(se3=8, so2=8), so2=2)  # head width 16: no instance
+    reps16, _, (q16, k16, v16) = _inputs(rng, narrow, cuda_device)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="head dim"):
-        _fused(q32[..., :32].to(cuda_device), k32[..., :32].to(cuda_device), v32[..., :32].to(cuda_device),
-               reps32, narrow, None)
+        _fused(q16.to(cuda_device), k16.to(cuda_device), v16.to(cuda_device), reps16, narrow, None)
 
 
 @pytest.mark.cuda
 def test_gta_fused_bwd_raises_on_uncovered_operands(rng, cuda_device):
-    """Head width 32, non-contiguous and fp64 operands raise; nothing falls
+    """Head width 16, non-contiguous and fp64 operands raise; nothing falls
     back to the plain version."""
     args = GTAArgs(f_dims=FDims(se3=32, so2=32), so2=8)
     reps, _, (q, k, v) = _inputs(rng, args, cuda_device)
@@ -297,7 +298,7 @@ def test_gta_fused_bwd_raises_on_uncovered_operands(rng, cuda_device):
         g = torch.ones_like(qB)
         before = tgf.gta_fused_bwd.launches
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-            tgf.gta_fused_bwd(qB, kB, vB, t, 2 * H, SCALE, g, res)
+            tgf.gta_fused_bwd(qB, kB, vB, t, 4 * H, SCALE, g, res)
         with pytest.raises(ValueError, match="contiguous fp32"):
             tgf.gta_fused_bwd(qB, kB, vB, t, H, SCALE, g.transpose(1, 2).contiguous().transpose(1, 2), res)
         with pytest.raises(ValueError, match="contiguous fp32"):
@@ -308,7 +309,8 @@ def test_gta_fused_bwd_raises_on_uncovered_operands(rng, cuda_device):
 def _fp64_errors(qB, kB, vB, t, heads, scale, g):
     """Relative L2 errors against the plain versions in fp64 of the kernels'
     (out, z, dq, dk, dv, dmq, dmk, dmo) and of the plain versions' in fp32
-    on the card, each by name (absent outputs left out)."""
+    on the card, each by name (absent outputs left out; `_rel`: the norm
+    where fp64 gives exact zeros, as dq and dk of a single key)."""
     out, res = tgf.gta_fused_fwd(qB, kB, vB, t, heads, scale, residuals=True)
     got = tgf.gta_fused_bwd(qB, kB, vB, t, heads, scale, g, res)
     plain_out, plain_z = tgf.gta_fused_fwd_plain(qB, kB, vB, t, heads, scale, store_z=True)
@@ -320,8 +322,7 @@ def _fp64_errors(qB, kB, vB, t, heads, scale, g):
     names = ("out", "z", "dq", "dk", "dv", "dmq", "dmk", "dmo")
 
     def rel(values):
-        return {name: ((a.double() - r).norm() / r.norm()).item()
-                for name, a, r in zip(names, values, (ref_out, ref_z, *ref)) if r is not None}
+        return {name: _rel(a, r) for name, a, r in zip(names, values, (ref_out, ref_z, *ref)) if r is not None}
 
     return rel((out, res.z, *got)), rel((plain_out, plain_z, *plain))
 
@@ -569,7 +570,7 @@ def test_flash_core_function_grads_on_card_match_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_core_raises_instead_of_falling_back(cuda_device):
-    """Head width 32, non-contiguous and fp64 operands raise, and so does a
+    """Head width 16, non-contiguous and fp64 operands raise, and so does a
     launch the card refuses (a grid of more than 65535 batches): nothing
     falls back to the plain version."""
     q, k, v, g = _flash_inputs(cuda_device, 64, 64)
@@ -577,7 +578,7 @@ def test_flash_core_raises_instead_of_falling_back(cuda_device):
         out, lse = fc.flash_core_fwd(q, k, v, H, SCALE, residuals=True)
         fwd, bwd = fc.flash_core_fwd.launches, fc.flash_core_bwd.launches
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-            fc.flash_core_fwd(q, k, v, 2 * H, SCALE)
+            fc.flash_core_fwd(q, k, v, 4 * H, SCALE)
         with pytest.raises(ValueError, match="contiguous fp32"):
             fc.flash_core_bwd(q, k, v, H, SCALE, g.transpose(1, 2).contiguous().transpose(1, 2), out, lse)
         with pytest.raises(ValueError, match="contiguous fp32"):
@@ -928,6 +929,155 @@ def test_uncovered_dtypes_raise(rng, cuda_device):
         with pytest.raises(ValueError, match="contiguous fp32"):
             fc.flash_core_fwd(q.to(BF), k.float(), v.float(), H, SCALE)
     assert counts() == before
+
+
+# ---------------------------------------------------------------------------
+# Every head width from 32 to 128: the instances at 32 and 128, and 40, 72
+# (DiT-XL/2's) and 80, which run zero-padded in the next instance up
+# (ops/_cuda.py kernel_head_dim). Both kernels of each pair, fp32 and bf16,
+# over ragged (Tq, Tk) pairs, against fp64: fp32 within WIDTH_FP32_TOL
+# relative L2, bf16 within 1.5x the bf16 emulation's error (or BF16_ULP
+# where that is smaller); the backward run twice, bit for bit. The fused
+# GTA kernels with every transform (and with a raw value side), rotors only,
+# SE(3) only, no transform, and DiT's rotor-only one-view tables.
+# ---------------------------------------------------------------------------
+
+HEAD_WIDTHS = (32, 40, 72, 80, 128)
+RAGGED = [(1, 1), (17, 33), (63, 65), (65, 257), (129, 65), (601, 2100)]
+WIDTH_FP32_TOL = 1e-5
+WIDTH_HEADS = 2
+WIDTH_MIXES = ("every", "raw_v", "rotors", "se3", "none", "dit")
+
+
+def _width_args(C, mix):
+    """A GTA mix at head width C (SE(3) and SO(2) halves a multiple of 4,
+    a quarter of the SO(2) channels as frequencies)."""
+    half = C // 2 // 4 * 4
+    fd = {"every": dict(se3=half, so2=C - half), "raw_v": dict(se3=half, so2=C - half), "rotors": dict(so2=C),
+          "se3": dict(se3=C), "none": dict(triv=C), "dit": dict(triv=half, so2=C - half)}[mix]
+    return GTAArgs(f_dims=FDims(**fd), so2=fd.get("so2", 0) // 4, v_transform=mix != "raw_v")
+
+
+def _width_shape(*keys):
+    """One of the ragged (Tq, Tk) pairs, chosen by the case; DiT's one view
+    is self-attention."""
+    return RAGGED[sum(map(len, map(str, keys))) % len(RAGGED)]
+
+
+def _width_gta_inputs(rng, device, C, mix, tq, tk):
+    args = _width_args(C, mix)
+    if mix == "dit":  # one view of tk tokens, its own keys
+        coord = torch.from_numpy(rng.rand(B, 1, tk, 2).astype(np.float32)).to(device)
+        tf = torch.from_numpy(np.stack([random_se3(rng, 1) for _ in range(B)])).to(device)
+        reps = encoder_reps(args, coord, tf)
+        q, k, v, g = (torch.from_numpy(rng.randn(B, tk, WIDTH_HEADS * C).astype(np.float32)).to(device)
+                      for _ in range(4))
+        return args, reps, q, k, v, g
+    reps, q, k, v, g = _edge_inputs(rng, args, device, tq, tk, heads=WIDTH_HEADS)
+    return args, reps, q, k, v, g
+
+
+def _assert_width_errors(errs, emu, bf16, label):
+    for name, err in errs.items():
+        limit = max(1.5 * emu[name], BF16_ULP) if bf16 else WIDTH_FP32_TOL
+        assert err <= limit, (label, name, errs, emu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mix", WIDTH_MIXES)
+@pytest.mark.parametrize("width", HEAD_WIDTHS)
+def test_gta_fused_kernels_at_every_head_width(rng, cuda_device, width, mix, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf16 = dtype == BF
+    tq, tk = _width_shape(width, mix, dtype)
+    args, reps, q, k, v, g = _width_gta_inputs(rng, cuda_device, width, mix, tq, tk)
+    scale = width**-0.5
+    instance = _cuda.kernel_head_dim("test", width)
+    counts = tgf.gta_fused_fwd.launches_bf16_by_width if bf16 else tgf.gta_fused_fwd.launches_by_width
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, torch.tensor([0.3], device=cuda_device))
+        before = counts[instance]
+        if bf16:
+            errs, emu = _bf16_gta_errors(q, k, v, t, WIDTH_HEADS, scale, g)
+        else:
+            errs, emu = _fp64_errors(q, k, v, t, WIDTH_HEADS, scale, g)
+        assert counts[instance] == before + 1
+        _assert_width_errors(errs, emu, bf16, (tq, tk))
+        qc, kc, vc, gc = (x.to(dtype) for x in (q, k, v, g))
+        _, res = tgf.gta_fused_fwd(qc, kc, vc, t, WIDTH_HEADS, scale, residuals=True)
+        first = tgf.gta_fused_bwd(qc, kc, vc, t, WIDTH_HEADS, scale, gc, res)
+        second = tgf.gta_fused_bwd(qc, kc, vc, t, WIDTH_HEADS, scale, gc, res)
+    assert first[0].shape == q.shape
+    for name, a, b in zip(("dq", "dk", "dv", "dmq", "dmk", "dmo"), first, second):
+        assert (a is None) == (b is None), name
+        assert a is None or torch.equal(a, b), name
+
+
+def _width_flash_errors(q, k, v, g, heads, scale):
+    """({output: the kernels' relative L2 error against fp64}, {output: the
+    plain version's, with mxu_dtype=bf16 for bf16 operands}) for both
+    flash_core kernels (out, dq, dk, dv), one launch each."""
+    bf16 = q.dtype == BF
+    mxu = BF if bf16 else None
+    out, lse = fc.flash_core_fwd(q, k, v, heads, scale, residuals=True)
+    got = fc.flash_core_bwd(q, k, v, heads, scale, g, out, lse)
+    plain = (fc.flash_core_fwd_plain(q, k, v, heads, scale, mxu_dtype=mxu),
+             *fc.flash_core_bwd_plain(q, k, v, heads, scale, g, mxu_dtype=mxu))
+    q64, k64, v64 = q.double(), k.double(), v.double()
+    ref = (fc.flash_core_fwd_plain(q64, k64, v64, heads, scale),
+           *fc.flash_core_bwd_plain(q64, k64, v64, heads, scale, g.double()))
+    names = ("out", "dq", "dk", "dv")
+    return ({n: _rel(a, r) for n, a, r in zip(names, (out, *got), ref)},
+            {n: _rel(a, r) for n, a, r in zip(names, plain, ref)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("tq,tk", RAGGED)
+@pytest.mark.parametrize("width", HEAD_WIDTHS)
+def test_flash_core_kernels_at_every_head_width(cuda_device, width, tq, tk, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf16 = dtype == BF
+    gen = torch.Generator(device=cuda_device).manual_seed(width + tq + tk)
+    q, k, v, g = (torch.randn((B, t, WIDTH_HEADS * width), generator=gen, device=cuda_device).to(dtype)
+                  for t in (tq, tk, tk, tq))
+    scale = width**-0.5
+    instance = _cuda.kernel_head_dim("test", width)
+    counts = [f.launches_bf16_by_width if bf16 else f.launches_by_width for f in (fc.flash_core_fwd, fc.flash_core_bwd)]
+    before = [c[instance] for c in counts]
+    with torch.no_grad():
+        errs, emu = _width_flash_errors(q, k, v, g, WIDTH_HEADS, scale)
+        assert [c[instance] for c in counts] == [b + 1 for b in before]
+        _assert_width_errors(errs, emu, bf16, (tq, tk))
+        out, lse = fc.flash_core_fwd(q, k, v, WIDTH_HEADS, scale, residuals=True)
+        first = fc.flash_core_bwd(q, k, v, WIDTH_HEADS, scale, g, out, lse)
+        second = fc.flash_core_bwd(q, k, v, WIDTH_HEADS, scale, g, out, lse)
+    assert out.shape == q.shape and out.dtype == dtype
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [16, 24, 36, 100, 136, 256])
+def test_widths_without_an_instance_raise(rng, cuda_device, width):
+    """A width that is not a multiple of 8 in [32, 128] raises
+    NotImplementedError naming ROADMAP item 3d on both kernels, in both
+    dtypes; nothing launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((B, 8, WIDTH_HEADS * width), generator=gen, device=cuda_device)
+    args = GTAArgs(f_dims=FDims(triv=width))
+    reps, *_ = _edge_inputs(rng, args, cuda_device, 8, 8, heads=WIDTH_HEADS)
+    launches = lambda: [f.launches + f.launches_bf16 for f in (fc.flash_core_fwd, tgf.gta_fused_fwd)]  # noqa: E731
+    before = launches()
+    with torch.no_grad():
+        t = tgf.fused_tables(reps, args, None)
+        for x in (q, q.to(BF)):
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3d"):
+                fc.flash_core_fwd(x, x, x, WIDTH_HEADS, width**-0.5)
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3d"):
+                tgf.gta_fused_fwd(x, x, x, t, WIDTH_HEADS, width**-0.5)
+    assert launches() == before
 
 
 # flash_core at head width 96 (msn gta_t2: 8 heads of 96 after the sliced

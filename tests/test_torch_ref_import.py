@@ -3,7 +3,8 @@
 (gta_tpu/utils/ref_import.py), on the CPU.
 
 No checkpoint of the reference implementation is at hand, so each case
-builds reference-format files from JAX-side code only: the JAX init of a
+builds reference-format files from JAX-side code only (six published
+configs and the flagship with camera_planar embeddings): the JAX init of a
 shrunk config (2 heads of the config's head width, the so3 slices kept,
 one attention block a side, two for the so3 configs), keyed by
 gta_tpu.utils.ref_import's flax_path_to_torch_key, turned to torch
@@ -63,7 +64,12 @@ CONFIGS = {
     "elementwise_mul": "runs/clevrtr/otherPEs/elementwise_mul/config.yaml",
     "ftl_rope": "runs/clevrtr/otherPEs/ftl_rope/config.yaml",
     "rpe": "runs/clevrtr/otherPEs/rpe/config.yaml",
+    "camera_planar": "runs/clevrtr/GTA/gta/config.yaml",
 }
+# the flagship with camera_planar embeddings in encoder and decoder (no
+# published config has them): lin_planar, lin_camera and a 192-wide
+# input_mlp.0 in the file
+EMB = {"camera_planar": "camera_planar"}
 SCALARS = {"epoch_it": 2, "it": 7, "t": 12.5, "loss_val_best": 31.25, "run_id": "r3test"}
 STEP = 7
 STATELESS = 3  # this encoder key (in the JAX tree's order) has no optimizer state
@@ -79,13 +85,13 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def tiny_yaml(path, out):
+def tiny_yaml(path, out, emb=None):
     """The YAML at `path` shrunk: 2 heads of the config's head width, 2
     attention blocks a side where the config has so3 channels (the sign
     map's keys per layer) and 1 elsewhere, dropout 0, synthetic scenes at
-    32x48 (msn: 32x32) with 48 rays (msn: 40), lr_warmup 2. The rest
-    (f_dims, the so2 / so3 degrees, the attention flags, mixed_prec) is the
-    YAML's."""
+    32x48 (msn: 32x32) with 48 rays (msn: 40), lr_warmup 2; `emb`, where
+    given, in encoder and decoder. The rest (f_dims, the so2 / so3 degrees,
+    the attention flags, mixed_prec) is the YAML's."""
     cfg = load_config(path)
     with open(path) as f:
         raw = yaml.safe_load(f)
@@ -95,6 +101,8 @@ def tiny_yaml(path, out):
     args = raw["model"]["args"]
     args["encoder_kwargs"].update(dim=64, attdim=2 * head, heads=2, num_att_blocks=blocks, dropout=0.0)
     args["decoder_kwargs"].update(z_dim=2 * head, heads=2, rmlp_dim=64, num_att_blocks=blocks, dropout=0.0)
+    if emb is not None:
+        args["encoder_kwargs"]["emb"] = args["decoder_kwargs"]["emb"] = emb
     raw["data"].update(dataset="synthetic", num_points=40 if msn else 48)
     raw["data"]["kwargs"].update(height=32, width=32 if msn else 48, downsample=0, num_views=cfg.data.num_views)
     raw["training"].update(lr_warmup=2)
@@ -194,7 +202,7 @@ def case(request, tmp_path_factory):
     of its base import with the base file as order template."""
     name = request.param
     tmp = tmp_path_factory.mktemp(f"ref_{name}")
-    yml = tiny_yaml(CONFIGS[name], tmp / "config.yaml")
+    yml = tiny_yaml(CONFIGS[name], tmp / "config.yaml", EMB.get(name))
     jcfg, tcfg = j_load_config(yml), load_config(yml)
     jtr = JTrainer(jcfg)
     template = jtr.init_state(_jbatch(_items(tcfg, (0, 1))), seed=0)
