@@ -267,20 +267,28 @@ Phases (any failure exits non-zero and prints no result line):
      a one-rank `python -m torch.distributed.run` of the train CLI, and the
      first resumed for a third step as soon as it ends, whose scene ids
      must be the generator's batch 2 (an unbroken run's).
-  4c. The JAX package's other parallelism (parallel_phase), two ranks of
-     one gloo group on the card (NCCL refuses two ranks on one card): the
+  4c. The JAX package's other parallelism (parallel_phase), in gloo groups
+     on the card (NCCL refuses two ranks on one card). Two ranks: the
      flagship (fp32, B=32, dropout 0) under --n-model 2 (3 heads a rank),
      --n-seq 2 (one view a rank, GTA's keys ringed) and ZeRO-1 over two
-     data ranks, msn_so3 as published (bf16, B=64) under --n-model 2, at
-     full width and depth; each mode's first step against the one-process
-     step from the same weights on the same batch (fp32: weights within
-     1e-5 relative L2, the gradient's error against an fp64 step no more
-     than 1e-5 above the one-process step's, each trans_coeff within 1e-4
-     of its terms; msn_so3: its gradient from fp32 within 1.5x the
-     one-process bf16 step's), the kernels' launches per rank asserted
-     (7 + 7 fused GTA under TP and ZeRO-1, none under the ring), the warm
-     step beside the one-process step's. It runs beside the DiT CLIs, the
-     gradient checks (phase 4's grads_phase) in this process meanwhile.
+     data ranks, msn_so3 as published (bf16, B=64) under --n-model 2; gbt
+     and repast (fp32, B=32) and msn gta_so3_euclid (bf16, B=16) under
+     --n-model 2, their attention in torch eager on the rank's heads; SRT
+     (fp32, B=32) and msn_so3 (bf16, B=64, 5 views) under --n-seq 2, every
+     module whole on each seq rank. Four ranks: the flagship under
+     --n-model 4 (6 heads: its attention layers whole, its FeedForwards
+     split). All at full width and depth; each mode's first step against
+     the one-process step from the same weights on the same batch (fp32:
+     weights within 1e-5 relative L2, the gradient's error against an
+     fp64 step no more than 1e-5 above the one-process step's, each
+     trans_coeff within 1e-4 of its terms; bf16: the gradient from fp32
+     within 1.5x the one-process bf16 step's), the kernels' launches per
+     rank asserted (7 + 7 fused GTA under TP, ZeRO-1 and --n-model 4,
+     none under the ring or on an eager route, flash_core 7 + 7 for SRT
+     and fused GTA 7 + 7 for msn_so3 under --n-seq 2), which modules rang
+     asserted from what the ranks print, the warm step beside the
+     one-process step's. It runs beside the DiT CLIs, the gradient checks
+     (phase 4's grads_phase) in this process meanwhile.
   4d. Every head width from 32 to 128 and the model options no published
      config reaches (slice 20). In phase 2, width_phase: the kernels'
      instances at head widths 32 and 128 (NEW_WIDTHS), fp32 and bf16, both
@@ -1221,21 +1229,23 @@ def side_kernel(attn):
     return "flash_core" if g.f_dims.t2 > 0 or g.ray_to_se3 or odd else "gta_fused"
 
 
-def expected_launches(cfg, encodes, decodes, backward_steps=0, target_views=1):
+def expected_launches(cfg, encodes, decodes, backward_steps=0, target_views=1, rings=(False, False)):
     """Launch counts of a run of `encodes` encoder and `decodes` decoder
     passes, `backward_steps` of them with a backward: each attention layer
     launches its side's kernel (side_kernel; none on a side that returns
-    its last attention map, which attends eagerly) in the config's compute
-    dtype (bf16 under mixed_prec), in the instance of its head width, once
-    forward and once backward, and FTL's decoder once per target view
-    (`target_views`); every other instance stays at 0."""
+    its last attention map, which attends eagerly, or that rings over the
+    seq axis, `rings` (encoder, decoder): its fold is plain torch) in the
+    config's compute dtype (bf16 under mixed_prec), in the instance of its
+    head width, once forward and once backward, and FTL's decoder once per
+    target view (`target_views`); every other instance stays at 0."""
     from gta_tpu_torch.ops import _cuda
 
     want = dict.fromkeys(launch_counts(), 0)
     bf16 = cfg.training.mixed_prec
     enc, dec = cfg.model.encoder, cfg.model.decoder
-    for side, n, C in ((enc, encodes, enc.attdim // enc.heads), (dec, decodes, dec.head_dim)):
-        kernel = None if getattr(side, "return_last_attmap", False) else side_kernel(side.attn)
+    for side, n, C, ring in ((enc, encodes, enc.attdim // enc.heads, rings[0]),
+                             (dec, decodes, dec.head_dim, rings[1])):
+        kernel = None if getattr(side, "return_last_attmap", False) or ring else side_kernel(side.attn)
         if kernel is None:
             continue
         width = _cuda.kernel_head_dim(kernel, C)
@@ -3444,37 +3454,93 @@ def ref_ckpt_phase(paths):
     return out
 
 
-PARALLEL_WORLD = 2  # parallel_phase's ranks, both on the card (gloo)
 PARALLEL_WARM = 1  # timed warm steps of each mode and one-process step, after the compared cold one
 PARALLEL_TOL = 1e-5  # fp32: the gradient's excess error over one process's (trans_coeff aside), the weights
 MSN_FP32_ACCUM = 4  # msn_so3's fp32 reference gradient in microbatches (its one-process fp32 step needs 50 GB)
-FP64_ACCUM = 4  # the flagship's fp64 reference step in microbatches (the plain attention holds its scores)
+FP64_ACCUM = 4  # the fp32 modes' fp64 reference steps in microbatches (the plain attention holds its scores)
+REPAST_CONFIG = os.path.join(ROOT, "runs", "clevrtr", "otherPEs", "repast", "config.yaml")
+MSN_SO3_EUCLID_CONFIG = os.path.join(ROOT, "runs", "msn", "GTA", "gta_so3_euclid", "config.yaml")
+EUCLID_BATCH = 16  # msn gta_so3_euclid's eager attention holds its maps: its batch cut 64 -> 16 (widths as published)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelMode:
+    """One of parallel_phase's modes: its config (at full width and depth;
+    `batch` cuts its batch where given), the layout, and (where the seq
+    axis has ranks) which of (encoder, decoder) ring."""
+
+    path: str
+    mixed_prec: bool
+    n_model: int = 1
+    n_seq: int = 1
+    zero: bool = False
+    rings: tuple = (False, False)
+    batch: int = 0  # 0: the config's
+
+    @property
+    def world(self) -> int:
+        return self.n_model * self.n_seq * (2 if self.zero else 1)
+
+    @property
+    def ref(self) -> str:
+        """The one-process reference step's key (`parallel_refs`)."""
+        base = {GTA_CONFIG: "gta", GBT_CONFIG: "gbt", REPAST_CONFIG: "repast", SRT_CONFIG: "srt",
+                MSN_SO3_CONFIG: "msn_so3", MSN_SO3_EUCLID_CONFIG: "msn_so3_euclid"}[self.path]
+        return base + ("_bf16" if self.mixed_prec else "")
 
 
 def parallel_modes():
-    """parallel_phase's modes: name -> (config path, mixed_prec, n_model,
-    n_seq, zero), at full width and depth, their configs' batches, dropout
-    0 (two data ranks draw their own masks, and the fp64 and msn_so3 fp32
-    references run in microbatches, which draw others; tests/
-    test_torch_parallel.py holds TP and the ring with dropout), in the
-    order they run (msn_so3's largest last)."""
+    """parallel_phase's modes, at full width and depth, their configs'
+    batches (but msn gta_so3_euclid's), dropout 0 (two data ranks draw
+    their own masks, and the fp64 and fp32 references run in microbatches,
+    which draw others; tests/test_torch_parallel.py holds TP and the ring
+    with dropout), in the order they run: the two-rank world's (the flagship's
+    layouts, msn_so3's TP, then the others), then the four-rank world's. Under tensor
+    parallel the eager routes (gbt, repast, msn gta_so3_euclid) split their
+    heads and launch no kernel, the flagship's 6 heads over 4 model ranks
+    run whole (its FeedForwards split); under --n-seq 2 SRT and msn_so3's
+    5 views run whole on each seq rank."""
     return {
-        "gta_tp2": (GTA_CONFIG, False, 2, 1, False),
-        "gta_ring2": (GTA_CONFIG, False, 1, 2, False),
-        "gta_zero2": (GTA_CONFIG, False, 1, 1, True),
-        "msn_so3_bf16_tp2": (MSN_SO3_CONFIG, True, 2, 1, False),
+        "gta_tp2": ParallelMode(GTA_CONFIG, False, n_model=2),
+        "gta_ring2": ParallelMode(GTA_CONFIG, False, n_seq=2, rings=(True, True)),
+        "gta_zero2": ParallelMode(GTA_CONFIG, False, zero=True),
+        "msn_so3_bf16_tp2": ParallelMode(MSN_SO3_CONFIG, True, n_model=2),
+        "gbt_tp2": ParallelMode(GBT_CONFIG, False, n_model=2),
+        "repast_tp2": ParallelMode(REPAST_CONFIG, False, n_model=2),
+        "msn_so3_euclid_bf16_tp2": ParallelMode(MSN_SO3_EUCLID_CONFIG, True, n_model=2, batch=EUCLID_BATCH),
+        "srt_seq2": ParallelMode(SRT_CONFIG, False, n_seq=2),
+        "msn_so3_bf16_seq2": ParallelMode(MSN_SO3_CONFIG, True, n_seq=2),
+        "gta_tp4": ParallelMode(GTA_CONFIG, False, n_model=4),
     }
 
 
-def parallel_config(path, mixed_prec=None, **training):
+def parallel_refs():
+    """The one-process references each rank of the two-rank world makes
+    after its modes: key -> (config path, mixed_prec, grad_accum, batch, an
+    fp64 gradient too). Rank 0 the fp32 configs' (each with its fp64
+    gradient in FP64_ACCUM microbatches), rank 1 the bf16 configs' (each
+    with its fp32 gradient in MSN_FP32_ACCUM microbatches, the bf16 rule's
+    ground)."""
+    fp32 = {key: (path, False, 1, 0, True) for key, path in
+            (("gta", GTA_CONFIG), ("gbt", GBT_CONFIG), ("repast", REPAST_CONFIG), ("srt", SRT_CONFIG))}
+    bf16 = {}
+    for key, path, batch in (("msn_so3", MSN_SO3_CONFIG, 0), ("msn_so3_euclid", MSN_SO3_EUCLID_CONFIG, EUCLID_BATCH)):
+        bf16[f"{key}_bf16"] = (path, True, 1, batch, False)
+        bf16[f"{key}_fp32"] = (path, False, MSN_FP32_ACCUM, batch, False)
+    return fp32, bf16
+
+
+def parallel_config(path, mixed_prec=None, batch=0, **training):
     """A published config on synthetic scenes, dropout 0, lr_warmup 0 (the
-    first step moves the weights), `training` over its training
-    settings."""
+    first step moves the weights), its batch `batch` where given,
+    `training` over its training settings."""
     from gta_tpu_torch.config import load_config
 
     cfg = load_config(path)
     if mixed_prec is not None:
         training["mixed_prec"] = mixed_prec
+    if batch:
+        training["batch_size"] = batch
     m = cfg.model
     m = dataclasses.replace(m, encoder=dataclasses.replace(m.encoder, dropout=0.0),
                             decoder=dataclasses.replace(m.decoder, dropout=0.0))
@@ -3482,9 +3548,27 @@ def parallel_config(path, mixed_prec=None, **training):
                                training=dataclasses.replace(cfg.training, lr_warmup=0, **training))
 
 
+# the geometry the models compute from the batch alone (no parameter
+# reaches it): an fp64 step takes it as the fp32 step computes it, so both
+# see one input (posenc octaves up to 2^9 pi turn an fp32 rounding of a
+# Plücker coordinate or a rigid transform into ~1e-3 of an embedding)
+FP32_GEOMETRY = ("ray_posenc", "plucker_params", "plucker_posenc", "plucker_dist", "rigid_transform")
+
+
+def fp32_geometry(fn):
+    """`fn` computed on fp32 operands, its result in the operands' dtype."""
+    import torch
+
+    def run(*args):
+        dtype = next(a.dtype for a in args if isinstance(a, torch.Tensor))
+        return fn(*(a.float() if isinstance(a, torch.Tensor) else a for a in args)).to(dtype)
+    return run
+
+
 def fp64_grads(trainer, batch):
     """The gradient of `trainer`'s step on `batch` in float64, by name on the
-    CPU (the plain attention, fp64 tables: grads_phase's fp64 step), and
+    CPU (the plain attention, fp64 tables: grads_phase's fp64 step; the
+    batch's geometry as the fp32 step computes it, FP32_GEOMETRY), and
     each trans_coeff's terms' absolute sums (grads_phase's conditioning)."""
     import torch
 
@@ -3500,8 +3584,9 @@ def fp64_grads(trainer, batch):
         return lambda x: sums.__setitem__(name, sums.get(name, 0.0) + x)
 
     restore = swap_entries(functools.partial(plain_gta_attention, terms=terms), plain_flash_attention)
-    posenc = encoder.ray_posenc
-    encoder.ray_posenc = decoder.ray_posenc = lambda pos, rays, *a: posenc(pos.float(), rays.float(), *a).to(pos.dtype)
+    saved = {(m, f): getattr(m, f) for m in (encoder, decoder) for f in FP32_GEOMETRY if hasattr(m, f)}
+    for (m, f), fn in saved.items():
+        setattr(m, f, fp32_geometry(fn))
     trainer.model.double()
     batch64 = dataclasses.replace(batch, **{
         f.name: getattr(batch, f.name).double() for f in dataclasses.fields(batch)
@@ -3510,7 +3595,8 @@ def fp64_grads(trainer, batch):
         trainer.loss_and_grads(batch64)
     finally:
         restore()
-        encoder.ray_posenc = decoder.ray_posenc = posenc
+        for (m, f), fn in saved.items():
+            setattr(m, f, fn)
         for h in handles:
             h.remove()
     return {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()}, sums
@@ -3546,22 +3632,27 @@ def parallel_steps(trainer, batch, runs):
     return first
 
 
-def parallel_worker(rank, port, out_dir) -> int:
-    """One of parallel_phase's two ranks (`python3 -c "import chip_smoke;
-    chip_smoke.parallel_worker(RANK, PORT, OUT)"` from the root): every
-    mode in a gloo group on the card (one cold step compared, PARALLEL_WARM
-    timed), then, with the group gone, the one-process references (rank 0
-    the flagship's, and its fp64 gradient in FP64_ACCUM microbatches with
-    the trans_coeff terms; rank 1 msn_so3's: bf16, and fp32 in
-    MSN_FP32_ACCUM microbatches); saves <out>/rank<r>.pt."""
+def parallel_worker(rank, port, out_dir, world=2, go=None) -> int:
+    """One rank of one of parallel_phase's worlds (`python3 -c "import
+    chip_smoke; chip_smoke.parallel_worker(RANK, PORT, OUT, WORLD, GO)"`
+    from the root): every mode of that world in a gloo group on the card
+    (one cold step compared, PARALLEL_WARM timed; with `go`, each mode's
+    trainer and batch are made, and the steps wait for that file), the
+    layout it printed; then, in the two-rank world, with the
+    group gone, the one-process references (parallel_refs: rank 0 the fp32
+    configs' with their fp64 gradients, rank 1 the bf16 configs' with their
+    fp32 gradients); saves <out>/world<w>_rank<r>.pt (the modes' gradients
+    and weights rank 0's alone: the ranks hold the same whole ones). Its
+    host threads are the cores over the world's ranks."""
     import torch
 
     sys.path.insert(0, ROOT)
-    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(PARALLEL_WORLD),
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
     from gta_tpu_torch.parallel import dist as pdist
     from gta_tpu_torch.train.trainer import Trainer
 
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -3572,29 +3663,39 @@ def parallel_worker(rank, port, out_dir) -> int:
     def done(what):
         print(f"rank {rank}: {what} at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    out = {"refs": {}, "modes": {}}
+    out = {"refs": {}, "modes": {}, "layouts": {}}
     pdist.init_from_env(None, "gloo")
     out["describe"] = pdist.describe()
     done("group joined")
-    for mode, (path, mixed_prec, n_model, n_seq, zero) in parallel_modes().items():
-        cfg = parallel_config(path, mixed_prec)
-        mesh = pdist.init_mesh(n_model, n_seq)
-        trainer = Trainer(cfg, zero=zero, mesh=mesh)
+    for name, mode in parallel_modes().items():
+        if mode.world != world:
+            continue
+        cfg = parallel_config(mode.path, mode.mixed_prec, mode.batch)
+        mesh = pdist.init_mesh(mode.n_model, mode.n_seq)
+        trainer = Trainer(cfg, zero=mode.zero, mesh=mesh)
+        out["layouts"][name] = trainer.layout()
+        for line in out["layouts"][name]:
+            done(f"{name}: {line}")
         batch = batch_of(cfg)
         d, D, b = mesh.data.index, mesh.data.size, cfg.training.batch_size
         batch = type(batch)(**{f.name: None if (x := getattr(batch, f.name)) is None else x[d * b // D:(d + 1) * b // D]
                                for f in dataclasses.fields(batch)})
+        while go is not None and not os.path.exists(go):  # built on the host; step when the card is free
+            time.sleep(0.1)
         torch.cuda.reset_peak_memory_stats()
-        out["modes"][mode] = parallel_steps(trainer, batch, 1 + PARALLEL_WARM)
-        out["modes"][mode]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["modes"][name] = parallel_steps(trainer, batch, 1 + PARALLEL_WARM)
+        out["modes"][name]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if rank > 0:
+            del out["modes"][name]["grads"], out["modes"][name]["weights"]
         del trainer
         torch.cuda.empty_cache()
-        done(mode)
+        done(name)
     pdist.destroy()
-    refs = ({"gta": (GTA_CONFIG, False, 1)} if rank == 0 else
-            {"msn_so3_bf16": (MSN_SO3_CONFIG, True, 1), "msn_so3_fp32": (MSN_SO3_CONFIG, False, MSN_FP32_ACCUM)})
-    for key, (path, mixed_prec, accum) in refs.items():
-        cfg = parallel_config(path, mixed_prec, grad_accum=accum)
+    if rank == 0:  # the modes are done (the next world may start)
+        open(os.path.join(out_dir, f"world{world}_modes"), "w").close()
+    refs = parallel_refs()[rank] if world == 2 else {}
+    for key, (path, mixed_prec, accum, batch_size, fp64) in refs.items():
+        cfg = parallel_config(path, mixed_prec, batch_size, grad_accum=accum)
         trainer = Trainer(cfg)
         torch.cuda.reset_peak_memory_stats()
         out["refs"][key] = parallel_steps(trainer, batch_of(cfg), 1 + (PARALLEL_WARM if accum == 1 else 0))
@@ -3602,14 +3703,14 @@ def parallel_worker(rank, port, out_dir) -> int:
         del trainer
         torch.cuda.empty_cache()
         done(f"one-process {key}")
-    if rank == 0:
-        cfg = parallel_config(GTA_CONFIG, grad_accum=FP64_ACCUM)
-        trainer = Trainer(cfg)
-        out["refs"]["gta_fp64"] = dict(zip(("grads", "terms"), fp64_grads(trainer, batch_of(cfg))))
-        del trainer
-        torch.cuda.empty_cache()
-        done("one-process gta in fp64")
-    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        if fp64:
+            cfg = parallel_config(path, mixed_prec, batch_size, grad_accum=FP64_ACCUM)
+            trainer = Trainer(cfg)
+            out["refs"][f"{key}_fp64"] = dict(zip(("grads", "terms"), fp64_grads(trainer, batch_of(cfg))))
+            del trainer
+            torch.cuda.empty_cache()
+            done(f"one-process {key} in fp64")
+    torch.save(out, os.path.join(out_dir, f"world{world}_rank{rank}.pt"))
     done("saved")
     return 0
 
@@ -3630,91 +3731,136 @@ def flat(tensors, names=None):
     return torch.cat([tensors[n].reshape(-1) for n in sorted(names if names is not None else tensors)])
 
 
-def parallel_phase(paths):
-    """The port's other parallelism on the card, two ranks in one gloo group
-    (NCCL refuses two ranks on one card: "Duplicate GPU detected"): the
-    flagship (fp32, B=32, 6 heads of 64) under --n-model 2 (3 heads a
-    rank), --n-seq 2 (one view a rank) and ZeRO-1 over 2 data ranks (B=16 a
-    rank), msn_so3 as published (bf16, B=64, 8 heads of 96) under --n-model
-    2, each at full width and depth, lr_warmup 0, dropout 0
-    (parallel_modes). Each mode's first step against the one-process step
-    on the same batch from the same weights. fp32: the updated weights'
-    relative L2 at most PARALLEL_TOL; the gradient (every tensor but the
-    trans_coeff scalars) no further from the fp64 step than the
-    one-process step is, by more than PARALLEL_TOL (relative L2: the conv
-    stem's weight gradients are sums that cancel, which move 3-4e-5 of
-    their norms between two fp32 orders of summation; ROADMAP queue 3);
-    each trans_coeff within TC_TOL x the sum of its terms' absolute values
-    of the fp64 step's (grads_phase's rules). msn_so3, the bf16 rule: its
-    gradient's relative L2 from the one-process fp32 gradient
-    (MSN_FP32_ACCUM microbatches) at most BF16_RULE x the one-process bf16
-    step's. Per rank, the kernels' launches of that step are asserted (the
-    fused GTA kernels 7 + 7 under tensor parallel and ZeRO-1, none under
-    the ring, whose fold is plain torch) and added to `paths`; the backend
-    and each mode's warm step time beside the one-process step's are
-    printed. The ranks allocate in expandable segments (they share the card
-    with the DiT CLIs)."""
+def start_world(world, tmp, go=None):
+    """Start parallel_worker's `world` ranks on the card side by side (the
+    ranks allocate in expandable segments: they share the card with the
+    DiT CLIs), gated on the file `go` where given; `finish_world` waits."""
+    port = free_port()
+    return [start_cli(["-c", "import sys, chip_smoke; sys.exit(chip_smoke.parallel_worker("
+                             f"{r}, {port}, {tmp!r}, {world}, {go!r}))"],
+                      os.path.join(tmp, f"world{world}_rank{r}.log"),
+                      env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+            for r in range(world)]
+
+
+def finish_world(procs, tmp):
+    """Wait for a world's ranks; returns what each saved."""
     import torch
 
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        port = free_port()
-        procs = [start_cli(["-c", f"import sys, chip_smoke; sys.exit(chip_smoke.parallel_worker({r}, {port}, {tmp!r}))"],
-                           os.path.join(tmp, f"rank{r}.log"), env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
-                 for r in range(PARALLEL_WORLD)]
-        logs = [finish_cli(p, f"parallel rank {r}") for r, p in enumerate(procs)]
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(PARALLEL_WORLD)]
+    world = len(procs)
+    logs = [finish_cli(p, f"parallel world {world} rank {r}") for r, p in enumerate(procs)]
     for r, log in enumerate(logs):
         print("\n".join(f"  {line}" for line in log.splitlines() if line.startswith(f"rank {r}:")), flush=True)
-    print(f"parallel: {ranks[0]['describe']}", flush=True)
-    refs = {**ranks[0]["refs"], **ranks[1]["refs"]}
-    fp64 = refs["gta_fp64"]
+    return [torch.load(os.path.join(tmp, f"world{world}_rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def parallel_phase(paths):
+    """The port's other parallelism on the card, in gloo groups (NCCL
+    refuses two ranks on one card: "Duplicate GPU detected"): two ranks,
+    then four (parallel_modes), each mode at full width and depth, lr_warmup
+    0, dropout 0. The two-rank world: the flagship (fp32, B=32, 6 heads of
+    64) under --n-model 2 (3 heads a rank), --n-seq 2 (one view a rank) and
+    ZeRO-1 over 2 data ranks (B=16 a rank); msn_so3 as published (bf16,
+    B=64, 8 heads of 96) under --n-model 2; gbt and repast (fp32, B=32)
+    and msn gta_so3_euclid (bf16, B=EUCLID_BATCH) under --n-model 2, their
+    attention in torch eager on the rank's heads; SRT (fp32, B=32) and
+    msn_so3 (bf16, B=64, 5 views) under --n-seq 2, every module whole on
+    each seq rank. The four-rank world: the flagship under --n-model 4 (its
+    attention layers whole, its FeedForwards split). Each mode's first step
+    against the one-process step on the same batch from the same weights.
+    fp32: the updated weights' relative L2 at most PARALLEL_TOL; the
+    gradient (every tensor but the trans_coeff scalars) no further from the
+    fp64 step than the one-process step is, by more than PARALLEL_TOL
+    (relative L2: the conv stem's weight gradients are sums that cancel,
+    which move 3-4e-5 of their norms between two fp32 orders of summation;
+    ROADMAP queue 3); each trans_coeff within TC_TOL x the sum of its
+    terms' absolute values of the fp64 step's (grads_phase's rules). bf16,
+    the bf16 rule: the gradient's relative L2 from the one-process fp32
+    gradient (MSN_FP32_ACCUM microbatches) at most BF16_RULE x the
+    one-process bf16 step's. Per rank, the kernels' launches of that step
+    are asserted (expected_launches: each whole or split module's kernel
+    forward and backward, none on the eager routes or in a module that
+    rings) and added to `paths`; which modules rang is asserted; the
+    layout each rank printed, the backend and each mode's warm step time
+    beside the one-process step's are printed."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the four ranks start while the two make their references (imports,
+        # group and trainers beside them, on the card's host) and step after
+        # them
+        go, two, four = os.path.join(tmp, "go4"), start_world(2, tmp), []
+        try:
+            while not os.path.exists(os.path.join(tmp, "world2_modes")) and all(p.poll() is None for p in two):
+                time.sleep(0.2)
+            four = start_world(4, tmp, go)
+            ranks = {2: finish_world(two, tmp)}
+            open(go, "w").close()
+            ranks[4] = finish_world(four, tmp)
+        finally:
+            for p in two + four:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    t_worlds = time.perf_counter() - t0
+    print(f"parallel: {ranks[2][0]['describe']}; {ranks[4][0]['describe']}", flush=True)
+    refs = {**ranks[2][0]["refs"], **ranks[2][1]["refs"]}
     summary, failed = {}, []
-    for mode, (path, mixed_prec, n_model, n_seq, zero) in parallel_modes().items():
-        cfg = parallel_config(path, mixed_prec)
-        got = ranks[0]["modes"][mode]
-        ref = refs["msn_so3_bf16" if mixed_prec else "gta"]
+    for name, mode in parallel_modes().items():
+        cfg = parallel_config(mode.path, mode.mixed_prec, mode.batch)
+        got = ranks[mode.world][0]["modes"][name]
+        ref = refs[mode.ref]
         tcs = [n for n in ref["grads"] if n.endswith("trans_coeff")]
         rest = [n for n in ref["grads"] if n not in tcs]
         grad_dist = rel_l2(flat(got["grads"], rest), flat(ref["grads"], rest))
         weight_err = rel_l2(flat(got["weights"]), flat(ref["weights"]))
         worst = sorted(((rel_l2(got["grads"][n], ref["grads"][n]), n) for n in rest), reverse=True)[:3]
-        want = expected_launches(cfg, 1, 1, backward_steps=1)
-        if n_seq > 1:
-            want = dict.fromkeys(want, 0)
-        launches = [ranks[r]["modes"][mode]["launches"] for r in range(PARALLEL_WORLD)]
-        for r in range(PARALLEL_WORLD):
-            paths[f"{mode}_train_rank{r}"] = launches[r]
+        want = expected_launches(cfg, 1, 1, backward_steps=1, rings=mode.rings)
+        launches = [r["modes"][name]["launches"] for r in ranks[mode.world]]
+        for r, counts in enumerate(launches):
+            paths[f"{name}_train_rank{r}"] = counts
+        layout = ranks[mode.world][0]["layouts"][name]
+        if layout:
+            print(f"parallel {name}: {'; '.join(layout)}", flush=True)
+        if mode.n_seq > 1:
+            said = {True: "rings", False: "whole"}
+            ring_line = (f"sequence parallel over {mode.n_seq} seq ranks: encoder {said[mode.rings[0]]}, "
+                         f"decoder {said[mode.rings[1]]}")
+            if ring_line not in layout:
+                failed.append(f"{name}: the ranks said {layout}, not {ring_line!r}")
         warm, ref_warm = float(np.median(got["ms"][1:])), float(np.median(ref["ms"][1:]))
-        line = (f"parallel {mode} (model {n_model}, seq {n_seq}, zero {zero}): loss {got['loss']:.6f} (one process "
-                f"{ref['loss']:.6f}); gradient from one process's, relative L2, trans_coeff aside, {grad_dist:.3e} "
-                f"(worst {', '.join(f'{n} {e:.2e}' for e, n in worst)}); weights {weight_err:.3e}; warm step "
-                f"{warm:.1f} ms beside one process's {ref_warm:.1f} ms (cold {got['ms'][0]:.1f}); peak "
-                f"{got['peak_gb']:.2f} GB a rank (one process {ref['peak_gb']:.2f})")
-        if mixed_prec:
-            fp32 = flat(refs["msn_so3_fp32"]["grads"])
+        line = (f"parallel {name} (model {mode.n_model}, seq {mode.n_seq}, zero {mode.zero}, B="
+                f"{cfg.training.batch_size}): loss {got['loss']:.6f} (one process {ref['loss']:.6f}); gradient from "
+                f"one process's, relative L2, trans_coeff aside, {grad_dist:.3e} (worst "
+                f"{', '.join(f'{n} {e:.2e}' for e, n in worst)}); weights {weight_err:.3e}; warm step {warm:.1f} ms "
+                f"beside one process's {ref_warm:.1f} ms (cold {got['ms'][0]:.1f}); peak {got['peak_gb']:.2f} GB a "
+                f"rank (one process {ref['peak_gb']:.2f})")
+        if mode.mixed_prec:
+            fp32 = flat(refs[mode.ref.replace("_bf16", "_fp32")]["grads"])
             tp_err, own = rel_l2(flat(got["grads"]), fp32), rel_l2(flat(ref["grads"]), fp32)
             line += f"; whole gradient from fp32: {tp_err:.3e}, one-process bf16 {own:.3e} (rule: at most {BF16_RULE}x)"
             ok, excess = tp_err <= BF16_RULE * own, None
         else:
+            fp64 = refs[f"{mode.ref}_fp64"]
             exact = flat(fp64["grads"], rest)
             err, own = rel_l2(flat(got["grads"], rest).double(), exact), rel_l2(flat(ref["grads"], rest).double(), exact)
             excess = err - own
-            tc_worst = max((abs(got["grads"][n].double() - fp64["grads"][n]).item() / fp64["terms"][n], n) for n in tcs)
+            tc_worst = max(((abs(got["grads"][n].double() - fp64["grads"][n]).item() / fp64["terms"][n], n)
+                            for n in tcs), default=(0.0, "none"))
             line += (f"; from fp64 {err:.3e}, one process {own:.3e}: excess {excess:.3e} (rule {PARALLEL_TOL}); "
                      f"trans_coeff from fp64 over the sum of its terms at most {tc_worst[0]:.3e} ({tc_worst[1]}; rule "
                      f"{TC_TOL})")
             ok = excess <= PARALLEL_TOL and weight_err <= PARALLEL_TOL and tc_worst[0] <= TC_TOL
         print(line, flush=True)
-        print(f"parallel {mode}: launches per rank {launches}, expected {want}", flush=True)
+        print(f"parallel {name}: launches per rank {[nonzero(c) for c in launches]}, expected {nonzero(want)}",
+              flush=True)
         if any(counts != want for counts in launches):
-            failed.append(f"{mode}: launches {launches}, expected {want}")
+            failed.append(f"{name}: launches {launches}, expected {want}")
         if not ok:
             failed.append(line)
-        summary[mode] = {"warm_ms": warm, "one_process_warm_ms": ref_warm, "cold_ms": got["ms"][0],
+        summary[name] = {"warm_ms": warm, "one_process_warm_ms": ref_warm, "cold_ms": got["ms"][0],
                          "grad_rel_l2_from_one_process": grad_dist, "grad_excess_over_one_process_from_fp64": excess,
                          "weights_rel_l2": weight_err, "peak_gb": got["peak_gb"]}
-    print(f"parallel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s (the worlds {t_worlds:.1f} s)", flush=True)
     if failed:
         raise AssertionError("parallel phase outside its bounds:\n" + "\n".join(failed))
     return summary
@@ -4394,7 +4540,7 @@ def main() -> int:
     print(f"runtime: {json.dumps(runtime)}", flush=True)
     print(f"device data: {json.dumps(device_data)}", flush=True)
     print(f"reference checkpoints: {json.dumps(ref_ckpt)}", flush=True)
-    print(f"parallel (two gloo ranks on the card; {smi}): {json.dumps(parallel)}", flush=True)
+    print(f"parallel (gloo ranks on the card; {smi}): {json.dumps(parallel)}", flush=True)
     for label, step in (("msn_so3 bf16", msn_bf16_step), ("msn SRT bf16", msn_srt_step),
                         ("msn gta_t2 bf16", msn_t2_step)):
         card_err, emu_err, gap, own = card_vs_cpu[label.split(" bf16")[0]]

@@ -33,11 +33,12 @@ from torch import nn
 from gta_tpu_torch.config import AttnConfig
 from gta_tpu_torch.geometry.se3 import se3_inverse
 from gta_tpu_torch.models.context import AttnContext
-from gta_tpu_torch.ops.attention import dot_product_attention, euclid_attention
+from gta_tpu_torch.ops.attention import at_least_fp32, dot_product_attention, euclid_attention
 from gta_tpu_torch.ops.flash import flash_attention
 from gta_tpu_torch.ops.flash_core import merge_heads, split_heads
 from gta_tpu_torch.ops.gta import gta_attention, vecrep_attention
 from gta_tpu_torch.ops.gta_pallas import fused_gta_attention
+from gta_tpu_torch.parallel import dist as pdist
 from gta_tpu_torch.parallel.ring import ring_gta_attention
 from gta_tpu_torch.parallel.tp import column_parallel, copy_in, row_parallel
 
@@ -269,7 +270,9 @@ class Attention(nn.Module):
     its method, as JAX keeps such a module off flash, the fused kernels and
     the ring (gta_tpu/config.py:271,299). q, k and v come out of the
     projections in the compute dtype; trans_coeff and tau are cast to it, as
-    JAX's `.astype(self.dtype)` does.
+    JAX's `.astype(self.dtype)` does. Where tensor parallel splits the
+    layer (`tp`, parallel/tp.py) every route attends on the rank's block of
+    heads, and a returned map is gathered over the model axis.
     """
 
     compute_dtype = torch.float32
@@ -296,6 +299,8 @@ class Attention(nn.Module):
         lin = lambda i, o, bias=attn.use_bias: tagged(Linear(i, o, bias=bias), "jax")  # noqa: E731
         self.attend = _Attend() if attn.softmax == "adjustable" else None
         self.trans_coeff = None
+        self.tp = None  # the model axis, where it splits the layer (parallel/tp.shard_model)
+        self.seq = None  # the seq axis, where the layer rings (parallel/ring.shard_model)
         if method == "repast":
             self.to_q = lin(dim + attn.q_emb_dim, inner)
             self.to_k = lin(kvd + attn.k_emb_dim, inner)
@@ -334,11 +339,15 @@ class Attention(nn.Module):
             self.to_out = nn.Identity()
         else:
             self.to_out = nn.Sequential(lin(inner, dim, True), Dropout(dropout))
-        self.tp = None  # the model axis, under tensor parallel (parallel/tp.shard_model)
-        self.seq = None  # the seq axis, where the layer rings (parallel/ring.shard_model)
 
     def _tau(self):
-        return 1.0 if self.attend is None else to_compute(self.attend.tau, self.compute_dtype)
+        return 1.0 if self.attend is None else self._shared(to_compute(self.attend.tau, self.compute_dtype))
+
+    def _shared(self, t):
+        """A head-independent tensor used inside the rank's heads: under
+        tensor parallel its gradient sums over the model axis
+        (parallel/tp.copy_in)."""
+        return t if self.tp is None else copy_in(t, self.tp)
 
     def route(self) -> str:
         """How the layer attends: 'gta' (the GTA kernels: a static tau and
@@ -359,13 +368,27 @@ class Attention(nn.Module):
         tensor parallel (parallel/tp.py), all of them otherwise."""
         return linear(x) if self.tp is None else column_parallel(linear, x, self.tp, linear.compute_dtype)
 
+    def _out(self, out):
+        """to_out on the heads' output: the rank's rows of it summed over
+        the model axis under tensor parallel (parallel/tp.row_parallel)."""
+        if self.tp is None:
+            return self.to_out(out)
+        linear, dropout = self.to_out
+        return dropout(row_parallel(linear, out, self.tp, linear.compute_dtype))
+
+    def _whole_map(self, attmap):
+        """The attention map of every head: the model ranks' heads gathered
+        under tensor parallel."""
+        return attmap if self.tp is None else pdist.gather_blocks(attmap, self.tp, 1)
+
     def forward(self, x, z=None, ctx: Optional[AttnContext] = None, return_attmap: bool = False):
         """The layer's output; with `return_attmap` (the eager and repast
         routes), (output, attention probabilities [B, H, Tq, Tk])."""
         route = self.route()
         if route == "repast":
             out, attmap = self._repast(x, z, ctx)
-            return (self.to_out(out), attmap) if return_attmap else self.to_out(out)
+            out = self._out(out)
+            return (out, self._whole_map(attmap)) if return_attmap else out
         if return_attmap and route != "eager":
             raise ValueError(f"the {route!r} route keeps no attention map")
         if self.attn.method == "ape":
@@ -379,9 +402,7 @@ class Attention(nn.Module):
             k, v = self._project(self.to_kv, z).chunk(2, dim=-1)
         if route == "gta":
             gta = self.attn.gta
-            tc = None if self.trans_coeff is None else to_compute(self.trans_coeff, self.compute_dtype)
-            if self.tp is not None:  # used inside the rank's heads: its gradient sums over the model axis
-                tc = copy_in(tc, self.tp)
+            tc = None if self.trans_coeff is None else self._shared(to_compute(self.trans_coeff, self.compute_dtype))
             if self.seq is not None:
                 q, k, v = (split_heads(t, self.heads) for t in (q, k, v))
                 out = merge_heads(ring_gta_attention(q, k, v, ctx.geom, gta, tc, self.scale, self.seq, z is None))
@@ -392,16 +413,13 @@ class Attention(nn.Module):
         else:
             out, attmap = self._eager(*(split_heads(t, self.heads) for t in (q, k, v)), ctx, self._tau())
             out = merge_heads(out)
-        if self.tp is not None:
-            linear, dropout = self.to_out
-            out = dropout(row_parallel(linear, out, self.tp, linear.compute_dtype))
-        else:
-            out = self.to_out(out)
-        return (out, attmap) if return_attmap else out
+        out = self._out(out)
+        return (out, self._whole_map(attmap)) if return_attmap else out
 
     def _eager(self, q, k, v, ctx, tau):
-        """The methods JAX computes with XLA, over heads-first [B, H, T, C]:
-        (output, attention probabilities)."""
+        """The methods JAX computes with XLA, over heads-first [B, H, T, C]
+        (the rank's heads under tensor parallel): (output, attention
+        probabilities)."""
         if self.attn.rpe:
             q, k, v = (
                 torch.cat([t, to_compute(b, self.compute_dtype).to(t.dtype)[None, :, None].expand(
@@ -411,16 +429,16 @@ class Attention(nn.Module):
         if not self.attn.is_gta:
             bias = None
             if self.attn.method == "gbt":
-                bias = -((self.geo_weights**2) * ctx.plucker_dist)[:, None]
+                bias = -((self._shared(self.geo_weights) ** 2) * ctx.plucker_dist)[:, None]
             return dot_product_attention(q, k, v, self.scale, tau, bias)
         gta = self.attn.gta
         if gta.elementwise_mul:
             geom = ctx.geom
-            vec_q, vec_k, vec_q_inv = (self.rep_to_vec(to_compute(f, self.compute_dtype))
+            vec_q, vec_k, vec_q_inv = (self._shared(self.rep_to_vec(to_compute(f, self.compute_dtype)))
                                        for f in (geom.flat_q, geom.flat_k, geom.flat_q_inv))
             fn = lambda q, k, v: dot_product_attention(q, k, v, self.scale, tau)  # noqa: E731
             return vecrep_attention(q, k, v, fn, vec_q, vec_k, vec_q_inv)
-        tc = None if self.trans_coeff is None else to_compute(self.trans_coeff, self.compute_dtype)
+        tc = None if self.trans_coeff is None else self._shared(to_compute(self.trans_coeff, self.compute_dtype))
         attend = euclid_attention if gta.euclid_sim else dot_product_attention
         fn = lambda q, k, v: attend(q, k, v, self.scale, tau)  # noqa: E731
         return gta_attention(q, k, v, fn, ctx.geom, gta, tc)
@@ -474,14 +492,14 @@ class Attention(nn.Module):
         k_in = torch.cat([kv.reshape(*k_ray.shape[:-1], -1), k_ray.to(kv.dtype)], -1)
         v_in = k_in.reshape(kv.shape[0], kv.shape[1], -1) if self.attn.v_bias else kv
         H = self.heads
-        q, k, v = self.to_q(q), self.to_k(k_in), self.to_v(v_in)
+        q, k, v = self._project(self.to_q, q), self._project(self.to_k, k_in), self._project(self.to_v, v_in)
         q = q.reshape(*q.shape[:-1], H, -1).movedim(-2, 1)  # [B, H, Tq, Nk, C]
         k = k.reshape(*k.shape[:-1], H, -1).movedim(-2, 1)  # [B, H, Nk, Lk, C]
         v = split_heads(v, H)  # [B, H, Tk, C]
         sim = torch.einsum("bhtnc,bhnlc->bhtnl", q, k).reshape(B, H, Tq, -1)
         if self.attn.enable_scale:
             sim = sim * self.scale
-        attn = torch.softmax((sim / self._tau()).float(), -1).to(v.dtype)
+        attn = torch.softmax(at_least_fp32(sim / self._tau()), -1).to(v.dtype)
         out = merge_heads(torch.einsum("bhqk,bhkc->bhqc", attn, v))
         if q_is_aug:
             out = out[:, :, None].expand(B, Tq, Nk, out.shape[-1])

@@ -22,14 +22,18 @@ from gta_tpu_torch.models.context import AttnContext, SceneBatch
 from gta_tpu_torch.models.decoder import SRTDecoder, build_decoder_context
 from gta_tpu_torch.models.encoder import SRTEncoder, build_encoder_context
 from gta_tpu_torch.models.layers import set_compute_dtype
+from gta_tpu_torch.parallel import dist as pdist
 from gta_tpu_torch.parallel.ring import local_views
 
 
 class SRT(nn.Module):
-    """Encoder-decoder novel-view-synthesis model. Where it rings (`seq`,
-    the seq axis: parallel/ring.py) `encode` runs on this seq rank's input
-    views and returns their part of z, and `decode` builds its key-side
-    tables from those views; both take the whole batch."""
+    """Encoder-decoder novel-view-synthesis model. Under sequence parallel
+    (`seq`, the seq axis: parallel/ring.py) a module that rings
+    (`ring_encoder`, `ring_decoder`) runs on this seq rank's input views: a
+    ringed `encode` returns their part of z, a ringed `decode` builds its
+    key-side tables from them; a module that does not ring runs on every
+    view. Both take the whole batch, and `decode` takes z as `encode`
+    returns it."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -37,18 +41,31 @@ class SRT(nn.Module):
         self.encoder = SRTEncoder(cfg.encoder)
         self.decoder = SRTDecoder(cfg.decoder)
         self.seq = None
+        self.ring_encoder = self.ring_decoder = False
 
     def encode(self, batch: SceneBatch) -> Tuple[torch.Tensor, AttnContext]:
-        if self.seq is not None:
+        if self.ring_encoder:
             batch = local_views(batch, self.seq)
         ctx = build_encoder_context(self.cfg.encoder, batch)
         return self.encoder(batch.input_images, batch.input_camera_pos, batch.input_rays, ctx), ctx
 
+    def decoder_layout(self, z: torch.Tensor, batch: SceneBatch, enc_ctx: Optional[AttnContext]):
+        """(z, batch, enc_ctx) as the decoder takes them: the rank's views
+        where it rings, every view otherwise. Where the encoder's layout
+        differs, z is gathered over the seq axis or cut to the rank's
+        block, and the encoder's context is built anew for the decoder's
+        views."""
+        if self.ring_decoder:
+            batch = local_views(batch, self.seq)
+        if self.ring_encoder == self.ring_decoder:
+            return z, batch, enc_ctx
+        z = pdist.own_block(z, self.seq, 1) if self.ring_decoder else pdist.gather_blocks(z, self.seq, 1)
+        return z, batch, None if enc_ctx is None else build_encoder_context(self.cfg.encoder, batch)
+
     def decode(
         self, z: torch.Tensor, batch: SceneBatch, enc_ctx: Optional[AttnContext] = None
     ) -> Tuple[torch.Tensor, dict]:
-        if self.seq is not None:
-            batch = local_views(batch, self.seq)
+        z, batch, enc_ctx = self.decoder_layout(z, batch, enc_ctx)
         ctx = build_decoder_context(self.cfg.decoder, batch, enc_ctx)
         x, rays = batch.target_camera_pos, batch.target_rays
         if x.ndim == 4:  # [B, Nt, P, 3] -> [B, Nt*P, 3] (models_nvs.py:81-86)
@@ -75,7 +92,9 @@ class TransformingSRT(SRT):
         if not self.cfg.ftl:
             return super().decode(z, batch, enc_ctx)
         # FTL: channel 4-vectors of z through inv(input extrinsic), then each
-        # target view's extrinsic, both masked by trans_coeff
+        # target view's extrinsic, both masked by trans_coeff (the views the
+        # decoder holds)
+        z, batch, enc_ctx = self.decoder_layout(z, batch, enc_ctx)
         msk = scale_mask(self.trans_coeff, z.dtype)
         iT, tT = batch.input_transforms * msk, batch.target_transforms * msk
         B, Ni, Nt = iT.shape[0], iT.shape[1], tT.shape[1]

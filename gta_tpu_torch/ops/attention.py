@@ -17,14 +17,19 @@ from typing import Optional, Tuple, Union
 import torch
 
 
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, or as it is where it is wider (a float64 reference step)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q k^T accumulated in fp32 (for bf16 operands: their exact products
     summed in fp32, XLA's preferred_element_type)."""
-    return torch.einsum("bhqc,bhkc->bhqk", q.float(), k.float())
+    return torch.einsum("bhqc,bhkc->bhqk", at_least_fp32(q), at_least_fp32(k))
 
 
 def _softmax_v(sim: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    attn = torch.softmax(sim.float(), dim=-1).to(v.dtype)
+    attn = torch.softmax(at_least_fp32(sim), dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bhkc->bhqc", attn, v), attn
 
 
@@ -56,7 +61,7 @@ def euclid_attention(
     """Negative squared distance similarity -0.5 ||q - k||^2 in its expanded
     form q k^T - 0.5 q.q - 0.5 k.k (reference layers.py:213-224), then as
     dot_product_attention."""
-    q32, k32 = q.float(), k.float()
+    q32, k32 = at_least_fp32(q), at_least_fp32(k)
     sim = _scores(q, k) - 0.5 * (q32**2).sum(-1)[..., :, None] - 0.5 * (k32**2).sum(-1)[..., None, :]
     sim = sim * scale / tau
     if bias is not None:

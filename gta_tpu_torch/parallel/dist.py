@@ -266,6 +266,50 @@ def all_gather(t: torch.Tensor, axis: Axis) -> List[torch.Tensor]:
     return out
 
 
+class _GatherBlocks(torch.autograd.Function):
+    """Every rank's block concatenated along `dim`; backward: this rank's
+    block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return torch.cat(all_gather(t, axis), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.axis.size, ctx.dim)[ctx.axis.index], None, None
+
+
+class _OwnBlock(torch.autograd.Function):
+    """This rank's block along `dim`; backward: every rank's block of the
+    gradient concatenated."""
+
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return t.chunk(axis.size, dim)[axis.index].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(all_gather(g, ctx.axis), ctx.dim), None, None
+
+
+def gather_blocks(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """The whole tensor from each rank of `axis` holding block `axis.index`
+    of it along `dim` (collective), for a consumer that runs whole and alike
+    on every rank of the axis: each rank then holds the whole gradient,
+    and the backward keeps this rank's block of it (no sum)."""
+    return t if axis.size == 1 else _GatherBlocks.apply(t, axis, dim)
+
+
+def own_block(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """Block `axis.index` of `axis.size` of the whole tensor `t` (the same
+    on every rank) along `dim`, for a consumer that runs on this rank's
+    block alone: the backward gathers every rank's block of the gradient
+    (collective), so `t`'s producer gets the whole gradient."""
+    return t if axis.size == 1 else _OwnBlock.apply(t, axis, dim)
+
+
 def ring_exchange(send: torch.Tensor, axis: Axis) -> Callable[[], torch.Tensor]:
     """Send `send` to the next rank of `axis`'s row and receive the
     previous rank's tensor of the same shape; returns a function that waits

@@ -2,12 +2,12 @@
 (the JAX package's parallel/ring.py).
 
 When the input views outgrow one card, seq rank s of S holds views
-[s V/S, (s + 1) V/S) of every scene: the encoder runs on them alone (the
+[s V/S, (s + 1) V/S) of every scene: a ringed encoder runs on them alone (the
 conv stem, the tokens' LayerNorms and MLPs, its self-attention's queries
 and keys; tokens are view-major, so a rank's tokens are one contiguous
-block), and z stays view-sharded. The decoder's queries (the target rays)
-are whole on every seq rank, and their cross-attention rings the input
-views' keys and values.
+block), and z stays view-sharded. A ringed decoder's queries (the target
+rays) are whole on every seq rank, and their cross-attention rings the
+input views' keys and values.
 
 GTA's rep transforms run locally (ops/gta.gta_transform_qkv and
 gta_untransform_out, as JAX's run inside its shard_map): every key-side
@@ -33,21 +33,34 @@ over the ring; its forward folds the blocks in an order that starts at
 the rank's own, so rank 0's output (and lse) is broadcast to keep the
 replicas' bits one.
 
+Scope: a module (the encoder's self-attention, the decoder's
+cross-attention) rings exactly where JAX's would: its config rings
+(config.with_ring_attention: the production GTA variant with a static
+tau, no euclid_sim, no elementwise_mul, no attention map returned;
+gta_tpu/config.py:283, gta_tpu/models/layers.py:181) and the shapes divide
+(gta_tpu/parallel/ring.py:122 `shapes_divide`: the seq ranks divide the
+input views, and, under tensor parallel, the model ranks its heads).
+Otherwise the module runs whole, on every view, on each seq rank, as JAX
+runs it replicated (`rings`, `describe`). The SRT model carries z between
+the two layouts (models/srt.py): a whole decoder after a ringed encoder
+takes z gathered over the seq axis (dist.gather_blocks; its backward keeps
+the rank's block of the gradient, which every rank's whole decoder holds
+in full), a ringed decoder after a whole encoder the rank's block of z
+(dist.own_block; its backward gathers the blocks' gradients, so the
+encoder's is whole). FTL transforms z in the decoder's layout, by the
+input transforms of the views it holds.
+
 Gradients: a parameter used on view-sharded activations has a partial
 gradient on each seq rank, which the trainer sums over the seq axis
-(`seq_partial_names`: the encoder's parameters and the decoder's to_kv);
-one used on whole activations (the decoder's query path: to_q, to_out,
-the FeedForwards, LayerNorms and MLPs) has its whole gradient on every
-rank and is not summed again. The decoder's trans_coeff is used on both
-sides: its key-side use enters through tp.copy_in over the seq axis, so
-its gradient is whole on every rank.
-
-Scope (with_ring_attention, config.py): encoder self-attention and
-decoder cross-attention of the production GTA variant (no euclid_sim, no
-elementwise_mul, no attention map returned), in both modules; FTL and the
-other methods are not ringed (ROADMAP queue 1 item 9e). Dropout on a
-view-sharded activation draws the whole activation's mask and keeps the
-rank's rows (models/layers.Dropout.shards).
+(`seq_partial_names`: the encoder's parameters where it rings, the
+decoder's to_kv and FTL's trans_coeff where the decoder rings); one used
+on whole activations (a whole module's, and a ringed decoder's query path:
+to_q, to_out, the FeedForwards, LayerNorms and MLPs) has its whole
+gradient on every rank and is not summed again. A ringed decoder's
+trans_coeff is used on both sides: its key-side use enters through
+tp.copy_in over the seq axis, so its gradient is whole on every rank.
+Dropout on a view-sharded activation draws the whole activation's mask and
+keeps the rank's rows (models/layers.Dropout.shards).
 """
 
 from __future__ import annotations
@@ -58,7 +71,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from gta_tpu_torch.config import GTAArgs, ModelConfig
+from gta_tpu_torch.config import GTAArgs
 from gta_tpu_torch.models.context import SceneBatch
 from gta_tpu_torch.ops.gta import gta_transform_qkv, gta_untransform_out
 from gta_tpu_torch.ops.reps import GeomReps
@@ -172,41 +185,56 @@ def local_views(batch: SceneBatch, axis: pdist.Axis) -> SceneBatch:
                                          for f in INPUT_FIELDS})
 
 
-def check_ring(model_cfg: ModelConfig, n_views: int, n_seq: int) -> None:
-    """Raise ValueError where `n_seq` does not divide the input views or
-    the model is out of the ring's scope."""
-    if n_views % n_seq:
-        raise ValueError(f"--n-seq {n_seq} does not divide the {n_views} input views")
-    if model_cfg.ftl:
-        raise ValueError("--n-seq: the FTL baseline transforms z outside attention; it is not ringed")
-    for what, mod in (("encoder", model_cfg.encoder), ("decoder", model_cfg.decoder)):
-        attn = mod.attn
-        if (not attn.is_gta or attn.softmax != "standard" or attn.rpe or attn.gta.euclid_sim
-                or attn.gta.elementwise_mul or getattr(mod, "return_last_attmap", False)):
-            raise ValueError(f"--n-seq: the {what}'s attention ({attn.method or 'dot product'}) is outside the "
-                             "ring's scope, the production GTA variant (ROADMAP queue 1 item 9e)")
+def rings(mod_cfg, n_views: int, n_seq: int, n_model: int = 1) -> bool:
+    """Whether a module (an EncoderConfig or DecoderConfig) rings over
+    `n_seq` seq ranks (module docstring): its config rings, and the
+    shapes divide."""
+    return mod_cfg.attn.ring and n_views % n_seq == 0 and mod_cfg.heads % n_model == 0
 
 
-def shard_model(model: nn.Module, axis: pdist.Axis) -> List[str]:
-    """Route `model` (an SRT whose config rings) round the seq axis: the
-    encoder on the rank's views, both modules' GTA attention round the
-    ring, the encoder's dropout masks cut to the rank's rows. Returns the
-    names of the parameters whose gradients are partial over the seq
-    ranks (`seq_partial_names`)."""
+def describe(model: nn.Module, n_seq: int) -> str:
+    """Which modules of `model` ring over `n_seq` seq ranks and which run
+    whole on each."""
+    state = {name: "rings" if on else "whole" for name, on in
+             (("encoder", model.ring_encoder), ("decoder", model.ring_decoder))}
+    return f"sequence parallel over {n_seq} seq ranks: encoder {state['encoder']}, decoder {state['decoder']}"
+
+
+def shard_model(model: nn.Module, axis: pdist.Axis, n_views: int, n_model: int = 1) -> List[str]:
+    """Route `model` (an SRT, its config through with_ring_attention)
+    round the seq axis: each module that `rings` runs its GTA attention
+    round the ring on the rank's views (the encoder's dropout masks cut to
+    the rank's rows), the others run whole. Returns the names of the
+    parameters whose gradients are partial over the seq ranks
+    (`seq_partial_names`)."""
     from gta_tpu_torch.models.layers import Attention, Dropout
 
-    model.seq = axis
-    for module in model.modules():
-        if isinstance(module, Attention) and module.attn.ring:
-            module.seq = axis
-    for module in model.encoder.modules():
-        if isinstance(module, Dropout):
-            module.shards = module.shards + ((1, axis.index, axis.size),)
+    cfg = model.cfg
+    model.ring_encoder = rings(cfg.encoder, n_views, axis.size, n_model)
+    model.ring_decoder = rings(cfg.decoder, n_views, axis.size, n_model)
+    if model.ring_encoder or model.ring_decoder:
+        model.seq = axis
+    if model.ring_encoder:
+        for m in model.encoder.modules():
+            if isinstance(m, Attention):
+                m.seq = axis
+            elif isinstance(m, Dropout):
+                m.shards = m.shards + ((1, axis.index, axis.size),)
+    if model.ring_decoder:
+        for m in model.decoder.modules():
+            if isinstance(m, Attention):
+                m.seq = axis
     return seq_partial_names(model)
 
 
 def seq_partial_names(model: nn.Module) -> List[str]:
-    """The encoder's parameters and the decoder's to_kv (the key side of
-    its cross-attention)."""
-    return [name for name, _ in model.named_parameters()
-            if name.startswith("encoder.") or (name.startswith("decoder.") and ".to_kv." in name)]
+    """The parameters used on view-sharded activations: the encoder's
+    where it rings; where the decoder rings, its to_kv (the key side of its
+    cross-attention) and FTL's trans_coeff (z's transform)."""
+    names = []
+    for name, _ in model.named_parameters():
+        if model.ring_encoder and name.startswith("encoder."):
+            names.append(name)
+        elif model.ring_decoder and ((name.startswith("decoder.") and ".to_kv." in name) or name == "trans_coeff"):
+            names.append(name)
+    return names

@@ -3,38 +3,51 @@ model axis (the JAX package's parallel/tp.py).
 
 JAX annotates the kernels' [in, out] layouts (`_spec_for`, tp.py:32) and
 lets GSPMD partition the step; torch has no such help, so the split is
-explicit here, in torch's [out, in] orientation. Model rank m of N keeps:
+explicit here, in torch's [out, in] orientation. Model rank m of N keeps,
+in every layer that splits:
   - the rows of its heads in each section of the input projections:
-    `to_qkv` has three sections (q, k, v), `to_kv` two, `to_q` one; a plain
-    contiguous split of to_qkv's 3 H C rows would give rank 0 every q head
-    and no v head;
-  - the matching columns of `to_out.0`;
+    `to_qkv` has three sections (q, k, v), `to_kv` two, `to_q` (and
+    repast's `to_k` and `to_v`) one; a plain contiguous split of to_qkv's
+    3 H C rows would give rank 0 every q head and no v head;
+  - rpe's per-head rep vectors (`q_bias`, `k_bias`, `v_bias`, [H, d]);
+  - the matching columns of `to_out.0` (rpe's heads are C + d columns
+    each, head-major, as merge_heads lays them out);
   - a contiguous block of `net.0`'s rows (and bias) in each FeedForward
     and the matching columns of `net.3`.
 Everything else stays whole on every rank. The rank's heads are heads
-[m H/N, (m + 1) H/N), and attention runs on them through the same entries
-as in one process (the fused GTA kernels or flash_core): GTA's rep tables
-are head-independent and stay whole.
+[m H/N, (m + 1) H/N), and attention runs on them through the same route as
+in one process (the fused GTA kernels, flash_core, or torch eager for the
+methods JAX computes with XLA): GTA's rep tables, gbt's Plücker distances
+and the other geometry are head-independent and stay whole.
 
-Megatron's pair of autograd functions carries the layer: `copy_in` (the
-identity forward, a sum over the model ranks backward) where a whole
+An attention layer whose heads N does not divide, or a FeedForward whose
+hidden width it does not divide, runs whole on every model rank, as JAX's
+fused kernel falls back to the whole layer there (tp.py:97-100) and GSPMD
+computes the rest replicated: its parameters stay whole, every rank takes
+their whole gradient itself, and nothing of it is summed over the axis
+(`param_specs` leaves them out, so ZeRO-1, the gradient norm and the
+checkpoints treat them as unsplit). Splitting inside a head is not done.
+`describe` reports which layers split.
+
+Megatron's pair of autograd functions carries a split layer: `copy_in`
+(the identity forward, a sum over the model ranks backward) where a whole
 activation enters the sharded projections, and `row_parallel` (the
 partial product, a sum forward, the identity backward) after `to_out` and
-`net.3`, whose biases are added once, after the sum. GTA's trans_coeff is
-used inside the sharded heads, so it enters through `copy_in` too and its
-gradient is whole on every rank. Under bf16 every sharded product runs in
-fp32 on the bf16-rounded operands (exact products, fp32 sums) and is
-rounded to bf16 once after the sum over ranks, forward and backward: the
-one-process bf16 GEMM rounds its fp32 accumulator once, and summing two
-bf16-rounded partials would add a rounding it does not have.
+`net.3`, whose biases are added once, after the sum. A head-independent
+parameter used inside the rank's heads (GTA's trans_coeff, the adjustable
+softmax's tau, gbt's geo_weights, elementwise_mul's rep_to_vec outputs)
+enters through `copy_in` too, so its gradient is whole on every rank. A
+layer that returns its attention map gathers the heads' maps whole over
+the axis. Under bf16 every sharded product runs in fp32 on the
+bf16-rounded operands (exact products, fp32 sums) and is rounded to bf16
+once after the sum over ranks, forward and backward: the one-process bf16
+GEMM rounds its fp32 accumulator once, and summing two bf16-rounded
+partials would add a rounding it does not have.
 
 Dropout on a sharded hidden activation draws the whole activation's mask
 and keeps the rank's block (models/layers.Dropout.shards), so every rank's
 generator stays where the one-process step's is, and the masks are that
-step's. Methods that run in torch eager (an adjustable softmax, euclid,
-elementwise_mul, gbt, repast, rpe) and heads or hidden widths that N does
-not divide are not sharded (ROADMAP queue 1 item 9e): `check_divides` and
-`shard_model` raise on them at start.
+step's.
 """
 
 from __future__ import annotations
@@ -47,9 +60,10 @@ from torch import nn
 
 from gta_tpu_torch.parallel import dist as pdist
 
-# name suffix -> (dim of the split, number of sections)
+# parameter name within its layer -> sections along dim 0 (the rows)
 ROW_SPLITS = {"to_qkv.weight": 3, "to_qkv.bias": 3, "to_kv.weight": 2, "to_kv.bias": 2, "to_q.weight": 1,
-              "to_q.bias": 1, "net.0.weight": 1, "net.0.bias": 1}
+              "to_q.bias": 1, "to_k.weight": 1, "to_k.bias": 1, "to_v.weight": 1, "to_v.bias": 1, "q_bias": 1,
+              "k_bias": 1, "v_bias": 1, "net.0.weight": 1, "net.0.bias": 1}
 COL_SPLITS = ("to_out.0.weight", "net.3.weight")
 
 Spec = Tuple[int, int]  # (dim, sections)
@@ -57,13 +71,13 @@ Spec = Tuple[int, int]  # (dim, sections)
 
 def param_specs(model: nn.Module) -> Dict[str, Spec]:
     """{parameter name: (dim, sections)} of every parameter the model axis
-    splits: the attention layers' input projections and to_out, the
-    FeedForwards' two Linears (`models/layers.py`)."""
+    splits: those of the attention layers and FeedForwards that split
+    (their `tp` set by `shard_model`)."""
     from gta_tpu_torch.models.layers import Attention, FeedForward
 
     specs = {}
     for prefix, module in model.named_modules():
-        if isinstance(module, (Attention, FeedForward)):
+        if isinstance(module, (Attention, FeedForward)) and module.tp is not None:
             for name, _ in module.named_parameters():
                 if name in ROW_SPLITS:
                     specs[f"{prefix}.{name}"] = (0, ROW_SPLITS[name])
@@ -72,15 +86,30 @@ def param_specs(model: nn.Module) -> Dict[str, Spec]:
     return specs
 
 
-def check_divides(model_cfg, n_model: int) -> None:
-    """Raise ValueError naming the first attention layer whose heads, or
-    FeedForward whose hidden width, `n_model` does not divide."""
-    enc, dec = model_cfg.encoder, model_cfg.decoder
-    for what, heads, hidden in (("encoder", enc.heads, enc.attdim * 2), ("decoder", dec.heads, dec.ff_dim)):
-        if heads % n_model:
-            raise ValueError(f"--n-model {n_model} does not divide the {what}'s attention heads ({heads})")
-        if hidden % n_model:
-            raise ValueError(f"--n-model {n_model} does not divide the {what}'s FeedForward hidden width ({hidden})")
+def describe(model: nn.Module, n_model: int) -> str:
+    """Which attention layers and FeedForwards `n_model` model ranks split
+    and which run whole, by module: "encoder: attention 5 split (6 heads, 3
+    a rank), FeedForward 5 split (768 units, 384 a rank); ..."."""
+    from gta_tpu_torch.models.layers import Attention, FeedForward
+
+    parts = []
+    for top, mod in model.named_children():
+        groups: Dict[Tuple[str, bool, int], int] = {}
+        for m in mod.modules():
+            if isinstance(m, (Attention, FeedForward)):
+                kind = "attention" if isinstance(m, Attention) else "FeedForward"
+                width = m.heads if kind == "attention" else m.net[0].out_features
+                if m.tp is not None:
+                    width *= n_model
+                key = (kind, m.tp is not None, width)
+                groups[key] = groups.get(key, 0) + 1
+        if groups:
+            unit = {"attention": "heads", "FeedForward": "units"}
+            parts.append(f"{top}: " + ", ".join(
+                f"{kind} {n} " + (f"split ({w} {unit[kind]}, {w // n_model} a rank)" if split else
+                                   f"whole ({w} {unit[kind]}: {n_model} does not divide them)")
+                for (kind, split, w), n in groups.items()))
+    return f"tensor parallel over {n_model} model ranks: " + "; ".join(parts)
 
 
 def shard_tensor(full: torch.Tensor, spec: Spec, index: int, size: int) -> torch.Tensor:
@@ -196,31 +225,21 @@ def row_parallel(linear: nn.Linear, x: torch.Tensor, axis: pdist.Axis, dtype: to
 @torch.no_grad()
 def shard_model(model: nn.Module, axis: pdist.Axis) -> Dict[str, Spec]:
     """Keep this model rank's block of every split parameter of `model`
-    (which holds the whole, identical weights on every rank) and route its
-    attention layers and FeedForwards through the model axis. Returns
-    `param_specs(model)`. Raises NotImplementedError on a layer that runs in
-    torch eager, ValueError where the axis does not divide heads or
-    widths."""
+    (which holds the whole, identical weights on every rank) and route the
+    attention layers whose heads, and the FeedForwards whose hidden units,
+    the model axis divides through it; the others stay whole. Returns
+    `param_specs(model)`."""
     from gta_tpu_torch.models.layers import Attention, FeedForward
 
-    specs = param_specs(model)
-    for prefix, module in model.named_modules():
-        if isinstance(module, Attention):
-            if module.route() in ("eager", "repast"):
-                raise NotImplementedError(
-                    f"{prefix}: attention method {module.attn.method!r} runs in torch eager, which tensor "
-                    "parallel (--n-model > 1) does not shard (ROADMAP queue 1 item 9e)")
-            if module.heads % axis.size or isinstance(module.to_out, nn.Identity):
-                raise ValueError(f"{prefix}: --n-model {axis.size} does not divide its {module.heads} heads")
-            module.heads //= axis.size
+    for module in model.modules():
+        if isinstance(module, Attention) and module.heads % axis.size == 0:
             module.tp = axis
-        elif isinstance(module, FeedForward):
-            if module.net[0].out_features % axis.size:
-                raise ValueError(f"{prefix}: --n-model {axis.size} does not divide its hidden width "
-                                 f"{module.net[0].out_features}")
+            module.heads //= axis.size
+        elif isinstance(module, FeedForward) and module.net[0].out_features % axis.size == 0:
             module.tp = axis
             hidden_dropout = module.net[2]  # on the rank's block of hidden units
             hidden_dropout.shards = hidden_dropout.shards + ((-1, axis.index, axis.size),)
+    specs = param_specs(model)
     params = dict(model.named_parameters())
     for name, spec in specs.items():
         p = params[name]

@@ -11,8 +11,10 @@ owner. The gradients are whole on every rank before the step (the
 trainer's all_reduce), so each parameter takes the update the unsharded
 AdamW makes on the same gradient, bit for bit: the same optimizer class,
 on the same device, with the same hyperparameters. Under tensor parallel
-the parameters are the model rank's blocks, and their moments shard over
-its data axis. The trainer's LambdaLR schedule steps the local optimizer
+the parameters are the model rank's blocks of the layers the model axis
+splits and the whole parameters of those it leaves whole (parallel/tp.py:
+the same shapes on every model rank, so each data row partitions them
+alike), and their moments shard over its data axis. The trainer's LambdaLR schedule steps the local optimizer
 (`local`), whose learning rate is every rank's.
 
 `full_state_dict` gathers the moments into the state_dict of one AdamW over

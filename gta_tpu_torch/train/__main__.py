@@ -51,14 +51,17 @@ CUDA with --dist-backend gloo, which lets two ranks share one card; the
 run prints its backend). Each of the D data ranks trains on its shard of
 each global batch (--batch-size / the config's batch over D), and the
 gradients are averaged over the data ranks once per optimizer step.
---n-model N splits every attention layer's heads and every FeedForward's
-hidden units over N model ranks (parallel/tp.py; N must divide them all,
-and every attention layer must run through the GTA or flash_core kernels).
---n-seq S splits the input views over S seq ranks and rings GTA's keys
-between them (parallel/ring.py; S must divide the views, and both modules
-must be the production GTA variant). --zero shards the AdamW moments over
-the data ranks (parallel/zero.py). All three compose with --accum, and the
-run stops at start where a layout does not fit the config. Checkpoints
+--n-model N splits the heads of every attention layer (whatever its
+method) and the hidden units of every FeedForward over N model ranks where
+N divides them, and runs the others whole on every model rank
+(parallel/tp.py). --n-seq S splits the input views over S seq ranks in
+each module that rings GTA's keys between them (the production GTA variant
+with a static softmax, S dividing the views, and N its heads), and runs the
+other modules whole on every seq rank (parallel/ring.py); these are the
+JAX package's rules, and each rank prints which layers split and which
+modules ring before its first step. --zero shards the AdamW moments over
+the data ranks (parallel/zero.py). All three compose with --accum; the run
+stops at start where the world size is not data x seq x model. Checkpoints
 are whole whatever the layout: one written under --n-model 2 --zero
 resumes in one process and the other way round. Rank 0 alone prints
 progress, writes metrics.jsonl, checkpoints and renders and logs to wandb;
@@ -114,9 +117,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="time 100 train steps (batch divided by this value), chained between two host "
                              "syncs -> mean ms in time.npy")
     parser.add_argument("--n-model", type=int, default=1,
-                        help="tensor parallel: attention heads and FFN units over this many model ranks")
+                        help="tensor parallel: attention heads and FFN units over this many model ranks, in every "
+                             "layer whose heads or units they divide (the others run whole on each)")
     parser.add_argument("--n-seq", type=int, default=1,
-                        help="sequence parallel: input views over this many seq ranks, GTA's keys ringed")
+                        help="sequence parallel: input views over this many seq ranks, GTA's keys ringed, in each "
+                             "module that rings (production GTA, static softmax, views divided; the others run "
+                             "whole on each)")
     parser.add_argument("--zero", action="store_true", help="ZeRO-1: the AdamW moments sharded over the data ranks")
     parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                         help="process group backend (default: nccl on CUDA, gloo on the CPU)")
@@ -145,18 +151,7 @@ def main(argv=None):
         parser.error(f"--accum must be >= 1, got {args.accum}")
     if args.n_model < 1 or args.n_seq < 1:
         parser.error(f"--n-model and --n-seq must be >= 1, got {args.n_model} and {args.n_seq}")
-    from gta_tpu_torch.config import load_config
     from gta_tpu_torch.parallel import dist as pdist
-    from gta_tpu_torch.parallel import ring, tp
-
-    try:
-        cfg = load_config(args.config)
-        if args.n_model > 1:
-            tp.check_divides(cfg.model, args.n_model)
-        if args.n_seq > 1:
-            ring.check_ring(cfg.model, cfg.data.num_input_views, args.n_seq)
-    except ValueError as e:
-        parser.error(str(e))
 
     device = pdist.init_from_env(args.device, args.dist_backend)
     previous = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
@@ -233,6 +228,8 @@ def _train(args, device, mesh):
 
     eval_split = "test" if args.test else "val"
     trainer = Trainer(cfg, device=device, zero=args.zero, mesh=mesh)
+    for line in trainer.layout():  # every rank: what it holds
+        print(f"rank {pdist.rank()}: {line}", flush=True)
     use_device_data = args.device_data and cfg.data.dataset == "synthetic"
     if use_device_data:
         from gta_tpu_torch.data.device_synth import DeviceSynthetic

@@ -15,10 +15,12 @@ peak activation memory follows the microbatch. The process mesh
 shard of the global batch, and `train_step` averages the gradients, the
 loss and the MSE over the data axis in one all_reduce after the last
 microbatch, so its metrics are global means. The model ranks hold blocks
-of the heads and FFN units (parallel/tp.py), the seq ranks blocks of the
-input views (parallel/ring.py): `loss_and_grads` sums the gradients that
-are partial over the seq ranks before it returns, so each rank holds its
-data shard's whole gradient of the parameters it holds. With `zero`, the
+of the heads and FFN units of the layers they split, and the others whole
+(parallel/tp.py); the seq ranks hold blocks of the input views in the
+modules that ring, and every view in the others (parallel/ring.py):
+`loss_and_grads` sums the gradients that are partial over the seq ranks
+before it returns, so each rank holds its data shard's whole gradient of
+the parameters it holds (`layout` says what splits and what rings). With `zero`, the
 AdamW moments shard over the data axis (parallel/zero.py). Checkpoints
 stay whole: `state_dict` gathers the model ranks' blocks and the data
 ranks' moments into what one process saves, and `load_state_dict` keeps
@@ -104,10 +106,7 @@ class Trainer:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.mesh = mesh = mesh or pdist.world_mesh()
         if mesh.seq.size > 1:
-            ring.check_ring(cfg.model, cfg.data.num_input_views, mesh.seq.size)
             cfg = with_ring_attention(cfg)
-        if mesh.model.size > 1:
-            tp.check_divides(cfg.model, mesh.model.size)
         self.cfg = cfg
         self.dtype = torch.bfloat16 if t.mixed_prec else torch.float32
         self.seed = cfg.seed if seed is None else seed
@@ -118,10 +117,12 @@ class Trainer:
         self._counts = {name: sum(p.numel() for p in module.parameters())
                         for name, module in (("encoder", self.model.encoder), ("decoder", self.model.decoder),
                                              ("total", self.model))}
-        # the model axis's split parameters, and those whose gradients are
-        # partial over the seq axis
+        # the model axis's split parameters (those of the layers it splits),
+        # and those whose gradients are partial over the seq axis (of the
+        # modules that ring)
         self.tp_specs = tp.shard_model(self.model, mesh.model) if mesh.model.size > 1 else {}
-        self.seq_partial = ring.shard_model(self.model, mesh.seq) if mesh.seq.size > 1 else []
+        self.seq_partial = (ring.shard_model(self.model, mesh.seq, cfg.data.num_input_views, mesh.model.size)
+                            if mesh.seq.size > 1 else [])
         self.names = [name for name, _ in self.model.named_parameters()]
         self.dropout_generator = torch.Generator(device=self.device)
         set_dropout_generator(self.model, self.dropout_generator)
@@ -146,6 +147,17 @@ class Trainer:
             self.optimizer.local if self.zero else self.optimizer, lambda it: self.schedule(it) / t.lr
         )
         self.step = 0
+
+    def layout(self) -> List[str]:
+        """Which layers the model axis splits and which modules ring over
+        the seq axis (one line each, where the axis has more than one
+        rank)."""
+        out = []
+        if self.mesh.model.size > 1:
+            out.append(tp.describe(self.model, self.mesh.model.size))
+        if self.mesh.seq.size > 1:
+            out.append(ring.describe(self.model, self.mesh.seq.size))
+        return out
 
     def param_counts(self) -> Dict[str, int]:
         """The whole model's parameter counts, whatever the layout."""
@@ -185,12 +197,19 @@ class Trainer:
             "step": self.step,
         }
 
+    def _cut(self, t: torch.Tensor, spec: tp.Spec) -> torch.Tensor:
+        m = self.mesh.model
+        return tp.shard_tensor(t, spec, m.index, m.size)
+
+    def load_model_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Load a whole model state_dict (`model_state_dict`'s), keeping this
+        model rank's blocks."""
+        self.model.load_state_dict(self._split(sd, self._cut))
+
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Load a whole state (`state_dict`'s), keeping this rank's part."""
-        m = self.mesh.model
-        cut = lambda t, spec: tp.shard_tensor(t, spec, m.index, m.size)  # noqa: E731
-        self.model.load_state_dict(self._split(state["model"], cut))
-        opt = self._split(state["optimizer"], cut, optimizer=True)
+        self.load_model_state_dict(state["model"])
+        opt = self._split(state["optimizer"], self._cut, optimizer=True)
         if self.zero:
             self.optimizer.load_full_state_dict(opt)
         else:
