@@ -1163,6 +1163,192 @@ def bf16_card_vs_cpu_phase(cfg, label):
     return card_err, emu_err, gap, own
 
 
+# tests/test_torch_bf16_layers.py's per-layer rules, card against CPU:
+# LAYER_RULES[kind] = (the largest share of an output's elements unequal,
+# the largest difference in ulps (of its dtype) of the larger of the CPU's
+# element and the output's RMS). Card bounds beside the measurements (my
+# chip runs, PR 22 calls 2-4, H100 80GB HBM3 at 700 W): a Linear or Conv
+# with a bias 2 ulps (measured 2: the product alone is within one ulp of
+# the exact one on the card and on the CPU; a one-ulp flip of a product
+# near 4 is two ulps of the result the bias takes below 4, on the CPU
+# against the exact product too); the pixels' fp32 sigmoid 0.3 and 4 fp32 ulps
+# (measured 0.149 and 2: CUDA's exp against the CPU's); the rest the CPU
+# check's own (measured up to 1.35e-3 for the convs, 4.2e-4 for Linear).
+# The CPU computes each output's first LAYER_ITEMS items (rows, images).
+LAYER_RULES = {"linear": (2e-3, 2), "conv": (2e-3, 2), "layernorm": (2e-3, 1), "embedding": (0.0, 0),
+               "chain": (2e-3, 1), "pixels": (0.3, 4)}
+LAYER_ITEMS = {"tokens": 2, "images": 2, "dit": 8}
+
+
+def layer_gap(got, want):
+    """(share of unequal elements, the largest difference in ulps of want's
+    dtype at the larger of want's element and its RMS)."""
+    import torch
+
+    w = want.double()
+    mag = torch.maximum(w.abs(), w.square().mean().sqrt())
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - (7 if want.dtype == torch.bfloat16 else 23))
+    return (got != want).double().mean().item(), ((got.double() - w).abs() / ulp).max().item()
+
+
+def nonzero_weights(model, gen):
+    """Every parameter of `model` redrawn nonzero from the CPU generator
+    `gen`: weights N(0, 1/fan_in), biases N(0, 0.1^2), LayerNorm scales
+    1 + N(0, 0.1^2) (no bias add or affine is trivial); returns the
+    model."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            draw = torch.randn(p.shape, generator=gen)
+            if name.endswith("bias"):
+                p.copy_(0.1 * draw)
+            elif p.dim() == 1:
+                p.copy_(1 + 0.1 * draw)
+            else:
+                p.copy_(draw * p[0].numel() ** -0.5)
+    return model
+
+
+def bf16_layer_phase(msn_so3, msn_srt, dit_cfg):
+    """Each bf16 layer kind and elementwise chain at full width, on the card
+    and on the CPU from the same bf16 inputs (drawn on the card, seed 0) and
+    weights (seed 0, every parameter nonzero), held to the CPU per-layer check's rules
+    (LAYER_RULES; tests/test_torch_bf16_layers.py holds the CPU to JAX):
+    msn_so3's encoder LayerNorm, to_qkv, to_out, FeedForward and its erf
+    GELU (B=64, 1280 tokens of 768), its decoder's to_q, to_kv (2560
+    queries of 180 against 1280 of 768), FeedForward and render MLP ends
+    and the pixels' fp32 sigmoid; MSN SRT's conv stem in bf16 (cuDNN: 320
+    images of 128x128 with the 180 ray channels; each conv fed the card's
+    ReLU of the one before); dit_gta's layers and chains at B=256, 256
+    tokens of 384 (the patch conv, t_embed, the label table, block 0's
+    LayerNorms, Linears, SiLU, modulations, gated residuals and tanh GELU,
+    the final layer). cuBLAS reduces in fp32, as a Trainer sets it
+    (`allow_bf16_reduced_precision_reduction` off): a reduction in bf16, or
+    any rounding other than the CPU's, is the card-only fault this sees.
+    Returns {layer: (share, ulps)}."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from gta_tpu_torch.models import decoder as t_decoder, dit as t_dit
+    from gta_tpu_torch.models.dit import build_dit
+    from gta_tpu_torch.models.srt import build_model
+
+    bf = torch.bfloat16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out, failed = {}, []
+
+    def draw(*shape, scale=1.0):  # on the card: the CPU takes its first items
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(bf)
+
+    def hold(label, kind, cpu_fn, card_fn, args, items):
+        """card_fn on the whole args on the card against cpu_fn on their
+        first `items` on the CPU; returns the card's output."""
+        with torch.no_grad():
+            full = card_fn(*(a.cuda() for a in args))
+            torch.cuda.synchronize()
+            want = cpu_fn(*(a[:items].cpu() for a in args))
+        got = full[:items].cpu()
+        share, ulps = layer_gap(got, want)
+        most, most_ulps = LAYER_RULES[kind]
+        ok = got.dtype == want.dtype and share <= most and ulps <= most_ulps
+        print(f"bf16 layer {label}: {tuple(args[0].shape)} -> {tuple(full.shape)} {str(want.dtype)[6:]}, card vs CPU "
+              f"unequal {share:.3e} (at most {most:g}), largest {ulps:.3f} ulp (at most {most_ulps})"
+              f"{'' if ok else ' FAILED'}", flush=True)
+        out[label] = (share, ulps)
+        if not ok:
+            failed.append(label)
+        return full
+
+    def pair(model):
+        """(the CPU model, a card copy) with the same nonzero weights."""
+        model = nonzero_weights(model, torch.Generator().manual_seed(0)).eval()
+        return model, copy.deepcopy(model).cuda()
+
+    # msn_so3: the encoder's and decoder's first block, the render MLP
+    cpu, card = pair(build_model(one_block(msn_so3).model, bf))
+
+    def both(name):
+        return cpu.get_submodule(name), card.get_submodule(name)
+
+    B, T, Tq = MSN_BATCH, 1280, 2560  # 5 views of 16 x 16 patches; 5 x 512 target rays
+    items = LAYER_ITEMS["tokens"]
+    for side, tokens, width in (("encoder", T, 768), ("decoder", Tq, 180)):
+        tr = "encoder.transformer" if side == "encoder" else "decoder.allocation_transformer.transformer"
+        attn, ff = f"{tr}.layers.0.0", f"{tr}.layers.0.1"
+        x = draw(B, tokens, width)
+        hold(f"msn_so3 {side} LayerNorm", "layernorm", *both(f"{attn}.norm"), (x,), items)
+        if side == "encoder":
+            hold("msn_so3 encoder to_qkv", "linear", *both(f"{attn}.fn.to_qkv"), (x,), items)
+        else:
+            hold("msn_so3 decoder to_q", "linear", *both(f"{attn}.fn.to_q"), (x,), items)
+            hold("msn_so3 decoder to_kv", "linear", *both(f"{attn}.fn.to_kv"), (draw(B, T, 768),), items)
+        hold(f"msn_so3 {side} to_out", "linear", *both(f"{attn}.fn.to_out.0"), (draw(B, tokens, 768),), items)
+        hidden = cpu.get_submodule(f"{ff}.fn.net.0").out_features
+        hold(f"msn_so3 {side} FeedForward net.0", "linear", *both(f"{ff}.fn.net.0"), (x,), items)
+        h = draw(B, tokens, hidden)
+        hold(f"msn_so3 {side} GELU (erf)", "chain", *both(f"{ff}.fn.net.1"), (h,), items)
+        hold(f"msn_so3 {side} FeedForward net.3", "linear", *both(f"{ff}.fn.net.3"), (h,), items)
+    for i in (0, 8):
+        name = f"decoder.render_mlp.{i}"
+        hold(f"msn_so3 render_mlp.{i}", "linear", *both(name), (draw(B, Tq, cpu.get_submodule(name).in_features),),
+             items)
+    hold("msn_so3 pixels (sigmoid, fp32)", "pixels", t_decoder.render_pixels, t_decoder.render_pixels,
+         (draw(B, Tq, 3),), items)
+    del cpu, card
+
+    # MSN SRT's conv stem, each conv fed the card's ReLU of the one before
+    cpu, card = pair(build_model(one_block(msn_srt).model, bf))
+    items = LAYER_ITEMS["images"]
+    convs = [(f"conv_blocks.{b}.layers.{j}", getattr(cpu.encoder.conv_blocks[b].layers, str(j)),
+              getattr(card.encoder.conv_blocks[b].layers, str(j))) for b in range(len(cpu.encoder.conv_blocks))
+             for j in (0, 2)]
+    convs.append(("per_patch_linear", cpu.encoder.per_patch_linear, card.encoder.per_patch_linear))
+    n, side = msn_srt.data.num_input_views * MSN_BATCH, 128
+    x = draw(n, convs[0][1].in_channels, side, side)
+    for name, c_cpu, c_card in convs:
+        x = F.relu(hold(f"msn SRT stem {name}", "conv", c_cpu, c_card, (x,), items))
+    del cpu, card, x
+
+    # dit_gta at its train shapes: block 0, the embedders, the final layer
+    cpu, card = pair(build_dit(dit_cfg.model, bf))
+    items, B, T, C = LAYER_ITEMS["dit"], DIT_BATCH, dit_cfg.model.num_patches, dit_cfg.model.hidden_size
+    blk, blk_card = cpu.block_0, card.block_0
+    m = dit_cfg.model
+    hold("dit_gta patch_embed", "conv", cpu.patch_embed, card.patch_embed,
+         (draw(B, m.in_channels, m.input_size, m.input_size),), items)
+    hold("dit_gta t_embed.fc1", "linear", cpu.t_embed.fc1, card.t_embed.fc1, (draw(B, 256),), items)
+    labels = torch.randint(0, m.num_classes + 1, (B,), generator=gen, device="cuda")
+    hold("dit_gta y_embed", "embedding", cpu.y_embed, card.y_embed, (labels,), items)
+    c = draw(B, C)
+    hold("dit_gta SiLU", "chain", F.silu, F.silu, (c,), items)
+    hold("dit_gta ada_mod", "linear", blk.ada_mod, blk_card.ada_mod, (c,), items)
+    x, h = draw(B, T, C), draw(B, T, C)
+    shift, scale, gate = (draw(B, C, scale=0.1) for _ in range(3))
+    hold("dit_gta norm1", "layernorm", blk.norm1, blk_card.norm1, (x,), items)
+    hold("dit_gta modulate", "chain", t_dit._modulate, t_dit._modulate, (x, shift, scale), items)
+    hold("dit_gta to_qkv", "linear", blk.attn.to_qkv, blk_card.attn.to_qkv, (x,), items)
+    hold("dit_gta to_out", "linear", blk.attn.to_out, blk_card.attn.to_out, (x,), items)
+    hold("dit_gta gated residual", "chain", t_dit._gated, t_dit._gated, (x, gate, h), items)
+    hold("dit_gta mlp_fc1", "linear", blk.mlp_fc1, blk_card.mlp_fc1, (x,), items)
+
+    def gelu(h):
+        return F.gelu(h, approximate="tanh")
+
+    hold("dit_gta GELU (tanh)", "chain", gelu, gelu, (draw(B, T, blk.mlp_fc1.out_features),), items)
+    hold("dit_gta mlp_fc2", "linear", blk.mlp_fc2, blk_card.mlp_fc2, (draw(B, T, blk.mlp_fc2.in_features),), items)
+    hold("dit_gta final_norm", "layernorm", cpu.final_norm, card.final_norm, (x,), items)
+    hold("dit_gta final_proj", "linear", cpu.final_proj, card.final_proj, (x,), items)
+    del cpu, card
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"bf16 layers off the CPU's rounding on the card: {failed}")
+    return out
+
+
 def kernel_wrappers():
     """Every kernel's wrapper, by kernel name; each counts the launches of
     its fp32 instances (`launches`, `launches_by_width`) and of its bf16
@@ -2925,11 +3111,7 @@ def dit_card_vs_cpu_phase(cfg, label):
     gen = torch.Generator().manual_seed(0)
     cpu32 = DiTTrainer(dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, mixed_prec=False)),
                        device="cpu")
-    with torch.no_grad():
-        for name, p in cpu32.model.named_parameters():
-            std = 0.1 if name.endswith("bias") else p[0].numel() ** -0.5
-            p.copy_(torch.randn(p.shape, generator=gen) * std)
-    weights = cpu32.model.state_dict()
+    weights = nonzero_weights(cpu32.model, gen).state_dict()
     card, cpu16 = DiTTrainer(cfg), DiTTrainer(cfg, device="cpu")
     for t in (card, cpu16):
         t.model.load_state_dict(weights)
@@ -4113,11 +4295,7 @@ def dit_card_vs_cpu_grads_phase(cfg, label):
     gen = torch.Generator().manual_seed(0)
     cpu32 = DiTTrainer(dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, mixed_prec=False)),
                        device="cpu")
-    with torch.no_grad():
-        for name, p in cpu32.model.named_parameters():
-            std = 0.1 if name.endswith("bias") else p[0].numel() ** -0.5
-            p.copy_(torch.randn(p.shape, generator=gen) * std)
-    weights = cpu32.model.state_dict()
+    weights = nonzero_weights(cpu32.model, gen).state_dict()
     card, cpu16 = DiTTrainer(cfg), DiTTrainer(cfg, device="cpu")
     for t in (card, cpu16):
         t.model.load_state_dict(weights)
@@ -4444,6 +4622,7 @@ def main() -> int:
         paths[f"{key}_serving"], paths[f"{key}_train"], options[key] = timed("options", option_phase, cfg, label, key)
     card_vs_cpu = {label: timed("bf16 card vs cpu", bf16_card_vs_cpu_phase, cfg, label) for cfg, label in
                    ((msn_bf16, "msn_so3"), (msn_srt, "msn SRT"), (msn_t2, "msn gta_t2"))}
+    bf16_layers = timed("bf16 layers", bf16_layer_phase, msn_bf16, msn_srt, load_dit_config(DIT_GTA_CONFIG))
     t_dit = time.perf_counter()
     dit_cfgs = {"dit_gta": load_dit_config(DIT_GTA_CONFIG), "dit_base": load_dit_config(DIT_BASE_CONFIG)}
     assert all(c.training.mixed_prec and c.training.batch_size == DIT_BATCH for c in dit_cfgs.values())
@@ -4560,6 +4739,8 @@ def main() -> int:
         print(f"{key} (DiT-XL/2's width, depth {DIT_XL['depth']}) bf16: {json.dumps(step)}; B=2 gradient (depth 1) "
               f"from the CPU's fp32: card {card_err:.3e}, emulated TPU rounding {emu_err:.3e}; loss card "
               f"{loss_gap:.3e}, emulation {emu_loss_gap:.3e}", flush=True)
+    print(f"bf16 layers, card vs CPU (unequal share, largest ulp; {smi}): "
+          f"{json.dumps({k: [float(f'{v:.3e}') for v in x] for k, x in bf16_layers.items()})}", flush=True)
     print(f"phase seconds (all): {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -48,7 +48,10 @@
 //    the row launches are bound by their loads' latency and their
 //    occupancy, not by their stores; PERF.md.)
 //  * The output transform (z @ Mo, inverse rotors) is a row launch after
-//    the core, in place on `out` when z is not kept.
+//    the core, in place on `out` when z is not kept. bf16 with rotors
+//    alone (the DiT's tables): the core writes z in fp32 and the row launch
+//    rotates it before the one rounding, as the TPU kernel does; with Mo,
+//    the TPU kernel rounds z for the product too, and so does this one.
 // Instances: one library per head width C = HEAD_DIM (32, 64: CLEVR-TR,
 // 96: msn, 128; -DHEAD_DIM, ops/_cuda.py builds the four side by side);
 // every multiple of 8 in [32, 128] runs in the smallest width at or above
@@ -68,7 +71,9 @@
 // pointer a contiguous fp32 device array. `gta_fused_fwd_bf16`: q, k, v,
 // qt, kt, vt, out and z bf16, the tables, kt32 (fp32 scratch [B, H, Tk, C]
 // for the transformed rows before centring, with a K/V transform),
-// centres and lse fp32. Absent tables are null and flagged off. qt:
+// centres and lse fp32, z32 (fp32 scratch [B, Tq, H*C] for z before its
+// rounding, where rotors alone transform the output; null otherwise).
+// Absent tables are null and flagged off. qt:
 // scratch [B, H, Tq, C] when Q has a transform; kt/vt: [B, H, Tk, C] for
 // each side that has a transform (bf16: the centred rows); centres:
 // scratch [2, B, H, C] (the core's centre rows, csrc/attn_core.cuh).
@@ -159,8 +164,8 @@ template <int CC>
 int fused_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mq, const float* mk,
                    const float* mo, const float* cq, const float* sq, const float* ck,
                    const float* sk, bf16* qt, float* kt32, bf16* kt, bf16* vt, float* centres,
-                   bf16* out, bf16* z, float* lse, int B, int H, int Tq, int Tk, int nq, int nk,
-                   int flags, float scale, void* stream_ptr) {
+                   float* z32, bf16* out, bf16* z, float* lse, int B, int H, int Tq, int Tk, int nq,
+                   int nk, int flags, float scale, void* stream_ptr) {
   const bool q_tf = flags & (HAS_MQ | HAS_ROTQ);
   const bool kv_tf = flags & (HAS_MK | HAS_ROTK);
   const bool v_side = kv_tf && (flags & V_TRANSFORM);
@@ -198,10 +203,27 @@ int fused_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mq,
   if (v_side && (err = centred(v, vt, cv))) return (int)err;
 
   // the core; c_v (centres[1]) is added back to z, 0 for raw value rows
+  const bf16* qc = q_tf ? qt : q;
+  const bf16* kc = kv_tf ? kt : k;
+  const bf16* vc = v_side ? vt : v;
+  const Layout qcl = q_tf ? hf_q : tok_q, kcl = kv_tf ? hf_k : tok_k, vcl = v_side ? hf_k : tok_k;
+  if (out_tf && !(flags & HAS_MO)) {
+    // rotors alone on the output: the TPU kernel rotates z in fp32 and
+    // rounds once (`_fwd_kernel`: o = _rot_inv(o) before o.astype), so the
+    // core keeps z in fp32 (z32) for the row launch; z itself is z32
+    // rounded, as the kernel's store_z rounds it
+    if (!z32) return (int)cudaErrorInvalidValue;
+    err = sm90::run_fwd<sm90::Cfg<CC>>(qc, kc, vc, cv, z32, lse, B, H, Tq, Tk, qcl, kcl, vcl, tok_q, scale,
+                                       stream);
+    if (err != cudaSuccess) return (int)err;
+    const RowJobT<float, bf16> j{z32, out, tok_q, tok_q, nullptr, cq, sq, nullptr, Tq, nq, 0, 1};
+    if ((err = gta_rows::run_rows<CC>(j, B, H, stream))) return (int)err;
+    if (!z) return (int)cudaSuccess;
+    const RowJobT<float, bf16> copy{z32, z, tok_q, tok_q, nullptr, nullptr, nullptr, nullptr, Tq, nq, 0, 0};
+    return (int)gta_rows::run_rows<CC>(copy, B, H, stream);
+  }
   bf16* zp = z ? z : out;
-  err = sm90::run_fwd<sm90::Cfg<CC>>(q_tf ? qt : q, kv_tf ? kt : k, v_side ? vt : v, cv, zp, lse, B, H, Tq,
-                                     Tk, q_tf ? hf_q : tok_q, kv_tf ? hf_k : tok_k, v_side ? hf_k : tok_k, tok_q,
-                                     scale, stream);
+  err = sm90::run_fwd<sm90::Cfg<CC>>(qc, kc, vc, cv, zp, lse, B, H, Tq, Tk, qcl, kcl, vcl, tok_q, scale, stream);
   if (err != cudaSuccess) return (int)err;
 
   if (out_tf) {  // out = R_q^-1(z @ Mo), in place when z is not kept
@@ -232,12 +254,12 @@ extern "C" int gta_fused_fwd(const float* q, const float* k, const float* v, con
 extern "C" int gta_fused_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* mq,
                                   const float* mk, const float* mo, const float* cq,
                                   const float* sq, const float* ck, const float* sk, bf16* qt,
-                                  float* kt32, bf16* kt, bf16* vt, float* centres, bf16* out,
-                                  bf16* z, float* lse, int B, int H, int Tq, int Tk, int C, int nq,
-                                  int nk, int flags, float scale, void* stream_ptr) {
+                                  float* kt32, bf16* kt, bf16* vt, float* centres, float* z32,
+                                  bf16* out, bf16* z, float* lse, int B, int H, int Tq, int Tk, int C,
+                                  int nq, int nk, int flags, float scale, void* stream_ptr) {
   if (C == HEAD_DIM) {
-    return fused_fwd_bf16<HEAD_DIM>(q, k, v, mq, mk, mo, cq, sq, ck, sk, qt, kt32, kt, vt, centres, out, z,
-                                    lse, B, H, Tq, Tk, nq, nk, flags, scale, stream_ptr);
+    return fused_fwd_bf16<HEAD_DIM>(q, k, v, mq, mk, mo, cq, sq, ck, sk, qt, kt32, kt, vt, centres, z32, out,
+                                    z, lse, B, H, Tq, Tk, nq, nk, flags, scale, stream_ptr);
   }
   return (int)cudaErrorInvalidValue;  // the library of another head width
 }

@@ -29,6 +29,7 @@ from gta_tpu_torch.geometry.se3 import rigid_transform
 from gta_tpu_torch.models.context import AttnContext, SceneBatch
 from gta_tpu_torch.models.encoder import downsample_grid, frustum_embedding, frustum_phi
 from gta_tpu_torch.models.layers import Linear, Transformer, tagged, to_compute
+from gta_tpu_torch.ops.attention import at_least_fp32
 from gta_tpu_torch.ops.reps import decoder_reps
 
 
@@ -135,6 +136,15 @@ class RayPredictor(nn.Module):
 _ACTS = {"relu": nn.ReLU, "lrelu": nn.LeakyReLU, "gelu": nn.GELU}
 
 
+def render_pixels(h: torch.Tensor, sigmoid: bool = True) -> torch.Tensor:
+    """The render MLP's output [..., 3] (the compute dtype) -> fp32 pixels:
+    the sigmoid computed in fp32 from h, unrounded. The chain
+    `nn.sigmoid(h).astype(float32)` (gta_tpu/models/decoder.py:222-223)
+    ends in fp32, so a TPU rounds it to nothing coarser."""
+    h = at_least_fp32(h)
+    return (torch.sigmoid(h) if sigmoid else h).float()
+
+
 class SRTDecoder(nn.Module):
     """RayPredictor + render MLP (decoder.py:139-384)."""
 
@@ -184,5 +194,4 @@ class SRTDecoder(nn.Module):
         if method == "repast":
             out = out.mean(2)  # over the key views
         h = self.render_mlp(out)
-        pixels = torch.sigmoid(h) if self.cfg.sigmoid else h
-        return pixels.float(), aux
+        return render_pixels(h, self.cfg.sigmoid), aux

@@ -20,15 +20,17 @@ kernels), GTA with euclid_sim through ops/gta.gta_attention in torch eager
 calls it), method '' through ops/flash (flash_core). The rotor tables are
 built once per forward and shared by every block.
 
-Numerics under a bf16 compute dtype, as flax computes them: parameters
-stay fp32; `Linear`/`Conv2d` (models/layers.py) take bf16 operands and add
-the bias in bf16; the LayerNorms are flax's defaults (eps 1e-6, no scale,
-no bias; fp32 statistics, bf16 out); GELU is the tanh approximation;
-GELU and SiLU compute in fp32 and round once (torch's bf16 kernels do);
-the residual stream, the
-conditioning `c = t_embed + y_embed` and the modulation
-(`x * (1 + scale) + shift`, the gates) round in bf16 op by op; the
-timestep features are fp32 [cos, sin], cast after. The output is fp32.
+Numerics under a bf16 compute dtype follow the TPU's rounding as
+tests/test_torch_bf16_layers.py states it: parameters stay fp32;
+`Linear`/`Conv2d` (models/layers.py) round their fp32-accumulated product
+to bf16, then add the bias in bf16; the LayerNorms are flax's defaults
+(eps 1e-6, no scale, no bias; fp32 statistics, bf16 out); GELU is the tanh
+approximation. Each elementwise chain XLA fuses on a TPU computes in fp32
+from its bf16 operands and rounds once: GELU and SiLU (torch's bf16
+kernels do), the modulation `x * (1 + scale) + shift` (`_modulate`) and
+the gated residuals `x + gate * h` (`_gated`). The conditioning
+`c = t_embed + y_embed` is one bf16 add; the timestep features are fp32
+[cos, sin], cast after. The output is fp32.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from torch import nn
 
 from gta_tpu_torch.config import AttnConfig
 from gta_tpu_torch.models.layers import Conv2d, LayerNorm, Linear, init_weights, set_compute_dtype, tagged
-from gta_tpu_torch.ops.attention import dot_product_attention
+from gta_tpu_torch.ops.attention import at_least_fp32, dot_product_attention
 from gta_tpu_torch.ops.flash import flash_attention
 from gta_tpu_torch.ops.flash_core import merge_heads, split_heads
 from gta_tpu_torch.ops.gta import gta_attention
@@ -118,8 +120,19 @@ def sincos_pos_embed(grid: int, dim: int) -> np.ndarray:
 
 
 def _modulate(x, shift, scale):
-    """x * (1 + scale) + shift, each op rounded to x's dtype as JAX does."""
-    return x * (1.0 + scale[:, None]) + shift[:, None]
+    """x * (1 + scale) + shift over tokens [B, T, C] with per-item [B, C]
+    shift and scale, as the TPU's fused chain rounds it
+    (gta_tpu/models/dit.py:132): one addcmul over x and the fp32 (at least)
+    1 + scale and shift, computed in fp32 and rounded once to x's dtype."""
+    shift, scale = at_least_fp32(shift)[:, None], at_least_fp32(scale)[:, None]
+    return torch.addcmul(shift, x, 1.0 + scale).to(x.dtype)
+
+
+def _gated(x, gate, h):
+    """The adaLN-Zero gated residual x + gate * h ([B, T, C], gate [B, C]),
+    as a TPU fuses it (gta_tpu/models/dit.py:195,203): one addcmul, which
+    computes in fp32 (at least) and rounds once to x's dtype."""
+    return torch.addcmul(x, gate[:, None], h)
 
 
 def _layer_norm(dim: int) -> LayerNorm:
@@ -217,10 +230,10 @@ class DiTBlock(nn.Module):
 
     def forward(self, x, c, reps):
         s1, g1, gate1, s2, g2, gate2 = self.ada_mod(F.silu(c)).chunk(6, dim=-1)
-        x = x + gate1[:, None] * self.attn(_modulate(self.norm1(x), s1, g1), reps)
+        x = _gated(x, gate1, self.attn(_modulate(self.norm1(x), s1, g1), reps))
         h = self.mlp_fc1(_modulate(self.norm2(x), s2, g2))
         h = F.gelu(h, approximate="tanh")
-        return x + gate2[:, None] * self.mlp_fc2(h)
+        return _gated(x, gate2, self.mlp_fc2(h))
 
 
 class DiT(nn.Module):

@@ -16,9 +16,12 @@ rep tables in fp32. Softmax stays fp32 (inside the kernels); so do the
 pixels and the loss (models/decoder.py, train/trainer.py). The residual
 stream is in the compute dtype, as in JAX. Unlike torch.autocast, this
 keeps LayerNorm outputs and residual adds in bf16 where JAX has them.
-fp32, the default, casts nothing: the modules are torch's own, so a model
-a caller converts (as chip_smoke.py's fp64 reference step does) computes
-in its own dtype.
+An elementwise chain that XLA fuses on a TPU (mln's FiLM, `film`; repast's
+scaled scores) computes in fp32 from its operands and rounds once, at its
+end (the convention tests/test_torch_bf16_layers.py states). fp32, the
+default, casts nothing: the modules are torch's own, so a model a caller
+converts (as chip_smoke.py's fp64 reference step does) computes in its
+own dtype.
 """
 
 from __future__ import annotations
@@ -155,6 +158,13 @@ class LayerNorm(nn.LayerNorm):
             return super().forward(x)
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(self.compute_dtype)
+
+
+def film(g: torch.Tensor, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """FiLM g * x + b, as a TPU fuses the chain (gta_tpu/models/layers.py:
+    273-284): one addcmul, which computes in fp32 (at least) and rounds
+    once to the operands' dtype."""
+    return torch.addcmul(b, g, x)
 
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -467,11 +477,11 @@ class Attention(nn.Module):
         d = self.compute_dtype
         if z is None:
             emb = to_compute(self._camera_emb(ctx.input_coord_emb, ctx.input_transforms), d)
-            return self.linear_g(emb) * x + self.linear_b(emb), z
+            return film(self.linear_g(emb), x, self.linear_b(emb)), z
         q_emb = to_compute(self._camera_emb(ctx.target_coord_emb, se3_inverse(ctx.target_transforms)), d)
         k_emb = to_compute(self._camera_emb(ctx.input_coord_emb, se3_inverse(ctx.input_transforms)), d)
-        return (self.linear_q_g(q_emb) * x + self.linear_q_b(q_emb),
-                self.linear_k_g(k_emb) * z + self.linear_k_b(k_emb))
+        return (film(self.linear_q_g(q_emb), x, self.linear_q_b(q_emb)),
+                film(self.linear_k_g(k_emb), z, self.linear_k_b(k_emb)))
 
     def _repast(self, x, z, ctx):
         """Relative-pose attention (reference layers.py:294-346): queries
@@ -496,10 +506,13 @@ class Attention(nn.Module):
         q = q.reshape(*q.shape[:-1], H, -1).movedim(-2, 1)  # [B, H, Tq, Nk, C]
         k = k.reshape(*k.shape[:-1], H, -1).movedim(-2, 1)  # [B, H, Nk, Lk, C]
         v = split_heads(v, H)  # [B, H, Tk, C]
-        sim = torch.einsum("bhtnc,bhnlc->bhtnl", q, k).reshape(B, H, Tq, -1)
+        # the scores round to the compute dtype as a product does; the chain
+        # after them ends in fp32 (gta_tpu/models/layers.py:329-333), so it
+        # computes there unrounded, as a TPU fuses it
+        sim = at_least_fp32(torch.einsum("bhtnc,bhnlc->bhtnl", q, k).reshape(B, H, Tq, -1))
         if self.attn.enable_scale:
             sim = sim * self.scale
-        attn = torch.softmax(at_least_fp32(sim / self._tau()), -1).to(v.dtype)
+        attn = torch.softmax(sim / self._tau(), -1).to(v.dtype)
         out = merge_heads(torch.einsum("bhqk,bhkc->bhqc", attn, v))
         if q_is_aug:
             out = out[:, :, None].expand(B, Tq, Nk, out.shape[-1])

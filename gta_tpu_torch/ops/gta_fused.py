@@ -388,7 +388,7 @@ def _bind(lib, fn_name: str, n_ptrs: int, n_ints: int, err_name: str):
 def _bind_fwd(bf16: bool, width: int):
     lib = _cuda.load("gta_fused_fwd", width)
     if bf16:
-        return _bind(lib, "gta_fused_fwd_bf16", 18, 8, "gta_fused_error_string")
+        return _bind(lib, "gta_fused_fwd_bf16", 19, 8, "gta_fused_error_string")
     return _bind(lib, "gta_fused_fwd", 17, 8, "gta_fused_error_string")
 
 
@@ -440,8 +440,10 @@ def gta_fused_fwd(
     has one), the means of the key and value rows (the core's centres; bf16
     then writes the transformed rows centred), the tensor-core main kernel
     and the output transform (with v_transform), so the card sees up to six
-    kernel launches per count (nine in bf16). `launches_by_width` and
-    `launches_bf16_by_width` count them by instance width.
+    kernel launches per count (ten in bf16: with rotors alone on the
+    output, the core keeps z in fp32 and a row launch rounds it for the
+    residual). `launches_by_width` and `launches_bf16_by_width` count them
+    by instance width.
     """
     if qB.device.type == "cpu":
         if residuals:
@@ -468,17 +470,20 @@ def gta_fused_fwd(
     kt = rows(Tk, qB.dtype, kv_transform)
     vt = rows(Tk, qB.dtype, kv_transform and t.v_transform)
     kt32 = rows(Tk, torch.float32, bf16 and kv_transform)  # bf16: transformed rows before centring
+    # bf16, rotors alone on the output: z before its one rounding
+    z32 = torch.empty(qB.shape, dtype=torch.float32, device=dev) if (
+        bf16 and t.v_transform and t.cq is not None and t.mo is None) else None
     centres = torch.empty((2, B, heads, C), dtype=torch.float32, device=dev)
     out = torch.empty_like(qB)
     z = torch.empty_like(qB) if residuals and t.v_transform else None
     lse = torch.empty((B, heads, Tq), dtype=torch.float32, device=dev) if residuals else None
     fn, err_str = _bind_fwd(bf16, C)
-    scratch = [qt, kt32, kt, vt] if bf16 else [qt, kt, vt]
+    scratch = [qt, kt32, kt, vt, centres, z32] if bf16 else [qt, kt, vt, centres]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
             _ptr(qB), _ptr(kB), _ptr(vB), *(_ptr(x) for x in _tables(t)), *(_ptr(x) for x in scratch),
-            _ptr(centres), _ptr(out), _ptr(z), _ptr(lse), B, heads, Tq, Tk, C, t.nq, t.nk, _flags(t),
+            _ptr(out), _ptr(z), _ptr(lse), B, heads, Tq, Tk, C, t.nq, t.nk, _flags(t),
             float(scale), ctypes.c_void_p(stream),
         )
     if err != 0:

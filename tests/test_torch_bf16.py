@@ -20,8 +20,9 @@ does the same through `Trainer.dtype` and the models' compute dtype
     (2 heads, one block each side, 5 views of 32x32, dropout 0), the same
     JAX weights and batch, in JAX and in the port, each in bf16 and fp32.
     The JAX models run with the TPU's numerics (`_tpu_numerics`): their
-    attention through the Pallas kernels in interpret mode, and GELU
-    rounded once. The criteria are the 1.5x rule of chip_smoke.py's
+    attention through the Pallas kernels in interpret mode, and each bf16
+    elementwise chain rounded once (tests/test_torch_bf16_layers.py). The
+    criteria are the 1.5x rule of chip_smoke.py's
     bf16_card_vs_cpu_phase (and of the card tests' bf16 kernels), end to
     end: the port's bf16 result may sit at most BF16_RULE x as far (relative
     L2) from JAX's fp32 one as JAX's bf16 result with the TPU's rounding
@@ -46,7 +47,9 @@ does the same through `Trainer.dtype` and the models' compute dtype
     layer's one-ulp shift stays inside the spread of clean pairs in every
     layer, and a skipped rounding lowers the error, which the 1.5x rules
     cannot see (the 0.5x policy floor caught one layer of 56, and every
-    layer's skipped rounding in MSN SRT only).
+    layer's skipped rounding in MSN SRT only). The per-layer checks, which
+    catch either fault in every layer alone, are
+    tests/test_torch_bf16_layers.py's.
   * The CLIs: train and evaluate on both published msn configs (shrunk,
     --device cpu) in bf16, and --bf16 forcing the policy on a CLEVR-TR
     config.
@@ -245,23 +248,52 @@ def _gap(a, b):
 
 
 def _tpu_numerics(mp: pytest.MonkeyPatch):
-    """Give the JAX models the TPU's numerics on the CPU: the layers' kernel
-    calls go to the Pallas kernels in interpret mode (a TPU runs them
-    compiled; on the CPU the layers would call them for a TPU), and GELU
-    rounds its bf16 result once, from fp32, where XLA on the CPU rounds
-    after each of its elementwise operations (a quarter of the outputs of
-    a bf16 GELU differ from the once-rounded ones there)."""
+    """Give the JAX models the TPU's numerics on the CPU, as
+    tests/test_torch_bf16_layers.py states them: the layers' kernel calls go
+    to the Pallas kernels in interpret mode (a TPU runs them compiled; on
+    the CPU the layers would call them for a TPU), and each bf16
+    elementwise chain rounds once, at its end, where XLA on the CPU rounds
+    after each of its operations (a quarter of the outputs of a bf16 GELU,
+    two fifths of a SiLU's, differ from the once-rounded ones there):
+      - GELU (erf and tanh) and SiLU: computed in fp32, rounded once;
+      - the sigmoid of the decoder's pixels (gta_tpu/models/decoder.py:222,
+        its one caller, which casts it to fp32 at once): fp32, unrounded;
+      - repast's scores `sim * scale / tau` before their cast to fp32
+        (gta_tpu/models/layers.py:329-333): the product rounded to bf16,
+        then the chain in fp32.
+    The DiT's chains are tests/test_torch_dit._dit_numerics'."""
     import gta_tpu.models.layers as j_layers
     import gta_tpu.ops.flash as j_flash
     import gta_tpu.parallel.tp as j_tp
 
-    gelu = j_layers.nn.gelu
-    mp.setattr(j_layers.nn, "gelu", lambda x, approximate=True: gelu(x.astype(jnp.float32), approximate).astype(x.dtype))
+    f32 = jnp.float32
+    gelu, silu, sigmoid = j_layers.nn.gelu, j_layers.nn.silu, j_layers.nn.sigmoid
+    mp.setattr(j_layers.nn, "gelu", lambda x, approximate=True: gelu(x.astype(f32), approximate).astype(x.dtype))
+    mp.setattr(j_layers.nn, "silu", lambda x: silu(x.astype(f32)).astype(x.dtype))
+    mp.setattr(j_layers.nn, "sigmoid", lambda x: sigmoid(x.astype(f32)))
+    einsum = j_layers.jnp.einsum
+
+    def repast_scores_in_fp32(spec, *operands, **kwargs):
+        out = einsum(spec, *operands, **kwargs)
+        return out.astype(f32) if spec == "bhtnc,bhnlc->bhtnl" else out
+
+    mp.setattr(j_layers.jnp, "einsum", repast_scores_in_fp32)
 
     fused = j_tp.fused_gta_attention_tp
     mp.setattr(j_tp, "fused_gta_attention_tp",
                lambda q, k, v, reps, args, tc, scale, interpret=False: fused(q, k, v, reps, args, tc, scale, True))
     mp.setattr(j_flash, "flash_attention", lambda q, k, v, sm_scale=1.0: j_flash_core(q, k, v, float(sm_scale), True))
+
+
+def _jit_rounding_each_op(fn, *args):
+    """fn(*args) compiled by XLA without excess precision: under jit XLA on
+    the CPU keeps fp32 between the bf16 operations it fuses and rounds only
+    what leaves the fusion, so a module's output could reach its consumer
+    unrounded. Without it every bf16 operation rounds, as eager JAX and the
+    convention's module boundaries do, and a patched chain
+    (`_tpu_numerics`) rounds where its `astype` does."""
+    exe = jax.jit(fn).lower(*args).compile(compiler_options={"xla_allow_excess_precision": False})
+    return exe(*args)
 
 
 @pytest.fixture(scope="module", params=[MSN_SO3, MSN_SRT, MSN_T2], ids=["msn_so3", "msn_srt", "msn_t2"])

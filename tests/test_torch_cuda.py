@@ -723,6 +723,7 @@ def test_gta_fused_bf16_bwd_is_deterministic(rng, cuda_device, args, tq, tk):
 # so2 32 with 8 frequencies), self-attention over one view of 16 x 16 patch
 # tokens, rotor tables only (no per-view matrix), as models/dit.py builds them
 DIT_ARGS = GTAArgs(f_dims=FDims(triv=32, so2=32), so2=8)
+ROTOR_ONLY_PIN = 1.02  # the rotor-only forward's out and z, at most this many times the emulation's error
 
 
 def _dit_reps(device, batch):
@@ -737,7 +738,11 @@ def test_gta_fused_bf16_rotor_only_one_view_error_against_fp64(cuda_device, comm
     """The bf16 instances at dit_gta's tables (rotors only: mq, mk, mo
     absent; one view of 256 tokens; a trivial span beside the rotors),
     against fp64 on the same bf16 inputs: every output within 1.5x the bf16
-    emulation's relative L2 error, and no matrix cotangent."""
+    emulation's relative L2 error, and no matrix cotangent. The forward
+    rotates the fp32 z and rounds once, as the TPU kernel does: out and z
+    within ROTOR_ONLY_PIN of the emulation (measured 1.001x / 1.003x, and
+    0.633x / 0.636x with the common component, on an H100; 1.069x for out
+    when the kernel rotated the bf16 z: scripts/probe_rotor_only.py)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda_device).manual_seed(14)
     qB, kB, vB, g = (torch.randn((B, 256, H * C), generator=gen, device=cuda_device) for _ in range(4))
@@ -749,6 +754,7 @@ def test_gta_fused_bf16_rotor_only_one_view_error_against_fp64(cuda_device, comm
         errs, emu = _bf16_gta_errors(qB, kB, vB, t, H, SCALE, g)
     assert sorted(errs) == ["dk", "dq", "dv", "out", "z"]
     _assert_bf16_rule(errs, emu)
+    assert errs["out"] <= ROTOR_ONLY_PIN * emu["out"] and errs["z"] <= ROTOR_ONLY_PIN * emu["z"], (errs, emu)
 
 
 @pytest.mark.cuda

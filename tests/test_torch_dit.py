@@ -12,7 +12,8 @@ built DiT outputs exactly 0 and would compare zeros) and carried across by
 `weights.params_from_jax`. The JAX models run with the TPU's numerics
 (`_dit_numerics`): GTA through gta_tpu.ops.gta_pallas.fused_gta_attention
 and method '' through flash_core, both Pallas kernels in interpret mode,
-GELU rounded once. Label dropout is a mask the port's trainer draws; the
+and each bf16 elementwise chain (GELU, SiLU, the modulation, the gated
+residuals) rounded once (tests/test_torch_bf16_layers.py). Label dropout is a mask the port's trainer draws; the
 JAX side gets the same mask as the dropped labels.
 
 Tolerances: fp32 outputs within 1e-4 (atol; outputs of order 1-4), fp32
@@ -37,7 +38,9 @@ import optax
 import pytest
 import torch
 import yaml
+from flax import linen as nn
 
+import gta_tpu.models.dit as j_dit
 import gta_tpu.ops.gta_pallas as j_gta_pallas
 from gta_tpu.data.images import SyntheticImages as JSyntheticImages, collate_images as j_collate_images
 from gta_tpu.train import diffusion as jd
@@ -51,7 +54,7 @@ from gta_tpu_torch.train.checkpoint import Checkpointer
 from gta_tpu_torch.train.dit_trainer import DiTTrainer, dit_config_from_dict, load_dit_config
 from gta_tpu_torch.utils import stripe_classifier
 from gta_tpu_torch.weights import params_from_jax
-from tests.test_torch_bf16 import _tpu_numerics
+from tests.test_torch_bf16 import _jit_rounding_each_op, _tpu_numerics
 
 BF16_RULE = 1.5
 FWD_ATOL = 1e-4
@@ -74,14 +77,46 @@ def _tiny_raw(method="gta", mixed_prec=False, **training):
     }
 
 
+def _round_once(fn):
+    """fn over its operands in fp32, rounded once to the first's dtype."""
+    return lambda x, *rest: fn(x.astype(jnp.float32), *(r.astype(jnp.float32) for r in rest)).astype(x.dtype)
+
+
+class _TPUDiTBlock(j_dit.DiTBlock):
+    """gta_tpu/models/dit.py's DiTBlock (:183-203, the same modules and
+    names) with its gated residuals x + gate * h rounded once, as a TPU
+    fuses them."""
+
+    @nn.compact
+    def __call__(self, x, c, reps):
+        mod = nn.Dense(6 * self.hidden_size, dtype=self.dtype, kernel_init=nn.initializers.zeros_init(),
+                       name="ada_mod")(nn.silu(c))
+        s1, g1, gate1, s2, g2, gate2 = jnp.split(mod, 6, -1)
+        gated = _round_once(lambda x, gate, h: x + gate[:, None] * h)
+        ln = lambda n: nn.LayerNorm(use_bias=False, use_scale=False, dtype=self.dtype, name=n)  # noqa: E731
+        h = j_dit._modulate(ln("norm1")(x), s1, g1)
+        x = gated(x, gate1, j_dit.GTASelfAttention(self.hidden_size, self.heads, self.attn, self.dtype,
+                                                   name="attn")(h, reps))
+        h = j_dit._modulate(ln("norm2")(x), s2, g2)
+        h = nn.Dense(int(self.hidden_size * self.mlp_ratio), dtype=self.dtype, name="mlp_fc1")(h)
+        h = nn.gelu(h, approximate=True)
+        return gated(x, gate2, nn.Dense(self.hidden_size, dtype=self.dtype, name="mlp_fc2")(h))
+
+
 def _dit_numerics(mp: pytest.MonkeyPatch):
     """The TPU's numerics for the JAX DiT on the CPU (tests/test_torch_bf16.
-    _tpu_numerics, plus the DiT's own GTA entry, which gta_tpu/models/
-    dit.py imports at call time): the Pallas kernels in interpret mode."""
+    _tpu_numerics, which rounds GELU and SiLU once, plus the DiT's own):
+    its GTA entry, which gta_tpu/models/dit.py imports at call time, goes to
+    the Pallas kernels in interpret mode, and its chains round once, in
+    fp32 from their bf16 operands: the modulation x * (1 + scale) + shift
+    (`_modulate`, :132, every block's two and the final layer's, :263) and
+    the gated residuals (:195, :203, `_TPUDiTBlock`)."""
     _tpu_numerics(mp)
     fused = j_gta_pallas.fused_gta_attention
     mp.setattr(j_gta_pallas, "fused_gta_attention",
                lambda q, k, v, reps, args, tc, scale, interpret=False: fused(q, k, v, reps, args, tc, scale, True))
+    mp.setattr(j_dit, "_modulate", _round_once(lambda x, shift, scale: x * (1.0 + scale[:, None]) + shift[:, None]))
+    mp.setattr(j_dit, "DiTBlock", _TPUDiTBlock)
 
 
 def _random_params(shapes, seed):
@@ -148,8 +183,8 @@ def both(request):
     with pytest.MonkeyPatch.context() as patch:
         _dit_numerics(patch)
         for mp in (False, True):
-            fn = jax.jit(jax.value_and_grad(lambda p, mp=mp: _jax_loss(jtr[mp], p, b), has_aux=True))
-            (_, (metrics, px)), grads = fn(params)
+            fn = jax.value_and_grad(lambda p, mp=mp: _jax_loss(jtr[mp], p, b), has_aux=True)
+            (_, (metrics, px)), grads = _jit_rounding_each_op(fn, params)
             out["jax", mp] = (np.asarray(px), {k: float(v) for k, v in metrics.items()},
                               params_from_jax(jax.tree.map(np.asarray, grads)))
             if not mp:
