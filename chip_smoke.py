@@ -188,15 +188,17 @@ Phases (any failure exits non-zero and prints no result line):
   5b. The train runtime (runtime_phase), on the flagship at B=32: the
      gradient of loss_and_grads at grad_accum 2 against grad_accum 1 from
      the same weights and batch (relative L2 <= 1e-5; the fused GTA
-     launches doubled, asserted; the accumulated peak memory lower), warm
+     launches doubled, asserted; the accumulated peak memory lower), and
+     at B=4 both against one fp64 step (small_batch_accum: accum 2 no
+     further from it than SMALL_ACCUM_RULE x accum 1), warm
      train_steps of both and of accum 1 in a one-rank NCCL group; the
      train CLI on a config copy with print_every 1 under --validate-every
      2 --profile 2 stopped by SIGTERM after step 1 (exit 0, `latest`, a
      trace naming the fused GTA kernels), beside it `python -m
      torch.distributed.run --nproc_per_node 1` of the train CLI (NCCL,
      world size 1, its first loss that of the plain run) and of train_dit
-     on dit_gta, 2 steps; then, started as the SIGTERM run ends (its
-     timed steps after the torchrun runs' ends), the stopped run resumed
+     on dit_gta, 2 steps; then, once those end, the stopped run resumed
+     (in a cli_worker started beside them)
      under --accum 2 --speed_test 4 (the saved it + 1, time.npy,
      metrics.jsonl in plot_metrics' schema over both runs). NCCL refuses
      two ranks on one card: two ranks run in gloo (phase 4c) and on the CPU
@@ -335,7 +337,11 @@ the bf16 card-vs-CPU forwards run at one attention block a side (on one
 H100 80GB HBM3 at 700 W, 36.5 s -> 19.6 s), the gradient checks (19.4
 s there) run while the DiT CLIs and phase 4c's ranks do, and the runtime
 and device-data phases start each resumed CLI as the run it resumes
-ends.
+ends. Since then each chain's CLIs run in one long-lived process
+(run_cli's cli_worker; phase 5 146 s -> 35 s with the chains side by
+side), and phase 4c's two ranks start during the DiT phases
+(start_parallel). bf16_layer_phase holds each bf16 layer kind, chain and
+cotangent at full width, card against CPU.
 """
 
 from __future__ import annotations
@@ -399,7 +405,10 @@ def timed(name, fn, *args, **kwargs):
     """fn(*args, **kwargs), its wall seconds added to PHASE_SECONDS[name]
     and printed."""
     t0 = time.perf_counter()
-    out = fn(*args, **kwargs)
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        close_cli_worker()  # the phase's CLIs run in this thread, if any
     dt = time.perf_counter() - t0
     PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + dt
     print(f"phase seconds: {name} {dt:.1f}", flush=True)
@@ -1164,31 +1173,57 @@ def bf16_card_vs_cpu_phase(cfg, label):
 
 
 # tests/test_torch_bf16_layers.py's per-layer rules, card against CPU:
-# LAYER_RULES[kind] = (the largest share of an output's elements unequal,
-# the largest difference in ulps (of its dtype) of the larger of the CPU's
-# element and the output's RMS). Card bounds beside the measurements (my
-# chip runs, PR 22 calls 2-4, H100 80GB HBM3 at 700 W): a Linear or Conv
-# with a bias 2 ulps (measured 2: the product alone is within one ulp of
-# the exact one on the card and on the CPU; a one-ulp flip of a product
-# near 4 is two ulps of the result the bias takes below 4, on the CPU
-# against the exact product too); the pixels' fp32 sigmoid 0.3 and 4 fp32 ulps
-# (measured 0.149 and 2: CUDA's exp against the CPU's); the rest the CPU
-# check's own (measured up to 1.35e-3 for the convs, 4.2e-4 for Linear).
-# The CPU computes each output's first LAYER_ITEMS items (rows, images).
+# LAYER_RULES[kind] = (the largest share of an output's or cotangent's
+# elements unequal, the largest difference in ulps (of its precision) of
+# the larger of the CPU's element and the tensor's RMS). Forward bounds
+# beside the measurements (one H100 80GB HBM3 at 700 W; PERF.md, section
+# 6): a Linear or Conv with a bias 2 ulps (measured 2: the product
+# alone is within one ulp of the exact one on the card and on the CPU; a
+# one-ulp flip of a product near 4 is two ulps of the result the bias
+# takes below 4, on the CPU against the exact product too); the pixels'
+# fp32 sigmoid 0.3 and 4 fp32 ulps (measured 0.149 and 2: CUDA's exp
+# against the CPU's); the rest the CPU check's own (measured up to 1.35e-3
+# for the convs, 4.2e-4 for Linear). The backward's, "<kind> d<name>" (an
+# operand's or a parameter's cotangent, an operand without a key of its
+# own under "<kind> dx"; a cast parameter's compared in fp32 at bf16's
+# precision, LayerNorm's affine at fp32's), beside the
+# measurements (the same card, PERF.md section 6): Linear
+# dx 3e-3 (1.33e-3), dweight 3e-3 (1.49e-3: cuBLAS's fp32 sums over 2560
+# rows against the CPU's), dbias 2e-3 (6.5e-4); the convs' dx 3e-3
+# (1.93e-3), dweight 1.2e-2 (6.1e-3: cuDNN's fp32 sums over 2 x 128 x 128
+# positions, one ulp at most: no sum in bf16), dbias 2e-3 (0); LayerNorm dx
+# 2e-3 (4.0e-5), its fp32 scale and offset sums 32 and 4 fp32 ulps (17.5
+# and 2, most elements); the chains 2e-3 (GELU 1.1e-4, the DiT's 0); the
+# pixels' dh 2e-3 (0); msn gta_so3_euclid's transforms ("euclid": fp32 out
+# and the output's fp32 cotangent, the operands' bf16 ones, trans_coeff's)
+# 1e-3 / 2e-3 and one ulp (measured 0: the card's bits equal the CPU's).
+# The CPU computes each output's first LAYER_ITEMS items (rows, images); a
+# parameter's cotangent sums over the batch, so the card's and the CPU's
+# are both taken over those items (the operands' from the card's whole
+# batch's backward).
 LAYER_RULES = {"linear": (2e-3, 2), "conv": (2e-3, 2), "layernorm": (2e-3, 1), "embedding": (0.0, 0),
-               "chain": (2e-3, 1), "pixels": (0.3, 4)}
+               "chain": (2e-3, 1), "pixels": (0.3, 4),
+               "linear dx": (3e-3, 1), "linear dweight": (3e-3, 1), "linear dbias": (2e-3, 1),
+               "conv dx": (3e-3, 1), "conv dweight": (1.2e-2, 1), "conv dbias": (2e-3, 1),
+               "layernorm dx": (2e-3, 1), "layernorm dweight": (1.0, 32), "layernorm dbias": (1.0, 4),
+               "embedding dweight": (0.0, 0), "chain dx": (2e-3, 1), "pixels dx": (2e-3, 1),
+               "euclid": (1e-3, 1), "euclid dx": (2e-3, 1), "euclid dout": (1e-3, 1), "euclid dtrans_coeff": (1.0, 1)}
 LAYER_ITEMS = {"tokens": 2, "images": 2, "dit": 8}
+CAST_PARAMS = ("weight", "bias", "trans_coeff")  # but LayerNorm's: cast to bf16 by the layer
 
 
-def layer_gap(got, want):
+def layer_gap(got, want, bits=None):
     """(share of unequal elements, the largest difference in ulps of want's
-    dtype at the larger of want's element and its RMS)."""
+    dtype, or of a `bits`-bit mantissa, at the larger of want's element and
+    its RMS)."""
     import torch
 
+    if bits is None:
+        bits = 7 if want.dtype == torch.bfloat16 else 23
     w = want.double()
     mag = torch.maximum(w.abs(), w.square().mean().sqrt())
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - (7 if want.dtype == torch.bfloat16 else 23))
-    return (got != want).double().mean().item(), ((got.double() - w).abs() / ulp).max().item()
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
+    return (got.double() != w).double().mean().item(), ((got.double() - w).abs() / ulp).max().item()
 
 
 def nonzero_weights(model, gen):
@@ -1210,10 +1245,68 @@ def nonzero_weights(model, gen):
     return model
 
 
-def bf16_layer_phase(msn_so3, msn_srt, dit_cfg):
-    """Each bf16 layer kind and elementwise chain at full width, on the card
-    and on the CPU from the same bf16 inputs (drawn on the card, seed 0) and
-    weights (seed 0, every parameter nonzero), held to the CPU per-layer check's rules
+def first_items(reps, n, device=None):
+    """GeomReps `reps` of its batch's first n items (on `device`)."""
+    def cut(t):
+        if isinstance(t, tuple):
+            return tuple(cut(x) for x in t)
+        return t if t is None else t[:n].to(device or t.device)
+
+    return dataclasses.replace(reps, **{f.name: cut(getattr(reps, f.name)) for f in dataclasses.fields(reps)})
+
+
+def _euclid_module():
+    import torch
+
+    from gta_tpu_torch.ops.gta import gta_transform_qkv, gta_untransform_out, sliced_operand
+
+    class EuclidTransforms(torch.nn.Module):
+        """msn gta_so3_euclid's eager transforms of q, k, v (or, `inverse`,
+        of the attention's output) over a batch's first items' reps, with
+        the layer's trans_coeff cast to bf16 and promoted once, as
+        models/layers.Attention._eager -> ops/gta.gta_attention runs
+        them."""
+
+        def __init__(self, args, reps, trans_coeff, inverse):
+            super().__init__()
+            self.args, self.reps, self.inverse = args, reps, inverse
+            self.trans_coeff = torch.nn.Parameter(trans_coeff.clone())
+
+        def forward(self, *x):
+            reps = first_items(self.reps, x[0].shape[0])
+            tc = sliced_operand(self.trans_coeff.to(torch.bfloat16), reps)
+            if self.inverse:
+                return gta_untransform_out(x[0], reps, self.args, tc)
+            return torch.cat(gta_transform_qkv(*x, reps, self.args, tc), -1)
+
+    return EuclidTransforms
+
+
+def euclid_chain_args(cfg, gen, batch=MSN_BATCH):
+    """msn gta_so3_euclid's encoder attention at its published shapes: the
+    GTA args, rep tables [batch, N views] (so2 rotors of the 16 x 16 patch
+    grid, random rigid cameras, their so3 blocks; fp32, on the card) and
+    the tokens, heads and head width."""
+    import torch
+
+    from gta_tpu_torch.ops.reps import encoder_reps
+
+    enc = cfg.model.encoder
+    N, side = cfg.data.num_input_views, 16  # 128 x 128 views, an 8x stem
+    grid = (torch.arange(side, device="cuda", dtype=torch.float32) + 0.5) / side
+    coord = torch.stack(torch.meshgrid(grid, grid, indexing="ij"), -1).reshape(1, 1, side * side, 2)
+    rot, _ = torch.linalg.qr(torch.randn(batch, N, 3, 3, generator=gen, device="cuda"))
+    cams = torch.eye(4, device="cuda").repeat(batch, N, 1, 1)
+    cams[..., :3, :3], cams[..., :3, 3] = rot, torch.randn(batch, N, 3, generator=gen, device="cuda")
+    reps = encoder_reps(enc.attn.gta, input_coord=coord.expand(batch, N, -1, -1), input_transforms=cams)
+    return enc.attn.gta, reps, N * side * side, enc.heads, enc.attdim // enc.heads
+
+
+def bf16_layer_phase(msn_so3, msn_srt, dit_cfg, msn_euclid):
+    """Each bf16 layer kind and elementwise chain at full width, forward and
+    backward, on the card and on the CPU from the same bf16 inputs and
+    output cotangents (drawn on the card, seed 0) and weights (seed 0,
+    every parameter nonzero), held to the CPU per-layer check's rules
     (LAYER_RULES; tests/test_torch_bf16_layers.py holds the CPU to JAX):
     msn_so3's encoder LayerNorm, to_qkv, to_out, FeedForward and its erf
     GELU (B=64, 1280 tokens of 768), its decoder's to_q, to_kv (2560
@@ -1223,10 +1316,14 @@ def bf16_layer_phase(msn_so3, msn_srt, dit_cfg):
     ReLU of the one before); dit_gta's layers and chains at B=256, 256
     tokens of 384 (the patch conv, t_embed, the label table, block 0's
     LayerNorms, Linears, SiLU, modulations, gated residuals and tanh GELU,
-    the final layer). cuBLAS reduces in fp32, as a Trainer sets it
-    (`allow_bf16_reduced_precision_reduction` off): a reduction in bf16, or
-    any rounding other than the CPU's, is the card-only fault this sees.
-    Returns {layer: (share, ulps)}."""
+    the final layer); msn gta_so3_euclid's eager GTA transforms of q, k, v
+    and the inverse one of the output (B=64, 8 heads of 96, 1280 tokens:
+    euclid's se3, so3, so2; fp32 out, bf16 operands and trans_coeff in).
+    Each output's cotangents: its operands' (the card's whole batch) and
+    its parameters' (the first items, on both). cuBLAS reduces in fp32, as
+    a Trainer sets it (`allow_bf16_reduced_precision_reduction` off): a
+    reduction in bf16, or any rounding other than the CPU's, is the
+    card-only fault this sees. Returns {layer or cotangent: (share, ulps)}."""
     import copy
 
     import torch
@@ -1236,32 +1333,57 @@ def bf16_layer_phase(msn_so3, msn_srt, dit_cfg):
     from gta_tpu_torch.models.dit import build_dit
     from gta_tpu_torch.models.srt import build_model
 
+    EuclidTransforms = _euclid_module()
     bf = torch.bfloat16
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     out, failed = {}, []
 
-    def draw(*shape, scale=1.0):  # on the card: the CPU takes its first items
-        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(bf)
+    def draw(*shape, scale=1.0, dtype=bf):  # on the card: the CPU takes its first items
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
 
-    def hold(label, kind, cpu_fn, card_fn, args, items):
-        """card_fn on the whole args on the card against cpu_fn on their
-        first `items` on the CPU; returns the card's output."""
-        with torch.no_grad():
-            full = card_fn(*(a.cuda() for a in args))
-            torch.cuda.synchronize()
-            want = cpu_fn(*(a[:items].cpu() for a in args))
-        got = full[:items].cpu()
-        share, ulps = layer_gap(got, want)
-        most, most_ulps = LAYER_RULES[kind]
+    def judge(label, rule, got, want, bits=None, shape=""):
+        share, ulps = layer_gap(got, want, bits)
+        most, most_ulps = LAYER_RULES[rule]
         ok = got.dtype == want.dtype and share <= most and ulps <= most_ulps
-        print(f"bf16 layer {label}: {tuple(args[0].shape)} -> {tuple(full.shape)} {str(want.dtype)[6:]}, card vs CPU "
-              f"unequal {share:.3e} (at most {most:g}), largest {ulps:.3f} ulp (at most {most_ulps})"
-              f"{'' if ok else ' FAILED'}", flush=True)
+        print(f"bf16 layer {label}: {shape}{str(want.dtype)[6:]}, card vs CPU unequal {share:.3e} (at most "
+              f"{most:g}), largest {ulps:.3f} ulp (at most {most_ulps}){'' if ok else ' FAILED'}", flush=True)
         out[label] = (share, ulps)
         if not ok:
             failed.append(label)
-        return full
+
+    def hold(label, kind, cpu_fn, card_fn, args, items, names=("x",)):
+        """card_fn on the whole args on the card against cpu_fn on their
+        first `items` on the CPU, forward and backward from one output
+        cotangent drawn on the card: the operands' cotangents (named
+        `names`, None for integer labels) and, where the two are modules
+        with parameters, the parameters'; returns the card's output,
+        detached."""
+        modules = isinstance(cpu_fn, torch.nn.Module) and any(True for _ in cpu_fn.parameters())
+        card_in = [a.detach().requires_grad_() if n else a for a, n in zip(args, names)]
+        full = card_fn(*card_in)
+        ct = draw(*full.shape, dtype=full.dtype)
+        cpu_in = [a[:items].cpu().requires_grad_() if n else a[:items].cpu() for a, n in zip(args, names)]
+        want = cpu_fn(*cpu_in)
+        judge(label, kind, full[:items].detach().cpu(), want.detach(),
+              shape=f"{tuple(args[0].shape)} -> {tuple(full.shape)} ")
+        if modules:
+            cpu_fn.zero_grad(set_to_none=True)
+        full.backward(ct)
+        want.backward(ct[:items].cpu())
+        for a, b, n in zip(card_in, cpu_in, names):
+            if n:
+                rule = f"{kind} d{n}" if f"{kind} d{n}" in LAYER_RULES else f"{kind} dx"
+                judge(f"{label} d{n}", rule, a.grad[:items].cpu(), b.grad)
+        if modules:  # a parameter's cotangent sums over the batch: the card's over the CPU's items too
+            card_fn.zero_grad(set_to_none=True)
+            card_fn(*(a.detach()[:items] for a in args)).backward(ct[:items])
+            for (n, p), q in zip(cpu_fn.named_parameters(), card_fn.parameters()):
+                leaf = n.rsplit(".", 1)[-1]
+                judge(f"{label} d{n}", f"{kind} d{leaf}", q.grad.cpu(), p.grad,
+                      bits=7 if kind != "layernorm" and leaf in CAST_PARAMS else 23)
+        torch.cuda.synchronize()
+        return full.detach()
 
     def pair(model):
         """(the CPU model, a card copy) with the same nonzero weights."""
@@ -1318,21 +1440,23 @@ def bf16_layer_phase(msn_so3, msn_srt, dit_cfg):
     items, B, T, C = LAYER_ITEMS["dit"], DIT_BATCH, dit_cfg.model.num_patches, dit_cfg.model.hidden_size
     blk, blk_card = cpu.block_0, card.block_0
     m = dit_cfg.model
+
     hold("dit_gta patch_embed", "conv", cpu.patch_embed, card.patch_embed,
          (draw(B, m.in_channels, m.input_size, m.input_size),), items)
     hold("dit_gta t_embed.fc1", "linear", cpu.t_embed.fc1, card.t_embed.fc1, (draw(B, 256),), items)
     labels = torch.randint(0, m.num_classes + 1, (B,), generator=gen, device="cuda")
-    hold("dit_gta y_embed", "embedding", cpu.y_embed, card.y_embed, (labels,), items)
+    hold("dit_gta y_embed", "embedding", cpu.y_embed, card.y_embed, (labels,), items, names=(None,))
     c = draw(B, C)
     hold("dit_gta SiLU", "chain", F.silu, F.silu, (c,), items)
     hold("dit_gta ada_mod", "linear", blk.ada_mod, blk_card.ada_mod, (c,), items)
     x, h = draw(B, T, C), draw(B, T, C)
     shift, scale, gate = (draw(B, C, scale=0.1) for _ in range(3))
     hold("dit_gta norm1", "layernorm", blk.norm1, blk_card.norm1, (x,), items)
-    hold("dit_gta modulate", "chain", t_dit._modulate, t_dit._modulate, (x, shift, scale), items)
+    hold("dit_gta modulate", "chain", t_dit._modulate, t_dit._modulate, (x, shift, scale), items,
+         names=("x", "shift", "scale"))
     hold("dit_gta to_qkv", "linear", blk.attn.to_qkv, blk_card.attn.to_qkv, (x,), items)
     hold("dit_gta to_out", "linear", blk.attn.to_out, blk_card.attn.to_out, (x,), items)
-    hold("dit_gta gated residual", "chain", t_dit._gated, t_dit._gated, (x, gate, h), items)
+    hold("dit_gta gated residual", "chain", t_dit._gated, t_dit._gated, (x, gate, h), items, names=("x", "gate", "h"))
     hold("dit_gta mlp_fc1", "linear", blk.mlp_fc1, blk_card.mlp_fc1, (x,), items)
 
     def gelu(h):
@@ -1343,6 +1467,18 @@ def bf16_layer_phase(msn_so3, msn_srt, dit_cfg):
     hold("dit_gta final_norm", "layernorm", cpu.final_norm, card.final_norm, (x,), items)
     hold("dit_gta final_proj", "linear", cpu.final_proj, card.final_proj, (x,), items)
     del cpu, card
+
+    # msn gta_so3_euclid's eager GTA transforms (ops/gta.py's sliced form,
+    # as Attention._eager -> gta_attention runs them)
+    args, reps, T, H, Cd = euclid_chain_args(msn_euclid, gen)
+    items = LAYER_ITEMS["tokens"]
+    tc = torch.full((1,), 0.5)
+    for label, inverse, ops, names in (("transforms (q, k, v)", False, [bf] * 3, ("q", "k", "v")),
+                                       ("inverse transform (output)", True, [torch.float32], ("out",))):
+        c, g = EuclidTransforms(args, first_items(reps, items, "cpu"), tc, inverse), \
+            EuclidTransforms(args, reps, tc, inverse).cuda()
+        hold(f"msn gta_so3_euclid {label}", "euclid", c, g, tuple(draw(MSN_BATCH, H, T, Cd, dtype=d) for d in ops),
+             items, names=names)
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"bf16 layers off the CPU's rounding on the card: {failed}")
@@ -2002,29 +2138,166 @@ def grads_phase(cfg, label, items=(0, 1), trainers=None, card_entry=None, native
     return excess, tc_worst[0], call_worst[0]
 
 
-def run_cli(args, label, env=None):
-    """Run `python -m <args>` from the repository root, with `env` added to
-    the environment; returns its stdout."""
+CLI_TIMEOUT = 600  # seconds a CLI may take
+CLI_CHAINS = 4  # cli_phase's chains of CLIs side by side
+
+
+def cli_worker() -> int:
+    """A process that runs `python -m` CLIs one after another, each as
+    `__main__` in its main thread (`python3 -c "import chip_smoke;
+    chip_smoke.cli_worker()"` from the root): a job is a line of JSON on
+    stdin, {"args": [module, *argv] or ["-c", code, *argv], "env": {...},
+    "out": path, "err": path}, run with `env` added to the environment and
+    its stdout and stderr (file descriptors 1 and 2) in those files; a
+    line with its exit code answers it. It takes the card and loads the
+    port before its first job (a worker started ahead is warm when its
+    job comes), and run_cli's CLIs of one chain share one: each skips the
+    process start (~8 s to reach the card) and the imports."""
+    import gc
+    import runpy
+    import traceback
+
+    import torch
+    import torch.nn.functional as F
+
+    import gta_tpu_torch.evaluate  # noqa: F401
+    import gta_tpu_torch.train.trainer  # noqa: F401
+    import gta_tpu_torch.train_dit  # noqa: F401
+    from gta_tpu_torch.ops import _cuda
+
+    if torch.cuda.is_available():  # the context, cuBLAS, cuDNN and the kernels' libraries, before the first job
+        x = torch.ones(4, 4, device="cuda")
+        F.conv2d((x @ x)[None, None], x[None, None, :1, :1])
+        _cuda.build()
+        torch.cuda.synchronize()
+    reply = os.fdopen(os.dup(1), "w")
+    for line in sys.stdin:
+        job = json.loads(line)
+        env, argv = dict(os.environ), sys.argv
+        os.environ.update(job["env"])
+        fds = os.dup(1), os.dup(2)
+        code = 0
+        with open(job["out"], "w") as out, open(job["err"], "w") as err:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os.dup2(out.fileno(), 1)
+            os.dup2(err.fileno(), 2)
+            try:
+                args = job["args"]
+                if args[0] == "-c":
+                    sys.argv = ["-c", *args[2:]]
+                    exec(compile(args[1], "<string>", "exec"), {"__name__": "__main__"})
+                else:
+                    sys.argv = list(args)
+                    runpy.run_module(args[0], run_name="__main__", alter_sys=True)
+            except SystemExit as e:
+                code = e.code if isinstance(e.code, int) else int(e.code is not None)
+            except Exception:  # a CLI's failure is its exit code; the worker goes on to the next
+                traceback.print_exc()
+                code = 1
+            finally:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os.dup2(fds[0], 1)
+                os.dup2(fds[1], 2)
+                os.close(fds[0])
+                os.close(fds[1])
+                sys.argv = argv
+                os.environ.clear()
+                os.environ.update(env)
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()  # the card's memory back between CLIs
+        print(code, file=reply, flush=True)
+    return 0
+
+
+_CLI_WORKERS = {}  # thread id -> its cli_worker process
+_WARM_CLI_WORKERS = []  # cli_workers started ahead (warm_cli_workers), for threads' first CLIs
+
+
+def start_cli_worker():
+    """A cli_worker process, started now (it warms up on its own)."""
+    return subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.cli_worker())"],
+                            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+
+def warm_cli_workers(n):
+    """Start n cli_workers now, to warm up while this process works; the
+    next threads to run a CLI each take one."""
+    _WARM_CLI_WORKERS.extend(start_cli_worker() for _ in range(n))
+
+
+def stop_cli_worker(proc):
+    """End a cli_worker: it exits at the end of its input."""
+    proc.stdin.close()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def close_cli_worker():
+    """End this thread's cli_worker, if it has one."""
+    import threading
+
+    proc = _CLI_WORKERS.pop(threading.get_ident(), None)
+    if proc is not None:
+        stop_cli_worker(proc)
+
+
+def run_cli(args, label, env=None, worker=None):
+    """Run `python -m <args>` (`python -c <code> ...` where args[0] is
+    "-c") from the repository root, with `env` added to the environment,
+    in the cli_worker `worker`, or else in this thread's (a warm one where
+    one was started ahead, else a new one, at its first CLI); returns its
+    stdout."""
+    import select
+    import threading
+
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True, text=True, timeout=600,
-                          env={**os.environ, **(env or {})})
-    print(f"{label}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
-    if proc.returncode != 0:
-        raise AssertionError(f"{label} failed:\n{proc.stdout}\n{proc.stderr}")
-    return proc.stdout
+    proc = worker or _CLI_WORKERS.get(threading.get_ident())
+    if proc is None or proc.poll() is not None:
+        proc = _CLI_WORKERS[threading.get_ident()] = (_WARM_CLI_WORKERS.pop() if _WARM_CLI_WORKERS
+                                                      else start_cli_worker())
+    with tempfile.TemporaryDirectory() as tmp:
+        out, err = os.path.join(tmp, "stdout"), os.path.join(tmp, "stderr")
+        proc.stdin.write(json.dumps({"args": list(args), "env": env or {}, "out": out, "err": err}) + "\n")
+        proc.stdin.flush()
+        ready, _, _ = select.select([proc.stdout], [], [], CLI_TIMEOUT)
+        answer = proc.stdout.readline().strip() if ready else ""
+        if not answer:
+            proc.kill()
+            proc.wait()
+            if proc is _CLI_WORKERS.get(threading.get_ident()):
+                del _CLI_WORKERS[threading.get_ident()]
+        code = int(answer) if answer else "none (the worker died or timed out)"
+        with open(out) as f, open(err) as g:
+            stdout, stderr = f.read(), g.read()
+    print(f"{label}: exit {code} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if code != 0:
+        raise AssertionError(f"{label} failed:\n{stdout}\n{stderr}")
+    return stdout
 
 
 def side_by_side(*chains, meanwhile=None):
     """Run the chains (functions of no argument; each runs its CLIs one
-    after another) in threads side by side: a CLI's time is mostly its
-    process start, and the card has room for all. `meanwhile` (a function
-    of no argument) runs in this thread while they do. Re-raises the first
-    failure once all have ended; returns the chains' results (and
-    meanwhile's, where given)."""
+    after another, in one cli_worker) in threads side by side: a CLI's
+    time is mostly its process start, and the card has room for all.
+    `meanwhile` (a function of no argument) runs in this thread while they
+    do. Re-raises the first failure once all have ended; returns the
+    chains' results (and meanwhile's, where given)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    def closing(chain):
+        try:
+            return chain()
+        finally:
+            close_cli_worker()
+
     with ThreadPoolExecutor(len(chains)) as pool:
-        futures = [pool.submit(chain) for chain in chains]
+        futures = [pool.submit(closing, chain) for chain in chains]
         try:
             here = meanwhile() if meanwhile is not None else None
         finally:
@@ -2218,6 +2491,7 @@ def srt_ref_chain(model_pt, run):
 RUNTIME_ACCUM = 2  # the runtime phase's --accum
 SPEED_TEST = 4  # --speed_test: the flagship's batch of 32 over 4, in 2 microbatches of 4
 ACCUM_TOL = 1e-5  # relative L2 of the accumulated gradient from the unaccumulated one
+SMALL_ACCUM_RULE = 1.5  # B=4: the accumulated gradient's distance from fp64 over the unaccumulated one's
 
 
 def free_port() -> int:
@@ -2269,6 +2543,59 @@ def logged(out_dir):
     return lines
 
 
+SMALL_ACCUM_BATCH = 4  # the small-batch accumulation check's batch (a cut of the flagship's 32)
+
+
+def small_batch_accum(cfg0, batch, weights):
+    """The flagship's gradient at B=SMALL_ACCUM_BATCH (the batch's first
+    items; dropout 0; `weights`) through the kernels at grad_accum 1 and
+    RUNTIME_ACCUM, each against one fp64 step on the card (`fp64_grads`:
+    the plain attention in fp64): the whole gradient's relative L2 from
+    fp64 of each, their gap, and the tensors furthest from fp64. Fails
+    where the accumulated gradient's is above SMALL_ACCUM_RULE x the
+    unaccumulated one's. Returns the numbers."""
+    import torch
+
+    from gta_tpu_torch.train.trainer import Trainer
+
+    n = SMALL_ACCUM_BATCH
+    small = dataclasses.replace(batch, **{f.name: getattr(batch, f.name)[:n] for f in dataclasses.fields(batch)
+                                          if isinstance(getattr(batch, f.name), torch.Tensor)})
+    grads, trainer = {}, None
+    for accum in (1, RUNTIME_ACCUM):
+        cfg = dataclasses.replace(cfg0, training=dataclasses.replace(cfg0.training, grad_accum=accum))
+        trainer = Trainer(cfg)
+        trainer.model.load_state_dict(weights)
+        trainer.loss_and_grads(small)
+        grads[accum] = {k: p.grad.detach().double().cpu() for k, p in trainer.model.named_parameters()}
+    trainer.model.load_state_dict(weights)
+    g64, _ = fp64_grads(trainer, small)
+    names = sorted(g64)
+
+    def flat(g):
+        return torch.cat([g[k].reshape(-1).double() for k in names])
+
+    def gap(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    ref = flat(g64)
+    out = {f"accum{a}_from_fp64": gap(flat(grads[a]), ref) for a in (1, RUNTIME_ACCUM)}
+    out["accum_gap"] = gap(flat(grads[RUNTIME_ACCUM]), flat(grads[1]))
+    worst = sorted(((max(gap(grads[a][k], g64[k]) for a in grads), k) for k in names if g64[k].abs().sum() > 0))
+    out["furthest"] = {k: [gap(grads[a][k], g64[k]) for a in (1, RUNTIME_ACCUM)] for _, k in worst[-3:]}
+    print(f"GTA runtime B={n}: relative L2 from one fp64 step: accum 1 {out['accum1_from_fp64']:.3e}, accum "
+          f"{RUNTIME_ACCUM} {out[f'accum{RUNTIME_ACCUM}_from_fp64']:.3e} (rule: at most {SMALL_ACCUM_RULE}x accum "
+          f"1's); accum {RUNTIME_ACCUM} vs accum 1 {out['accum_gap']:.3e}; furthest tensors (accum 1, "
+          f"{RUNTIME_ACCUM}): {json.dumps({k: [float(f'{x:.3e}') for x in v] for k, v in out['furthest'].items()})}",
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    if not out[f"accum{RUNTIME_ACCUM}_from_fp64"] <= SMALL_ACCUM_RULE * out["accum1_from_fp64"]:
+        raise AssertionError(f"B={n}: the accumulated gradient is further from fp64 than {SMALL_ACCUM_RULE} x "
+                             f"the unaccumulated one's: {out}")
+    return out
+
+
 def runtime_phase(gta_cfg, paths):
     """The train runtime on the flagship (fp32, B=32, full width):
     (a) in process, dropout 0, the same weights and batch: loss_and_grads
@@ -2276,7 +2603,9 @@ def runtime_phase(gta_cfg, paths):
     relative L2, the fused GTA launches doubled, the accumulated peak
     memory lower; launches under paths gta_accum{1,2}_grads), then a cold
     and 3 warm train_steps of each, and at accum 1 three more in a
-    one-rank NCCL group (the gradient all_reduce); (b) the train CLI as subprocesses: --accum 2
+    one-rank NCCL group (the gradient all_reduce), and the gradients of
+    the batch's first SMALL_ACCUM_BATCH items against an fp64 step
+    (small_batch_accum); (b) the train CLI as subprocesses: --accum 2
     --speed_test 4 (time.npy), a run of a config copy with print_every 1
     under --validate-every 2 --profile 2 that gets SIGTERM once step 1 has
     printed (exit 0, `latest` saved, a trace naming the fused GTA kernels)
@@ -2360,7 +2689,10 @@ def runtime_phase(gta_cfg, paths):
         raise AssertionError(f"accumulated gradient {err} from the unaccumulated one > {ACCUM_TOL}")
     if not numbers[f"accum{RUNTIME_ACCUM}"]["peak_mem_gb"] < numbers["accum1"]["peak_mem_gb"]:
         raise AssertionError(f"accum {RUNTIME_ACCUM} peak memory is not below accum 1's: {numbers}")
+    numbers["small_batch"] = small_batch_accum(cfg0, batch, weights)
 
+    # the speed test's process, started now: warm when the runs before it end
+    warm = start_cli_worker()
     with tempfile.TemporaryDirectory() as tmp:
         # three runs side by side on the card (none of them timed): the
         # SIGTERM run and the two one-rank torchrun runs
@@ -2416,13 +2748,9 @@ def runtime_phase(gta_cfg, paths):
         ref = next(d["loss"] for d in first if d["kind"] == "train" and d["it"] == 0)
 
         # the speed test resumes the stopped run (the published config:
-        # print_every 100, no host sync between steps), started as the
-        # SIGTERM run ends: the one-rank torchrun runs end within ~8 s of it,
-        # before its process start (~8 s) and cold steps are over, so its
-        # chained window has the card alone
-        speed_label = f"GTA train CLI --accum {RUNTIME_ACCUM} --speed_test {SPEED_TEST}, resumed"
-        speed = start_cli(["gta_tpu_torch.train", GTA_CONFIG, "--synthetic", "--outdir", run, "--accum",
-                           str(RUNTIME_ACCUM), "--speed_test", str(SPEED_TEST)], os.path.join(tmp, "speed.log"))
+        # print_every 100, no host sync between steps) once the torchrun
+        # runs end, so its chained window has the card alone, in the worker
+        # warmed meanwhile (no process start on the phase's path)
         logs = {label: finish_cli(p, label) for label, p in side.items()}
 
         log, label = logs["torchrun GTA train CLI (1 process)"], "torchrun GTA train CLI"
@@ -2440,7 +2768,12 @@ def runtime_phase(gta_cfg, paths):
                 or "Iteration limit reached" not in log or saved != 1):
             raise AssertionError(f"torchrun train_dit (latest at it={saved}):\n{log}")
 
-        log = finish_cli(speed, speed_label)
+        speed_label = f"GTA train CLI --accum {RUNTIME_ACCUM} --speed_test {SPEED_TEST}, resumed"
+        try:
+            log = run_cli(["gta_tpu_torch.train", GTA_CONFIG, "--synthetic", "--outdir", run, "--accum",
+                           str(RUNTIME_ACCUM), "--speed_test", str(SPEED_TEST)], speed_label, worker=warm)
+        finally:
+            stop_cli_worker(warm)
         numbers["speed_test_ms"] = float(np.load(os.path.join(run, "time.npy"))[0])
         print(f"  chained mean step time (B={EVAL_BATCH // SPEED_TEST}, accum {RUNTIME_ACCUM}): "
               f"{numbers['speed_test_ms']:.3f} ms", flush=True)
@@ -3416,12 +3749,14 @@ def device_data_cli(paths):
     SCENE_ID_SHIM, which prints each batch's scene ids), beside
     train_dit on experiments/dit_metric_gta for 2 steps with --samplenow and
     a one-rank `python -m torch.distributed.run` of the train CLI (NCCL);
-    the first run resumed for a third step as soon as it ends, whose scene
-    ids must be the generator's batch 2: an unbroken run's."""
+    the first run resumed for a third step as soon as it ends (in a
+    cli_worker started with them), whose scene ids must be the
+    generator's batch 2: an unbroken run's."""
     from gta_tpu_torch.data.device_synth import DeviceSynthetic
 
     long_cfg = os.path.join(ROOT, "experiments", "clevrtr_long150k", "config.yaml")
     dit_cfg = os.path.join(ROOT, "experiments", "dit_metric_gta", "config.yaml")
+    warm = start_cli_worker()  # the resumed run's process, warm when the first run ends
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = os.path.join(tmp, "long")
         shim = ["-c", SCENE_ID_SHIM, long_cfg, "--device-data", "--outdir", run_dir, "--exit-after"]
@@ -3436,9 +3771,11 @@ def device_data_cli(paths):
         # the resumed run starts as the first one ends, beside the others' ends
         first_label = "train --device-data (2 steps)"
         logs = {first_label: finish_cli(procs.pop(first_label), first_label)}
-        resume = start_cli(shim + ["2"], os.path.join(tmp, "resume.log"))
+        try:
+            resumed = run_cli(shim + ["2"], "train --device-data resumed", worker=warm)
+        finally:
+            stop_cli_worker(warm)
         logs.update({label: finish_cli(proc, label) for label, proc in procs.items()})
-        resumed = finish_cli(resume, "train --device-data resumed")
     cfg = as_synthetic(long_cfg)
     gen = DeviceSynthetic(cfg.data, "train", cfg.seed, device="cuda")
     first, again = scene_ids(logs["train --device-data (2 steps)"]), scene_ids(resumed)
@@ -3834,6 +4171,7 @@ def parallel_worker(rank, port, out_dir, world=2, go=None) -> int:
     from gta_tpu_torch.parallel import dist as pdist
     from gta_tpu_torch.train.trainer import Trainer
 
+    parent = os.getppid()
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3863,6 +4201,8 @@ def parallel_worker(rank, port, out_dir, world=2, go=None) -> int:
         batch = type(batch)(**{f.name: None if (x := getattr(batch, f.name)) is None else x[d * b // D:(d + 1) * b // D]
                                for f in dataclasses.fields(batch)})
         while go is not None and not os.path.exists(go):  # built on the host; step when the card is free
+            if os.getppid() != parent:  # chip_smoke ended before opening the gate
+                return 1
             time.sleep(0.1)
         torch.cuda.reset_peak_memory_stats()
         out["modes"][name] = parallel_steps(trainer, batch, 1 + PARALLEL_WARM)
@@ -3936,7 +4276,18 @@ def finish_world(procs, tmp):
     return [torch.load(os.path.join(tmp, f"world{world}_rank{r}.pt"), weights_only=False) for r in range(world)]
 
 
-def parallel_phase(paths):
+def start_parallel():
+    """parallel_phase's two-rank world, started ahead of it: its ranks
+    import, join their group and make their first mode's trainer and batch
+    on the host while this process runs the phases before (the DiT's), and
+    step once parallel_phase opens their gate (the process start and host
+    work, ~30 s, off the run's path). Returns what parallel_phase takes."""
+    tmp = tempfile.mkdtemp()
+    go = os.path.join(tmp, "go2")
+    return tmp, go, start_world(2, tmp, go)
+
+
+def parallel_phase(paths, started):
     """The port's other parallelism on the card, in gloo groups (NCCL
     refuses two ranks on one card: "Duplicate GPU detected"): two ranks,
     then four (parallel_modes), each mode at full width and depth, lr_warmup
@@ -3965,24 +4316,30 @@ def parallel_phase(paths):
     rings) and added to `paths`; which modules rang is asserted; the
     layout each rank printed, the backend and each mode's warm step time
     beside the one-process step's are printed."""
+    import shutil
+
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    tmp, go2, two = started
+    four = []
+    try:
+        open(go2, "w").close()
         # the four ranks start while the two make their references (imports,
         # group and trainers beside them, on the card's host) and step after
         # them
-        go, two, four = os.path.join(tmp, "go4"), start_world(2, tmp), []
-        try:
-            while not os.path.exists(os.path.join(tmp, "world2_modes")) and all(p.poll() is None for p in two):
-                time.sleep(0.2)
-            four = start_world(4, tmp, go)
-            ranks = {2: finish_world(two, tmp)}
-            open(go, "w").close()
-            ranks[4] = finish_world(four, tmp)
-        finally:
-            for p in two + four:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        go = os.path.join(tmp, "go4")
+        while not os.path.exists(os.path.join(tmp, "world2_modes")) and all(p.poll() is None for p in two):
+            time.sleep(0.2)
+        four = start_world(4, tmp, go)
+        ranks = {2: finish_world(two, tmp)}
+        open(go, "w").close()
+        warm_cli_workers(CLI_CHAINS)  # cli_phase's chains' processes warm up while the four ranks step
+        ranks[4] = finish_world(four, tmp)
+    finally:
+        for p in two + four:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     t_worlds = time.perf_counter() - t0
     print(f"parallel: {ranks[2][0]['describe']}; {ranks[4][0]['describe']}", flush=True)
     refs = {**ranks[2][0]["refs"], **ranks[2][1]["refs"]}
@@ -4622,8 +4979,14 @@ def main() -> int:
         paths[f"{key}_serving"], paths[f"{key}_train"], options[key] = timed("options", option_phase, cfg, label, key)
     card_vs_cpu = {label: timed("bf16 card vs cpu", bf16_card_vs_cpu_phase, cfg, label) for cfg, label in
                    ((msn_bf16, "msn_so3"), (msn_srt, "msn SRT"), (msn_t2, "msn gta_t2"))}
-    bf16_layers = timed("bf16 layers", bf16_layer_phase, msn_bf16, msn_srt, load_dit_config(DIT_GTA_CONFIG))
+    bf16_layers = timed("bf16 layers", bf16_layer_phase, msn_bf16, msn_srt, load_dit_config(DIT_GTA_CONFIG),
+                        synthetic(MSN_SO3_EUCLID_CONFIG))
     t_dit = time.perf_counter()
+    # the parallel phase's two ranks start (process, imports, first trainer
+    # on the host) while the DiT phases run; they step in parallel_phase.
+    # Started after the DiT-S/2 steps, they stepped later, beside the DiT
+    # CLIs' steps, and the card ran out of memory.
+    two_ranks = start_parallel()
     dit_cfgs = {"dit_gta": load_dit_config(DIT_GTA_CONFIG), "dit_base": load_dit_config(DIT_BASE_CONFIG)}
     assert all(c.training.mixed_prec and c.training.batch_size == DIT_BATCH for c in dit_cfgs.values())
     dit_kernels = {key: timed("dit kernels", dit_kernel_phase, cfg, key, device) for key, cfg in dit_cfgs.items()}
@@ -4658,7 +5021,7 @@ def main() -> int:
     (_, _, parallel), (gta_grad, srt_grad, msn_grad) = timed(
         "dit cli + parallel", side_by_side, lambda: dit_cli_phase(DIT_GTA_CONFIG, "dit_gta"),
         lambda: dit_cli_phase(DIT_BASE_CONFIG, "dit_base", steps=1, resume=False, evaluate=False, sample_steps=2),
-        lambda: parallel_phase(paths), meanwhile=grads_meanwhile)
+        lambda: parallel_phase(paths, two_ranks), meanwhile=grads_meanwhile)
     print(f"DiT phases: {time.perf_counter() - t_dit:.1f} s", flush=True)
     timed("cli", cli_phase)
     ref_ckpt = timed("ref_ckpt", ref_ckpt_phase, paths)
@@ -4741,6 +5104,8 @@ def main() -> int:
               f"{loss_gap:.3e}, emulation {emu_loss_gap:.3e}", flush=True)
     print(f"bf16 layers, card vs CPU (unequal share, largest ulp; {smi}): "
           f"{json.dumps({k: [float(f'{v:.3e}') for v in x] for k, x in bf16_layers.items()})}", flush=True)
+    while _WARM_CLI_WORKERS:  # none is left unless a phase ran fewer chains than were warmed
+        stop_cli_worker(_WARM_CLI_WORKERS.pop())
     print(f"phase seconds (all): {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -128,11 +128,32 @@ def _modulate(x, shift, scale):
     return torch.addcmul(shift, x, 1.0 + scale).to(x.dtype)
 
 
+class _Gated(torch.autograd.Function):
+    """x + gate[:, None] * h as one addcmul (fp32 inside, rounded once to
+    the operands' dtype), whose VJP rounds each cotangent once as well: dx
+    is g, dh the product g * gate rounded once, and dgate the sum of g * h
+    over the tokens accumulated in fp32 and rounded once, where autograd's
+    addcmul rounds each product g * h before the sum. dgate is the diagonal
+    of the batched product g^T h ([B, C, C]): one GEMM over the operands as
+    they lie (an einsum's batched dot copies both to another layout
+    first, which cost more than the rest of the gated residual)."""
+
+    @staticmethod
+    def forward(ctx, x, gate, h):
+        ctx.save_for_backward(gate, h)
+        return torch.addcmul(x, gate[:, None], h)
+
+    @staticmethod
+    def backward(ctx, g):
+        gate, h = ctx.saved_tensors
+        return g, torch.bmm(g.transpose(1, 2), h).diagonal(dim1=1, dim2=2), g * gate[:, None]
+
+
 def _gated(x, gate, h):
     """The adaLN-Zero gated residual x + gate * h ([B, T, C], gate [B, C]),
-    as a TPU fuses it (gta_tpu/models/dit.py:195,203): one addcmul, which
-    computes in fp32 (at least) and rounds once to x's dtype."""
-    return torch.addcmul(x, gate[:, None], h)
+    as a TPU fuses it (gta_tpu/models/dit.py:195,203), forward and backward
+    (`_Gated`)."""
+    return _Gated.apply(x, gate, h)
 
 
 def _layer_norm(dim: int) -> LayerNorm:
@@ -185,7 +206,10 @@ class LabelEmbedder(nn.Module):
     def forward(self, y, drop: Optional[torch.Tensor] = None):
         if drop is not None:
             y = torch.where(drop, torch.full_like(y, self.num_classes), y)
-        return self.table(y).to(self.compute_dtype)
+        # the table cast to the compute dtype, as flax's Embed promotes it, and
+        # looked up in fp32: a label that repeats sums its rows' cotangents in
+        # fp32, and the cast's VJP rounds the sum once
+        return F.embedding(y, self.table.weight.to(self.compute_dtype).float()).to(self.compute_dtype)
 
 
 class GTASelfAttention(nn.Module):

@@ -27,6 +27,7 @@ from gta_tpu_torch.geometry.plucker import plucker_dist, plucker_params, plucker
 from gta_tpu_torch.geometry.se3 import rigid_transform, se3_inverse
 from gta_tpu_torch.models.context import AttnContext, SceneBatch
 from gta_tpu_torch.models.layers import Conv2d, Linear, Transformer, tagged, to_compute
+from gta_tpu_torch.ops.attention import at_least_fp32
 from gta_tpu_torch.ops.reps import encoder_reps
 
 
@@ -45,6 +46,13 @@ def _grid_emb(height: int, width: int, like: torch.Tensor) -> torch.Tensor:
     `jnp.asarray(..., self.dtype)`)."""
     pe = np.ascontiguousarray(np.transpose(posenc_2d_grid(180, height, width), (1, 2, 0)))
     return torch.from_numpy(pe).to(device=like.device, dtype=like.dtype)[None]
+
+
+def embed_camera_planar(x: torch.Tensor, planar: torch.Tensor, camera: torch.Tensor) -> torch.Tensor:
+    """camera_planar's two adds after the stem, x + planar + camera
+    (gta_tpu/models/encoder.py:177), as a TPU fuses the chain: computed in
+    fp32 (at least) from the operands and rounded once to x's dtype."""
+    return (at_least_fp32(x) + planar + camera).to(x.dtype)
 
 
 class SRTConvBlock(nn.Module):
@@ -203,7 +211,7 @@ class SRTEncoder(nn.Module):
             d = self.compute_dtype
             planar = self.lin_planar(to_compute(_grid_emb(Ha, Wa, x), d)).reshape(1, 1, Ha * Wa, -1)
             camera = self.lin_camera(to_compute(ctx.input_transforms[..., :3, :].reshape(B, N, 1, 12), d))
-            x = (x.reshape(B, N, Ha * Wa, -1) + planar + camera).reshape(B, -1, self.cfg.attdim)
+            x = embed_camera_planar(x.reshape(B, N, Ha * Wa, -1), planar, camera).reshape(B, -1, self.cfg.attdim)
         elif method == "gbt":
             x = x + self.lin_ray(to_compute(ctx.gbt_ray_emb, self.compute_dtype))
         elif method == "frustum_posemb":

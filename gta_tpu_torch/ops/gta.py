@@ -22,6 +22,7 @@ gta.py:282-298).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -159,6 +160,25 @@ def _view_counts(reps: GeomReps) -> Tuple[Optional[int], Optional[int]]:
     return nq, nk
 
 
+def _table_dtype(reps: GeomReps, dtype: torch.dtype) -> torch.dtype:
+    """The dtype the sliced form computes in: its rep tables' (fp32)
+    promoted with the operands' `dtype`."""
+    for f in dataclasses.fields(reps):
+        table = getattr(reps, f.name)
+        table = table[0] if isinstance(table, tuple) else table
+        if table is not None:
+            return torch.promote_types(table.dtype, dtype)
+    return dtype
+
+
+def sliced_operand(x: Optional[torch.Tensor], reps: GeomReps) -> Optional[torch.Tensor]:
+    """x promoted once to the sliced form's compute dtype (`_table_dtype`):
+    a bf16 operand enters the fp32 chain of transforms once, so its
+    cotangent, summed in fp32 over every use in the chain, rounds once (a
+    TPU's fused chain), not once per use and then again in the bf16 sum."""
+    return x if x is None else x.to(_table_dtype(reps, x.dtype))
+
+
 def _promote(A: torch.Tensor, x: torch.Tensor):
     """(A, x) in their common dtype: the sliced form computes in the
     tables' fp32 whatever the compute dtype, as jnp.einsum promotes (so a
@@ -228,6 +248,8 @@ def _transform_sliced(q, k, v, reps: GeomReps, args: GTAArgs, trans_coeff, trans
         trans_coeff_k = trans_coeff
     nq, nk = _view_counts(reps)
     vt = args.v_transform
+    q, k = sliced_operand(q, reps), sliced_operand(k, reps)
+    v = sliced_operand(v, reps) if vt else v
     qs, ks, vs = [], [], []
     for name, st, ed in args.f_dims.slices():
         q_s, k_s, v_s = q[..., st:ed], k[..., st:ed], v[..., st:ed]
@@ -342,6 +364,8 @@ def gta_attention(
     """
     if q.shape[-1] != args.f_dims.total:
         raise ValueError(f"head dim {q.shape[-1]} != f_dims total {args.f_dims.total}")
+    if not _blockdiag_ok(reps, args):  # one promotion of the coefficient for both sides of the chain
+        trans_coeff = sliced_operand(trans_coeff, reps)
     qt, kt, vt = gta_transform_qkv(q, k, v, reps, args, trans_coeff)
     out, attn = attn_fn(qt, kt, vt)
     if args.v_transform:

@@ -34,7 +34,7 @@ import torch
 from gta_tpu_torch.config import GTAArgs
 from gta_tpu_torch.ops.flash import flash_attention
 from gta_tpu_torch.ops.flash_core import merge_heads, split_heads
-from gta_tpu_torch.ops.gta import _blockdiag_ok, gta_transform_qkv, gta_untransform_out
+from gta_tpu_torch.ops.gta import _blockdiag_ok, gta_transform_qkv, gta_untransform_out, sliced_operand
 from gta_tpu_torch.ops.gta_fused import fused_gta_attention_tokens
 from gta_tpu_torch.ops.reps import GeomReps
 
@@ -64,6 +64,7 @@ def fused_gta_attention(
     if v2_supported(reps, args):
         return fused_gta_attention_tokens(qB, kB, vB, heads, reps, args, trans_coeff, scale)
     q, k, v = (split_heads(x, heads) for x in (qB, kB, vB))
+    trans_coeff = sliced_operand(trans_coeff, reps)  # once for both sides (ops/gta.sliced_operand)
     qt, kt, vt = (merge_heads(x) for x in gta_transform_qkv(q, k, v, reps, args, trans_coeff))
     out = flash_attention(qt, kt, vt, heads, float(scale), mxu_dtype=qB.dtype)
     if args.v_transform:

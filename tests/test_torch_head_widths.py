@@ -185,7 +185,8 @@ def test_tiny_dit_at_head_width_72_matches_jax(method):
     params = _random_params(shapes, seed=7)
     with pytest.MonkeyPatch.context() as patch:
         _dit_numerics(patch)
-        (_, (j_metrics, j_out)), j_grads = jax.value_and_grad(lambda p: _jax_loss(jtr, p, b), has_aux=True)(params)
+        (_, (j_metrics, j_out)), j_grads = jax.jit(jax.value_and_grad(lambda p: _jax_loss(jtr, p, b), has_aux=True))(
+            params)
     trainer = DiTTrainer(dit_config_from_dict(_tiny_72(method)), device="cpu")
     assert trainer.cfg.model.hidden_size // trainer.cfg.model.heads == 72
     trainer.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))

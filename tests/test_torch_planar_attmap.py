@@ -42,7 +42,7 @@ from gta_tpu_torch.models.srt import build_model
 from gta_tpu_torch.train.trainer import Trainer
 from gta_tpu_torch.weights import params_from_jax
 from tests.test_models import tiny_data_cfg
-from tests.test_torch_bf16 import _tpu_numerics
+from tests.test_torch_bf16 import _jit_rounding_each_op, _tpu_numerics
 from tests.test_torch_train import _items, _train_cfg
 
 FLAGSHIP = "runs/clevrtr/GTA/gta/config.yaml"
@@ -90,7 +90,7 @@ def test_planar_embeddings_match_jax_fp32(emb):
     assert enc.conv_blocks[0].layers[0].in_channels == (3 if emb == "camera_planar" else 183)
     assert hasattr(enc, "lin_planar") == hasattr(enc, "lin_camera") == (emb == "camera_planar")
 
-    want_px, _ = jtr.model.apply(params, _jbatch(items), deterministic=True)
+    want_px, _ = jax.jit(lambda p, b: jtr.model.apply(p, b, deterministic=True))(params, _jbatch(items))
     with torch.no_grad():
         got_px, _ = ttr.model(collate(items))
     assert _gap(got_px.numpy(), want_px) <= FWD_RTOL
@@ -118,8 +118,8 @@ def test_camera_planar_bf16_meets_the_tpu_rounding_rule():
     params = jtr[False].init_state(_jbatch(items), seed=0).params
     with pytest.MonkeyPatch.context() as patch:
         _tpu_numerics(patch)
-        px = {mp: np.asarray(jtr[mp].model.apply(params, _jbatch(items), deterministic=True)[0], np.float32)
-              for mp in (False, True)}
+        px = {mp: np.asarray(_jit_rounding_each_op(lambda p, b, m=jtr[mp].model: m.apply(p, b, deterministic=True)[0],
+                                                   params, _jbatch(items)), np.float32) for mp in (False, True)}
     ttr = Trainer(tcfg, device="cpu")
     ttr.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     with torch.no_grad():
@@ -162,8 +162,8 @@ def test_return_last_attmap_matches_jax(attn, dec_blocks, monkeypatch):
     ds = JSyntheticScenes(tiny_data_cfg(), "train", num_scenes=2, use_native=False)
     items = [ds[0], ds[1]]
     jmodel = j_build_model(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0), _jbatch(items), deterministic=True)
-    want_px, want_aux = jmodel.apply(params, _jbatch(items), deterministic=True)
+    params = jax.jit(lambda key, b: jmodel.init(key, b, deterministic=True))(jax.random.PRNGKey(0), _jbatch(items))
+    want_px, want_aux = jax.jit(lambda p, b: jmodel.apply(p, b, deterministic=True))(params, _jbatch(items))
 
     model = build_model(tcfg)
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
