@@ -1,0 +1,8 @@
+"""flash_core's share of its roofline over a training step's forward and
+backward attention calls, in % (portbench/trace.roofline)."""
+
+from portbench.trace import roofline
+
+
+def read(w):
+    return roofline(w)
